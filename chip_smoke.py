@@ -1,0 +1,360 @@
+#!/usr/bin/env python3
+"""Run the PyTorch port's main path on one NVIDIA card and check it.
+
+    python3 chip_smoke.py        # from the repository root; one CUDA card, nvcc
+
+Phases, each printing JSON lines:
+
+1. card      — the card's name and power limit (nvidia-smi), torch and CUDA versions;
+2. build     — both CUDA kernels built from src/repro_torch/csrc/*.cu for sm_90a,
+               seconds taken and the ptxas -v report;
+3. kernels   — each kernel against its plain PyTorch version at every shape the
+               main path gives it (the 16 VGG-16 products of a B=8 forward for
+               com_matmul, the 13 VGG-16 per-image convolutions for conv2d_com)
+               plus the epilogue, stride-2, 5x5 and bf16 cases: errors, kernel,
+               plain and library times (CUDA events), and the bound;
+4. e2e       — compile_program(vgg16_imagenet()), random_weights(seed=0), 8 images
+               from numpy.random.default_rng(1): the executor's "cuda" backend
+               held against its float64 "reference" backend on the card, events
+               against event_totals, com_matmul launches per forward, images/s
+               and peak memory; then the direct-convolution path (ops.conv2d per
+               image and layer, ops.com_matmul for the FC layers) held against
+               the same reference;
+5. profile   — a torch.profiler window over one forward: device busy time, idle
+               share and the kernels by time;
+6. the kernels line, then the card line, then the result line.
+
+Any failed check exits non-zero before the result line is printed. Finding no
+card is a failure. Tolerances: float32 results within 2e-5 of the reference's
+largest magnitude, bfloat16 within 2e-2 (tests/test_kernels.py:18-19 and
+tests/test_executor.py:87 of the JAX package).
+"""
+from __future__ import annotations
+
+import json
+import re
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+from repro_torch.core.executor import _maxpool, random_weights  # noqa: E402
+from repro_torch.core.mapping import ConvSpec, vgg16_imagenet  # noqa: E402
+from repro_torch.core.program import compile_program  # noqa: E402
+from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels.com_matmul import com_matmul  # noqa: E402
+from repro_torch.kernels.conv2d_com import conv2d_com  # noqa: E402
+from repro_torch.kernels.ref import com_matmul_ref, conv2d_com_ref  # noqa: E402
+
+# published H100 SXM peaks (dense): f32 outside the tensor cores, bf16 tensor
+# cores, HBM3
+PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_BYTES = 3.35e12
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+BATCH = 8
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Mean time of one call, by CUDA events around ``reps`` calls."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(n_bytes: float, n_ops: float, dtype) -> tuple:
+    """Least time on the card (ms) and what sets it: each input read once and
+    each output written once at the memory rate, or the operations at the
+    peak rate for the type."""
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = n_ops / PEAK_OPS[dtype] * 1e3
+    return (t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def compare(name, shape, dtype, got, want, kernel_ms, plain_ms, library_ms, t_parts, by):
+    err = (got.double() - want.double()).abs().max().item()
+    scale = want.double().abs().max().item()
+    line = {
+        "kernel": name, "shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
+        "max_abs_err": err, "max_rel_err": err / max(scale, 1e-30), "tol": TOL[dtype],
+        "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": max(t_parts), "bound_by": by,
+    }
+    emit(line)
+    if not torch.isfinite(got).all().item():
+        fail(f"{name} {shape}: non-finite output")
+    if scale == 0.0 or err > TOL[dtype] * scale:
+        fail(f"{name} {shape} {dtype}: max_abs_err {err} > {TOL[dtype]} * {scale}")
+    return line
+
+
+def randn(shape, gen, dtype=torch.float32, scale=1.0):
+    return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype).contiguous()
+
+
+def check_com_matmul(gen, M, K, N, dtype=torch.float32, activation="relu",
+                     with_bias=False, with_residual=False):
+    x, w = randn((M, K), gen, dtype), randn((K, N), gen, dtype, (2.0 / K) ** 0.5)
+    bias = randn((N,), gen, dtype) if with_bias else None
+    res = randn((M, N), gen, dtype) if with_residual else None
+    kw = dict(bias=bias, activation=activation, residual=res)
+    got = com_matmul(x, w, **kw)
+    torch.cuda.synchronize()
+    want = com_matmul_ref(x, w, **kw)
+    es = x.element_size()
+    n_bytes = es * (M * K + K * N + M * N + (N if with_bias else 0)
+                    + (M * N if with_residual else 0))
+    t_parts, by = bound(n_bytes, 2.0 * M * N * K, dtype)
+    name = "com_matmul" + "".join(
+        f"+{p}" for p, on in (("bias", with_bias), (activation, activation),
+                              ("residual", with_residual)) if on)
+    return compare(
+        name, (M, K, N), dtype, got, want,
+        cuda_ms(lambda: com_matmul(x, w, **kw)), cuda_ms(lambda: com_matmul_ref(x, w, **kw)),
+        cuda_ms(lambda: torch.matmul(x, w)), t_parts, by)
+
+
+def check_conv2d(gen, H, W, C, M, K=3, stride=1, padding=1, dtype=torch.float32):
+    x = randn((H, W, C), gen, dtype)
+    w = randn((K, K, C, M), gen, dtype, (2.0 / (K * K * C)) ** 0.5)
+    kw = dict(stride=stride, padding=padding, activation="relu")
+    got = conv2d_com(x, w, **kw)
+    torch.cuda.synchronize()
+    want = conv2d_com_ref(x, w, **kw)
+    Ho, Wo = want.shape[0], want.shape[1]
+    xn, wn = x.permute(2, 0, 1)[None].contiguous(), w.permute(3, 2, 0, 1).contiguous()
+    n_bytes = x.element_size() * (H * W * C + K * K * C * M + Ho * Wo * M)
+    t_parts, by = bound(n_bytes, 2.0 * Ho * Wo * M * K * K * C, dtype)
+    return compare(
+        "conv2d_com", (H, W, C, M, K, stride, padding), dtype, got, want,
+        cuda_ms(lambda: conv2d_com(x, w, **kw)), cuda_ms(lambda: conv2d_com_ref(x, w, **kw)),
+        cuda_ms(lambda: F.conv2d(xn, wn, stride=stride, padding=padding)), t_parts, by)
+
+
+def summary(lines, repeat: int = 1) -> dict:
+    """A kernel's numbers over one run of its path: times summed over the
+    path's shapes (``repeat`` runs of each), errors the worst."""
+    parts = [0.0, 0.0]
+    for ln in lines:
+        # bound_ms of a line is max(bytes, ops): recover which one it was
+        parts[ln["bound_by"] == "operations"] += ln["bound_ms"]
+    return {
+        "max_abs_err": max(ln["max_abs_err"] for ln in lines),
+        "ms": repeat * sum(ln["kernel_ms"] for ln in lines),
+        "plain_ms": repeat * sum(ln["plain_ms"] for ln in lines),
+        "bound_ms": repeat * sum(ln["bound_ms"] for ln in lines),
+        "bound_by": "bytes" if parts[0] >= parts[1] else "operations",
+        "library_ms": repeat * sum(ln["library_ms"] for ln in lines),
+    }
+
+
+def ptxas_summary(log: str) -> dict:
+    """``ptxas -v`` per kernel instantiation: registers, shared memory and
+    spills, keyed by a short name such as ``com_matmul_kernel<float,128,...>``."""
+    out, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            # Itanium mangling: the kernel's name is preceded by its length
+            end = mangled.find("_kernelI") + len("_kernel")
+            base = next((mangled[end - n:end] for n in range(1, end)
+                         if mangled[:end - n].endswith(str(n))), mangled)
+            dtype = "bfloat16" if "bfloat16" in mangled else "float"
+            args = re.findall(r"Li(\d+)E", mangled)
+            name = f"{base}<{','.join([dtype] + args)}>"
+            out[name] = []
+        elif name and ("Used" in line or "spill" in line):
+            out[name].append(line.replace("ptxas info    :", "").strip())
+    return {k: "; ".join(v) for k, v in out.items()}
+
+
+def direct_forward(program, weights, images):
+    """The direct-convolution path through the port's public kernel entry
+    points: ops.conv2d per image and conv layer (ReLU fused), max-pool,
+    flatten, ops.com_matmul for the FC layers."""
+    feats = []
+    for img in images:
+        x = img
+        for lp, w in zip(program.layer_programs, weights):
+            l = lp.layer
+            if not isinstance(l, ConvSpec):
+                break
+            x = ops.conv2d(x, w.view(l.k, l.k, l.c_in, l.c_out), stride=l.stride,
+                           padding=l.padding, activation="relu")
+            if l.pool_k > 0:
+                x = _maxpool(x[None], l.pool_k, l.pool_stride)[0]
+        feats.append(x.reshape(-1))
+    x = torch.stack(feats)
+    for lp, w in zip(program.layer_programs, weights):
+        if not isinstance(lp.layer, ConvSpec):
+            x = ops.com_matmul(x, w, activation="relu")
+    return x
+
+
+def profile_forward(ex, images) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    ex.run(images)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = ex.run(images).wall_s
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        fail("the profiler saw no device activity in the forward")
+    busy, cur_s, cur_e = 0.0, None, None
+    by_name = {}
+    for s, e, name in spans:
+        by_name[name[:60]] = by_name.get(name[:60], 0.0) + (e - s) / 1e3
+        if cur_e is None or s > cur_e:
+            busy += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    span = spans[-1][1] - spans[0][0]
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+    return {"device_busy_ms": busy / 1e3, "device_span_ms": span / 1e3,
+            "idle_share": 1.0 - busy / span, "host_wall_ms": wall * 1e3,
+            "ms_by_kernel": top}
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        fail("no CUDA device is available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    torch.cuda.set_device(0)
+
+    # 1. the card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    emit({"phase": "card", "nvidia_smi": smi, "kind": kind,
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda, "python": sys.version.split()[0]})
+
+    # 2. the build: one nvcc per source, all started together
+    t0 = time.perf_counter()
+    names = _build.all_kernels()
+    _build.build(names, force=True)  # from the sources, even if a build is cached
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "kernels": list(names),
+          "flags": list(_build.NVCC_FLAGS),
+          "ptxas": {k: v for n in names for k, v in ptxas_summary(_build.ptxas_log[n]).items()}})
+
+    # 3. each kernel against its plain version at the main path's shapes
+    program = compile_program(vgg16_imagenet())
+    layers = program.workload.layers
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    gemm_lines = []
+    for l in layers:
+        if isinstance(l, ConvSpec):
+            m, k, n = BATCH * l.h_out * l.w_out, l.k * l.k * l.c_in, l.c_out
+        else:
+            m, k, n = BATCH, l.c_in, l.c_out
+        gemm_lines.append(check_com_matmul(gen, m, k, n))
+    for dtype in (torch.float32, torch.bfloat16):
+        check_com_matmul(gen, 3001, 1000, 1000, dtype, "gelu", True, True)
+    check_com_matmul(gen, 3001, 1000, 1000, torch.float32, "silu", True, True)
+    conv_lines = [check_conv2d(gen, l.h_in, l.w_in, l.c_in, l.c_out, l.k, l.stride, l.padding)
+                  for l in layers if isinstance(l, ConvSpec)]
+    check_conv2d(gen, 112, 112, 64, 128, 3, 2, 1)
+    check_conv2d(gen, 112, 112, 64, 128, 5, 2, 2)
+    check_conv2d(gen, 56, 56, 256, 256, 3, 1, 1, torch.bfloat16)
+
+    # 4. end to end: the executor's kernel path against its float64 reference
+    weights = random_weights(program, seed=0)
+    images = np.random.default_rng(1).normal(size=(BATCH, 224, 224, 3))
+    ex = program.executor(weights)
+    ref = program.executor(weights, backend="reference").run(images)
+    del weights
+    ex.run(images)  # warm-up
+    com_matmul.launches = conv2d_com.launches = 0
+    res = ex.run(images)
+    launches = {"com_matmul": com_matmul.launches, "conv2d_com": conv2d_com.launches}
+    torch.cuda.reset_peak_memory_stats()
+    walls = [ex.run(images).wall_s for _ in range(7)]
+    peak = torch.cuda.max_memory_allocated()
+    out, want = res.outputs.double(), ref.outputs
+    err = (out - want).abs().max().item()
+    scale = want.abs().max().item()
+    events_match = res.events == dict(program.event_totals) == ref.events
+    wall = statistics.median(walls)
+    emit({"phase": "e2e", "workload": program.workload.name, "batch": BATCH,
+          "images_s": BATCH / wall, "median_wall_ms": wall * 1e3,
+          "wall_ms": [w * 1e3 for w in walls], "peak_mem_gib": peak / 2**30,
+          "logits_shape": list(out.shape), "logits_max_abs_err": err,
+          "logits_max_rel_err": err / max(scale, 1e-30), "tol": TOL[torch.float32],
+          "events_match": events_match, "launches": launches})
+    if tuple(out.shape) != (BATCH, layers[-1].c_out) or not torch.isfinite(out).all().item():
+        fail(f"logits of shape {tuple(out.shape)} are not finite ({BATCH}, {layers[-1].c_out})")
+    if scale == 0.0 or err > TOL[torch.float32] * scale:
+        fail(f"logits max_abs_err {err} > {TOL[torch.float32]} * {scale}")
+    if not events_match:
+        fail(f"events {res.events} != event_totals {dict(program.event_totals)}")
+    if launches != {"com_matmul": len(layers), "conv2d_com": 0}:
+        fail(f"the forward launched {launches}, expected {len(layers)} com_matmul")
+
+    imgs = torch.as_tensor(images, dtype=torch.float32, device="cuda")
+    direct_forward(program, ex.weights, imgs[:1])  # warm-up
+    com_matmul.launches = conv2d_com.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    direct = direct_forward(program, ex.weights, imgs)
+    torch.cuda.synchronize()
+    direct_wall = time.perf_counter() - t0
+    direct_launches = {"com_matmul": com_matmul.launches, "conv2d_com": conv2d_com.launches}
+    n_conv = sum(isinstance(l, ConvSpec) for l in layers)
+    derr = (direct.double() - want).abs().max().item()
+    emit({"phase": "e2e-direct-conv", "batch": BATCH, "images_s": BATCH / direct_wall,
+          "wall_ms": direct_wall * 1e3, "logits_max_abs_err": derr,
+          "logits_max_rel_err": derr / max(scale, 1e-30), "launches": direct_launches})
+    if derr > TOL[torch.float32] * scale:
+        fail(f"direct-conv logits max_abs_err {derr} > {TOL[torch.float32]} * {scale}")
+    if direct_launches != {"com_matmul": len(layers) - n_conv, "conv2d_com": BATCH * n_conv}:
+        fail(f"the direct-conv path launched {direct_launches}")
+
+    # 5. where the forward's device time goes
+    emit({"phase": "profile", "workload": program.workload.name, "batch": BATCH,
+          **profile_forward(ex, images)})
+
+    # 6. the kernels line, the card, the result
+    emit({"kernels": [
+        {"name": "com_matmul", "route": "cuda", "source": "src/repro_torch/csrc/com_matmul.cu",
+         "replaces": "src/repro/kernels/com_matmul.py:69",
+         "launches": launches["com_matmul"], **summary(gemm_lines)},
+        {"name": "conv2d_com", "route": "cuda", "source": "src/repro_torch/csrc/conv2d_com.cu",
+         "replaces": "src/repro/kernels/conv2d_com.py:61",
+         "launches": direct_launches["conv2d_com"], **summary(conv_lines, BATCH)},
+    ]})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+
+
+if __name__ == "__main__":
+    main()

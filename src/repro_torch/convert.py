@@ -1,0 +1,87 @@
+"""Weights of the JAX package → the port's tensors, and back.
+
+The JAX package's executor takes one float array per layer — conv
+``(K, K, C, M)``, FC ``(C_in, C_out)`` — as a ``layer name → ndarray`` dict
+or a list aligned with the workload's layers. The port keeps the same
+input and hands its kernels each layer as one matrix in the layout the
+kernel multiplies by: conv ``(K·K·C, M)`` (the row-major reshape, which
+matches an im2col in ``(kr, kc, c)`` order), FC ``(C_in, C_out)``.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Mapping, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.mapping import ConvSpec
+
+
+def weight_shape(layer) -> Tuple[int, ...]:
+    """A layer's weights as the JAX package holds them."""
+    if isinstance(layer, ConvSpec):
+        return (layer.k, layer.k, layer.c_in, layer.c_out)
+    return (layer.c_in, layer.c_out)
+
+
+def kernel_shape(layer) -> Tuple[int, int]:
+    """A layer's weights as the port's kernels take them."""
+    if isinstance(layer, ConvSpec):
+        return (layer.k * layer.k * layer.c_in, layer.c_out)
+    return (layer.c_in, layer.c_out)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the card. Asking for a card where there is none
+    raises: nothing carries on on the CPU unless the caller asked for it."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def _aligned(layers, weights) -> Sequence:
+    if isinstance(weights, Mapping):
+        names = [l.name for l in layers]
+        if len(set(names)) != len(names):
+            raise ValueError(
+                "workload repeats layer names; pass weights as a "
+                "sequence aligned with the layers instead of a dict")
+        missing = [n for n in names if n not in weights]
+        if missing:
+            raise KeyError(f"weights missing for layers {missing}")
+        return [weights[n] for n in names]
+    seq = list(weights)
+    if len(seq) != len(layers):
+        raise ValueError(f"{len(seq)} weight arrays for {len(layers)} layers")
+    return seq
+
+
+def to_port(layers, weights, *, dtype: torch.dtype = torch.float32,
+            device=None) -> List[torch.Tensor]:
+    """JAX-package weights (dict or aligned list of arrays) → one
+    contiguous ``dtype`` tensor per layer in the kernel layout, on
+    ``device`` (``None`` = the card)."""
+    dev = resolve_device(device)
+    out: List[torch.Tensor] = []
+    for l, w in zip(layers, _aligned(layers, weights)):
+        w = np.asarray(w)
+        if w.shape != weight_shape(l):
+            raise ValueError(
+                f"weights shape {w.shape} != {weight_shape(l)} for {l.name!r}")
+        t = torch.from_numpy(np.ascontiguousarray(w, dtype=np.float64))
+        out.append(t.reshape(kernel_shape(l)).to(device=dev, dtype=dtype).contiguous())
+    return out
+
+
+def from_port(layers, tensors: Sequence[torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The port's per-layer tensors → the JAX package's ``layer name →
+    float64 ndarray`` dict."""
+    tensors = list(tensors)
+    if len(tensors) != len(layers):
+        raise ValueError(f"{len(tensors)} weight tensors for {len(layers)} layers")
+    return {
+        l.name: t.detach().to("cpu", torch.float64).numpy().reshape(weight_shape(l))
+        for l, t in zip(layers, tensors)
+    }

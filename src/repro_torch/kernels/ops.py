@@ -1,0 +1,42 @@
+"""Public entry points of the port's kernels.
+
+Counterpart of ``repro.kernels.ops``. ``backend`` selects the path:
+
+* ``None`` (default) — the tensor decides: a CUDA tensor launches the
+  CUDA kernel, a CPU tensor takes the plain PyTorch version;
+* ``"cuda"`` — the CUDA kernel; raises for a tensor that is not on a
+  card, so a run that asked for the kernel never quietly runs without it;
+* ``"ref"`` — the plain PyTorch version, on the tensor's own device.
+
+``flash_attention`` is not ported yet.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.com_matmul import com_matmul as _com_matmul
+from repro_torch.kernels.conv2d_com import conv2d_com as _conv2d_com
+
+BACKENDS = ("cuda", "ref")
+
+
+def _resolve(x, backend):
+    if backend is None:
+        return "cuda" if x.is_cuda else "ref"
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS} or None")
+    if backend == "cuda" and not x.is_cuda:
+        raise RuntimeError(
+            f"backend='cuda' needs a tensor on a CUDA device, got one on {x.device}")
+    return backend
+
+
+def com_matmul(x, w, *, bias=None, activation=None, residual=None, backend=None):
+    if _resolve(x, backend) == "ref":
+        return _ref.com_matmul_ref(x, w, bias=bias, activation=activation, residual=residual)
+    return _com_matmul(x, w, bias=bias, activation=activation, residual=residual)
+
+
+def conv2d(x, w, *, stride=1, padding=1, activation=None, backend=None):
+    if _resolve(x, backend) == "ref":
+        return _ref.conv2d_com_ref(x, w, stride=stride, padding=padding, activation=activation)
+    return _conv2d_com(x, w, stride=stride, padding=padding, activation=activation)

@@ -1,0 +1,60 @@
+"""Plain PyTorch versions of the port's kernels (the allclose targets).
+
+Counterparts of ``repro.kernels.ref``: the same arithmetic, in float32,
+on whatever device the tensors live on. Each kernel wrapper runs these for
+a tensor on the CPU, and the tests and ``chip_smoke.py`` hold the CUDA
+kernels against them on the card. GELU is the tanh form, as
+``jax.nn.gelu`` is by default.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+ACTIVATIONS = (None, "relu", "silu", "gelu")
+
+
+def _epilogue(y, bias, activation, residual):
+    if activation not in ACTIVATIONS:
+        raise ValueError(f"unknown activation {activation!r}; expected one of {ACTIVATIONS}")
+    if bias is not None:
+        y = y + bias
+    if activation == "relu":
+        y = F.relu(y)
+    elif activation == "silu":
+        y = F.silu(y)
+    elif activation == "gelu":
+        y = F.gelu(y, approximate="tanh")
+    if residual is not None:
+        y = y + residual
+    return y
+
+
+def com_matmul_ref(x: torch.Tensor, w: torch.Tensor, *, bias: Optional[torch.Tensor] = None,
+                   activation: Optional[str] = None,
+                   residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(M,K) @ (K,N) + fused ROFM epilogue (Add/Act/Bp), f32 accumulation,
+    one cast back to ``x.dtype``."""
+    y = x.float() @ w.float()
+    y = _epilogue(y, None if bias is None else bias.float(), activation,
+                  None if residual is None else residual.float())
+    return y.to(x.dtype)
+
+
+def conv2d_com_ref(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1, padding: int = 1,
+                   activation: Optional[str] = None) -> torch.Tensor:
+    """x: (H, W, C); w: (K, K, C, M) — direct convolution as K² shifted
+    ``(H_out·W_out, C) x (C, M)`` products into an f32 sum."""
+    K = w.shape[0]
+    xp = F.pad(x.float(), (0, 0, padding, padding, padding, padding))
+    H_out = (x.shape[0] + 2 * padding - K) // stride + 1
+    W_out = (x.shape[1] + 2 * padding - K) // stride + 1
+    out = torch.zeros((H_out, W_out, w.shape[-1]), dtype=torch.float32, device=x.device)
+    for kr in range(K):
+        for kc in range(K):
+            patch = xp[kr:kr + H_out * stride:stride, kc:kc + W_out * stride:stride, :]
+            out = out + patch @ w[kr, kc].float()
+    out = _epilogue(out, None, activation, None)
+    return out.to(x.dtype)
