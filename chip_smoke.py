@@ -3,16 +3,22 @@
 
     python3 chip_smoke.py        # from the repository root; one CUDA card, nvcc
 
-Phases, each printing JSON lines:
+Two paths: the compiled VGG-16 executor (phases 3-5) and serving smollm-135m
+at its full published widths (phases 3, 6 and 7). Phases, each printing JSON
+lines:
 
 1. card      — the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build     — both CUDA kernels built from src/repro_torch/csrc/*.cu for sm_90a,
-               seconds taken and the ptxas -v report;
+2. build     — the three CUDA kernels built from src/repro_torch/csrc/*.cu for
+               sm_90a, one nvcc each, started together: seconds taken and the
+               ptxas -v report;
 3. kernels   — each kernel against its plain PyTorch version at every shape the
-               main path gives it (the 16 VGG-16 products of a B=8 forward for
-               com_matmul, the 13 VGG-16 per-image convolutions for conv2d_com)
-               plus the epilogue, stride-2, 5x5 and bf16 cases: errors, kernel,
-               plain and library times (CUDA events), and the bound;
+               main paths give it (the 16 VGG-16 products of a B=8 forward for
+               com_matmul, the 13 VGG-16 per-image convolutions for conv2d_com,
+               smollm's batch-1 prefill attention at S = 128, 517, 1024, 2048 and
+               at every prompt length the serve phase prefills, for
+               flash_attention) plus the epilogue, stride-2, 5x5, bf16,
+               non-causal and head_dim-128 cases: errors, kernel, plain and
+               library times (CUDA events), and the bound;
 4. e2e       — compile_program(vgg16_imagenet()), random_weights(seed=0), 8 images
                from numpy.random.default_rng(1): the executor's "cuda" backend
                held against its float64 "reference" backend on the card, events
@@ -22,12 +28,25 @@ Phases, each printing JSON lines:
                the same reference;
 5. profile   — a torch.profiler window over one forward: device busy time, idle
                share and the kernels by time;
-6. the kernels line, then the card line, then the result line.
+6. serve     — smollm-135m (30 layers, d_model 576, 9 heads, 3 KV heads, vocab
+               49152, tied), bf16, weights drawn from seed 0: 16 greedy
+               requests with prompt lengths from numpy.random.default_rng(2)
+               uniform in 128-1024, 64 new tokens each, 8 slots, max_seq 2048,
+               through Engine.generate: wall time, tokens/s, median TTFT and
+               decode step, peak memory, flash_attention launches (30 per
+               prefill); the tokens against Engine.generate_sequential; the
+               last-token logits of every request's prefill against the same
+               model with the plain attention, in float32 and in bfloat16;
+7. profile-serve — a torch.profiler window over one prefill and one decode step;
+8. the kernels line, then the card line, then the result line.
 
 Any failed check exits non-zero before the result line is printed. Finding no
 card is a failure. Tolerances: float32 results within 2e-5 of the reference's
 largest magnitude, bfloat16 within 2e-2 (tests/test_kernels.py:18-19 and
-tests/test_executor.py:87 of the JAX package).
+tests/test_executor.py:87 of the JAX package); flash_attention's bfloat16
+output also element by element within one bfloat16 rounding (2^-7 of the
+element) plus the float32 tolerance, since it and its plain version each round
+one f32 result once.
 """
 from __future__ import annotations
 
@@ -45,20 +64,28 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.executor import _maxpool, random_weights  # noqa: E402
 from repro_torch.core.mapping import ConvSpec, vgg16_imagenet  # noqa: E402
 from repro_torch.core.program import compile_program  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.com_matmul import com_matmul  # noqa: E402
 from repro_torch.kernels.conv2d_com import conv2d_com  # noqa: E402
-from repro_torch.kernels.ref import com_matmul_ref, conv2d_com_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.ref import (  # noqa: E402
+    com_matmul_ref, conv2d_com_ref, flash_attention_ref)
+from repro_torch.models.transformer import CallConfig, build_model  # noqa: E402
+from repro_torch.serve.engine import Engine, Request  # noqa: E402
 
 # published H100 SXM peaks (dense): f32 outside the tensor cores, bf16 tensor
 # cores, HBM3
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 PEAK_BYTES = 3.35e12
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+BF16_ULP = 2.0 ** -7  # a bfloat16 value's spacing, relative to the value, at most
 BATCH = 8
+# the serve phase: smollm-135m, 16 requests, 8 slots
+SERVE_ARCH, N_REQUESTS, MAX_NEW, SLOTS, MAX_SEQ = "smollm-135m", 16, 64, 8, 2048
 
 
 def emit(obj) -> None:
@@ -93,8 +120,15 @@ def bound(n_bytes: float, n_ops: float, dtype) -> tuple:
     return (t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def compare(name, shape, dtype, got, want, kernel_ms, plain_ms, library_ms, t_parts, by):
-    err = (got.double() - want.double()).abs().max().item()
+def compare(name, shape, dtype, got, want, kernel_ms, plain_ms, library_ms, t_parts, by,
+            one_rounding=False):
+    """Check ``got`` against ``want`` within TOL[dtype] of max|want|. With
+    ``one_rounding`` (a kernel whose plain version computes in f32 and rounds
+    once to bfloat16, as the kernel does) each bfloat16 element is also held
+    within one rounding of its own value: |got - want| <= 2^-7 |want| plus the
+    f32 tolerance, a limit a dropped or doubled term of a sum cannot hide in."""
+    diff = (got.double() - want.double()).abs()
+    err = diff.max().item()
     scale = want.double().abs().max().item()
     line = {
         "kernel": name, "shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
@@ -102,11 +136,18 @@ def compare(name, shape, dtype, got, want, kernel_ms, plain_ms, library_ms, t_pa
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": max(t_parts), "bound_by": by,
     }
+    per_element = one_rounding and dtype == torch.bfloat16
+    if per_element:
+        limit = BF16_ULP * want.double().abs() + TOL[torch.float32] * scale
+        line["max_err_over_one_rounding"] = (diff / limit).max().item()
     emit(line)
     if not torch.isfinite(got).all().item():
         fail(f"{name} {shape}: non-finite output")
     if scale == 0.0 or err > TOL[dtype] * scale:
         fail(f"{name} {shape} {dtype}: max_abs_err {err} > {TOL[dtype]} * {scale}")
+    if per_element and line["max_err_over_one_rounding"] > 1.0:
+        fail(f"{name} {shape} {dtype}: an element is {line['max_err_over_one_rounding']} times "
+             f"one bfloat16 rounding of the plain version's away from it")
     return line
 
 
@@ -151,6 +192,35 @@ def check_conv2d(gen, H, W, C, M, K=3, stride=1, padding=1, dtype=torch.float32)
         "conv2d_com", (H, W, C, M, K, stride, padding), dtype, got, want,
         cuda_ms(lambda: conv2d_com(x, w, **kw)), cuda_ms(lambda: conv2d_com_ref(x, w, **kw)),
         cuda_ms(lambda: F.conv2d(xn, wn, stride=stride, padding=padding)), t_parts, by)
+
+
+def sdpa(q, k, v, causal):
+    """The library yardstick: PyTorch's fused attention on the same inputs
+    (never called by the port)."""
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    try:
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+    except TypeError:  # a torch without enable_gqa: repeat the KV heads
+        g = q.shape[2] // k.shape[2]
+        out = F.scaled_dot_product_attention(qt, kt.repeat_interleave(g, 1),
+                                             vt.repeat_interleave(g, 1), is_causal=causal)
+    return out.transpose(1, 2)
+
+
+def check_flash(gen, S, dtype=torch.bfloat16, causal=True, H=9, KVH=3, hd=64, B=1):
+    q = randn((B, S, H, hd), gen, dtype)
+    k, v = randn((B, S, KVH, hd), gen, dtype), randn((B, S, KVH, hd), gen, dtype)
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    want = flash_attention_ref(q, k, v, causal=causal)
+    n_bytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    pairs = S * (S + 1) // 2 if causal else S * S  # (q, k) pairs the mask keeps
+    t_parts, by = bound(n_bytes, 4.0 * hd * H * B * pairs, dtype)
+    return compare(
+        "flash_attention" + ("" if causal else "(non-causal)"), (B, S, H, KVH, hd), dtype,
+        got, want, cuda_ms(lambda: flash_attention(q, k, v, causal=causal)),
+        cuda_ms(lambda: flash_attention_ref(q, k, v, causal=causal)),
+        cuda_ms(lambda: sdpa(q, k, v, causal)), t_parts, by, one_rounding=True)
 
 
 def summary(lines, repeat: int = 1) -> dict:
@@ -214,16 +284,22 @@ def direct_forward(program, weights, images):
     return x
 
 
-def profile_forward(ex, images) -> dict:
+def profile_window(fn, what: str) -> dict:
+    """Device busy time, span, idle share and the kernels by time over one
+    call of ``fn`` under torch.profiler (``fn`` is run once before, to warm up)."""
     from torch.profiler import ProfilerActivity, profile
 
-    ex.run(images)
+    fn()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall = ex.run(images).wall_s
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     if not spans:
-        fail("the profiler saw no device activity in the forward")
+        fail(f"the profiler saw no device activity in {what}")
     busy, cur_s, cur_e = 0.0, None, None
     by_name = {}
     for s, e, name in spans:
@@ -235,10 +311,108 @@ def profile_forward(ex, images) -> dict:
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
     span = spans[-1][1] - spans[0][0]
-    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10])
     return {"device_busy_ms": busy / 1e3, "device_span_ms": span / 1e3,
             "idle_share": 1.0 - busy / span, "host_wall_ms": wall * 1e3,
-            "ms_by_kernel": top}
+            "device_kernels": len(spans), "ms_by_kernel": top}
+
+
+def serve_wave(vocab: int):
+    """The serve phase's 16 greedy requests: prompt lengths uniform in
+    128-1024 and prompt tokens, both from numpy.random.default_rng(2)."""
+    rng = np.random.default_rng(2)
+    lengths = rng.integers(128, 1025, size=N_REQUESTS)
+    return [Request(prompt=rng.integers(1, vocab, size=int(n)).astype(np.int32),
+                    max_new_tokens=MAX_NEW) for n in lengths]
+
+
+def serve(model, cfg) -> tuple:
+    """Serve the wave through Engine.generate and check it; returns the
+    phase's line and the flash_attention launches of the run."""
+    eng = Engine(model, batch=SLOTS, max_seq=MAX_SEQ)
+    eng.generate([Request(prompt=np.arange(1, 200, dtype=np.int32), max_new_tokens=4)
+                  for _ in range(2)])  # warm-up: the pool, the libraries' first calls
+    marks = {"prefill": [], "decode_step": []}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()  # the engine reads each result on the host anyway
+            marks[name].append((t, time.perf_counter()))
+            return out
+        return run
+
+    reqs = serve_wave(cfg.vocab_size)
+    model.prefill = timed("prefill", model.prefill)
+    model.decode_step = timed("decode_step", model.decode_step)
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.generate(reqs, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    del model.prefill, model.decode_step  # back to the class's methods
+    stats = eng.last_stats
+    n_prompt = sum(len(r.prompt) for r in reqs)
+    prefill_s = sum(e - s for s, e in marks["prefill"])
+    ttft = [e - t0 for _, e in marks["prefill"]]  # every request arrives at t0
+    steps = [(e - s) * 1e3 for s, e in marks["decode_step"]]
+
+    oracle = [Request(prompt=r.prompt.copy(), max_new_tokens=r.max_new_tokens) for r in reqs]
+    eng.generate_sequential(oracle, seed=0)
+    identical = [r.out_tokens for r in reqs] == [r.out_tokens for r in oracle]
+
+    # the last-token logits of every request's prefill with the kernel (None:
+    # the card's tensors launch it) against the plain attention, in float32,
+    # where the two differ by f32 rounding alone, and in the served bfloat16
+    cc = model.cc
+    logit_errs = {"float32": [], "bfloat16": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        for r in reqs:
+            out = {}
+            for backend in (None, "ref"):
+                model.cc = CallConfig(compute_dtype=dtype, cache_dtype=dtype,
+                                      block_kv=cc.block_kv, attn_backend=backend)
+                out[backend], _ = model.prefill(r.prompt[None, :],
+                                                model.init_cache(1, len(r.prompt)))
+            model.cc = cc
+            err = (out[None].double() - out["ref"].double()).abs().max().item()
+            scale = out["ref"].double().abs().max().item()
+            name = str(dtype).replace("torch.", "")
+            logit_errs[name].append(err / max(scale, 1e-30))
+            if not torch.isfinite(out[None]).all().item() or scale == 0.0 \
+                    or err > TOL[dtype] * scale:
+                fail(f"{name} prefill logits with the kernel, prompt of {len(r.prompt)}: "
+                     f"max_abs_err {err} > {TOL[dtype]} * {scale}")
+
+    gen_tokens = stats["generated_tokens"]
+    line = {"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+            "vocab": cfg.vocab_size, "dtype": str(cc.compute_dtype).replace("torch.", ""),
+            "requests": len(reqs), "slots": SLOTS, "max_seq": MAX_SEQ,
+            "prompt_tokens": n_prompt, "generated_tokens": gen_tokens, "wall_s": wall,
+            "generated_tokens_s": gen_tokens / wall, "prefill_tokens_s": n_prompt / prefill_s,
+            "prefill_s": prefill_s, "median_ttft_ms": statistics.median(ttft) * 1e3,
+            "median_decode_step_ms": statistics.median(steps), "decode_steps": len(steps),
+            "occupancy": stats["occupancy"], "prefills": stats["prefills"],
+            "peak_mem_gib": peak / 2**30, "flash_attention_launches": launches,
+            "greedy_identical_to_sequential": identical,
+            "prefill_logits_max_rel_err": logit_errs}
+    emit(line)
+    if launches != cfg.num_layers * stats["prefills"]:
+        fail(f"serving launched flash_attention {launches} times for {stats['prefills']} "
+             f"prefills of {cfg.num_layers} layers")
+    if stats["prefills"] != len(reqs) or gen_tokens != len(reqs) * MAX_NEW or not all(
+            r.done and len(r.out_tokens) == MAX_NEW
+            and all(0 <= t < cfg.vocab_size for t in r.out_tokens) for r in reqs):
+        fail(f"the wave did not come back whole: {stats}")
+    if not identical:
+        fail("Engine.generate's greedy tokens differ from generate_sequential's")
+    return line, launches, eng
 
 
 def main() -> None:
@@ -285,6 +459,15 @@ def main() -> None:
     check_conv2d(gen, 112, 112, 64, 128, 3, 2, 1)
     check_conv2d(gen, 112, 112, 64, 128, 5, 2, 2)
     check_conv2d(gen, 56, 56, 256, 256, 3, 1, 1, torch.bfloat16)
+    for S in (128, 517, 1024, 2048):  # smollm's batch-1 prefill attention
+        for dtype in (torch.bfloat16, torch.float32):
+            check_flash(gen, S, dtype)
+    check_flash(gen, 517, causal=False)
+    check_flash(gen, 1024, H=9, KVH=3, hd=128)
+    serve_cfg = get_config(SERVE_ARCH)
+    flash_lines = [check_flash(gen, len(r.prompt), hd=serve_cfg.head_dim, H=serve_cfg.num_heads,
+                               KVH=serve_cfg.num_kv_heads)
+                   for r in serve_wave(serve_cfg.vocab_size)]
 
     # 4. end to end: the executor's kernel path against its float64 reference
     weights = random_weights(program, seed=0)
@@ -340,9 +523,24 @@ def main() -> None:
 
     # 5. where the forward's device time goes
     emit({"phase": "profile", "workload": program.workload.name, "batch": BATCH,
-          **profile_forward(ex, images)})
+          **profile_window(lambda: ex.run(images), "the forward")})
 
-    # 6. the kernels line, the card, the result
+    # 6. serving smollm-135m at full width through the flash kernel
+    model = build_model(serve_cfg, CallConfig(), device="cuda", seed=0)
+    _, flash_launches, eng = serve(model, serve_cfg)
+
+    # 7. where a prefill's and a decode step's device time goes
+    prompt = serve_wave(serve_cfg.vocab_size)[0].prompt[None, :]
+    one = model.init_cache(1, MAX_SEQ)
+    emit({"phase": "profile-serve", "what": "prefill", "prompt_len": prompt.shape[1],
+          **profile_window(lambda: model.prefill(prompt, one), "a prefill")})
+    tok = torch.ones((SLOTS, 1), dtype=torch.long, device="cuda")
+    pos = torch.full((SLOTS,), 1000, dtype=torch.long, device="cuda")
+    emit({"phase": "profile-serve", "what": "decode_step", "slots": SLOTS, "pos": 1000,
+          **profile_window(lambda: model.decode_step(tok, eng.slots.cache, pos),
+                           "a decode step")})
+
+    # 8. the kernels line, the card, the result
     emit({"kernels": [
         {"name": "com_matmul", "route": "cuda", "source": "src/repro_torch/csrc/com_matmul.cu",
          "replaces": "src/repro/kernels/com_matmul.py:69",
@@ -350,6 +548,10 @@ def main() -> None:
         {"name": "conv2d_com", "route": "cuda", "source": "src/repro_torch/csrc/conv2d_com.cu",
          "replaces": "src/repro/kernels/conv2d_com.py:61",
          "launches": direct_launches["conv2d_com"], **summary(conv_lines, BATCH)},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:64",
+         "launches": flash_launches, **summary(flash_lines, serve_cfg.num_layers)},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,0 +1,15 @@
+"""dbrx-132b [moe] — 16 experts top-4, fine-grained. [hf:databricks/dbrx-base; unverified]"""
+from repro_torch.configs.base import ArchConfig, MoEConfig
+
+CONFIG = ArchConfig(
+    name="dbrx-132b",
+    family="moe",
+    num_layers=40,
+    d_model=6144,
+    num_heads=48,
+    num_kv_heads=8,
+    d_ff=10752,
+    vocab_size=100352,
+    moe=MoEConfig(num_experts=16, top_k=4),
+    rope_theta=500_000.0,
+)

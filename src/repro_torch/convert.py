@@ -1,5 +1,8 @@
 """Weights of the JAX package → the port's tensors, and back.
 
+Two kinds of weights: the executor's per-layer arrays (below), and a
+language model's parameter pytree (:func:`model_params_to_port`).
+
 The JAX package's executor takes one float array per layer — conv
 ``(K, K, C, M)``, FC ``(C_in, C_out)`` — as a ``layer name → ndarray`` dict
 or a list aligned with the workload's layers. The port keeps the same
@@ -9,7 +12,7 @@ matches an im2col in ``(kr, kc, c)`` order), FC ``(C_in, C_out)``.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -85,3 +88,47 @@ def from_port(layers, tensors: Sequence[torch.Tensor]) -> Dict[str, np.ndarray]:
         l.name: t.detach().to("cpu", torch.float64).numpy().reshape(weight_shape(l))
         for l, t in zip(layers, tensors)
     }
+
+
+def _leaves(tree: Mapping[str, Any], prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, f"{prefix}{k}.")
+        else:
+            yield prefix + k, v
+
+
+def model_params_to_port(cfg, params: Mapping[str, Any], *, cc=None, device=None):
+    """A ``repro_torch.models.transformer.Model`` holding the JAX package's
+    ``Model.init`` parameters.
+
+    ``params`` is the JAX pytree (nested dicts) with numpy (or array-like)
+    leaves; the leaves under ``blocks`` are stacked on a leading layer axis
+    and go to ``blocks.<l>`` of the port's model. Every parameter of the
+    port's model must be given, with its exact shape.
+    """
+    from repro_torch.models.transformer import Model
+
+    model = Model(cfg, cc, device=device)
+    state = {}
+    for name, leaf in _leaves(params):
+        a = np.asarray(leaf, dtype=np.float32)
+        if name.startswith("blocks."):
+            rest = name[len("blocks."):]
+            if a.shape[0] != cfg.num_layers:
+                raise ValueError(f"{name} stacks {a.shape[0]} layers, the config has "
+                                 f"{cfg.num_layers}")
+            for l in range(cfg.num_layers):
+                state[f"blocks.{l}.{rest}"] = torch.tensor(a[l])
+        else:
+            state[name] = torch.tensor(a)
+    own = model.state_dict()
+    if set(state) != set(own):
+        raise KeyError(f"parameters missing: {sorted(set(own) - set(state))}, "
+                       f"unknown: {sorted(set(state) - set(own))}")
+    for name, t in state.items():
+        if tuple(t.shape) != tuple(own[name].shape):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, the model's is "
+                             f"{tuple(own[name].shape)}")
+    model.load_state_dict(state)
+    return model

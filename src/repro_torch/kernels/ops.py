@@ -8,13 +8,15 @@ Counterpart of ``repro.kernels.ops``. ``backend`` selects the path:
   card, so a run that asked for the kernel never quietly runs without it;
 * ``"ref"`` — the plain PyTorch version, on the tensor's own device.
 
-``flash_attention`` is not ported yet.
+Ported: ``com_matmul``, ``conv2d_com`` and ``flash_attention``. The
+fourth Pallas kernel, ``slstm_fused``, is not ported yet.
 """
 from __future__ import annotations
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.com_matmul import com_matmul as _com_matmul
 from repro_torch.kernels.conv2d_com import conv2d_com as _conv2d_com
+from repro_torch.kernels.flash_attention import flash_attention as _flash_attention
 
 BACKENDS = ("cuda", "ref")
 
@@ -40,3 +42,11 @@ def conv2d(x, w, *, stride=1, padding=1, activation=None, backend=None):
     if _resolve(x, backend) == "ref":
         return _ref.conv2d_com_ref(x, w, stride=stride, padding=padding, activation=activation)
     return _conv2d_com(x, w, stride=stride, padding=padding, activation=activation)
+
+
+def flash_attention(q, k, v, *, causal=True, backend=None, block_kv=64):
+    """q: (B, Sq, H, hd); k, v: (B, Skv, KVH, hd) -> (B, Sq, H, hd), GQA read
+    in place, causal mask top-left aligned."""
+    if _resolve(q, backend) == "ref":
+        return _ref.flash_attention_ref(q, k, v, causal=causal)
+    return _flash_attention(q, k, v, causal=causal, block_kv=block_kv)

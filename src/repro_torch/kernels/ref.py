@@ -8,6 +8,7 @@ kernels against them on the card. GELU is the tanh form, as
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -41,6 +42,31 @@ def com_matmul_ref(x: torch.Tensor, w: torch.Tensor, *, bias: Optional[torch.Ten
     y = _epilogue(y, None if bias is None else bias.float(), activation,
                   None if residual is None else residual.float())
     return y.to(x.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k, v: (B, Skv, KVH, hd) -> (B, Sq, H, hd) in
+    ``q.dtype``: softmax attention in float32, query head ``h`` reading KV
+    head ``h // (H / KVH)``.
+
+    q is cast to float32 and then scaled by ``1/sqrt(hd)``, as the Pallas
+    kernel does (``repro/kernels/flash_attention.py:39``). The causal mask is
+    top-left aligned, ``k_pos <= q_pos``, as the Pallas kernel and the
+    model's blockwise attention mask it; for ``Sq == Skv`` that is the usual
+    causal mask.
+    """
+    B, Sq, H, hd = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, Sq, KVH, H // KVH, hd) * (1.0 / math.sqrt(hd))
+    s = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float())
+    if causal:
+        q_pos = torch.arange(Sq, device=q.device)[:, None]
+        k_pos = torch.arange(Skv, device=q.device)[None, :]
+        s = s.masked_fill(k_pos > q_pos, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
 def conv2d_com_ref(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1, padding: int = 1,

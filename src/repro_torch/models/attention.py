@@ -1,0 +1,172 @@
+"""Attention: GQA projections, flash causal attention for prefill, decode
+attention against a KV cache.
+
+The port's copy of ``repro.models.attention`` for self-attention (the
+cross-attention of the vlm family waits for that family). Prefill
+attention goes through :func:`repro_torch.kernels.ops.flash_attention`:
+the hand-written CUDA kernel for a tensor on the card, its plain PyTorch
+version for one on the CPU. Decode attention is the reference's explicit
+max-subtracted softmax chain in plain PyTorch.
+
+Where JAX returns an updated cache, the port writes the KV rows into the
+cache tensors it is given, in place.
+"""
+from __future__ import annotations
+
+import math
+from typing import Mapping, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import apply_rope, dense_init
+
+Params = Mapping[str, torch.Tensor]
+KVCache = Tuple[torch.Tensor, torch.Tensor]
+
+
+def attention_params(gen: torch.Generator, d: int, num_heads: int, num_kv_heads: int, *,
+                     qkv_bias: bool = False) -> dict:
+    hd = d // num_heads
+    p = {
+        "wq": dense_init(gen, d, num_heads * hd),
+        "wk": dense_init(gen, d, num_kv_heads * hd),
+        "wv": dense_init(gen, d, num_kv_heads * hd),
+        "wo": dense_init(gen, num_heads * hd, d),
+    }
+    if qkv_bias:
+        dev = gen.device
+        p.update(bq=torch.zeros((num_heads * hd,), device=dev),
+                 bk=torch.zeros((num_kv_heads * hd,), device=dev),
+                 bv=torch.zeros((num_kv_heads * hd,), device=dev))
+    return p
+
+
+def qkv_project(params: Params, x: torch.Tensor, num_heads: int, num_kv_heads: int):
+    d = x.shape[-1]
+    hd = d // num_heads
+    q = x @ params["wq"].to(x.dtype)
+    k = x @ params["wk"].to(x.dtype)
+    v = x @ params["wv"].to(x.dtype)
+    if "bq" in params:
+        q = q + params["bq"].to(x.dtype)
+        k = k + params["bk"].to(x.dtype)
+        v = v + params["bv"].to(x.dtype)
+    B, S = x.shape[:2]
+    return (q.reshape(B, S, num_heads, hd), k.reshape(B, S, num_kv_heads, hd),
+            v.reshape(B, S, num_kv_heads, hd))
+
+
+def naive_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
+    """Full softmax attention, the small-shape oracle. q: (B,Sq,H,hd),
+    k/v: (B,Skv,KVH,hd) -> (B,Sq,H,hd). Its causal mask is aligned
+    bottom-right (``tril(k=Skv-Sq)``), as the reference's is; for
+    ``Sq == Skv`` that equals the top-left mask of :func:`flash_attention`."""
+    B, Sq, H, hd = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Sq, KVH, H // KVH, hd).float()
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) / math.sqrt(hd)
+    if causal:
+        mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device).tril(Skv - Sq)
+        scores = scores.masked_fill(~mask, float("-inf"))
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", w, v.float())
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, block_kv: int = 64,
+                    backend: Optional[str] = None) -> torch.Tensor:
+    """Online-softmax attention, O(S·block) memory: the ported kernel.
+
+    q: (B,Sq,H,hd), k/v: (B,Skv,KVH,hd). The causal mask is top-left
+    aligned, which is the usual causal mask for ``Sq == Skv`` (prefill).
+    ``backend`` is :func:`repro_torch.kernels.ops.flash_attention`'s:
+    ``None`` lets the tensor's device decide. The reference scales q in its
+    own dtype before the float32 cast; the kernel casts first, as the Pallas
+    kernel does, which differs by one rounding of q at bfloat16.
+    """
+    return ops.flash_attention(q, k, v, causal=causal, backend=backend, block_kv=block_kv)
+
+
+def decode_attention(q, k_cache, v_cache, pos) -> torch.Tensor:
+    """q: (B,1,H,hd); caches: (B,S,KVH,hd); pos: a () shared current length
+    or (B,) per-row lengths. Each row attends to cache rows ``<= pos``."""
+    B, _, H, hd = q.shape
+    S, KVH = k_cache.shape[1], k_cache.shape[2]
+    G = H // KVH
+    qg = (q.reshape(B, KVH, G, hd) / math.sqrt(hd)).float()
+    s = torch.einsum("bkgh,bskh->bkgs", qg, k_cache.float())
+    # (1,S) or (B,S) mask of positions filled so far
+    pos = torch.as_tensor(pos, device=q.device)
+    valid = torch.arange(S, device=q.device)[None, :] <= pos.reshape(-1, 1)
+    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgs,bskh->bkgh", p / l, v_cache.float())
+    return out.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def _write_decode_rows(cache: torch.Tensor, new: torch.Tensor, pos) -> None:
+    """Write this step's (B,1,KVH,hd) rows into the (B,S,KVH,hd) cache at
+    ``pos``, in place. A () position writes every row there, clamped to the
+    last row as ``dynamic_update_slice`` clamps; with a (B,) vector, a row at
+    ``pos >= S`` writes nothing (a parked slot stays as it is)."""
+    new = new[:, 0].to(cache.dtype)
+    S = cache.shape[1]
+    if not isinstance(pos, torch.Tensor) or pos.dim() == 0:
+        p = min(max(int(pos), 0), S - 1)
+        cache[:, p] = new
+        return
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    at = pos.clamp(max=S - 1)
+    keep = (pos < S)[:, None, None]
+    cache[rows, at] = torch.where(keep, new, cache[rows, at])
+
+
+def attention_block(
+    params: Params,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    num_heads: int,
+    num_kv_heads: int,
+    *,
+    rope_theta: float,
+    rope_fraction: float = 1.0,
+    causal: bool = True,
+    block_kv: int = 64,
+    backend: Optional[str] = None,
+    kv_cache: Optional[KVCache] = None,
+    cache_pos=None,
+) -> torch.Tensor:
+    """Self-attention with its QKV and output projections.
+
+    Modes:
+      - prefill / forward (``cache_pos`` None): flash attention over the
+        sequence; with ``kv_cache`` given, the RoPE'd k/v are written into
+        its rows ``[0, S)`` in the cache dtype.
+      - decode (``kv_cache`` and ``cache_pos`` given): one-token step.
+        ``cache_pos`` is a () scalar shared by every row, or a (B,) vector
+        of per-row positions; this step's k/v are written at each row's
+        position (nothing for a row at ``pos >= S``), then the row attends
+        to cache rows ``<= pos``.
+    """
+    B, S, d = x.shape
+    q, k, v = qkv_project(params, x, num_heads, num_kv_heads)
+    q = apply_rope(q, positions, rope_theta, rope_fraction)
+    k = apply_rope(k, positions, rope_theta, rope_fraction)
+
+    if kv_cache is not None and cache_pos is not None:
+        k_cache, v_cache = kv_cache
+        _write_decode_rows(k_cache, k, cache_pos)
+        _write_decode_rows(v_cache, v, cache_pos)
+        out = decode_attention(q, k_cache, v_cache, cache_pos)
+    else:
+        out = flash_attention(q, k, v, causal=causal, block_kv=block_kv, backend=backend)
+        if kv_cache is not None:
+            k_cache, v_cache = kv_cache
+            k_cache[:, :S] = k.to(k_cache.dtype)
+            v_cache[:, :S] = v.to(v_cache.dtype)
+
+    hd = d // num_heads
+    return out.reshape(B, S, num_heads * hd) @ params["wo"].to(x.dtype)

@@ -1,0 +1,135 @@
+"""Foundational layers: norms, RoPE, linear/embedding init, SwiGLU MLP.
+
+The port's copy of ``repro.models.layers``. Parameters are mappings of
+tensors (an ``nn.ParameterDict`` in :mod:`repro_torch.models.transformer`)
+in the JAX package's layout — a dense weight is ``(in, out)`` — so weights
+convert between the two packages without transposes. Every product casts
+its float32 weight to the activation's dtype, as the reference does.
+"""
+from __future__ import annotations
+
+import math
+from typing import Mapping
+
+import torch
+import torch.nn.functional as F
+
+Params = Mapping[str, torch.Tensor]
+
+
+def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, *,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``(in_dim, out_dim)`` normal weights scaled by ``1/sqrt(in_dim)``,
+    drawn from ``gen`` on its device."""
+    w = torch.randn((in_dim, out_dim), generator=gen, device=gen.device, dtype=dtype)
+    return w * (1.0 / math.sqrt(in_dim))
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """In float32, cast back to ``x.dtype``."""
+    dt = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps) * params["scale"]
+    return y.to(dt)
+
+
+def layernorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps) * params["scale"] + params["bias"]
+    return y.to(dt)
+
+
+def norm_params(kind: str, d: int, device) -> dict:
+    """The initial parameters of a ``kind`` norm over ``d`` features."""
+    if kind == "rmsnorm":
+        return {"scale": torch.ones((d,), device=device)}
+    if kind == "layernorm":
+        return {"scale": torch.ones((d,), device=device), "bias": torch.zeros((d,), device=device)}
+    raise ValueError(kind)
+
+
+def make_norm(kind: str):
+    """The norm function named by an ``ArchConfig.norm``."""
+    if kind == "rmsnorm":
+        return rmsnorm
+    if kind == "layernorm":
+        return layernorm
+    raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (partial-fraction support for phi4)
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, fraction: float, device=None) -> torch.Tensor:
+    rot_dim = int(head_dim * fraction) // 2 * 2
+    inv = 1.0 / (theta ** (torch.arange(0, rot_dim, 2, dtype=torch.float32, device=device) / rot_dim))
+    return inv  # (rot_dim/2,)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               fraction: float = 1.0) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq).
+
+    Rotates interleaved pairs ``(x[..., 0::2], x[..., 1::2])`` and stacks
+    them back in place, as the reference does (not the ``rotate_half``
+    convention). The products run in float32 and cast back to ``x.dtype``.
+    """
+    head_dim = x.shape[-1]
+    inv = rope_freqs(head_dim, theta, fraction, device=x.device)
+    rot_dim = inv.shape[0] * 2
+    ang = positions[..., :, None].float() * inv  # (..., seq, rot/2)
+    cos = torch.cos(ang)[..., :, None, :]
+    sin = torch.sin(ang)[..., :, None, :]
+    x_rot, x_pass = x[..., :rot_dim], x[..., rot_dim:]
+    x1, x2 = x_rot[..., 0::2], x_rot[..., 1::2]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    y = torch.stack([y1, y2], dim=-1).reshape(x_rot.shape).to(x.dtype)
+    return torch.cat([y, x_pass], dim=-1) if rot_dim < head_dim else y
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU / GELU)
+# ---------------------------------------------------------------------------
+
+
+def mlp_params(gen: torch.Generator, d: int, f: int, activation: str) -> dict:
+    if activation == "silu":  # SwiGLU: gate+up+down
+        return {"wi_gate": dense_init(gen, d, f), "wi_up": dense_init(gen, d, f),
+                "wo": dense_init(gen, f, d)}
+    return {"wi": dense_init(gen, d, f), "wo": dense_init(gen, f, d)}  # gelu 2-matrix
+
+
+def mlp(params: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
+    if activation == "silu":
+        g = x @ params["wi_gate"].to(x.dtype)
+        u = x @ params["wi_up"].to(x.dtype)
+        h = F.silu(g) * u
+    else:  # jax.nn.gelu's default is the tanh form
+        h = F.gelu(x @ params["wi"].to(x.dtype), approximate="tanh")
+    return h @ params["wo"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+
+def embed(params: Params, tokens: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The table is cast to ``dtype`` before the gather."""
+    return params["table"].to(dtype)[tokens]
+
+
+def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
+    return x @ params["table"].to(x.dtype).t()

@@ -12,10 +12,13 @@ magnitude (tests/test_kernels.py:18-19); the executor's logits are held
 against its float64 reference backend within 2e-5 · max|ref|
 (tests/test_executor.py:87). TF32 is off in the plain versions.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core.arch import DEFAULT_ARCH
 from repro_torch.core.executor import random_weights
 from repro_torch.core.mapping import ConvSpec, FCSpec, vgg11_cifar
@@ -23,6 +26,9 @@ from repro_torch.core.program import Workload, compile_program
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.com_matmul import com_matmul
 from repro_torch.kernels.conv2d_com import conv2d_com
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.transformer import CallConfig, build_model
+from repro_torch.serve.engine import Engine, Request
 
 pytestmark = pytest.mark.gpu
 
@@ -121,3 +127,77 @@ def test_cuda_executor_matches_reference_on_the_card(cuda, case):
     assert res.outputs.device.type == "cuda" and res.outputs.dtype == torch.float32
     _within(res.outputs, want.outputs, torch.float32)
     assert res.events == dict(program.event_totals) == want.events
+
+
+# (B, Sq, Skv, H, KVH, hd, causal): ragged lengths, GQA, causal and not, both
+# head sizes, Sq != Skv (top-left causal mask)
+FLASH_CASES = [
+    (1, 128, 128, 9, 3, 64, True),
+    (1, 77, 77, 9, 3, 64, True),
+    (2, 200, 200, 4, 1, 64, False),
+    (2, 130, 130, 4, 4, 128, True),
+    (1, 65, 65, 2, 2, 128, False),
+    (2, 50, 130, 6, 2, 64, True),
+    (1, 130, 50, 6, 3, 128, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,kvh,hd,causal", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain_version(cuda, b, sq, skv, h, kvh, hd, causal,
+                                                      dtype):
+    gen = torch.Generator(device=cuda).manual_seed(sq * skv + h)
+    q = torch.randn((b, sq, h, hd), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, skv, kvh, hd), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    launches = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == launches + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    _within(got, want, dtype)
+    if dtype == torch.bfloat16:  # both round one f32 result: within one rounding each element
+        diff = (got.double() - want.double()).abs()
+        limit = 2.0 ** -7 * want.double().abs() + 2e-5 * want.double().abs().max()
+        assert (diff <= limit).all(), (diff / limit).max().item()
+
+
+def test_flash_attention_routes_and_rejects(cuda):
+    q = torch.randn((1, 16, 4, 64), device=cuda)
+    k = torch.randn((1, 16, 2, 64), device=cuda)
+    before = flash_attention.launches
+    ops.flash_attention(q, k, k)
+    ops.flash_attention(q, k, k, backend="ref")
+    assert flash_attention.launches == before + 1
+    with pytest.raises(ValueError, match="head_dim 32"):
+        flash_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                        k[..., :32].contiguous())
+    with pytest.raises(ValueError, match="block_kv 128"):
+        flash_attention(q, k, k, block_kv=128)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2), k, k)
+    with pytest.raises(TypeError):
+        flash_attention(q, k.bfloat16(), k)
+    assert flash_attention.launches == before + 1
+
+
+def test_greedy_batched_matches_sequential_on_the_card(cuda):
+    # reduced smollm with head_dim 64, the kernel's size
+    cfg = dataclasses.replace(get_config("smollm-135m").reduced(), num_heads=2, num_kv_heads=1)
+    model = build_model(cfg, CallConfig(), device=cuda, seed=0)
+    rng = np.random.default_rng(0)
+
+    def wave():
+        return [Request(prompt=rng.integers(1, cfg.vocab_size, size=n).astype(np.int32),
+                        max_new_tokens=m) for n, m in ((5, 6), (70, 3), (9, 8), (33, 5), (1, 4))]
+
+    eng = Engine(model, batch=2, max_seq=96)
+    reqs = wave()
+    ref_reqs = [Request(prompt=r.prompt.copy(), max_new_tokens=r.max_new_tokens) for r in reqs]
+    flash_attention.launches = 0
+    got = eng.generate(reqs, seed=0)
+    assert flash_attention.launches == cfg.num_layers * len(reqs)
+    want = eng.generate_sequential(ref_reqs, seed=0)
+    assert [r.out_tokens for r in got] == [r.out_tokens for r in want]
+    assert all(len(r.out_tokens) == r.max_new_tokens for r in got)

@@ -16,9 +16,12 @@ import torch
 from repro.kernels.com_matmul import com_matmul as jax_com_matmul
 from repro.kernels.com_matmul import com_matmul_padded as jax_com_matmul_padded
 from repro.kernels.conv2d_com import conv2d_com as jax_conv2d_com
+from repro.kernels.flash_attention import flash_attention_gqa as jax_flash_attention_gqa
+from repro.models.attention import flash_attention as jax_model_flash_attention
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.com_matmul import com_matmul, com_matmul_padded
 from repro_torch.kernels.conv2d_com import conv2d_com
+from repro_torch.kernels.flash_attention import flash_attention
 
 
 def rtol_for(dtype):
@@ -166,11 +169,79 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 
 
 def test_build_names_each_library_by_its_source_and_needs_nvcc(monkeypatch, tmp_path):
-    assert _build.all_kernels() == ("com_matmul", "conv2d_com")
+    assert _build.all_kernels() == ("com_matmul", "conv2d_com", "flash_attention")
     targets = {_build._target(n) for n in _build.all_kernels()}
-    assert len(targets) == 2
+    assert len(targets) == 3
     assert all(t.parent == _build.BUILD_DIR and t.suffix == ".so" for t in targets)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build(_build.all_kernels(), force=True)
+
+
+def _flash_inputs(seed, b, sq, skv, h, kvh, hd, dtype):
+    rng = np.random.default_rng(seed)
+    return (_both(rng.normal(size=(b, sq, h, hd)), dtype),
+            _both(rng.normal(size=(b, skv, kvh, hd)), dtype),
+            _both(rng.normal(size=(b, skv, kvh, hd)), dtype))
+
+
+def _flash_tols(dtype):
+    return dict(rtol=2e-2, atol=0.05) if dtype == "bfloat16" else dict(rtol=2e-5, atol=1e-5)
+
+
+# (b, s, h, kvh, hd, block, causal, dtype): lengths that divide the Pallas
+# kernel's block, GQA and MHA, causal and not (tests/test_kernels.py:55-74)
+FLASH_KERNEL_CASES = [
+    (1, 128, 4, 2, 64, 64, True, "float32"),
+    (2, 128, 2, 2, 32, 128, False, "float32"),
+    (1, 256, 6, 3, 64, 128, True, "bfloat16"),
+    (2, 64, 4, 1, 128, 64, False, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("b,s,h,kvh,hd,blk,causal,dtype", FLASH_KERNEL_CASES)
+def test_flash_attention_matches_jax_kernel(b, s, h, kvh, hd, blk, causal, dtype):
+    (qj, qt), (kj, kt), (vj, vt) = _flash_inputs(s + hd, b, s, s, h, kvh, hd, dtype)
+    want = jax_flash_attention_gqa(qj, kj, vj, causal=causal, block_q=blk, block_kv=blk,
+                                   interpret=True)
+    got = ops.flash_attention(qt, kt, vt, causal=causal)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    np.testing.assert_allclose(_np(got), _np(want), **_flash_tols(dtype))
+
+
+# ragged lengths, which the Pallas kernel does not take: held to the model's
+# blockwise attention, whose causal mask is also top-left aligned
+FLASH_RAGGED_CASES = [
+    (1, 77, 77, 9, 3, 64, True, "float32"),
+    (2, 45, 45, 4, 4, 32, False, "float32"),
+    (1, 20, 50, 6, 2, 64, True, "float32"),
+    (2, 130, 130, 9, 3, 64, True, "bfloat16"),
+    (1, 33, 70, 4, 2, 128, False, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("b,sq,skv,h,kvh,hd,causal,dtype", FLASH_RAGGED_CASES)
+def test_flash_attention_ragged_matches_jax_model_attention(b, sq, skv, h, kvh, hd, causal,
+                                                            dtype):
+    (qj, qt), (kj, kt), (vj, vt) = _flash_inputs(sq * skv, b, sq, skv, h, kvh, hd, dtype)
+    want = jax_model_flash_attention(qj, kj, vj, causal=causal, block_kv=32)
+    got = flash_attention(qt, kt, vt, causal=causal)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    np.testing.assert_allclose(_np(got), _np(want), **_flash_tols(dtype))
+
+
+def test_flash_attention_on_cpu_is_the_plain_version_and_checks_shapes():
+    (_, q), (_, k), (_, v) = _flash_inputs(0, 1, 9, 9, 4, 2, 32, "float32")
+    before = flash_attention.launches
+    for backend in (None, "ref"):
+        assert torch.equal(ops.flash_attention(q, k, v, backend=backend),
+                           ref.flash_attention_ref(q, k, v))
+    assert flash_attention.launches == before
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        ops.flash_attention(q, k, v, backend="cuda")
+    with pytest.raises(ValueError, match="does not serve"):
+        kv3 = k[:, :, :1].expand(1, 9, 3, 32)  # 4 query heads do not group onto 3
+        flash_attention(q, kv3, kv3)
+    with pytest.raises(ValueError, match="empty"):
+        flash_attention(q[:, :0], k, v)
