@@ -3,12 +3,12 @@
 
     python3 chip_smoke.py        # from the repository root; one CUDA card, nvcc
 
-Two paths: the compiled VGG-16 executor (phases 3-5) and serving smollm-135m
-at its full published widths (phases 3, 6 and 7). Phases, each printing JSON
-lines:
+Three paths: the compiled VGG-16 executor (phases 3-5), serving smollm-135m
+(phases 3, 6 and 7) and serving xlstm-350m (phases 3, 8 and 9), both at their
+full published widths. Phases, each printing JSON lines:
 
 1. card      — the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build     — the three CUDA kernels built from src/repro_torch/csrc/*.cu for
+2. build     — the four CUDA kernels built from src/repro_torch/csrc/*.cu for
                sm_90a, one nvcc each, started together: seconds taken and the
                ptxas -v report;
 3. kernels   — each kernel against its plain PyTorch version at every shape the
@@ -16,9 +16,12 @@ lines:
                com_matmul, the 13 VGG-16 per-image convolutions for conv2d_com,
                smollm's batch-1 prefill attention at S = 128, 517, 1024, 2048 and
                at every prompt length the serve phase prefills, for
-               flash_attention) plus the epilogue, stride-2, 5x5, bf16,
-               non-causal and head_dim-128 cases: errors, kernel, plain and
-               library times (CUDA events), and the bound;
+               flash_attention; xlstm-350m's batch-1 prefill recurrence
+               (1, S, 4, 1024) with 4 heads of 256 at S = 128, 517, 1024 and at
+               every prompt length the xlstm serve phase prefills, for
+               slstm_fused) plus the epilogue, stride-2, 5x5, bf16,
+               non-causal, head_dim-128, B = 2 and S = 1 cases: errors, kernel,
+               plain and library times (CUDA events), and the bound;
 4. e2e       — compile_program(vgg16_imagenet()), random_weights(seed=0), 8 images
                from numpy.random.default_rng(1): the executor's "cuda" backend
                held against its float64 "reference" backend on the card, events
@@ -38,7 +41,21 @@ lines:
                last-token logits of every request's prefill against the same
                model with the plain attention, in float32 and in bfloat16;
 7. profile-serve — a torch.profiler window over one prefill and one decode step;
-8. the kernels line, then the card line, then the result line.
+8. serve-xlstm — xlstm-350m (24 layers as 12 [mLSTM, sLSTM] pairs, d_model
+               1024, 4 heads of 256, vocab 50304, untied), bf16, weights drawn
+               from seed 0, the same 16-request wave as phase 6: the same
+               numbers, slstm_fused launches (12 per prefill), the tokens
+               against generate_sequential; then, on four of the prompts (the
+               shortest, the longest, two between: the plain recurrence is a
+               loop of ~20 launches a step), the last-token prefill logits
+               against the same model with the plain recurrence
+               (CallConfig.kernel_backend="ref") in float32, every sLSTM layer
+               of those prefills against the plain recurrence on its own
+               inputs in float32 and bfloat16, and the bfloat16 logits beside
+               the plain version's own rounding noise (reported, not gated:
+               see logits_xlstm);
+9. profile-serve — the same two windows for xlstm-350m;
+10. the seconds of each phase, the kernels line, the card line, the result line.
 
 Any failed check exits non-zero before the result line is printed. Finding no
 card is a failure. Tolerances: float32 results within 2e-5 of the reference's
@@ -46,10 +63,16 @@ largest magnitude, bfloat16 within 2e-2 (tests/test_kernels.py:18-19 and
 tests/test_executor.py:87 of the JAX package); flash_attention's bfloat16
 output also element by element within one bfloat16 rounding (2^-7 of the
 element) plus the float32 tolerance, since it and its plain version each round
-one f32 result once.
+one f32 result once. slstm_fused and the xlstm prefill logits in float32: 2e-4
+of the largest magnitude, the reference's own tolerance for the recurrence
+(tests/test_kernels.py:142), in place of 2e-5; slstm_fused's bfloat16 h also
+element by element within one rounding plus 2e-4 of the largest magnitude,
+and its final state (float32) within 2e-4, both at the kernel checks' inputs
+and at every sLSTM layer of the compared xlstm prefills.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import statistics
@@ -73,7 +96,8 @@ from repro_torch.kernels.com_matmul import com_matmul  # noqa: E402
 from repro_torch.kernels.conv2d_com import conv2d_com  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
-    com_matmul_ref, conv2d_com_ref, flash_attention_ref)
+    com_matmul_ref, conv2d_com_ref, flash_attention_ref, slstm_ref)
+from repro_torch.kernels.slstm import slstm_fused  # noqa: E402
 from repro_torch.models.transformer import CallConfig, build_model  # noqa: E402
 from repro_torch.serve.engine import Engine, Request  # noqa: E402
 
@@ -84,8 +108,10 @@ PEAK_BYTES = 3.35e12
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 BF16_ULP = 2.0 ** -7  # a bfloat16 value's spacing, relative to the value, at most
 BATCH = 8
-# the serve phase: smollm-135m, 16 requests, 8 slots
+# the serve phases: smollm-135m and xlstm-350m, 16 requests, 8 slots
 SERVE_ARCH, N_REQUESTS, MAX_NEW, SLOTS, MAX_SEQ = "smollm-135m", 16, 64, 8, 2048
+XLSTM_ARCH = "xlstm-350m"
+SLSTM_TOL = 2e-4  # float32 tolerance of the recurrence (tests/test_kernels.py:142)
 
 
 def emit(obj) -> None:
@@ -121,30 +147,33 @@ def bound(n_bytes: float, n_ops: float, dtype) -> tuple:
 
 
 def compare(name, shape, dtype, got, want, kernel_ms, plain_ms, library_ms, t_parts, by,
-            one_rounding=False):
-    """Check ``got`` against ``want`` within TOL[dtype] of max|want|. With
-    ``one_rounding`` (a kernel whose plain version computes in f32 and rounds
-    once to bfloat16, as the kernel does) each bfloat16 element is also held
-    within one rounding of its own value: |got - want| <= 2^-7 |want| plus the
-    f32 tolerance, a limit a dropped or doubled term of a sum cannot hide in."""
+            one_rounding=False, f32_tol=TOL[torch.float32], extra=None):
+    """Check ``got`` against ``want`` within ``f32_tol`` (float32) or
+    TOL[bfloat16] of max|want|. With ``one_rounding`` (a kernel whose plain
+    version computes in f32 and rounds once to bfloat16, as the kernel does)
+    each bfloat16 element is also held within one rounding of its own value:
+    |got - want| <= 2^-7 |want| plus ``f32_tol`` of max|want|, a limit a
+    dropped or doubled term of a sum cannot hide in. ``extra`` is added to
+    the line."""
+    tol = f32_tol if dtype == torch.float32 else TOL[dtype]
     diff = (got.double() - want.double()).abs()
     err = diff.max().item()
     scale = want.double().abs().max().item()
     line = {
         "kernel": name, "shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
-        "max_abs_err": err, "max_rel_err": err / max(scale, 1e-30), "tol": TOL[dtype],
+        "max_abs_err": err, "max_rel_err": err / max(scale, 1e-30), "tol": tol,
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": max(t_parts), "bound_by": by,
+        "bound_ms": max(t_parts), "bound_by": by, **(extra or {}),
     }
     per_element = one_rounding and dtype == torch.bfloat16
     if per_element:
-        limit = BF16_ULP * want.double().abs() + TOL[torch.float32] * scale
+        limit = BF16_ULP * want.double().abs() + f32_tol * scale
         line["max_err_over_one_rounding"] = (diff / limit).max().item()
     emit(line)
     if not torch.isfinite(got).all().item():
         fail(f"{name} {shape}: non-finite output")
-    if scale == 0.0 or err > TOL[dtype] * scale:
-        fail(f"{name} {shape} {dtype}: max_abs_err {err} > {TOL[dtype]} * {scale}")
+    if scale == 0.0 or err > tol * scale:
+        fail(f"{name} {shape} {dtype}: max_abs_err {err} > {tol} * {scale}")
     if per_element and line["max_err_over_one_rounding"] > 1.0:
         fail(f"{name} {shape} {dtype}: an element is {line['max_err_over_one_rounding']} times "
              f"one bfloat16 rounding of the plain version's away from it")
@@ -223,6 +252,39 @@ def check_flash(gen, S, dtype=torch.bfloat16, causal=True, H=9, KVH=3, hd=64, B=
         cuda_ms(lambda: sdpa(q, k, v, causal)), t_parts, by, one_rounding=True)
 
 
+def check_slstm(gen, S, dtype=torch.bfloat16, B=1, H=4, hd=256):
+    """slstm_fused against slstm_ref on gate pre-activations of unit scale
+    and the reference's R ~ N(0, 1/hd): h and the final (c, n, h, m). The
+    plain version is a loop of about 20 launches a step: timed once, on the
+    call that gives the comparison."""
+    D = H * hd
+    gx = randn((B, S, 4, D), gen, dtype)
+    rg = randn((4, H, hd, hd), gen, torch.float32, hd ** -0.5)
+    got, state = slstm_fused(gx, rg, H)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    want, want_state = slstm_ref(gx, rg, H)
+    end.record()
+    torch.cuda.synchronize()
+    state_err = {}
+    for k, g, w in zip("cnhm", state, want_state):
+        scale = w.double().abs().max().item()
+        state_err[k] = (g.double() - w.double()).abs().max().item() / max(scale, 1e-30)
+    es = gx.element_size()
+    # gx read once, h and the final state written once, R read once
+    n_bytes = es * (B * S * 4 * D + B * S * D) + 4 * (rg.numel() + 4 * B * H * hd)
+    t_parts, by = bound(n_bytes, 2.0 * 4 * hd * hd * H * S * B, torch.float32)
+    line = compare(
+        "slstm_fused", (B, S, 4, D), dtype, got, want,
+        cuda_ms(lambda: slstm_fused(gx, rg, H)), start.elapsed_time(end), None, t_parts, by,
+        one_rounding=True, f32_tol=SLSTM_TOL, extra={"heads": H, "state_max_rel_err": state_err})
+    if not all(torch.isfinite(t).all().item() for t in state) or max(state_err.values()) > SLSTM_TOL:
+        fail(f"slstm_fused {(B, S, 4, D)} {dtype}: final state off by {state_err} of max|plain| "
+             f"(limit {SLSTM_TOL})")
+    return line
+
+
 def summary(lines, repeat: int = 1) -> dict:
     """A kernel's numbers over one run of its path: times summed over the
     path's shapes (``repeat`` runs of each), errors the worst."""
@@ -236,7 +298,8 @@ def summary(lines, repeat: int = 1) -> dict:
         "plain_ms": repeat * sum(ln["plain_ms"] for ln in lines),
         "bound_ms": repeat * sum(ln["bound_ms"] for ln in lines),
         "bound_by": "bytes" if parts[0] >= parts[1] else "operations",
-        "library_ms": repeat * sum(ln["library_ms"] for ln in lines),
+        "library_ms": None if any(ln["library_ms"] is None for ln in lines)
+        else repeat * sum(ln["library_ms"] for ln in lines),
     }
 
 
@@ -326,9 +389,128 @@ def serve_wave(vocab: int):
                     max_new_tokens=MAX_NEW) for n in lengths]
 
 
-def serve(model, cfg) -> tuple:
-    """Serve the wave through Engine.generate and check it; returns the
-    phase's line and the flash_attention launches of the run."""
+def prefill_logits(model, prompt, dtype, **changes):
+    """The last-token logits of one batch-1 prefill of ``prompt`` with the
+    model's CallConfig in ``dtype`` and ``changes``."""
+    cc = model.cc
+    model.cc = dataclasses.replace(cc, compute_dtype=dtype, cache_dtype=dtype, **changes)
+    out, _ = model.prefill(prompt[None, :], model.init_cache(1, len(prompt)))
+    model.cc = cc
+    return out
+
+
+def rel_err(got, want) -> float:
+    """max|got - want| / max|want|, after a finiteness check of ``got``."""
+    scale = want.double().abs().max().item()
+    if not torch.isfinite(got).all().item() or scale == 0.0:
+        fail("non-finite prefill logits, or plain ones all zero")
+    return (got.double() - want.double()).abs().max().item() / max(scale, 1e-30)
+
+
+def logits_kernel_vs_plain(f32_tol: float):
+    """The serve phase's logits check: the last-token logits of every
+    request's prefill with the kernel (CallConfig.kernel_backend None: the
+    card's tensors launch it) against the plain version ("ref"), in float32,
+    where the two differ by f32 rounding alone (limit ``f32_tol``), and in
+    the served bfloat16 (limit TOL[bf16])."""
+    def check(model, reqs) -> dict:
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = f32_tol if dtype == torch.float32 else TOL[dtype]
+            name = str(dtype).replace("torch.", "")
+            errs[name] = [rel_err(prefill_logits(model, r.prompt, dtype),
+                                  prefill_logits(model, r.prompt, dtype, kernel_backend="ref"))
+                          for r in reqs]
+            for r, e in zip(reqs, errs[name]):
+                if e > tol:
+                    fail(f"{name} prefill logits with the kernel, prompt of {len(r.prompt)}: "
+                         f"{e} of max|plain| > {tol}")
+        return {"prefill_logits_max_rel_err": errs,
+                "prefill_logits_tol": {"float32": f32_tol, "bfloat16": TOL[torch.bfloat16]},
+                "prefill_logits_headroom": {k: (f32_tol if k == "float32" else
+                                                TOL[torch.bfloat16]) / max(max(v), 1e-30)
+                                            for k, v in errs.items()}}
+    return check
+
+
+def slstm_held(kernel_path, worst: dict):
+    """``ops.slstm`` that also holds each kernel-path call against slstm_ref
+    on the same inputs (real model activations): h element by element within
+    one bfloat16 rounding plus SLSTM_TOL of max|plain| (float32: SLSTM_TOL of
+    max|plain|), the final state within SLSTM_TOL; the worst ratio of error
+    to limit goes to ``worst[dtype]``."""
+    def run(gx, rg, num_heads, *, backend=None):
+        h, state = kernel_path(gx, rg, num_heads, backend=backend)
+        if backend is None:
+            want, want_state = slstm_ref(gx, rg, num_heads)
+            diff, scale = (h.double() - want.double()).abs(), want.double().abs().max()
+            limit = SLSTM_TOL * scale + (BF16_ULP * want.double().abs()
+                                         if gx.dtype == torch.bfloat16 else 0.0)
+            ratios = [(diff / limit).max().item()] + [
+                ((g.double() - w.double()).abs().max() / (SLSTM_TOL * w.double().abs().max()))
+                .item() for g, w in zip(state, want_state)]
+            name = str(gx.dtype).replace("torch.", "")
+            worst[name] = max([worst.get(name, 0.0)] + ratios)
+        return h, state
+    return run
+
+
+def slstm_reordered(gx, rg, num_heads, *, backend=None):
+    """slstm_ref on the hidden units of each head in reverse order, the
+    result put back: the same arithmetic with every recurrent sum taken in
+    another order (the plain version's own rounding noise)."""
+    hd = gx.shape[-1] // num_heads
+    flip = lambda t: t.reshape(*t.shape[:-1], num_heads, hd).flip(-1).reshape(t.shape)  # noqa: E731
+    h, state = slstm_ref(flip(gx).contiguous(), rg.flip(-1).flip(-2).contiguous(), num_heads)
+    return flip(h), tuple(t.flip(-1) for t in state)
+
+
+def logits_xlstm(model, reqs) -> dict:
+    """xlstm-350m's logits check, on four prompts (the shortest, the longest
+    and two between: the plain recurrence is a loop of ~20 launches a step).
+    Float32: kernel path against the plain recurrence within SLSTM_TOL,
+    decisive. Every sLSTM layer of those kernel-path prefills, in both
+    dtypes, is held against the plain recurrence on its own inputs
+    (slstm_held). Bfloat16 logits are reported beside the plain version's
+    own noise, the plain path against slstm_reordered: 24 layers of bf16
+    rounding make any two orders of the f32 sums disagree by several percent
+    of max|logit|, so no bf16 logits limit separates a fault from that."""
+    order = sorted(range(len(reqs)), key=lambda i: len(reqs[i].prompt))
+    picks = [reqs[order[i]] for i in (0, len(order) // 3, 2 * len(order) // 3, len(order) - 1)]
+    kernel_path, worst = ops.slstm, {}
+    errs, noise = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        errs[name], noise[name] = [], []
+        for r in picks:
+            ops.slstm = slstm_held(kernel_path, worst)
+            got = prefill_logits(model, r.prompt, dtype)
+            ops.slstm = kernel_path
+            plain = prefill_logits(model, r.prompt, dtype, kernel_backend="ref")
+            ops.slstm = slstm_reordered
+            reordered = prefill_logits(model, r.prompt, dtype, kernel_backend="ref")
+            ops.slstm = kernel_path
+            errs[name].append(rel_err(got, plain))
+            noise[name].append(rel_err(reordered, plain))
+    if max(errs["float32"]) > SLSTM_TOL:
+        fail(f"float32 prefill logits with the kernel: {errs['float32']} of max|plain| "
+             f"> {SLSTM_TOL}")
+    line = {"prefill_logits_prompts": [len(r.prompt) for r in picks],
+            "prefill_logits_max_rel_err": errs, "plain_reordered_logits_max_rel_err": noise,
+            "prefill_logits_tol": {"float32": SLSTM_TOL, "bfloat16": "reported, not gated"},
+            "prefill_logits_headroom": {"float32": SLSTM_TOL / max(max(errs["float32"]), 1e-30)},
+            "slstm_layers_worst_err_over_limit": worst}
+    if max(worst.values()) > 1.0:
+        fail(f"an sLSTM layer of a served prefill is off its plain version: {worst} x the limit")
+    return line
+
+
+def serve(model, cfg, kernel, per_prefill: int, logits_check, phase: str) -> tuple:
+    """Serve the wave through Engine.generate and check it: ``per_prefill``
+    launches of ``kernel`` a prefill, greedy tokens equal to
+    generate_sequential's, and ``logits_check(model, reqs)``, whose fields
+    join the phase's line. Returns the line, the kernel's launches in the
+    run and the engine."""
     eng = Engine(model, batch=SLOTS, max_seq=MAX_SEQ)
     eng.generate([Request(prompt=np.arange(1, 200, dtype=np.int32), max_new_tokens=4)
                   for _ in range(2)])  # warm-up: the pool, the libraries' first calls
@@ -347,13 +529,13 @@ def serve(model, cfg) -> tuple:
     model.prefill = timed("prefill", model.prefill)
     model.decode_step = timed("decode_step", model.decode_step)
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0
+    kernel.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng.generate(reqs, seed=0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = flash_attention.launches
+    launches = kernel.launches
     peak = torch.cuda.max_memory_allocated()
     del model.prefill, model.decode_step  # back to the class's methods
     stats = eng.last_stats
@@ -366,46 +548,24 @@ def serve(model, cfg) -> tuple:
     eng.generate_sequential(oracle, seed=0)
     identical = [r.out_tokens for r in reqs] == [r.out_tokens for r in oracle]
 
-    # the last-token logits of every request's prefill with the kernel (None:
-    # the card's tensors launch it) against the plain attention, in float32,
-    # where the two differ by f32 rounding alone, and in the served bfloat16
-    cc = model.cc
-    logit_errs = {"float32": [], "bfloat16": []}
-    for dtype in (torch.float32, torch.bfloat16):
-        for r in reqs:
-            out = {}
-            for backend in (None, "ref"):
-                model.cc = CallConfig(compute_dtype=dtype, cache_dtype=dtype,
-                                      block_kv=cc.block_kv, attn_backend=backend)
-                out[backend], _ = model.prefill(r.prompt[None, :],
-                                                model.init_cache(1, len(r.prompt)))
-            model.cc = cc
-            err = (out[None].double() - out["ref"].double()).abs().max().item()
-            scale = out["ref"].double().abs().max().item()
-            name = str(dtype).replace("torch.", "")
-            logit_errs[name].append(err / max(scale, 1e-30))
-            if not torch.isfinite(out[None]).all().item() or scale == 0.0 \
-                    or err > TOL[dtype] * scale:
-                fail(f"{name} prefill logits with the kernel, prompt of {len(r.prompt)}: "
-                     f"max_abs_err {err} > {TOL[dtype]} * {scale}")
+    logits = logits_check(model, reqs)
 
     gen_tokens = stats["generated_tokens"]
-    line = {"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
+    line = {"phase": phase, "arch": cfg.name, "layers": cfg.num_layers,
             "d_model": cfg.d_model, "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
-            "vocab": cfg.vocab_size, "dtype": str(cc.compute_dtype).replace("torch.", ""),
+            "vocab": cfg.vocab_size, "dtype": str(model.cc.compute_dtype).replace("torch.", ""),
             "requests": len(reqs), "slots": SLOTS, "max_seq": MAX_SEQ,
             "prompt_tokens": n_prompt, "generated_tokens": gen_tokens, "wall_s": wall,
             "generated_tokens_s": gen_tokens / wall, "prefill_tokens_s": n_prompt / prefill_s,
             "prefill_s": prefill_s, "median_ttft_ms": statistics.median(ttft) * 1e3,
             "median_decode_step_ms": statistics.median(steps), "decode_steps": len(steps),
             "occupancy": stats["occupancy"], "prefills": stats["prefills"],
-            "peak_mem_gib": peak / 2**30, "flash_attention_launches": launches,
-            "greedy_identical_to_sequential": identical,
-            "prefill_logits_max_rel_err": logit_errs}
+            "peak_mem_gib": peak / 2**30, f"{kernel.__name__}_launches": launches,
+            "greedy_identical_to_sequential": identical, **logits}
     emit(line)
-    if launches != cfg.num_layers * stats["prefills"]:
-        fail(f"serving launched flash_attention {launches} times for {stats['prefills']} "
-             f"prefills of {cfg.num_layers} layers")
+    if launches != per_prefill * stats["prefills"]:
+        fail(f"serving launched {kernel.__name__} {launches} times for {stats['prefills']} "
+             f"prefills, expected {per_prefill} each")
     if stats["prefills"] != len(reqs) or gen_tokens != len(reqs) * MAX_NEW or not all(
             r.done and len(r.out_tokens) == MAX_NEW
             and all(0 <= t < cfg.vocab_size for t in r.out_tokens) for r in reqs):
@@ -415,6 +575,21 @@ def serve(model, cfg) -> tuple:
     return line, launches, eng
 
 
+def profile_serve(model, eng, cfg) -> None:
+    """Where a prefill's (the wave's first prompt) and an 8-slot decode
+    step's device time goes."""
+    prompt = serve_wave(cfg.vocab_size)[0].prompt[None, :]
+    one = model.init_cache(1, MAX_SEQ)
+    emit({"phase": "profile-serve", "arch": cfg.name, "what": "prefill",
+          "prompt_len": prompt.shape[1],
+          **profile_window(lambda: model.prefill(prompt, one), "a prefill")})
+    tok = torch.ones((SLOTS, 1), dtype=torch.long, device="cuda")
+    pos = torch.full((SLOTS,), 1000, dtype=torch.long, device="cuda")
+    emit({"phase": "profile-serve", "arch": cfg.name, "what": "decode_step", "slots": SLOTS,
+          "pos": 1000, **profile_window(lambda: model.decode_step(tok, eng.slots.cache, pos),
+                                        "a decode step")})
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
@@ -422,6 +597,14 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.set_grad_enabled(False)
     torch.cuda.set_device(0)
+
+    seconds, t_phase = {}, time.perf_counter()
+
+    def phase_done(name):
+        nonlocal t_phase
+        now = time.perf_counter()
+        seconds[name] = now - t_phase
+        t_phase = now
 
     # 1. the card
     smi = subprocess.run(
@@ -439,6 +622,7 @@ def main() -> None:
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "kernels": list(names),
           "flags": list(_build.NVCC_FLAGS),
           "ptxas": {k: v for n in names for k, v in ptxas_summary(_build.ptxas_log[n]).items()}})
+    phase_done("card+build")
 
     # 3. each kernel against its plain version at the main path's shapes
     program = compile_program(vgg16_imagenet())
@@ -468,6 +652,16 @@ def main() -> None:
     flash_lines = [check_flash(gen, len(r.prompt), hd=serve_cfg.head_dim, H=serve_cfg.num_heads,
                                KVH=serve_cfg.num_kv_heads)
                    for r in serve_wave(serve_cfg.vocab_size)]
+    xcfg = get_config(XLSTM_ARCH)
+    xlstm_shape = dict(H=xcfg.num_heads, hd=xcfg.head_dim)
+    for S in (128, 517, 1024):  # xlstm-350m's batch-1 prefill recurrence
+        for dtype in (torch.bfloat16, torch.float32):
+            check_slstm(gen, S, dtype, **xlstm_shape)
+    check_slstm(gen, 77, torch.float32, B=2, **xlstm_shape)
+    check_slstm(gen, 1, torch.bfloat16, **xlstm_shape)
+    slstm_lines = [check_slstm(gen, len(r.prompt), **xlstm_shape)
+                   for r in serve_wave(xcfg.vocab_size)]
+    phase_done("kernels")
 
     # 4. end to end: the executor's kernel path against its float64 reference
     weights = random_weights(program, seed=0)
@@ -520,27 +714,39 @@ def main() -> None:
         fail(f"direct-conv logits max_abs_err {derr} > {TOL[torch.float32]} * {scale}")
     if direct_launches != {"com_matmul": len(layers) - n_conv, "conv2d_com": BATCH * n_conv}:
         fail(f"the direct-conv path launched {direct_launches}")
+    phase_done("e2e")
 
     # 5. where the forward's device time goes
     emit({"phase": "profile", "workload": program.workload.name, "batch": BATCH,
           **profile_window(lambda: ex.run(images), "the forward")})
+    del ex, imgs
+    phase_done("profile")
 
     # 6. serving smollm-135m at full width through the flash kernel
     model = build_model(serve_cfg, CallConfig(), device="cuda", seed=0)
-    _, flash_launches, eng = serve(model, serve_cfg)
+    _, flash_launches, eng = serve(model, serve_cfg, flash_attention, serve_cfg.num_layers,
+                                   logits_kernel_vs_plain(TOL[torch.float32]),
+                                   "serve")
+    phase_done("serve")
 
     # 7. where a prefill's and a decode step's device time goes
-    prompt = serve_wave(serve_cfg.vocab_size)[0].prompt[None, :]
-    one = model.init_cache(1, MAX_SEQ)
-    emit({"phase": "profile-serve", "what": "prefill", "prompt_len": prompt.shape[1],
-          **profile_window(lambda: model.prefill(prompt, one), "a prefill")})
-    tok = torch.ones((SLOTS, 1), dtype=torch.long, device="cuda")
-    pos = torch.full((SLOTS,), 1000, dtype=torch.long, device="cuda")
-    emit({"phase": "profile-serve", "what": "decode_step", "slots": SLOTS, "pos": 1000,
-          **profile_window(lambda: model.decode_step(tok, eng.slots.cache, pos),
-                           "a decode step")})
+    profile_serve(model, eng, serve_cfg)
+    del model, eng
+    torch.cuda.empty_cache()
+    phase_done("profile-serve")
 
-    # 8. the kernels line, the card, the result
+    # 8. serving xlstm-350m at full width through the sLSTM kernel
+    xmodel = build_model(xcfg, CallConfig(), device="cuda", seed=0)
+    _, slstm_launches, xeng = serve(xmodel, xcfg, slstm_fused, xcfg.num_layers // 2,
+                                    logits_xlstm, "serve-xlstm")
+    phase_done("serve-xlstm")
+
+    # 9. the same for xlstm-350m
+    profile_serve(xmodel, xeng, xcfg)
+    phase_done("profile-serve-xlstm")
+
+    # 10. the phases' seconds, the kernels line, the card, the result
+    emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
     emit({"kernels": [
         {"name": "com_matmul", "route": "cuda", "source": "src/repro_torch/csrc/com_matmul.cu",
          "replaces": "src/repro/kernels/com_matmul.py:69",
@@ -552,6 +758,9 @@ def main() -> None:
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:64",
          "launches": flash_launches, **summary(flash_lines, serve_cfg.num_layers)},
+        {"name": "slstm_fused", "route": "cuda", "source": "src/repro_torch/csrc/slstm.cu",
+         "replaces": "src/repro/kernels/slstm.py:70",
+         "launches": slstm_launches, **summary(slstm_lines, xcfg.num_layers // 2)},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -103,22 +103,25 @@ def model_params_to_port(cfg, params: Mapping[str, Any], *, cc=None, device=None
     ``Model.init`` parameters.
 
     ``params`` is the JAX pytree (nested dicts) with numpy (or array-like)
-    leaves; the leaves under ``blocks`` are stacked on a leading layer axis
-    and go to ``blocks.<l>`` of the port's model. Every parameter of the
-    port's model must be given, with its exact shape.
+    leaves; the leaves under ``blocks`` are stacked on a leading axis, one
+    entry per block of the port's model (a layer for dense, an
+    ``[mLSTM, sLSTM]`` pair, ``num_layers // 2`` of them, for ssm), and go
+    to ``blocks.<l>``. Every parameter of the port's model must be given,
+    with its exact shape.
     """
     from repro_torch.models.transformer import Model
 
     model = Model(cfg, cc, device=device)
+    n_blocks = len(model.blocks)
     state = {}
     for name, leaf in _leaves(params):
         a = np.asarray(leaf, dtype=np.float32)
         if name.startswith("blocks."):
             rest = name[len("blocks."):]
-            if a.shape[0] != cfg.num_layers:
-                raise ValueError(f"{name} stacks {a.shape[0]} layers, the config has "
-                                 f"{cfg.num_layers}")
-            for l in range(cfg.num_layers):
+            if a.shape[0] != n_blocks:
+                raise ValueError(f"{name} stacks {a.shape[0]} blocks, the config has "
+                                 f"{n_blocks}")
+            for l in range(n_blocks):
                 state[f"blocks.{l}.{rest}"] = torch.tensor(a[l])
         else:
             state[name] = torch.tensor(a)

@@ -8,8 +8,8 @@ Counterpart of ``repro.kernels.ops``. ``backend`` selects the path:
   card, so a run that asked for the kernel never quietly runs without it;
 * ``"ref"`` — the plain PyTorch version, on the tensor's own device.
 
-Ported: ``com_matmul``, ``conv2d_com`` and ``flash_attention``. The
-fourth Pallas kernel, ``slstm_fused``, is not ported yet.
+Every Pallas kernel of the JAX package is ported: ``com_matmul``,
+``conv2d_com``, ``flash_attention`` and ``slstm_fused`` (``slstm``).
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.com_matmul import com_matmul as _com_matmul
 from repro_torch.kernels.conv2d_com import conv2d_com as _conv2d_com
 from repro_torch.kernels.flash_attention import flash_attention as _flash_attention
+from repro_torch.kernels.slstm import slstm_fused as _slstm_fused
 
 BACKENDS = ("cuda", "ref")
 
@@ -50,3 +51,12 @@ def flash_attention(q, k, v, *, causal=True, backend=None, block_kv=64):
     if _resolve(q, backend) == "ref":
         return _ref.flash_attention_ref(q, k, v, causal=causal)
     return _flash_attention(q, k, v, causal=causal, block_kv=block_kv)
+
+
+def slstm(gx, rg, num_heads, *, backend=None):
+    """gx: (B, S, 4, D) gate pre-activations; rg: (4, H, hd, hd) -> h (B, S, D)
+    in ``gx.dtype`` and the final float32 state ``(c, n, h, m)``, each
+    (B, H, hd)."""
+    if _resolve(gx, backend) == "ref":
+        return _ref.slstm_ref(gx, rg, num_heads)
+    return _slstm_fused(gx, rg, num_heads)

@@ -9,7 +9,7 @@ kernels against them on the card. GELU is the tanh form, as
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -84,3 +84,49 @@ def conv2d_com_ref(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1, padding
             out = out + patch @ w[kr, kc].float()
     out = _epilogue(out, None, activation, None)
     return out.to(x.dtype)
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``log(sigmoid(x))`` in the form ``jax.nn.log_sigmoid`` takes,
+    ``min(x, 0) - log1p(exp(-|x|))``: finite for every finite ``x``. (The
+    Pallas sLSTM kernel writes ``-log1p(exp(-x))``, which overflows to
+    ``-inf`` for ``x < -88`` in float32; the two agree to f32 rounding
+    wherever that form is finite.)"""
+    return torch.minimum(x, torch.zeros_like(x)) - torch.log1p(torch.exp(-x.abs()))
+
+
+def slstm_ref(gx: torch.Tensor, rg: torch.Tensor, num_heads: int
+              ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """The sLSTM recurrence over gate pre-activations, one step at a time.
+
+    gx: ``(B, S, 4, D)`` pre-activations of the gates ``[i, f, z, o]`` (the
+    input side ``x @ wg + bg``); rg: ``(4, H, hd, hd)`` recurrent weights,
+    block-diagonal per head (``D = H * hd``). Returns ``h`` ``(B, S, D)`` in
+    ``gx.dtype`` and the final state ``(c, n, h, m)``, each float32
+    ``(B, H, hd)``. The cell is ``repro.models.xlstm._slstm_cell``: float32
+    arithmetic, exponential gating stabilized by the running max ``m``
+    (which starts at ``-1e30``; ``c``, ``n`` and ``h`` start at zero) and
+    ``n`` clamped at ``1e-6``; ``h`` is rounded to ``gx.dtype`` only where
+    it is written out.
+    """
+    B, S, four, D = gx.shape
+    hd = D // num_heads
+    r = rg.float()
+    c = torch.zeros((B, num_heads, hd), dtype=torch.float32, device=gx.device)
+    n, h = torch.zeros_like(c), torch.zeros_like(c)
+    m = torch.full_like(c, -1e30)
+    out = torch.empty((B, S, D), dtype=gx.dtype, device=gx.device)
+    for t in range(S):
+        g = gx[:, t].float().reshape(B, 4, num_heads, hd)
+        g = g + torch.einsum("bhn,ghnm->bghm", h, r)
+        it, ft, zt, ot = g.unbind(1)
+        logf = log_sigmoid(ft)
+        m_new = torch.maximum(logf + m, it)
+        i = torch.exp(it - m_new)
+        f = torch.exp(logf + m - m_new)
+        c = f * c + i * torch.tanh(zt)
+        n = f * n + i
+        h = torch.sigmoid(ot) * c / torch.clamp(n, min=1e-6)
+        m = m_new
+        out[:, t] = h.reshape(B, D).to(gx.dtype)
+    return out, (c, n, h, m)

@@ -3,9 +3,11 @@ card by default.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m --reduced --device cpu
 
 The port's copy of ``repro.launch.serve``: the same flags, plus
-``--device``. Weights are random, drawn from ``--seed``.
+``--device``. Serves the ported families, dense and ssm (xlstm-350m).
+Weights are random, drawn from ``--seed``.
 """
 from __future__ import annotations
 

@@ -1,2 +1,3 @@
 """The port's language models (``repro.models`` counterparts): layers,
-attention and the model stack of the dense family."""
+attention, the xLSTM blocks and the model stack of the dense and ssm
+families."""

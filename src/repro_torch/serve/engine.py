@@ -7,7 +7,10 @@ preallocated KV cache (:class:`repro_torch.serve.kvcache.SlotCache`).
 Every generated token costs exactly one ``model.decode_step`` call that
 advances **all** active slots at once: per-slot sequence offsets ride in a
 ``(batch,)`` position vector, idle slots are parked at ``pos >= max_seq``
-(their KV writes are dropped and their outputs discarded). Finished
+(their KV writes are dropped and their outputs discarded; the recurrent
+state of an ssm model still advances on parked rows, which is harmless,
+because admission's prefill overwrites every state leaf of a slot before
+reuse, so nothing a parked row computes ever reaches a request). Finished
 sequences (EOS or length) retire between steps and their slots are
 refilled through the admission layer
 (:class:`repro_torch.serve.admission.AdmissionQueue`): refill = prefill of
@@ -16,10 +19,11 @@ the incoming prompt at batch 1 into the freed slot's cache rows.
 Where JAX donates the cache to a jitted step and gets a new one back, the
 port updates the cache in place: ``decode_step`` writes each active row's
 k/v into the pool, and admission prefills straight into a view of the
-slot's rows. Rows past the new prompt may still hold the previous
-occupant's values; they are never read unmasked, because a decode step at
-``pos`` writes row ``pos`` before it attends to rows ``<= pos``, and a
-masked row enters the softmax with weight exactly 0.
+slot's rows. Dense KV rows past the new prompt may still hold the
+previous occupant's values; they are never read unmasked, because a decode
+step at ``pos`` writes row ``pos`` before it attends to rows ``<= pos``,
+and a masked row enters the softmax with weight exactly 0. An ssm prefill
+starts from the zero state and overwrites the slot's state whole.
 
 Determinism contract (``tests/test_torch_serve.py``, ``chip_smoke.py``):
 
@@ -34,10 +38,10 @@ Determinism contract (``tests/test_torch_serve.py``, ``chip_smoke.py``):
   sampled tokens are held to the port's own oracle, not to the JAX
   package's.
 
-Only the dense family is ported, so only it can be served. The guards of
-the reference stay: multi-codebook audio needs ``(B, 1, K)`` token
-feedback, vlm prefill needs ``image_embeds``, and moe needs a drop-free
-expert capacity at the pool size.
+The dense and ssm (xlstm) families are ported, so they can be served. The
+guards of the reference stay: multi-codebook audio needs ``(B, 1, K)``
+token feedback, vlm prefill needs ``image_embeds``, and moe needs a
+drop-free expert capacity at the pool size.
 """
 from __future__ import annotations
 

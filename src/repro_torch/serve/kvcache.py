@@ -1,13 +1,14 @@
-"""Slot-indexed KV cache for the continuous-batching serve engine.
+"""Slot-indexed cache for the continuous-batching serve engine.
 
 The port's copy of the contiguous half of ``repro.serve.kvcache``; the
 paged cache waits for a later slice. One preallocated cache
 (``model.init_cache(batch, max_seq)``) backs a fixed pool of ``batch``
 decode *slots*; the serve engine advances every slot with a single
 ``decode_step`` per token. :class:`SlotCache` owns the cache plus the
-per-leaf batch-axis map (dense KV leaves are ``(L, B, S, KVH, hd)``: the
-slot axis is 1), discovered structurally by comparing ``init_cache(1)``
-with ``init_cache(2)`` shapes on the ``meta`` device.
+per-leaf batch-axis map (dense KV leaves are ``(L, B, S, KVH, hd)``, the
+ssm state leaves ``(NG, B, H, ...)``: the slot axis is 1 in both),
+discovered structurally by comparing ``init_cache(1)`` with
+``init_cache(2)`` shapes on the ``meta`` device.
 
 JAX's slot writers are jitted with donation; here every slot operation
 writes the pool's tensors in place:
@@ -15,7 +16,7 @@ writes the pool's tensors in place:
 * :meth:`SlotCache.view`        — a batch-1 view of one slot, which prefill
   fills in place (the admission path: no copy of the slot).
 * :meth:`SlotCache.write_prefill` — copy a batch-1 cache into one slot.
-* :meth:`SlotCache.reset_slot`  — scrub a slot back to zeros.
+* :meth:`SlotCache.reset_slot`  — scrub a slot back to the initial cache.
 * :meth:`SlotCache.read_slot`   — a batch-1 copy of one slot (tests).
 """
 from __future__ import annotations
@@ -60,6 +61,7 @@ class SlotCache:
     """
 
     def __init__(self, model, batch: int, max_seq: int):
+        self.model = model
         self.batch = batch
         self.max_seq = max_seq
         self.axes = batch_axes(model, max_seq)
@@ -79,12 +81,12 @@ class SlotCache:
                 dst.copy_(src)
 
     def reset_slot(self, slot: int) -> None:
-        """Scrub ``slot`` back to the initial (zero) cache state. Not needed
-        on the serve path: a slot's rows past its prompt are never read
-        unmasked (see :class:`repro_torch.serve.engine.Engine`)."""
-        for t, ax in zip(self.view(slot), self.axes):
-            if ax is not None:
-                t.zero_()
+        """Scrub ``slot`` back to the initial cache state (KV zeros, fresh
+        ssm state). Not needed on the serve path: admission's prefill
+        overwrites a slot's ssm state whole, and a slot's KV rows past its
+        prompt are never read unmasked (see
+        :class:`repro_torch.serve.engine.Engine`)."""
+        self.write_prefill(slot, self.model.init_cache(1, self.max_seq))
 
     def read_slot(self, slot: int) -> Cache:
         """``slot`` as a batch-1 copy (tests and introspection)."""

@@ -10,7 +10,10 @@ Each kernel is held against its plain PyTorch version on the same inputs,
 within 2e-5 (float32) or 2e-2 (bfloat16) of the plain result's largest
 magnitude (tests/test_kernels.py:18-19); the executor's logits are held
 against its float64 reference backend within 2e-5 · max|ref|
-(tests/test_executor.py:87). TF32 is off in the plain versions.
+(tests/test_executor.py:87). ``slstm_fused`` is held within 2e-4 · max|plain|
+(tests/test_kernels.py:142) in float32 and its final state, and each
+bfloat16 element of h within one bfloat16 rounding plus that. TF32 is off in
+the plain versions.
 """
 import dataclasses
 
@@ -27,6 +30,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.com_matmul import com_matmul
 from repro_torch.kernels.conv2d_com import conv2d_com
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.slstm import slstm_fused
 from repro_torch.models.transformer import CallConfig, build_model
 from repro_torch.serve.engine import Engine, Request
 
@@ -198,6 +202,72 @@ def test_greedy_batched_matches_sequential_on_the_card(cuda):
     flash_attention.launches = 0
     got = eng.generate(reqs, seed=0)
     assert flash_attention.launches == cfg.num_layers * len(reqs)
+    want = eng.generate_sequential(ref_reqs, seed=0)
+    assert [r.out_tokens for r in got] == [r.out_tokens for r in want]
+    assert all(len(r.out_tokens) == r.max_new_tokens for r in got)
+
+
+# (B, S, H, hd): ragged S, B = 2, the reduced test config's hd 32 and
+# xlstm-350m's hd 256, an hd that is no multiple of a warp
+SLSTM_CASES = [(1, 37, 4, 32), (2, 130, 4, 32), (1, 517, 4, 256), (2, 64, 4, 256),
+               (2, 19, 3, 40)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,hd", SLSTM_CASES)
+def test_slstm_fused_kernel_matches_plain_version(cuda, b, s, h, hd, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(s * hd + b)
+    gx = torch.randn((b, s, 4, h * hd), generator=gen, device=cuda).to(dtype)
+    rg = torch.randn((4, h, hd, hd), generator=gen, device=cuda) / hd ** 0.5
+    launches = slstm_fused.launches
+    got, state = slstm_fused(gx, rg, h)
+    torch.cuda.synchronize()
+    assert slstm_fused.launches == launches + 1
+    assert got.dtype == dtype and tuple(got.shape) == (b, s, h * hd)
+    want, want_state = ref.slstm_ref(gx, rg, h)
+    diff = (got.double() - want.double()).abs()
+    scale = want.double().abs().max()
+    assert torch.isfinite(got).all()
+    if dtype == torch.bfloat16:  # both round one f32 value a step
+        limit = 2.0 ** -7 * want.double().abs() + 2e-4 * scale
+        assert (diff <= limit).all(), (diff / limit).max().item()
+    else:
+        assert diff.max() <= 2e-4 * scale, (diff.max() / scale).item()
+    for g, w in zip(state, want_state):  # c, n, h, m: float32 whatever gx's type
+        assert g.dtype == torch.float32 and g.shape == (b, h, hd)
+        assert (g.double() - w.double()).abs().max() <= 2e-4 * w.double().abs().max()
+
+
+def test_slstm_routes_and_rejects(cuda):
+    gx = torch.randn((1, 8, 4, 64), device=cuda)
+    rg = torch.randn((4, 2, 32, 32), device=cuda)
+    before = slstm_fused.launches
+    ops.slstm(gx, rg, 2)
+    ops.slstm(gx, rg, 2, backend="ref")
+    assert slstm_fused.launches == before + 1
+    with pytest.raises(TypeError):
+        slstm_fused(gx, rg.bfloat16(), 2)
+    with pytest.raises(TypeError):
+        slstm_fused(gx.double(), rg, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        slstm_fused(torch.randn((1, 8, 4, 128), device=cuda)[..., :64], rg, 2)
+    with pytest.raises(ValueError, match="head_dim"):
+        slstm_fused(torch.randn((1, 2, 4, 2048), device=cuda),
+                    torch.randn((4, 1, 2048, 2048), device=cuda), 1)
+    assert slstm_fused.launches == before + 1
+
+
+def test_xlstm_greedy_batched_matches_sequential_on_the_card(cuda):
+    cfg = get_config("xlstm-350m").reduced()
+    model = build_model(cfg, CallConfig(), device=cuda, seed=0)
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt=rng.integers(1, cfg.vocab_size, size=n).astype(np.int32),
+                    max_new_tokens=m) for n, m in ((5, 6), (70, 3), (9, 8), (33, 5), (1, 4))]
+    ref_reqs = [Request(prompt=r.prompt.copy(), max_new_tokens=r.max_new_tokens) for r in reqs]
+    eng = Engine(model, batch=2, max_seq=96)
+    slstm_fused.launches = 0
+    got = eng.generate(reqs, seed=0)
+    assert slstm_fused.launches == cfg.num_layers // 2 * len(reqs)
     want = eng.generate_sequential(ref_reqs, seed=0)
     assert [r.out_tokens for r in got] == [r.out_tokens for r in want]
     assert all(len(r.out_tokens) == r.max_new_tokens for r in got)

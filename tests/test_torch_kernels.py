@@ -17,11 +17,15 @@ from repro.kernels.com_matmul import com_matmul as jax_com_matmul
 from repro.kernels.com_matmul import com_matmul_padded as jax_com_matmul_padded
 from repro.kernels.conv2d_com import conv2d_com as jax_conv2d_com
 from repro.kernels.flash_attention import flash_attention_gqa as jax_flash_attention_gqa
+from repro.kernels.slstm import hbm_traffic_model as jax_hbm_traffic_model
+from repro.kernels.slstm import slstm_fused as jax_slstm_fused
+from repro.models import xlstm as jax_xlstm
 from repro.models.attention import flash_attention as jax_model_flash_attention
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.com_matmul import com_matmul, com_matmul_padded
 from repro_torch.kernels.conv2d_com import conv2d_com
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.slstm import hbm_traffic_model, slstm_fused
 
 
 def rtol_for(dtype):
@@ -169,9 +173,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 
 
 def test_build_names_each_library_by_its_source_and_needs_nvcc(monkeypatch, tmp_path):
-    assert _build.all_kernels() == ("com_matmul", "conv2d_com", "flash_attention")
+    assert _build.all_kernels() == ("com_matmul", "conv2d_com", "flash_attention", "slstm")
     targets = {_build._target(n) for n in _build.all_kernels()}
-    assert len(targets) == 3
+    assert len(targets) == 4
     assert all(t.parent == _build.BUILD_DIR and t.suffix == ".so" for t in targets)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -245,3 +249,89 @@ def test_flash_attention_on_cpu_is_the_plain_version_and_checks_shapes():
         flash_attention(q, kv3, kv3)
     with pytest.raises(ValueError, match="empty"):
         flash_attention(q[:, :0], k, v)
+
+
+# ---------------- the sLSTM recurrence ----------------
+
+
+def _slstm_inputs(seed, b, s, d, h, dtype="float32"):
+    """x (B, S, D) and the reference's init_slstm parameters, as numpy, and
+    the gate pre-activations gx = x @ wg + bg in ``dtype`` on both sides."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, s, d)).astype(np.float32)
+    params, _ = jax_xlstm.init_slstm(jax.random.PRNGKey(seed), d, h)
+    p = {k: np.array(v) for k, v in params.items()}
+    (xj, xt), (wj, wt), (bj, bt) = (_both(a, dtype) for a in (x, p["wg"], p["bg"]))
+    gx_j = (jnp.einsum("bsd,dk->bsk", xj, wj) + bj).reshape(b, s, 4, d)
+    gx_t = (xt @ wt + bt).reshape(b, s, 4, d)
+    return params, p, (xj, xt), (gx_j, gx_t)
+
+
+# (s, d, h, chunk): the space tests/test_kernels.py:125-142 samples from, S a
+# multiple of the Pallas kernel's chunk
+SLSTM_KERNEL_CASES = [(32, 32, 2, 8), (64, 64, 4, 16), (32, 64, 2, 32), (64, 32, 4, 8)]
+
+
+@pytest.mark.parametrize("s,d,h,chunk", SLSTM_KERNEL_CASES)
+def test_slstm_ref_matches_jax_kernel(s, d, h, chunk):
+    params, _, _, (gx_j, gx_t) = _slstm_inputs(s + d, 2, s, d, h)
+    want = jax_slstm_fused(gx_j, params["rg"], h, chunk=chunk, interpret=True)
+    got, state = ops.slstm(gx_t, torch.from_numpy(np.array(params["rg"])), h)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, s, d)
+    assert all(t.shape == (2, h, d // h) and t.dtype == torch.float32 for t in state)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-4, atol=2e-4)
+    # the final h of the state is the last step's output, before rounding
+    np.testing.assert_allclose(state[2].reshape(2, d).numpy(), _np(want)[:, -1],
+                               rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-4), ("bfloat16", 2e-2)])
+def test_slstm_ref_matches_jax_scan_at_a_ragged_length(dtype, tol):
+    """S = 37 (no chunk divides it): the output projection of h and the final
+    (c, n, h, m) against xlstm.slstm_forward(return_state=True)."""
+    b, s, d, h = 2, 37, 64, 4
+    params, p, (xj, _), (_, gx_t) = _slstm_inputs(7, b, s, d, h, dtype)
+    want, want_state = jax_xlstm.slstm_forward(params, xj, h, return_state=True)
+    hs, state = ref.slstm_ref(gx_t, torch.from_numpy(p["rg"]), h)
+    assert hs.dtype == gx_t.dtype
+    got = hs @ _both(p["wo"], dtype)[1]
+    for g, w in [(got, want)] + [(t, want_state[k]) for t, k in zip(state, "cnhm")]:
+        g, w = _np(g), _np(w)
+        assert g.shape == w.shape and np.isfinite(g).all()
+        assert np.abs(g - w).max() <= tol * np.abs(w).max()
+
+
+def test_log_sigmoid_is_stable_and_matches_jax():
+    x = np.array([-1000.0, -100.0, -88.5, -20.0, -1.0, 0.0, 1.0, 30.0, 1000.0], np.float32)
+    got = ref.log_sigmoid(torch.from_numpy(x)).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, np.asarray(jax.nn.log_sigmoid(jnp.asarray(x))),
+                               rtol=1e-6, atol=1e-7)
+
+
+def test_slstm_on_cpu_is_the_plain_version_and_checks_shapes():
+    _, p, _, (_, gx) = _slstm_inputs(1, 1, 9, 32, 2)
+    rg = torch.from_numpy(p["rg"])
+    before = slstm_fused.launches
+    want_h, want_state = ref.slstm_ref(gx, rg, 2)
+    for backend in (None, "ref"):
+        h, state = ops.slstm(gx, rg, 2, backend=backend)
+        assert torch.equal(h, want_h) and all(map(torch.equal, state, want_state))
+    assert slstm_fused.launches == before
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        ops.slstm(gx, rg, 2, backend="cuda")
+    with pytest.raises(ValueError, match="not \\(B, S, 4, D\\)"):
+        slstm_fused(gx[:, :, :3], rg, 2)
+    with pytest.raises(ValueError, match="split"):
+        slstm_fused(gx, rg, 3)
+    with pytest.raises(ValueError, match="rg"):
+        slstm_fused(gx, rg[:, :1], 2)
+    with pytest.raises(ValueError, match="empty"):
+        slstm_fused(gx[:, :0], rg, 2)
+
+
+@pytest.mark.parametrize("b,s,d,h,dtype_bytes", [(16, 4096, 1024, 4, 2), (1, 517, 1024, 4, 4),
+                                                 (2, 37, 128, 4, 2)])
+def test_slstm_traffic_model_is_the_reference(b, s, d, h, dtype_bytes):
+    assert hbm_traffic_model(b, s, d, h, dtype_bytes) == jax_hbm_traffic_model(
+        b, s, d, h, dtype_bytes)

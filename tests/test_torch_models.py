@@ -1,12 +1,15 @@
-"""The port's configs, layers, attention and dense model against the JAX
-package's.
+"""The port's configs, layers, attention, xLSTM blocks and models (dense and
+ssm) against the JAX package's.
 
 The same numpy inputs, made from a seed, go through the JAX function and
 its port. Model weights come from the JAX package's ``Model.init`` and reach
 the port through ``repro_torch.convert.model_params_to_port``. Tolerances:
 float32 rtol 2e-5 and bfloat16 rtol 2e-2 for the layers
-(tests/test_kernels.py:18-19), model logits within 1e-5 · max|ref| at
-float32 and 2e-2 · max|ref| at bfloat16.
+(tests/test_kernels.py:18-19); dense model logits within 1e-5 · max|ref| at
+float32 and 2e-2 · max|ref| at bfloat16. The xLSTM blocks and the ssm model
+(logits and every cache leaf) within 1e-4 · max|ref| at float32
+(tests/test_layers.py:95; the recurrences carry f32 rounding from step to
+step) and 2e-2 · max|ref| at bfloat16.
 """
 import dataclasses
 
@@ -19,12 +22,14 @@ import torch
 from repro.configs import ARCHS, get_config as jax_get_config
 from repro.models import attention as jattn
 from repro.models import layers as jlayers
+from repro.models import xlstm as jxlstm
 from repro.models.transformer import CallConfig as JaxCallConfig
 from repro.models.transformer import build_model as jax_build_model
 from repro_torch.configs import ARCHS as PORT_ARCHS, get_config
 from repro_torch.convert import model_params_to_port
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
+from repro_torch.models import xlstm as txlstm
 from repro_torch.models.transformer import CallConfig, build_model
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -185,34 +190,113 @@ def test_naive_and_decode_attention_match_jax():
             rtol=2e-5, atol=1e-5)
 
 
-@pytest.fixture(scope="module")
-def smollm_pair():
-    """Reduced smollm-135m: JAX params and their numpy copy."""
-    cfg = jax_get_config("smollm-135m").reduced()
+def _close(got, want, tol):
+    got, want = _np(got), _np(want)
+    assert got.shape == want.shape and np.isfinite(got).all()
+    assert np.abs(got - want).max() <= tol * np.abs(want).max()
+
+
+def _xlstm_tols(dtype):
+    return 1e-4 if dtype == "float32" else 2e-2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mlstm_forward_and_decode_step_match_jax(dtype):
+    """A ragged S (37, padded to whole chunks of 16 with ig = 0, fg = 30):
+    the output and the final (C, n, m), then one decode step from it."""
+    rng = np.random.default_rng(11)
+    B, S, D, H = 2, 37, 64, 4
+    params, _ = jxlstm.init_mlstm(jax.random.PRNGKey(1), D, H)
+    pj, pt = _params_both({k: np.array(v) for k, v in params.items()})
+    xj, xt = _both(rng.normal(size=(B, S, D)), dtype)
+    tol = _xlstm_tols(dtype)
+    yj, sj = jxlstm.mlstm_forward(pj, xj, H, chunk=16, return_state=True)
+    yt, st = txlstm.mlstm_forward(pt, xt, H, chunk=16, return_state=True)
+    assert yt.dtype == xt.dtype and all(st[k].dtype == torch.float32 for k in st)
+    _close(yt, yj, tol)
+    for k in ("C", "n", "m"):
+        _close(st[k], sj[k], tol)
+    stj, stt = _both(rng.normal(size=(B, 1, D)), dtype)
+    yj, sj = jxlstm.mlstm_decode_step(pj, stj, sj, H)
+    yt, st = txlstm.mlstm_decode_step(pt, stt, st, H)
+    _close(yt, yj, tol)
+    for k in ("C", "n", "m"):
+        _close(st[k], sj[k], tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_slstm_forward_and_decode_step_match_jax(dtype):
+    """The whole sequence through ops.slstm (the plain version on the CPU)
+    against the reference's lax.scan, then one decode step (_slstm_cell)."""
+    rng = np.random.default_rng(12)
+    B, S, D, H = 2, 21, 64, 2
+    params, _ = jxlstm.init_slstm(jax.random.PRNGKey(2), D, H)
+    pj, pt = _params_both({k: np.array(v) for k, v in params.items()})
+    xj, xt = _both(rng.normal(size=(B, S, D)), dtype)
+    tol = _xlstm_tols(dtype)
+    yj, sj = jxlstm.slstm_forward(pj, xj, H, return_state=True)
+    yt, st = txlstm.slstm_forward(pt, xt, H, return_state=True)
+    assert yt.dtype == xt.dtype and all(st[k].dtype == torch.float32 for k in st)
+    _close(yt, yj, tol)
+    for k in "cnhm":
+        _close(st[k], sj[k], tol)
+    stj, stt = _both(rng.normal(size=(B, 1, D)), dtype)
+    yj, sj = jxlstm.slstm_decode_step(pj, stj, sj, H)
+    yt, st = txlstm.slstm_decode_step(pt, stt, st, H)
+    _close(yt, yj, tol)
+    for k in "cnhm":
+        _close(st[k], sj[k], tol)
+
+
+def _jax_pair(arch):
+    """A reduced config: JAX params and their numpy copy."""
+    cfg = jax_get_config(arch).reduced()
     params = jax_build_model(cfg, JaxCallConfig(remat="none")).init(jax.random.PRNGKey(0))
     return cfg, params, jax.tree.map(np.asarray, params)
 
 
-@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
-def test_model_prefill_and_decode_logits_match_jax(smollm_pair, dtype, tol):
-    cfg, params, np_params = smollm_pair
+@pytest.fixture(scope="module")
+def smollm_pair():
+    """Reduced smollm-135m: JAX params and their numpy copy."""
+    return _jax_pair("smollm-135m")
+
+
+@pytest.fixture(scope="module")
+def xlstm_pair():
+    """Reduced xlstm-350m (one [mLSTM, sLSTM] pair, hd 32): JAX params and
+    their numpy copy."""
+    return _jax_pair("xlstm-350m")
+
+
+@pytest.mark.parametrize("arch,dtype,tol", [
+    pytest.param("smollm-135m", "float32", 1e-5, id="float32-1e-05"),
+    pytest.param("smollm-135m", "bfloat16", 2e-2, id="bfloat16-0.02"),
+    pytest.param("xlstm-350m", "float32", 1e-4, id="xlstm-350m-float32-0.0001"),
+    pytest.param("xlstm-350m", "bfloat16", 2e-2, id="xlstm-350m-bfloat16-0.02"),
+])
+def test_model_prefill_and_decode_logits_match_jax(request, arch, dtype, tol):
+    """Prefill, forward and two decode steps (a scalar position, then per-row
+    positions with a row parked), the logits and every cache leaf."""
+    cfg, params, np_params = request.getfixturevalue(
+        "smollm_pair" if arch == "smollm-135m" else "xlstm_pair")
     jd, td = DTYPES[dtype]
     jm = jax_build_model(cfg, JaxCallConfig(remat="none", compute_dtype=jd, cache_dtype=jd))
-    tm = model_params_to_port(get_config("smollm-135m").reduced(), np_params,
+    tm = model_params_to_port(get_config(arch).reduced(), np_params,
                               cc=CallConfig(compute_dtype=td, cache_dtype=td), device="cpu")
     rng = np.random.default_rng(6)
     B, S, MAX = 2, 13, 24
     toks = rng.integers(1, cfg.vocab_size, size=(B, S)).astype(np.int32)
 
     def close(got, want):
-        got, want = _np(got), _np(want)
-        assert got.shape == want.shape and np.isfinite(got).all()
-        assert np.abs(got - want).max() <= tol * np.abs(want).max()
+        _close(got, want, tol)
 
     jl, jc = jm.prefill(params, jnp.asarray(toks), jm.init_cache(B, MAX))
     tl, tc = tm.prefill(toks, tm.init_cache(B, MAX))
     assert tuple(tl.shape) == (B, 1, cfg.vocab_size) and tl.dtype == td
     close(tl, jl)
+    assert len(tc) == len(jax.tree.leaves(jc))
+    for got, want in zip(tc, jax.tree.leaves(jc)):
+        close(got, want)
     full_j, _, _ = jm.forward(params, jnp.asarray(toks))
     full_t, _ = tm.forward(toks)
     close(full_t, full_j)
@@ -225,7 +309,7 @@ def test_model_prefill_and_decode_logits_match_jax(smollm_pair, dtype, tol):
     jl, jc = jm.decode_step(params, jnp.asarray(step), jc, jnp.asarray(pos))
     tl, tc = tm.decode_step(step, tc, torch.from_numpy(pos))
     close(tl, jl)
-    for got, want in zip(tc, jc):
+    for got, want in zip(tc, jax.tree.leaves(jc)):
         close(got, want)
 
 
@@ -241,7 +325,7 @@ def test_model_init_is_seeded_and_dense_only():
     k, v = a.init_cache(2, 8)
     assert k.shape == (cfg.num_layers, 2, 8, cfg.num_kv_heads, cfg.head_dim)
     assert k.dtype == torch.bfloat16 and not k.any()
-    for arch in ("xlstm-350m", "dbrx-132b", "musicgen-large"):
+    for arch in ("zamba2-1.2b", "dbrx-132b", "musicgen-large"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             build_model(get_config(arch).reduced(), device="cpu")
 
@@ -258,3 +342,47 @@ def test_model_params_to_port_checks_names_and_shapes(smollm_pair):
     with pytest.raises(ValueError, match="stacks"):
         model_params_to_port(dataclasses.replace(port_cfg, num_layers=3), np_params,
                              device="cpu")
+
+
+def test_xlstm_model_builds_pairs_and_its_cache(xlstm_pair):
+    """Parameter names and shapes equal the reference's pair-stacked tree cut
+    at each pair; the cache is the reference's state pytree as seven float32
+    leaves in jax.tree.leaves order, slot axis 1, whatever the cache dtype."""
+    cfg, _, np_params = xlstm_pair
+    port_cfg = get_config("xlstm-350m").reduced()
+    model = build_model(port_cfg, device="cpu", seed=0)
+    assert len(model.blocks) == cfg.num_layers // 2
+    own = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    flat = jax.tree_util.tree_flatten_with_path(np_params)[0]
+    want = {}
+    for path, leaf in flat:
+        name = ".".join(p.key for p in path)
+        if name.startswith("blocks."):
+            for g in range(leaf.shape[0]):
+                want[f"blocks.{g}.{name[7:]}"] = tuple(leaf.shape[1:])
+        else:
+            want[name] = tuple(leaf.shape)
+    assert own == want
+    jm = jax_build_model(cfg, JaxCallConfig(remat="none"))
+    jcache = jax.tree_util.tree_flatten_with_path(jm.init_cache(3, 8))[0]
+    cache = model.init_cache(3, 8)
+    assert [".".join(p.key for p in path) for path, _ in jcache] == list(txlstm.STATE_LEAVES)
+    for t, (_, leaf) in zip(cache, jcache):
+        assert t.dtype == torch.float32 and t.shape == leaf.shape and t.shape[1] == 3
+        np.testing.assert_array_equal(t.numpy(), np.asarray(leaf))
+
+
+def test_model_params_to_port_takes_the_pair_stacked_tree(xlstm_pair):
+    cfg, _, np_params = xlstm_pair
+    port_cfg = get_config("xlstm-350m").reduced()
+    model = model_params_to_port(port_cfg, np_params, device="cpu")
+    rg = np_params["blocks"]["slstm"]["rg"]
+    assert rg.shape[0] == cfg.num_layers // 2
+    np.testing.assert_array_equal(model.blocks[0].slstm["rg"].numpy(), rg[0])
+    with pytest.raises(ValueError, match="stacks"):  # the layer count is not the pair count
+        model_params_to_port(dataclasses.replace(port_cfg, num_layers=4), np_params,
+                             device="cpu")
+    missing = dict(np_params, blocks={k: v for k, v in np_params["blocks"].items()
+                                      if k != "ln_s"})
+    with pytest.raises(KeyError, match="ln_s.scale"):
+        model_params_to_port(port_cfg, missing, device="cpu")

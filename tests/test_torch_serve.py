@@ -8,7 +8,9 @@ package's.
   reproduced in torch, so sampling is held to the port's oracle);
 * EOS retirement and refill, with the EOS id taken from an observed greedy
   trajectory rather than hard-coded;
-* ``_validate`` and ``_family_guards`` raise as the reference's do.
+* ``_validate`` and ``_family_guards`` raise as the reference's do;
+* the same for reduced xlstm-350m (the ssm family), whose slot state a
+  prefill overwrites whole.
 """
 import dataclasses
 from types import SimpleNamespace
@@ -50,12 +52,19 @@ def served():
     return cfg, build_model(cfg, device="cpu", seed=0)
 
 
-def test_greedy_generate_matches_jax_engine_at_float32():
-    cfg = jax_get_config("smollm-135m").reduced()
+@pytest.fixture(scope="module")
+def served_xlstm():
+    """Reduced xlstm-350m in the port, bfloat16 (the default CallConfig)."""
+    cfg = get_config("xlstm-350m").reduced()
+    return cfg, build_model(cfg, device="cpu", seed=0)
+
+
+def _greedy_matches_jax_engine_at_float32(arch):
+    cfg = jax_get_config(arch).reduced()
     f32 = dict(compute_dtype=jnp.float32, cache_dtype=jnp.float32)
     jm = jax_build_model(cfg, JaxCallConfig(remat="none", **f32))
     params = jm.init(jax.random.PRNGKey(0))
-    tm = model_params_to_port(get_config("smollm-135m").reduced(), jax.tree.map(np.asarray, params),
+    tm = model_params_to_port(get_config(arch).reduced(), jax.tree.map(np.asarray, params),
                               cc=CallConfig(compute_dtype=torch.float32,
                                             cache_dtype=torch.float32), device="cpu")
     want = JaxEngine(jm, params, batch=2, max_seq=32).generate(
@@ -67,8 +76,15 @@ def test_greedy_generate_matches_jax_engine_at_float32():
     assert eng.last_stats["prefills"] == len(got)
 
 
-def test_greedy_batched_matches_sequential(served):
-    cfg, model = served
+def test_greedy_generate_matches_jax_engine_at_float32():
+    _greedy_matches_jax_engine_at_float32("smollm-135m")
+
+
+def test_xlstm_greedy_generate_matches_jax_engine_at_float32():
+    _greedy_matches_jax_engine_at_float32("xlstm-350m")
+
+
+def _greedy_batched_matches_sequential(cfg, model):
     eng = Engine(model, batch=2, max_seq=32)
     ref = eng.generate_sequential(make_requests(cfg.vocab_size), seed=0)
     got = eng.generate(make_requests(cfg.vocab_size), seed=0)
@@ -81,6 +97,14 @@ def test_greedy_batched_matches_sequential(served):
     assert eng.last_stats["occupancy"] > 1.0
     assert eng.last_stats["prefills"] == len(ref)
     assert eng.last_stats["admission_order"] == list(range(len(ref)))
+
+
+def test_greedy_batched_matches_sequential(served):
+    _greedy_batched_matches_sequential(*served)
+
+
+def test_xlstm_greedy_batched_matches_sequential(served_xlstm):
+    _greedy_batched_matches_sequential(*served_xlstm)
 
 
 def test_sampling_batched_matches_sequential_oracle(served):
@@ -116,16 +140,42 @@ def test_eos_retirement_and_refill(served):
     assert eng.last_stats["admission_order"] == list(range(4))
 
 
-def test_reused_slot_serves_like_a_fresh_one(served):
-    """batch=1 sends request 1 through the slot request 0 just left; its
-    rows past the new prompt still hold request 0's values and are never
-    read unmasked."""
-    cfg, model = served
+def _reused_slot_serves_like_a_fresh_one(cfg, model):
     got = Engine(model, batch=1, max_seq=32).generate(
         make_requests(cfg.vocab_size, n=2, max_new=5), seed=0)
     alone = Engine(model, batch=1, max_seq=32).generate_sequential(
         make_requests(cfg.vocab_size, n=2, max_new=5), seed=0)
     assert [r.out_tokens for r in got] == [r.out_tokens for r in alone]
+
+
+def test_reused_slot_serves_like_a_fresh_one(served):
+    """batch=1 sends request 1 through the slot request 0 just left; its
+    rows past the new prompt still hold request 0's values and are never
+    read unmasked."""
+    _reused_slot_serves_like_a_fresh_one(*served)
+
+
+def test_xlstm_reused_slot_serves_like_a_fresh_one(served_xlstm):
+    """batch=1 sends request 1 through the slot request 0 just left, holding
+    request 0's final state (and a parked step's on top): the prefill
+    overwrites all seven state leaves, or request 1 would read them."""
+    _reused_slot_serves_like_a_fresh_one(*served_xlstm)
+
+
+def test_xlstm_prefill_overwrites_every_leaf_of_a_slot(served_xlstm):
+    cfg, model = served_xlstm
+    slots = init_slots(model, 2, 16)
+    assert batch_axes(model, 16) == (1,) * 7
+    for t in slots.cache:
+        t.fill_(7.0)  # a previous occupant's state
+    prompt = np.arange(1, 6, dtype=np.int32)[None, :]
+    model.prefill(prompt, slots.view(1))
+    fresh = model.init_cache(1, 16)
+    model.prefill(prompt, fresh)
+    assert all(torch.equal(a, b) for a, b in zip(slots.read_slot(1), fresh))
+    assert all((t == 7.0).all() for t in slots.read_slot(0))
+    slots.reset_slot(1)  # back to the initial state: zeros, m = -1e30
+    assert all(torch.equal(a, b) for a, b in zip(slots.read_slot(1), model.init_cache(1, 16)))
 
 
 def test_slot_cache_views_writes_and_bytes(served):
@@ -214,5 +264,12 @@ def test_admission_queue_is_the_reference():
 
 def test_launcher_serves_on_the_cpu(capsys):
     serve_main(["--reduced", "--device", "cpu", "--requests", "3", "--max-new", "4"])
+    text = capsys.readouterr().out
+    assert "3 requests, 12 tokens" in text and "on cpu" in text
+
+
+def test_launcher_serves_xlstm_on_the_cpu(capsys):
+    serve_main(["--arch", "xlstm-350m", "--reduced", "--device", "cpu", "--requests", "3",
+                "--max-new", "4"])
     text = capsys.readouterr().out
     assert "3 requests, 12 tokens" in text and "on cpu" in text
