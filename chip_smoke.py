@@ -21,7 +21,12 @@ full published widths. Phases, each printing JSON lines:
                every prompt length the xlstm serve phase prefills, for
                slstm_fused) plus the epilogue, stride-2, 5x5, bf16,
                non-causal, head_dim-128, B = 2 and S = 1 cases: errors, kernel,
-               plain and library times (CUDA events), and the bound;
+               plain and library times (CUDA events), and the bound; each
+               com_matmul and conv2d_com line also gives the launch plan it ran
+               (kernels/{com_matmul,conv2d_com}.py:plan) and bound_3xtf32_ms
+               (three TF32 passes at 495 TFLOP/s against the bytes at 3.35
+               TB/s, float32), and where the plan splits K, a second call must
+               return the same bits;
 4. e2e       — compile_program(vgg16_imagenet()), random_weights(seed=0), 8 images
                from numpy.random.default_rng(1): the executor's "cuda" backend
                held against its float64 "reference" backend on the card, events
@@ -30,7 +35,8 @@ full published widths. Phases, each printing JSON lines:
                image and layer, ops.com_matmul for the FC layers) held against
                the same reference;
 5. profile   — a torch.profiler window over one forward: device busy time, idle
-               share and the kernels by time;
+               share and the kernels by time; fails if a cuBLAS, cuDNN or
+               CUTLASS kernel ran in it (every product is the port's own);
 6. serve     — smollm-135m (30 layers, d_model 576, 9 heads, 3 KV heads, vocab
                49152, tied), bf16, weights drawn from seed 0: 16 greedy
                requests with prompt lengths from numpy.random.default_rng(2)
@@ -93,7 +99,9 @@ from repro_torch.core.mapping import ConvSpec, vgg16_imagenet  # noqa: E402
 from repro_torch.core.program import compile_program  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.com_matmul import com_matmul  # noqa: E402
+from repro_torch.kernels.com_matmul import plan as com_matmul_plan  # noqa: E402
 from repro_torch.kernels.conv2d_com import conv2d_com  # noqa: E402
+from repro_torch.kernels.conv2d_com import plan as conv2d_plan  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     com_matmul_ref, conv2d_com_ref, flash_attention_ref, slstm_ref)
@@ -102,9 +110,15 @@ from repro_torch.models.transformer import CallConfig, build_model  # noqa: E402
 from repro_torch.serve.engine import Engine, Request  # noqa: E402
 
 # published H100 SXM peaks (dense): f32 outside the tensor cores, bf16 tensor
-# cores, HBM3
+# cores, TF32 tensor cores (the 3xTF32 float32 products take three passes), HBM3
 PEAK_OPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
+# kernel names of NVIDIA's libraries (cuBLAS, cuDNN, CUTLASS device-level
+# GEMMs): none may run in the VGG-16 forward, whose products are the port's own
+LIBRARY_KERNEL = re.compile(
+    r"cublas|cudnn|cutlass|gemm|gemv|xmma|winograd|implicit_convolve|sm\d\d_|ampere_|hopper_",
+    re.IGNORECASE)
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 BF16_ULP = 2.0 ** -7  # a bfloat16 value's spacing, relative to the value, at most
 BATCH = 8
@@ -144,6 +158,25 @@ def bound(n_bytes: float, n_ops: float, dtype) -> tuple:
     t_bytes = n_bytes / PEAK_BYTES * 1e3
     t_ops = n_ops / PEAK_OPS[dtype] * 1e3
     return (t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bound_3xtf32(n_bytes: float, n_ops: float, dtype):
+    """The float32 bound of the kernels' own route: three TF32 passes of the
+    operations at the TF32 tensor-core peak, against the bytes at the memory
+    rate (ms); None for bfloat16, whose bound_ms is already the tensor cores'."""
+    if dtype != torch.float32:
+        return None
+    return max(n_bytes / PEAK_BYTES, 3 * n_ops / PEAK_TF32) * 1e3
+
+
+def same_bits(fn, got, name, shape) -> bool:
+    """A second call of ``fn`` returns ``got`` bit for bit (split-K sums its
+    slices in a fixed order, with no atomics)."""
+    again = fn()
+    torch.cuda.synchronize()
+    if not torch.equal(again, got):
+        fail(f"{name} {shape}: two calls differ (split-K must be deterministic)")
+    return True
 
 
 def compare(name, shape, dtype, got, want, kernel_ms, plain_ms, library_ms, t_parts, by,
@@ -196,14 +229,21 @@ def check_com_matmul(gen, M, K, N, dtype=torch.float32, activation="relu",
     es = x.element_size()
     n_bytes = es * (M * K + K * N + M * N + (N if with_bias else 0)
                     + (M * N if with_residual else 0))
-    t_parts, by = bound(n_bytes, 2.0 * M * N * K, dtype)
+    n_ops = 2.0 * M * N * K
+    t_parts, by = bound(n_bytes, n_ops, dtype)
     name = "com_matmul" + "".join(
         f"+{p}" for p, on in (("bias", with_bias), (activation, activation),
                               ("residual", with_residual)) if on)
+    p = com_matmul_plan(M, N, K, dtype)
+    extra = {"plan": dataclasses.asdict(p),
+             "bound_3xtf32_ms": bound_3xtf32(n_bytes, n_ops, dtype)}
+    if p.splits > 1:
+        extra["split_k_same_bits"] = same_bits(lambda: com_matmul(x, w, **kw), got, name,
+                                               (M, K, N))
     return compare(
         name, (M, K, N), dtype, got, want,
         cuda_ms(lambda: com_matmul(x, w, **kw)), cuda_ms(lambda: com_matmul_ref(x, w, **kw)),
-        cuda_ms(lambda: torch.matmul(x, w)), t_parts, by)
+        cuda_ms(lambda: torch.matmul(x, w)), t_parts, by, extra=extra)
 
 
 def check_conv2d(gen, H, W, C, M, K=3, stride=1, padding=1, dtype=torch.float32):
@@ -216,11 +256,20 @@ def check_conv2d(gen, H, W, C, M, K=3, stride=1, padding=1, dtype=torch.float32)
     Ho, Wo = want.shape[0], want.shape[1]
     xn, wn = x.permute(2, 0, 1)[None].contiguous(), w.permute(3, 2, 0, 1).contiguous()
     n_bytes = x.element_size() * (H * W * C + K * K * C * M + Ho * Wo * M)
-    t_parts, by = bound(n_bytes, 2.0 * Ho * Wo * M * K * K * C, dtype)
+    n_ops = 2.0 * Ho * Wo * M * K * K * C
+    t_parts, by = bound(n_bytes, n_ops, dtype)
+    shape = (H, W, C, M, K, stride, padding)
+    p = conv2d_plan(H, W, C, K, M, stride, padding, dtype)
+    extra = {"plan": dataclasses.asdict(p),
+             "bound_3xtf32_ms": bound_3xtf32(n_bytes, n_ops, dtype)}
+    if p.splits > 1:
+        extra["split_k_same_bits"] = same_bits(lambda: conv2d_com(x, w, **kw), got,
+                                               "conv2d_com", shape)
     return compare(
-        "conv2d_com", (H, W, C, M, K, stride, padding), dtype, got, want,
+        "conv2d_com", shape, dtype, got, want,
         cuda_ms(lambda: conv2d_com(x, w, **kw)), cuda_ms(lambda: conv2d_com_ref(x, w, **kw)),
-        cuda_ms(lambda: F.conv2d(xn, wn, stride=stride, padding=padding)), t_parts, by)
+        cuda_ms(lambda: F.conv2d(xn, wn, stride=stride, padding=padding)), t_parts, by,
+        extra=extra)
 
 
 def sdpa(q, k, v, causal):
@@ -287,11 +336,15 @@ def check_slstm(gen, S, dtype=torch.bfloat16, B=1, H=4, hd=256):
 
 def summary(lines, repeat: int = 1) -> dict:
     """A kernel's numbers over one run of its path: times summed over the
-    path's shapes (``repeat`` runs of each), errors the worst."""
+    path's shapes (``repeat`` runs of each), errors the worst; with the
+    3xTF32 bound where every line has one."""
     parts = [0.0, 0.0]
     for ln in lines:
         # bound_ms of a line is max(bytes, ops): recover which one it was
         parts[ln["bound_by"] == "operations"] += ln["bound_ms"]
+    extra = {}
+    if all(ln.get("bound_3xtf32_ms") is not None for ln in lines):
+        extra["bound_3xtf32_ms"] = repeat * sum(ln["bound_3xtf32_ms"] for ln in lines)
     return {
         "max_abs_err": max(ln["max_abs_err"] for ln in lines),
         "ms": repeat * sum(ln["kernel_ms"] for ln in lines),
@@ -300,6 +353,7 @@ def summary(lines, repeat: int = 1) -> dict:
         "bound_by": "bytes" if parts[0] >= parts[1] else "operations",
         "library_ms": None if any(ln["library_ms"] is None for ln in lines)
         else repeat * sum(ln["library_ms"] for ln in lines),
+        **extra,
     }
 
 
@@ -347,9 +401,10 @@ def direct_forward(program, weights, images):
     return x
 
 
-def profile_window(fn, what: str) -> dict:
+def profile_window(fn, what: str, forbid=None) -> dict:
     """Device busy time, span, idle share and the kernels by time over one
-    call of ``fn`` under torch.profiler (``fn`` is run once before, to warm up)."""
+    call of ``fn`` under torch.profiler (``fn`` is run once before, to warm up).
+    With ``forbid`` (a pattern), fails if a device kernel's name matches it."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -375,9 +430,15 @@ def profile_window(fn, what: str) -> dict:
     busy += cur_e - cur_s
     span = spans[-1][1] - spans[0][0]
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10])
-    return {"device_busy_ms": busy / 1e3, "device_span_ms": span / 1e3,
+    line = {"device_busy_ms": busy / 1e3, "device_span_ms": span / 1e3,
             "idle_share": 1.0 - busy / span, "host_wall_ms": wall * 1e3,
             "device_kernels": len(spans), "ms_by_kernel": top}
+    if forbid is not None:
+        found = sorted({name for _, _, name in spans if forbid.search(name)})
+        line["library_kernels"] = found
+        if found:
+            fail(f"{what} ran library kernels: {found}")
+    return line
 
 
 def serve_wave(vocab: int):
@@ -718,7 +779,7 @@ def main() -> None:
 
     # 5. where the forward's device time goes
     emit({"phase": "profile", "workload": program.workload.name, "batch": BATCH,
-          **profile_window(lambda: ex.run(images), "the forward")})
+          **profile_window(lambda: ex.run(images), "the forward", forbid=LIBRARY_KERNEL)})
     del ex, imgs
     phase_done("profile")
 

@@ -1,9 +1,10 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
 
 Each ``src/repro_torch/csrc/<name>.cu`` exposes a plain C interface and
-compiles on its own into a shared library for Hopper (``sm_90a``). A
-library is named by a hash of its source and flags, so a stale build is
-never loaded, and is built at first use: ``python3 chip_smoke.py`` in a
+compiles on its own into a shared library for Hopper (``sm_90a``); sources
+may include shared headers (``csrc/*.cuh``). A library is named by a hash
+of its source, every header it includes (recursively) and the flags, so a
+stale build is never loaded, and is built at first use: ``python3 chip_smoke.py`` in a
 fresh checkout builds everything it runs. Builds go to
 ``build/repro_torch/`` at the repository root; ``.gitignore`` already lists
 ``build/``.
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -49,10 +51,26 @@ def _nvcc() -> str:
     return str(path)
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _sources(path: Path, seen=None) -> list:
+    """``path`` and every file it includes with ``#include "..."`` (looked up
+    beside the including file, as nvcc does), each once, in include order."""
+    seen = [] if seen is None else seen
+    if path in seen or not path.exists():
+        return seen
+    seen.append(path)
+    for inc in _INCLUDE.findall(path.read_bytes()):
+        _sources(path.parent / inc.decode(), seen)
+    return seen
+
+
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in _sources(CSRC / f"{name}.cu"):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str, force: bool = False):

@@ -9,23 +9,94 @@ partial sums of the K² shifted products accumulating in f32 registers with
 one store and a fused activation at the end.
 
 Counterpart of ``repro.kernels.conv2d_com``; the kernel is
-``src/repro_torch/csrc/conv2d_com.cu``. For a tensor on the CPU the
+``src/repro_torch/csrc/conv2d_com.cu``, an implicit GEMM on the tensor-core
+mainloop of ``csrc/com_mma.cuh``, launched as :func:`plan` says. For a tensor on the CPU the
 wrapper runs the plain version (:func:`repro_torch.kernels.ref.conv2d_com_ref`);
 for a CUDA tensor it launches the kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+import math
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.com_matmul import (
+    A_PAD, B_PAD, BK, BN, SMEM_LIMIT, blocks_per_sm, split_k, tile_us)
 from repro_torch.kernels.ref import conv2d_com_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# x, w, out, H, W, C, K, M, stride, pad, H_out, W_out, relu, dtype, stream
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+# x, w, out, workspace, H, W, C, K, M, stride, pad, H_out, W_out, relu, dtype,
+# stages, splits, k-tiles a split, stream
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
+TILE = (8, 16)  # output pixels of a block (rows, columns): BM in all
+
+
+@dataclass(frozen=True)
+class ConvPlan:
+    """How one convolution is launched: blocks of ``tile`` output pixels x
+    ``bn`` output channels; the k-tiles are (channel chunk of ``bk``, kernel
+    position) pairs, ``k_tiles`` of them, cut into ``splits`` slices of
+    ``kps``; ``halo_buffers`` input halo tiles (pixels ``halo_stride``
+    elements apart) and ``stages`` weight slots in ``smem`` bytes of shared
+    memory; ``workspace`` bytes of f32 partials
+    where ``splits`` > 1. ``max_splits`` is the most the planner would take."""
+    bn: int
+    bk: int
+    tile: Tuple[int, int]
+    stages: int
+    halo_buffers: int
+    halo_stride: int
+    k_tiles: int
+    splits: int
+    kps: int
+    max_splits: int
+    grid: Tuple[int, int, int]
+    smem: int
+    workspace: int
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(H: int, W: int, C: int, K: int, M: int, stride: int, padding: int,
+         dtype: torch.dtype) -> ConvPlan:
+    """The launch of one (H, W, C) image through (K, K, C, M) weights on an
+    H100 (pure: no device is asked). Takes the deepest weight ring (4 slots,
+    else 3, else 2) whose halo buffers and slots fit in shared memory, and
+    raises ``ValueError`` where none does (a large kernel at a large stride)."""
+    es = torch.empty((), dtype=dtype).element_size()
+    bk = BK[dtype]
+    th, tw = TILE
+    Ho = (H + 2 * padding - K) // stride + 1
+    Wo = (W + 2 * padding - K) // stride + 1
+    pixels = ((th - 1) * stride + K) * ((tw - 1) * stride + K)
+    # as conv_smem() in csrc/conv2d_com.cu: the deepest ring that fits, its
+    # halo pixels padded by 8 elements, else (float32) by 4
+    fits = [(stages, pad) for stages in (4, 3, 2) for pad in (A_PAD, 4)
+            if pad == A_PAD or es == 4]
+    for stages, pad in fits:
+        nh = (stages - 2) // (K * K) + 2  # as halo_buffers() in csrc/conv2d_com.cu
+        smem = (nh * pixels * (bk + pad) + stages * bk * (BN + B_PAD[dtype])) * es
+        if smem <= SMEM_LIMIT:
+            break
+    else:
+        raise ValueError(f"conv2d_com: a {K}x{K} kernel at stride {stride} needs {smem} bytes "
+                         f"of shared memory a block, more than {SMEM_LIMIT}")
+    pixel_tiles = math.ceil(Ho / th) * math.ceil(Wo / tw)
+    tiles = pixel_tiles * math.ceil(M / BN)
+    k_tiles = math.ceil(C / bk) * K * K
+    kps, splits, s_max = split_k(tiles, k_tiles, tile_us(dtype), 4 * Ho * Wo * M,
+                                 blocks_per_sm(smem))
+    return ConvPlan(BN, bk, TILE, stages, nh, bk + pad, k_tiles, splits, kps, s_max,
+                    (pixel_tiles, math.ceil(M / BN), splits), smem,
+                    4 * splits * Ho * Wo * M if splits > 1 else 0)
 
 
 def conv2d_com(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1, padding: int = 1,
@@ -60,11 +131,15 @@ def conv2d_com(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1, padding: in
     out = torch.empty((H_out, W_out, M), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    p = plan(H, W, C, K, M, stride, padding, x.dtype)
+    ws = (torch.empty(p.workspace // 4, dtype=torch.float32, device=x.device)
+          if p.workspace else None)
     kernel = _build.function("conv2d_com", "repro_conv2d_com", _ARGTYPES)
     with torch.cuda.device(x.device):
         err = kernel(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), H, W, C, K, M, stride, padding,
-            H_out, W_out, int(activation == "relu"), _DTYPES[x.dtype],
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
+            H, W, C, K, M, stride, padding, H_out, W_out, int(activation == "relu"),
+            _DTYPES[x.dtype], p.stages, p.splits, p.kps,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
@@ -73,5 +148,6 @@ def conv2d_com(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1, padding: in
     return out
 
 
-# kernel launches since the last reset (plain integer; set it to 0 to reset)
+# wrapper calls that launched the kernel (the split-K pass included) since the
+# last reset (plain integer; set it to 0 to reset)
 conv2d_com.launches = 0

@@ -86,6 +86,64 @@ def test_conv2d_com_kernel_matches_plain_version(cuda, h, w, c, m, k, s, p, dtyp
         _within(got, ref.conv2d_com_ref(x, wt, stride=s, padding=p, activation=act), dtype)
 
 
+# one shape for each path of the redesigned kernels: the streaming path with
+# split-K (FC1), the tensor-core path with split-K (conv5's im2col product),
+# a K = 27 tail (conv1's, whose rows are not 16-byte aligned), ragged N (1000,
+# 70), and bf16 on the tensor cores
+@pytest.mark.parametrize("m,k,n,dtype", [(8, 25088, 4096, torch.float32),
+                                         (1568, 4608, 512, torch.float32),
+                                         (1000, 27, 64, torch.float32),
+                                         (300, 200, 1000, torch.float32),
+                                         (130, 96, 70, torch.float32),
+                                         (600, 512, 384, torch.bfloat16),
+                                         (1568, 4608, 512, torch.bfloat16)],
+                         ids=["fc-split-k", "mma-split-k", "k27", "n1000", "n70", "bf16",
+                              "bf16-split-k"])
+def test_com_matmul_paths_match_plain_version(cuda, m, k, n, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(k + n)
+    x = torch.randn((m, k), generator=gen, device=cuda).relu().to(dtype)
+    w = (torch.randn((k, n), generator=gen, device=cuda) * (2.0 / k) ** 0.5).to(dtype)
+    b = torch.randn((n,), generator=gen, device=cuda).to(dtype)
+    got = com_matmul(x, w, bias=b, activation="relu")
+    torch.cuda.synchronize()
+    _within(got, ref.com_matmul_ref(x, w, bias=b, activation="relu"), dtype)
+
+
+@pytest.mark.parametrize("h,w,c,m,dtype", [(14, 14, 512, 512, torch.float32),
+                                           (224, 224, 3, 64, torch.float32),
+                                           (14, 14, 512, 512, torch.bfloat16)],
+                         ids=["conv5", "conv1", "conv5-bf16"])
+def test_conv2d_com_vgg16_layers_match_plain_version(cuda, h, w, c, m, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(h + c)
+    x = torch.randn((h, w, c), generator=gen, device=cuda).to(dtype)
+    wt = (torch.randn((3, 3, c, m), generator=gen, device=cuda) * (2.0 / (9 * c)) ** 0.5).to(dtype)
+    got = conv2d_com(x, wt, activation="relu")
+    torch.cuda.synchronize()
+    _within(got, ref.conv2d_com_ref(x, wt, activation="relu"), dtype)
+
+
+def test_split_k_calls_return_identical_bits(cuda):
+    """Split-K adds its slices in a fixed order, with no atomics."""
+    from repro_torch.kernels.com_matmul import plan
+    from repro_torch.kernels.conv2d_com import plan as conv_plan
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x, w = torch.randn((1568, 4608), generator=gen, device=cuda), \
+        torch.randn((4608, 512), generator=gen, device=cuda)
+    fx, fw = torch.randn((8, 25088), generator=gen, device=cuda), \
+        torch.randn((25088, 4096), generator=gen, device=cuda)
+    img, wc = torch.randn((14, 14, 512), generator=gen, device=cuda), \
+        torch.randn((3, 3, 512, 512), generator=gen, device=cuda)
+    assert plan(1568, 512, 4608, torch.float32).splits > 1
+    assert plan(8, 4096, 25088, torch.float32).splits > 1
+    assert conv_plan(14, 14, 512, 3, 512, 1, 1, torch.float32).splits > 1
+    for call in (lambda: com_matmul(x, w), lambda: com_matmul(fx, fw),
+                 lambda: conv2d_com(img, wc)):
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+
+
 def test_ops_route_cuda_tensors_to_the_kernels(cuda):
     x, w = torch.randn((64, 32), device=cuda), torch.randn((32, 16), device=cuda)
     img, wc = torch.randn((8, 8, 4), device=cuda), torch.randn((3, 3, 4, 8), device=cuda)
