@@ -76,6 +76,13 @@ __device__ __forceinline__ float activate(float v, int act) {
   }
 }
 
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
 // The ROFM epilogue: Add (bias), Act, Bp (residual) on the f32 sum of
 // element (r, n) of a row-major (rows, N) output.
 template <typename T>
@@ -367,15 +374,24 @@ __device__ __forceinline__ void store_acc(
       if (r < 0) continue;
 #pragma unroll
       for (int j = 0; j < L::NT; ++j) {
+        const int n = n0 + wn0 + j * 8 + 2 * t;  // even: a thread's two columns are a pair
+        const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        if (N % 2 == 0 && n + 1 < N) {  // one 8-byte (f32) or 4-byte (bf16) store
+          if (slice != nullptr)
+            *reinterpret_cast<float2*>(slice + r * N + n) = make_float2(v0, v1);
+          else
+            store2(out + r * N + n, finish(v0, r, n, N, bias, res, act),
+                   finish(v1, r, n + 1, N, bias, res, act));
+          continue;
+        }
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
-          const int n = n0 + wn0 + j * 8 + 2 * t + c;
-          if (n >= N) continue;
-          const float v = acc[i][j][2 * h + c];
+          if (n + c >= N) continue;
+          const float v = c == 0 ? v0 : v1;
           if (slice != nullptr)
-            slice[r * N + n] = v;
+            slice[r * N + n + c] = v;
           else
-            out[r * N + n] = from_f32<T>(finish(v, r, n, N, bias, res, act));
+            out[r * N + n + c] = from_f32<T>(finish(v, r, n + c, N, bias, res, act));
         }
       }
     }

@@ -44,7 +44,8 @@ STAGES = 3               # cp.async ring slots: two blocks an SM
 SKINNY_M = 32            # M at or below this streams w on CUDA cores
 SKINNY_COLS = 128        # w columns a streaming block owns
 SKINNY_MIN_ROWS = 64     # fewest K rows a streaming split walks
-SKINNY_BLOCKS = 2 * SMS  # streaming blocks to aim for: one wave at two an SM
+SKINNY_BLOCKS = 2 * SMS  # streaming blocks: one full wave at two an SM (a tail wave
+                         # would stream its slices at a fraction of the card's rate)
 
 
 @dataclass(frozen=True)
@@ -120,7 +121,7 @@ def plan(M: int, N: int, K: int, dtype: torch.dtype) -> Plan:
     if M <= SKINNY_M:
         panels = math.ceil(N / SKINNY_COLS)
         s_max = max(1, math.ceil(K / SKINNY_MIN_ROWS))
-        splits = min(math.ceil(SKINNY_BLOCKS / panels), s_max)
+        splits = min(max(1, SKINNY_BLOCKS // panels), s_max)  # one wave: no tail
         kchunk = max(1, math.ceil(K / splits))
         splits = max(1, math.ceil(K / kchunk))
         return Plan("skinny", M, SKINNY_COLS, 1, 1, splits, kchunk, s_max, (panels, splits, 1),
