@@ -110,7 +110,7 @@ template <typename T, int BN> struct Layout {
   // 8 warps of 32 x 32 (4 x 2), two blocks an SM: 16 warps, each within 128
   // registers (the tile's accumulators, their promoted sums and one k8
   // step's fragments). A 128 x 128 tile of 16 such warps, one block an SM,
-  // measured slower on every VGG-16 product: one barrier stalls all 16.
+  // measured slower over the VGG-16 products: one barrier stalls all 16.
   static_assert(BN == 64, "block tile is 128 x 64");
   static constexpr int WTM = 32, WTN = 32;
   static constexpr int WARPS_M = BM / WTM;
@@ -150,10 +150,6 @@ __device__ __forceinline__ void cp_async_wait(int n) {
   }
 }
 
-// x = big + small with big = x truncated to TF32 (its 19 high bits) and
-// small = x - big exactly. The MMA reads only the 19 high bits of a TF32
-// operand, so x itself serves as big (no instruction), and small enters
-// truncated to TF32 as well: two instructions a split.
 // x = big + small: big is x rounded to TF32 (half a TF32 ulp added; the MMA
 // reads only the 19 high bits of a TF32 operand, so its truncation rounds
 // half away from zero, as cvt.rna does), small = x - big exactly in f32,
