@@ -33,9 +33,13 @@ using namespace com;
 
 // ---- M > 32: the tensor-core path -----------------------------------------------
 
-template <typename T, int BN>
+// k-tiles of 64: against 32, half the barriers and promotions a product
+// (float32 then takes a ring of two, to keep two blocks an SM)
+template <typename T> using GemmLayout = Layout<T, 64>;
+
+template <typename T>
 struct GemmTiles {
-  using L = Layout<T, BN>;
+  using L = GemmLayout<T>;
   const T* x;
   const T* w;
   T* smem;
@@ -73,15 +77,15 @@ struct GemmTiles {
       }
     }
     if (vec_w) {
-      constexpr int CPR = BN / L::CE;
+      constexpr int CPR = L::BN / L::CE;
       for (int c = threadIdx.x; c < L::BK * CPR; c += L::THREADS) {
         const int kk = c / CPR, j = (c % CPR) * L::CE;
         const bool ok = k0 + kk < K && n0 + j < N;
         cp_async16(Bs + kk * L::BS + j, ok ? w + (long long)(k0 + kk) * N + n0 + j : w, ok);
       }
     } else {
-      for (int e = threadIdx.x; e < L::BK * BN; e += L::THREADS) {
-        const int kk = e / BN, j = e % BN;
+      for (int e = threadIdx.x; e < L::BK * L::BN; e += L::THREADS) {
+        const int kk = e / L::BN, j = e % L::BN;
         Bs[kk * L::BS + j] =
             (k0 + kk < K && n0 + j < N) ? w[(long long)(k0 + kk) * N + n0 + j] : zero;
       }
@@ -90,32 +94,32 @@ struct GemmTiles {
 };
 
 // grid (M tiles, N tiles, splits); split z owns k-tiles [z kps, (z + 1) kps)
-template <typename T, int BN>
-__global__ void __launch_bounds__(Layout<T, BN>::THREADS, Layout<T, BN>::MIN_BLOCKS)
+template <typename T>
+__global__ void __launch_bounds__(GemmLayout<T>::THREADS, GemmLayout<T>::MIN_BLOCKS)
 com_matmul_mma_kernel(const T* __restrict__ x, const T* __restrict__ w,
                       const T* __restrict__ bias, const T* __restrict__ res, T* __restrict__ out,
                       float* __restrict__ ws, int M, int N, int K, int act, int stages, int kps,
                       int vec_x, int vec_w) {
-  using L = Layout<T, BN>;
+  using L = GemmLayout<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
+  const int n0 = blockIdx.y * L::BN;
   const int KT = (K + L::BK - 1) / L::BK;
   const int kt0 = blockIdx.z * kps;
   const int nkt = min(kps, KT - kt0);
-  GemmTiles<T, BN> p{x, w, reinterpret_cast<T*>(smem_raw), m0, n0, M, N, K, vec_x != 0,
+  GemmTiles<T> p{x, w, reinterpret_cast<T*>(smem_raw), m0, n0, M, N, K, vec_x != 0,
                      vec_w != 0};
   float acc[L::MT][L::NT][4];
-  mainloop<T, BN>(p, kt0, nkt, stages, acc);
-  store_acc<T, BN>(
+  mainloop<T, L::BK>(p, kt0, nkt, stages, acc);
+  store_acc<T, L::BK>(
       acc, [&](int r) -> long long { return m0 + r < M ? m0 + r : -1; }, n0, N, M, bias, res,
       out, ws, act);
 }
 
-template <typename T, int BN>
+template <typename T>
 int launch_mma(const T* x, const T* w, const T* bias, const T* res, T* out, float* ws, int M,
                int N, int K, int act, int stages, int splits, int kchunk, cudaStream_t stream) {
-  using L = Layout<T, BN>;
+  using L = GemmLayout<T>;
   const int KT = (K + L::BK - 1) / L::BK;
   if (stages < 2 || stages > 4 || kchunk <= 0 || kchunk % L::BK != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -124,12 +128,12 @@ int launch_mma(const T* x, const T* w, const T* bias, const T* res, T* out, floa
     return static_cast<int>(cudaErrorInvalidValue);  // every split owns k-tiles
   const int smem = stages * (L::A_ELEMS + L::B_ELEMS) * (int)sizeof(T);
   if (smem > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(com_matmul_mma_kernel<T, BN>, smem);
+  cudaError_t err = allow_smem(com_matmul_mma_kernel<T>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const bool vec_x = K % L::CE == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const bool vec_w = N % L::CE == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, splits);
-  com_matmul_mma_kernel<T, BN><<<grid, L::THREADS, smem, stream>>>(
+  const dim3 grid((M + BM - 1) / BM, (N + L::BN - 1) / L::BN, splits);
+  com_matmul_mma_kernel<T><<<grid, L::THREADS, smem, stream>>>(
       x, w, bias, res, out, splits > 1 ? ws : nullptr, M, N, K, act, stages, kps, vec_x, vec_w);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
@@ -285,7 +289,7 @@ int dispatch(const void* x, const void* w, const void* bias, const void* res, vo
   T* ot = static_cast<T*>(out);
   if (path == 1) return launch_skinny<T>(xt, wt, bt, rt, ot, ws, M, N, K, act, splits, kchunk, s);
   if (path != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_mma<T, 64>(xt, wt, bt, rt, ot, ws, M, N, K, act, stages, splits, kchunk, s);
+  return launch_mma<T>(xt, wt, bt, rt, ot, ws, M, N, K, act, stages, splits, kchunk, s);
 }
 
 }  // namespace

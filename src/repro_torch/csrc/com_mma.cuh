@@ -2,7 +2,7 @@
 // share, and the pieces around it (epilogue, deterministic split-K reduce).
 //
 // A block of 8 warps (32 x 32 each) computes a BM x BN = 128 x 64 tile of
-// C = A B over a range of k-tiles, two blocks an SM:
+// C = A B over a range of k-tiles of BK, two blocks an SM:
 //
 // * B (the weights, (K, N) row-major) streams through a ring of `stages`
 //   shared-memory slots filled by 16-byte cp.async.cg copies, so the next
@@ -96,14 +96,18 @@ __device__ __forceinline__ float finish(float v, long long r, int n, int N, cons
 
 // ---- the tile geometry ------------------------------------------------------
 
-template <typename T> struct Tile;
-template <> struct Tile<float> { static constexpr int BK = 32, APAD = 8, BPAD = 4; };
-template <> struct Tile<__nv_bfloat16> { static constexpr int BK = 64, APAD = 8, BPAD = 8; };
+// Row padding (elements) of the A and B tiles in shared memory, so that the
+// fragment loads of a warp hit distinct banks.
+template <typename T> struct Pad;
+template <> struct Pad<float> { static constexpr int A = 8, B = 4; };
+template <> struct Pad<__nv_bfloat16> { static constexpr int A = 8, B = 8; };
 
-template <typename T, int BN> struct Layout {
-  static constexpr int BK = Tile<T>::BK;
-  static constexpr int AS = BK + Tile<T>::APAD;  // A row stride: [rows][AS]
-  static constexpr int BS = BN + Tile<T>::BPAD;  // B row stride: [BK][BS]
+// A 128 x 64 block tile over k-tiles of BK_ (a multiple of the MMA's k).
+template <typename T, int BK_> struct Layout {
+  static constexpr int BK = BK_;
+  static constexpr int BN = 64;
+  static constexpr int AS = BK + Pad<T>::A;      // A row stride: [rows][AS]
+  static constexpr int BS = BN + Pad<T>::B;      // B row stride: [BK][BS]
   static constexpr int A_ELEMS = BM * AS;
   static constexpr int B_ELEMS = BK * BS;
   static constexpr int CE = 16 / sizeof(T);      // elements in a 16-byte copy
@@ -111,7 +115,6 @@ template <typename T, int BN> struct Layout {
   // registers (the tile's accumulators, their promoted sums and one k8
   // step's fragments). A 128 x 128 tile of 16 such warps, one block an SM,
   // measured slower over the VGG-16 products: one barrier stalls all 16.
-  static_assert(BN == 64, "block tile is 128 x 64");
   static constexpr int WTM = 32, WTN = 32;
   static constexpr int WARPS_M = BM / WTM;
   static constexpr int WARPS_N = BN / WTN;
@@ -119,6 +122,7 @@ template <typename T, int BN> struct Layout {
   static constexpr int MIN_BLOCKS = 2;
   static constexpr int MT = WTM / 16;            // m16 tiles a warp
   static constexpr int NT = WTN / 8;             // n8 tiles a warp
+  static_assert(BK % (sizeof(T) == 4 ? 8 : 16) == 0, "whole MMA k steps");
 };
 
 // ---- PTX wrappers -------------------------------------------------------------
@@ -205,13 +209,13 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
 
 // With FRESH the first MMA of each accumulator overwrites it (a promoted
 // k-tile starts from zero without clearing registers).
-template <int MT, int NT, int BS, bool FRESH>
+template <int MT, int NT, int BS, int BK, bool FRESH>
 __device__ __forceinline__ void warp_ktile(float (&acc)[MT][NT][4], const float* A,
                                            const int (&aoff)[MT][2], const float* B, int wn0,
                                            int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int ks = 0; ks < Tile<float>::BK; ks += 8) {
+  for (int ks = 0; ks < BK; ks += 8) {
     uint32_t a[MT][4], b[NT][2], small[MT > NT / 2 ? MT * 4 : NT * 2];
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
@@ -261,13 +265,13 @@ __device__ __forceinline__ void warp_ktile(float (&acc)[MT][NT][4], const float*
 
 // bf16: `aoff[i][0]` is the offset of row wm0 + 16 i + (lane % 16), the row
 // whose address this lane gives ldmatrix.
-template <int MT, int NT, int BS, bool FRESH>
+template <int MT, int NT, int BS, int BK, bool FRESH>
 __device__ __forceinline__ void warp_ktile(float (&acc)[MT][NT][4], const __nv_bfloat16* A,
                                            const int (&aoff)[MT][2], const __nv_bfloat16* B,
                                            int wn0, int lane) {
   static_assert(NT % 2 == 0, "ldmatrix.x4.trans loads two n8 tiles");
 #pragma unroll
-  for (int ks = 0; ks < Tile<__nv_bfloat16>::BK; ks += 16) {
+  for (int ks = 0; ks < BK; ks += 16) {
     uint32_t a[MT][4], b[NT][2];
 #pragma unroll
     for (int i = 0; i < MT; ++i) ldsm_x4(a[i], A + aoff[i][0] + ks + (lane >> 4) * 8);
@@ -294,10 +298,10 @@ __device__ __forceinline__ void warp_ktile(float (&acc)[MT][NT][4], const __nv_b
 // k-tile kt; row_off(r) is the offset of A's block row r from a_tile.
 // `acc` receives the sum over k-tiles [kt0, kt0 + nkt).
 
-template <typename T, int BN, class P>
+template <typename T, int BK, class P>
 __device__ __forceinline__ void mainloop(P& p, int kt0, int nkt, int stages,
-                                         float (&acc)[Layout<T, BN>::MT][Layout<T, BN>::NT][4]) {
-  using L = Layout<T, BN>;
+                                         float (&acc)[Layout<T, BK>::MT][Layout<T, BK>::NT][4]) {
+  using L = Layout<T, BK>;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm0 = (warp / L::WARPS_N) * L::WTM, wn0 = (warp % L::WARPS_N) * L::WTN;
   int aoff[L::MT][2];
@@ -330,7 +334,7 @@ __device__ __forceinline__ void mainloop(P& p, int kt0, int nkt, int stages,
     if (i + stages - 1 < nkt) p.load(kt0 + i + stages - 1, next);
     cp_async_commit();
     if constexpr (std::is_same<T, float>::value && COM_PROMOTE) {
-      warp_ktile<L::MT, L::NT, L::BS, true>(part, p.a_tile(kt0 + i, slot), aoff, p.b_tile(slot),
+      warp_ktile<L::MT, L::NT, L::BS, BK, true>(part, p.a_tile(kt0 + i, slot), aoff, p.b_tile(slot),
                                             wn0, lane);
 #pragma unroll
       for (int a = 0; a < L::MT; ++a)
@@ -339,7 +343,7 @@ __device__ __forceinline__ void mainloop(P& p, int kt0, int nkt, int stages,
 #pragma unroll
           for (int c = 0; c < 4; ++c) acc[a][b][c] += part[a][b][c];
     } else {
-      warp_ktile<L::MT, L::NT, L::BS, false>(acc, p.a_tile(kt0 + i, slot), aoff, p.b_tile(slot),
+      warp_ktile<L::MT, L::NT, L::BS, BK, false>(acc, p.a_tile(kt0 + i, slot), aoff, p.b_tile(slot),
                                              wn0, lane);
     }
     slot = slot + 1 == stages ? 0 : slot + 1;
@@ -352,11 +356,11 @@ __device__ __forceinline__ void mainloop(P& p, int kt0, int nkt, int stages,
 // row_index(r) (negative: masked). With `ws` the raw f32 sums go to slice
 // blockIdx.z of the workspace [splits][rows][N]; without, the epilogue is
 // applied and the result stored once in T.
-template <typename T, int BN, class RowFn>
+template <typename T, int BK, class RowFn>
 __device__ __forceinline__ void store_acc(
-    const float (&acc)[Layout<T, BN>::MT][Layout<T, BN>::NT][4], RowFn row_index, int n0, int N,
+    const float (&acc)[Layout<T, BK>::MT][Layout<T, BK>::NT][4], RowFn row_index, int n0, int N,
     long long rows, const T* bias, const T* res, T* out, float* ws, int act) {
-  using L = Layout<T, BN>;
+  using L = Layout<T, BK>;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm0 = (warp / L::WARPS_N) * L::WTM, wn0 = (warp % L::WARPS_N) * L::WTN;
   const int g = lane >> 2, t = lane & 3;

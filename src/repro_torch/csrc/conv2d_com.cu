@@ -31,9 +31,13 @@ using namespace com;
 
 constexpr int TH = 8, TW = 16;  // output pixels of a block: TH x TW = BM
 
-template <typename T, int BN>
+// k-tiles of one channel chunk at one kernel position: 32 channels (f32) or
+// 64 (bf16), so that two halo tiles and the weight ring fit two blocks an SM
+template <typename T> using ConvLayout = Layout<T, sizeof(T) == 4 ? 32 : 64>;
+
+template <typename T>
 struct ConvTiles {
-  using L = Layout<T, BN>;
+  using L = ConvLayout<T>;
   const T* x;
   const T* w;
   T* halo;  // nh buffers of [HH * WW][as]: pixel-major, channel-minor
@@ -87,15 +91,15 @@ struct ConvTiles {
     T* Bs = ring + slot * L::B_ELEMS;
     const T* wp = w + (long long)pos * C * M;  // w[kr][kc] as (C, M)
     if (vec_w) {
-      constexpr int CPR = BN / L::CE;
+      constexpr int CPR = L::BN / L::CE;
       for (int e = threadIdx.x; e < L::BK * CPR; e += L::THREADS) {
         const int c = e / CPR, j = (e % CPR) * L::CE;
         const bool ok = c0 + c < C && m0 + j < M;
         cp_async16(Bs + c * L::BS + j, ok ? wp + (long long)(c0 + c) * M + m0 + j : w, ok);
       }
     } else {
-      for (int e = threadIdx.x; e < L::BK * BN; e += L::THREADS) {
-        const int c = e / BN, j = e % BN;
+      for (int e = threadIdx.x; e < L::BK * L::BN; e += L::THREADS) {
+        const int c = e / L::BN, j = e % L::BN;
         Bs[c * L::BS + j] = (c0 + c < C && m0 + j < M) ? wp[(long long)(c0 + c) * M + m0 + j] : zero;
       }
     }
@@ -112,9 +116,9 @@ inline int halo_buffers(int KS, int stages) { return (stages - 2) / (KS * KS) + 
 // padded by 8 elements (conflict-free 8-byte fragment loads), or in float32
 // by 4 where that does not fit (a 5 x 5 kernel at stride 2: two-way
 // conflicts); -1 where neither fits.
-template <typename T, int BN>
+template <typename T>
 long long conv_smem(int KS, int stride, int stages, int* as) {
-  using L = Layout<T, BN>;
+  using L = ConvLayout<T>;
   const long long pixels = (long long)halo_h(KS, stride) * halo_w(KS, stride);
   for (int pad = 8; pad >= 4; pad -= 4) {
     if (pad == 4 && sizeof(T) != 4) break;  // bf16 rows stay 16-byte aligned
@@ -130,13 +134,13 @@ long long conv_smem(int KS, int stride, int stages, int* as) {
 
 // grid (pixel tiles, M tiles, splits); split z owns k-tiles [z kps, (z + 1) kps)
 // of the (chunk, position) sequence
-template <typename T, int BN>
-__global__ void __launch_bounds__(Layout<T, BN>::THREADS, Layout<T, BN>::MIN_BLOCKS)
+template <typename T>
+__global__ void __launch_bounds__(ConvLayout<T>::THREADS, ConvLayout<T>::MIN_BLOCKS)
 conv2d_com_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
                   float* __restrict__ ws, int H, int W, int C, int KS, int M, int stride, int pad,
                   int Ho, int Wo, int relu, int stages, int nh, int as, int kps, int vec_x,
                   int vec_w) {
-  using L = Layout<T, BN>;
+  using L = ConvLayout<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tiles_w = (Wo + TW - 1) / TW;
   const int oy0 = (blockIdx.x / tiles_w) * TH, ox0 = (blockIdx.x % tiles_w) * TW;
@@ -145,40 +149,40 @@ conv2d_com_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restric
   const int kt0 = blockIdx.z * kps;
   const int nkt = min(kps, KT - kt0);
   T* halo = reinterpret_cast<T*>(smem_raw);
-  ConvTiles<T, BN> p{x, w, halo, halo + nh * HH * WW * as, H, W, C, KS, M, stride,
-                     oy0 * stride - pad, ox0 * stride - pad, (int)blockIdx.y * BN, HH, WW, nh,
+  ConvTiles<T> p{x, w, halo, halo + nh * HH * WW * as, H, W, C, KS, M, stride,
+                     oy0 * stride - pad, ox0 * stride - pad, (int)blockIdx.y * L::BN, HH, WW, nh,
                      kt0, as, vec_x != 0, vec_w != 0};
   float acc[L::MT][L::NT][4];
-  mainloop<T, BN>(p, kt0, nkt, stages, acc);
-  store_acc<T, BN>(
+  mainloop<T, L::BK>(p, kt0, nkt, stages, acc);
+  store_acc<T, L::BK>(
       acc,
       [&](int r) -> long long {
         const int oy = oy0 + r / TW, ox = ox0 + r % TW;
         return oy < Ho && ox < Wo ? (long long)oy * Wo + ox : -1;
       },
-      (int)blockIdx.y * BN, M, (long long)Ho * Wo, (const T*)nullptr, (const T*)nullptr, out, ws,
+      (int)blockIdx.y * L::BN, M, (long long)Ho * Wo, (const T*)nullptr, (const T*)nullptr, out, ws,
       relu ? ACT_RELU : ACT_NONE);
 }
 
-template <typename T, int BN>
+template <typename T>
 int launch(const T* x, const T* w, T* out, float* ws, int H, int W, int C, int KS, int M,
            int stride, int pad, int Ho, int Wo, int relu, int stages, int splits, int kps,
            cudaStream_t stream) {
-  using L = Layout<T, BN>;
+  using L = ConvLayout<T>;
   const int KT = ((C + L::BK - 1) / L::BK) * KS * KS;
   if (stages < 2 || stages > 4 || kps <= 0 || (long long)splits * kps < KT ||
       (splits - 1) * kps >= KT)
     return static_cast<int>(cudaErrorInvalidValue);
   const int nh = halo_buffers(KS, stages);
   int as = 0;
-  const long long smem = conv_smem<T, BN>(KS, stride, stages, &as);
+  const long long smem = conv_smem<T>(KS, stride, stages, &as);
   if (smem < 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(conv2d_com_kernel<T, BN>, (int)smem);
+  cudaError_t err = allow_smem(conv2d_com_kernel<T>, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const bool vec_x = C % L::CE == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const bool vec_w = M % L::CE == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  const dim3 grid(((Ho + TH - 1) / TH) * ((Wo + TW - 1) / TW), (M + BN - 1) / BN, splits);
-  conv2d_com_kernel<T, BN><<<grid, L::THREADS, (int)smem, stream>>>(
+  const dim3 grid(((Ho + TH - 1) / TH) * ((Wo + TW - 1) / TW), (M + L::BN - 1) / L::BN, splits);
+  conv2d_com_kernel<T><<<grid, L::THREADS, (int)smem, stream>>>(
       x, w, out, splits > 1 ? ws : nullptr, H, W, C, KS, M, stride, pad, Ho, Wo, relu, stages, nh,
       as, kps, vec_x, vec_w);
   err = cudaGetLastError();
@@ -193,7 +197,7 @@ int dispatch(const void* x, const void* w, void* out, float* ws, int H, int W, i
              int kps, cudaStream_t s) {
   const T *xt = static_cast<const T*>(x), *wt = static_cast<const T*>(w);
   T* ot = static_cast<T*>(out);
-  return launch<T, 64>(xt, wt, ot, ws, H, W, C, K, M, stride, pad, Ho, Wo, relu, stages, splits,
+  return launch<T>(xt, wt, ot, ws, H, W, C, K, M, stride, pad, Ho, Wo, relu, stages, splits,
                        kps, s);
 }
 

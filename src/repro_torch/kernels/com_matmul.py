@@ -37,10 +37,9 @@ _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 SMS = 132                # SMs of an H100 SXM
 SMEM_LIMIT = 232_448     # shared memory a block may use (227 KB)
 BM, BN = 128, 64         # block tile of the tensor-core path
-BK = {torch.float32: 32, torch.bfloat16: 64}   # k-tile: 128 bytes of an A row
+BK = {torch.float32: 64, torch.bfloat16: 64}   # k-tile of the tensor-core path
 A_PAD = 8                # A row padding (elements)
 B_PAD = {torch.float32: 4, torch.bfloat16: 8}  # B row padding (elements)
-STAGES = 3               # cp.async ring slots: two blocks an SM
 SKINNY_M = 32            # M at or below this streams w on CUDA cores
 SKINNY_COLS = 128        # w columns a streaming block owns
 SKINNY_MIN_ROWS = 64     # fewest K rows a streaming split walks
@@ -98,12 +97,21 @@ def split_k(tiles: int, k_tiles: int, tile_us: float, out_bytes: int, per_sm: in
     return chunk, splits, s_max
 
 
-def tile_us(dtype: torch.dtype) -> float:
-    """Modelled time of one k-tile of a block alone on an SM: its MMAs (three
-    TF32 passes for float32) at half the card's tensor-core peak shared by
-    the SMs."""
+def tile_us(bk: int, dtype: torch.dtype) -> float:
+    """Modelled time of one k-tile (``bk`` deep) of a block alone on an SM:
+    its MMAs (three TF32 passes for float32) at half the card's tensor-core
+    peak shared by the SMs."""
     passes, peak = (3, 495e12) if dtype == torch.float32 else (1, 989e12)
-    return 2 * BM * BN * BK[dtype] * passes / (0.5 * peak / SMS) * 1e6
+    return 2 * BM * BN * bk * passes / (0.5 * peak / SMS) * 1e6
+
+
+def ring(stage_bytes: int) -> Tuple[int, int]:
+    """``(stages, bytes)``: the deepest ring of 2-4 slots that keeps two blocks
+    an SM (an SM has 228 KB, 1 KB of it reserved a block), else 2."""
+    for stages in (4, 3, 2):
+        if 2 * (stages * stage_bytes + 1024) <= 233_472:
+            break
+    return stages, stages * stage_bytes
 
 
 def blocks_per_sm(smem: int) -> int:
@@ -128,10 +136,10 @@ def plan(M: int, N: int, K: int, dtype: torch.dtype) -> Plan:
                     8 * 8 * SKINNY_COLS * 4, 4 * splits * M * N if splits > 1 else 0)
     bk = BK[dtype]
     tiles = math.ceil(M / BM) * math.ceil(N / BN)
-    smem = STAGES * (BM * (bk + A_PAD) + bk * (BN + B_PAD[dtype])) * es
-    kps, splits, s_max = split_k(tiles, math.ceil(K / bk), tile_us(dtype), 4 * M * N,
+    stages, smem = ring((BM * (bk + A_PAD) + bk * (BN + B_PAD[dtype])) * es)
+    kps, splits, s_max = split_k(tiles, math.ceil(K / bk), tile_us(bk, dtype), 4 * M * N,
                                  blocks_per_sm(smem))
-    return Plan("mma", BM, BN, bk, STAGES, splits, kps * bk, s_max,
+    return Plan("mma", BM, BN, bk, stages, splits, kps * bk, s_max,
                 (math.ceil(M / BM), math.ceil(N / BN), splits), smem,
                 4 * splits * M * N if splits > 1 else 0)
 

@@ -26,7 +26,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.com_matmul import (
-    A_PAD, B_PAD, BK, BN, SMEM_LIMIT, blocks_per_sm, split_k, tile_us)
+    A_PAD, B_PAD, BN, SMEM_LIMIT, blocks_per_sm, split_k, tile_us)
 from repro_torch.kernels.ref import conv2d_com_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -34,6 +34,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # stages, splits, k-tiles a split, stream
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 14 + [ctypes.c_void_p]
 TILE = (8, 16)  # output pixels of a block (rows, columns): BM in all
+BK = {torch.float32: 32, torch.bfloat16: 64}  # channels of a chunk (ConvLayout in the .cu)
 
 
 @dataclass(frozen=True)
@@ -92,7 +93,7 @@ def plan(H: int, W: int, C: int, K: int, M: int, stride: int, padding: int,
     pixel_tiles = math.ceil(Ho / th) * math.ceil(Wo / tw)
     tiles = pixel_tiles * math.ceil(M / BN)
     k_tiles = math.ceil(C / bk) * K * K
-    kps, splits, s_max = split_k(tiles, k_tiles, tile_us(dtype), 4 * Ho * Wo * M,
+    kps, splits, s_max = split_k(tiles, k_tiles, tile_us(bk, dtype), 4 * Ho * Wo * M,
                                  blocks_per_sm(smem))
     return ConvPlan(BN, bk, TILE, stages, nh, bk + pad, k_tiles, splits, kps, s_max,
                     (pixel_tiles, math.ceil(M / BN), splits), smem,

@@ -20,7 +20,7 @@ from repro_torch.convert import to_port
 from repro_torch.core.mapping import ConvSpec, _vgg, vgg16_imagenet
 from repro_torch.core.program import Workload, compile_program
 from repro_torch.kernels import _build, ops
-from repro_torch.kernels.com_matmul import SMEM_LIMIT, SMS, plan
+from repro_torch.kernels.com_matmul import BK, SMEM_LIMIT, SMS, plan
 from repro_torch.kernels.conv2d_com import plan as conv_plan
 from repro_torch.kernels.ref import _epilogue, com_matmul_ref, conv2d_com_ref
 
@@ -144,7 +144,7 @@ def _add_toward_zero(acc, s):
     return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
 
 
-def mma_3xtf32(x, w, *, promote=True, bk=32):
+def mma_3xtf32(x, w, *, promote=True, bk=BK[torch.float32]):
     """(M,K) @ (K,N) in float32 as the kernel computes it: per k8 step the
     passes big x small', small x big', big x big' (products exact, each MMA's
     sum truncated into the accumulator); with ``promote`` each k-tile of
