@@ -113,8 +113,9 @@ def main() -> None:
     build = ROOT / "build"
     build.mkdir(exist_ok=True)
     (build / "mma_ceiling.cu").write_text(CEILING_CU)
-    nvcc = "/usr/local/cuda/bin/nvcc"
-    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-o",
+    from repro_torch.kernels import _build
+
+    subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-o",
                     str(build / "mma_ceiling"), str(build / "mma_ceiling.cu")], check=True)
     print(subprocess.run([str(build / "mma_ceiling")], check=True, capture_output=True,
                          text=True).stdout, end="", flush=True)

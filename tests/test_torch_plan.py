@@ -217,7 +217,7 @@ def test_build_target_covers_included_headers_and_flags(monkeypatch, tmp_path):
     (tmp_path / "inner.cuh").write_text("inline int g() { return 2; }\n")
     second = _build._target("k")
     assert second != first
-    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-I/opt/include",))
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-Iinclude",))
     assert _build._target("k") not in (first, second)
     assert [f.name for f in _build._sources(tmp_path / "k.cu")] == ["k.cu", "shared.cuh",
                                                                     "inner.cuh"]
