@@ -20,13 +20,20 @@ full published widths. Phases, each printing JSON lines:
                (1, S, 4, 1024) with 4 heads of 256 at S = 128, 517, 1024 and at
                every prompt length the xlstm serve phase prefills, for
                slstm_fused) plus the epilogue, stride-2, 5x5, bf16,
-               non-causal, head_dim-128, B = 2 and S = 1 cases: errors, kernel,
-               plain and library times (CUDA events), and the bound; each
-               com_matmul and conv2d_com line also gives the launch plan it ran
-               (kernels/{com_matmul,conv2d_com}.py:plan) and bound_3xtf32_ms
-               (three TF32 passes at 495 TFLOP/s against the bytes at 3.35
-               TB/s, float32), and where the plan splits K, a second call must
-               return the same bits;
+               non-causal, head_dim-128, head_dim-32 (the reduced configs'),
+               B = 2 and S = 1 cases, slstm_fused at hd 32 (a cluster of
+               one) and at hd 512 (the stream path), and an inf and a
+               near-overflow operand through com_matmul on its streaming and
+               tensor-core paths (com_matmul_ref's infinities, NaNs and finite
+               values): errors, kernel, plain and library times (CUDA events),
+               and the bound; each line also gives the launch plan it ran
+               (the kernels' plan functions); com_matmul, conv2d_com and
+               flash_attention lines give bound_3xtf32_ms (three TF32 passes at
+               495 TFLOP/s against the bytes at 3.35 TB/s, float32); flash and
+               slstm lines give graph_ms, the device time alone (calls replayed
+               from a CUDA graph: no host time between launches; for flash also
+               SDPA's), and slstm lines the time a step; where a plan splits K
+               or the KV range, a second call must return the same bits;
 4. e2e       — compile_program(vgg16_imagenet()), random_weights(seed=0), 8 images
                from numpy.random.default_rng(1): the executor's "cuda" backend
                held against its float64 "reference" backend on the card, events
@@ -47,10 +54,13 @@ full published widths. Phases, each printing JSON lines:
                last-token logits of every request's prefill against the same
                model with the plain attention, in float32 and in bfloat16;
 7. profile-serve — a torch.profiler window over one prefill and one decode step;
+               fails if a library attention kernel (flash_fwd, fmha,
+               efficient_attention, cuDNN) runs in the prefill;
 8. serve-xlstm — xlstm-350m (24 layers as 12 [mLSTM, sLSTM] pairs, d_model
                1024, 4 heads of 256, vocab 50304, untied), bf16, weights drawn
                from seed 0, the same 16-request wave as phase 6: the same
-               numbers, slstm_fused launches (12 per prefill), the tokens
+               numbers, slstm_fused launches (12 per prefill, each a cluster of
+               8 CTAs per head), the tokens
                against generate_sequential; then, on four of the prompts (the
                shortest, the longest, two between: the plain recurrence is a
                loop of ~20 launches a step), the last-token prefill logits
@@ -103,8 +113,10 @@ from repro_torch.kernels.com_matmul import plan as com_matmul_plan  # noqa: E402
 from repro_torch.kernels.conv2d_com import conv2d_com  # noqa: E402
 from repro_torch.kernels.conv2d_com import plan as conv2d_plan  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import plan as flash_plan  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     com_matmul_ref, conv2d_com_ref, flash_attention_ref, slstm_ref)
+from repro_torch.kernels.slstm import plan as slstm_plan  # noqa: E402
 from repro_torch.kernels.slstm import slstm_fused  # noqa: E402
 from repro_torch.models.transformer import CallConfig, build_model  # noqa: E402
 from repro_torch.serve.engine import Engine, Request  # noqa: E402
@@ -119,6 +131,10 @@ PEAK_BYTES = 3.35e12
 LIBRARY_KERNEL = re.compile(
     r"cublas|cudnn|cutlass|gemm|gemv|xmma|winograd|implicit_convolve|sm\d\d_|ampere_|hopper_",
     re.IGNORECASE)
+# kernel names of PyTorch's fused attention (flash, memory-efficient, cuDNN):
+# none may run in the smollm prefill, whose attention is the port's own
+LIBRARY_ATTENTION = re.compile(r"flash_fwd|fmha|efficient_attention|mem_eff|cudnn|pytorch_flash",
+                               re.IGNORECASE)
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 BF16_ULP = 2.0 ** -7  # a bfloat16 value's spacing, relative to the value, at most
 BATCH = 8
@@ -151,6 +167,29 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 10) -> float:
+    """Device time of one call: ``reps`` calls captured in one CUDA graph and
+    replayed, timed by CUDA events, so that no host time sits between the
+    launches (``cuda_ms`` of a call shorter than its host path times the
+    host)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    del graph
+    return ms
+
+
 def bound(n_bytes: float, n_ops: float, dtype) -> tuple:
     """Least time on the card (ms) and what sets it: each input read once and
     each output written once at the memory rate, or the operations at the
@@ -170,12 +209,12 @@ def bound_3xtf32(n_bytes: float, n_ops: float, dtype):
 
 
 def same_bits(fn, got, name, shape) -> bool:
-    """A second call of ``fn`` returns ``got`` bit for bit (split-K sums its
-    slices in a fixed order, with no atomics)."""
+    """A second call of ``fn`` returns ``got`` bit for bit (split-K and
+    split-KV combine their slices in a fixed order, with no atomics)."""
     again = fn()
     torch.cuda.synchronize()
     if not torch.equal(again, got):
-        fail(f"{name} {shape}: two calls differ (split-K must be deterministic)")
+        fail(f"{name} {shape}: two calls differ (a split launch must be deterministic)")
     return True
 
 
@@ -246,6 +285,34 @@ def check_com_matmul(gen, M, K, N, dtype=torch.float32, activation="relu",
         cuda_ms(lambda: torch.matmul(x, w)), t_parts, by, extra=extra)
 
 
+def check_com_matmul_inf(gen, M, dtype):
+    """An inf in x and a -inf in w, each meeting an exact 1.0 (whose 3xTF32
+    small half is 0), and a near-overflow 3.4028e38: com_matmul must give
+    com_matmul_ref's infinities, NaNs and finite values (f32 tolerance of the
+    finite part), on the streaming (M <= 32) or tensor-core path."""
+    K, N = 96, 40
+    x = randn((M, K), gen)
+    w = randn((K, N), gen, scale=1e-3)
+    w[7, 3] = 1.0
+    x[5, 7], x[6, 9], w[11, 20] = float("inf"), 3.4028e38, float("-inf")
+    x, w = x.to(dtype), w.to(dtype)
+    got = com_matmul(x, w)
+    torch.cuda.synchronize()
+    want = com_matmul_ref(x, w)
+    fin = want.isfinite()
+    same = (torch.equal(got.isnan(), want.isnan()) and torch.equal(got.isinf(), want.isinf())
+            and torch.equal(got[got.isinf()], want[want.isinf()]))
+    err = (got[fin].double() - want[fin].double()).abs().max().item()
+    scale = want[fin].double().abs().max().item()
+    line = {"kernel": "com_matmul(inf operand)", "shape": [M, K, N],
+            "dtype": str(dtype).replace("torch.", ""), "path": com_matmul_plan(M, N, K, dtype).path,
+            "non_finite": int((~fin).sum().item()), "same_non_finite_as_plain": same,
+            "finite_max_rel_err": err / scale, "tol": TOL[dtype]}
+    emit(line)
+    if not same or err > TOL[dtype] * scale:
+        fail(f"com_matmul with an inf operand, M = {M} {dtype}: {line}")
+
+
 def check_conv2d(gen, H, W, C, M, K=3, stride=1, padding=1, dtype=torch.float32):
     x = randn((H, W, C), gen, dtype)
     w = randn((K, K, C, M), gen, dtype, (2.0 / (K * K * C)) ** 0.5)
@@ -293,12 +360,20 @@ def check_flash(gen, S, dtype=torch.bfloat16, causal=True, H=9, KVH=3, hd=64, B=
     want = flash_attention_ref(q, k, v, causal=causal)
     n_bytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
     pairs = S * (S + 1) // 2 if causal else S * S  # (q, k) pairs the mask keeps
-    t_parts, by = bound(n_bytes, 4.0 * hd * H * B * pairs, dtype)
+    n_ops = 4.0 * hd * H * B * pairs
+    t_parts, by = bound(n_bytes, n_ops, dtype)
+    p = flash_plan(B, S, S, H, KVH, hd, dtype, causal)
+    extra = {"plan": dataclasses.asdict(p), "bound_3xtf32_ms": bound_3xtf32(n_bytes, n_ops, dtype),
+             "graph_ms": graph_ms(lambda: flash_attention(q, k, v, causal=causal)),
+             "library_graph_ms": graph_ms(lambda: sdpa(q, k, v, causal))}
+    if p.splits > 1:
+        extra["split_kv_same_bits"] = same_bits(lambda: flash_attention(q, k, v, causal=causal),
+                                                got, "flash_attention", (B, S, H, KVH, hd))
     return compare(
         "flash_attention" + ("" if causal else "(non-causal)"), (B, S, H, KVH, hd), dtype,
         got, want, cuda_ms(lambda: flash_attention(q, k, v, causal=causal)),
         cuda_ms(lambda: flash_attention_ref(q, k, v, causal=causal)),
-        cuda_ms(lambda: sdpa(q, k, v, causal)), t_parts, by, one_rounding=True)
+        cuda_ms(lambda: sdpa(q, k, v, causal)), t_parts, by, one_rounding=True, extra=extra)
 
 
 def check_slstm(gen, S, dtype=torch.bfloat16, B=1, H=4, hd=256):
@@ -309,7 +384,11 @@ def check_slstm(gen, S, dtype=torch.bfloat16, B=1, H=4, hd=256):
     D = H * hd
     gx = randn((B, S, 4, D), gen, dtype)
     rg = randn((4, H, hd, hd), gen, torch.float32, hd ** -0.5)
-    got, state = slstm_fused(gx, rg, H)
+    p = slstm_plan(B, S, H, hd, dtype)
+    def run():
+        return slstm_fused(gx, rg, H)
+
+    got, state = run()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
@@ -324,10 +403,13 @@ def check_slstm(gen, S, dtype=torch.bfloat16, B=1, H=4, hd=256):
     # gx read once, h and the final state written once, R read once
     n_bytes = es * (B * S * 4 * D + B * S * D) + 4 * (rg.numel() + 4 * B * H * hd)
     t_parts, by = bound(n_bytes, 2.0 * 4 * hd * hd * H * S * B, torch.float32)
+    kernel_ms = cuda_ms(lambda: run()[0])
     line = compare(
-        "slstm_fused", (B, S, 4, D), dtype, got, want,
-        cuda_ms(lambda: slstm_fused(gx, rg, H)), start.elapsed_time(end), None, t_parts, by,
-        one_rounding=True, f32_tol=SLSTM_TOL, extra={"heads": H, "state_max_rel_err": state_err})
+        "slstm_fused", (B, S, 4, D), dtype, got, want, kernel_ms, start.elapsed_time(end), None, t_parts, by,
+        one_rounding=True, f32_tol=SLSTM_TOL,
+        extra={"heads": H, "state_max_rel_err": state_err, "plan": dataclasses.asdict(p),
+               "steps": S, "step_us": kernel_ms * 1e3 / S,
+               "graph_ms": graph_ms(lambda: run()[0], reps=3)})
     if not all(torch.isfinite(t).all().item() for t in state) or max(state_err.values()) > SLSTM_TOL:
         fail(f"slstm_fused {(B, S, 4, D)} {dtype}: final state off by {state_err} of max|plain| "
              f"(limit {SLSTM_TOL})")
@@ -337,7 +419,8 @@ def check_slstm(gen, S, dtype=torch.bfloat16, B=1, H=4, hd=256):
 def summary(lines, repeat: int = 1) -> dict:
     """A kernel's numbers over one run of its path: times summed over the
     path's shapes (``repeat`` runs of each), errors the worst; with the
-    3xTF32 bound where every line has one."""
+    3xTF32 bound where every line has one, and the time a step of a
+    recurrence."""
     parts = [0.0, 0.0]
     for ln in lines:
         # bound_ms of a line is max(bytes, ops): recover which one it was
@@ -345,6 +428,12 @@ def summary(lines, repeat: int = 1) -> dict:
     extra = {}
     if all(ln.get("bound_3xtf32_ms") is not None for ln in lines):
         extra["bound_3xtf32_ms"] = repeat * sum(ln["bound_3xtf32_ms"] for ln in lines)
+    for key in ("graph_ms", "library_graph_ms"):  # device time alone (CUDA graph replay)
+        if all(key in ln for ln in lines):
+            extra[key] = repeat * sum(ln[key] for ln in lines)
+    if all("steps" in ln for ln in lines):  # a recurrence: its mean time a step
+        extra["step_us"] = 1e3 * sum(ln["kernel_ms"] for ln in lines) / sum(
+            ln["steps"] for ln in lines)
     return {
         "max_abs_err": max(ln["max_abs_err"] for ln in lines),
         "ms": repeat * sum(ln["kernel_ms"] for ln in lines),
@@ -636,14 +725,15 @@ def serve(model, cfg, kernel, per_prefill: int, logits_check, phase: str) -> tup
     return line, launches, eng
 
 
-def profile_serve(model, eng, cfg) -> None:
+def profile_serve(model, eng, cfg, forbid=None) -> None:
     """Where a prefill's (the wave's first prompt) and an 8-slot decode
-    step's device time goes."""
+    step's device time goes; with ``forbid``, fails if a kernel of that name
+    pattern runs in the prefill."""
     prompt = serve_wave(cfg.vocab_size)[0].prompt[None, :]
     one = model.init_cache(1, MAX_SEQ)
     emit({"phase": "profile-serve", "arch": cfg.name, "what": "prefill",
           "prompt_len": prompt.shape[1],
-          **profile_window(lambda: model.prefill(prompt, one), "a prefill")})
+          **profile_window(lambda: model.prefill(prompt, one), "a prefill", forbid=forbid)})
     tok = torch.ones((SLOTS, 1), dtype=torch.long, device="cuda")
     pos = torch.full((SLOTS,), 1000, dtype=torch.long, device="cuda")
     emit({"phase": "profile-serve", "arch": cfg.name, "what": "decode_step", "slots": SLOTS,
@@ -699,6 +789,9 @@ def main() -> None:
     for dtype in (torch.float32, torch.bfloat16):
         check_com_matmul(gen, 3001, 1000, 1000, dtype, "gelu", True, True)
     check_com_matmul(gen, 3001, 1000, 1000, torch.float32, "silu", True, True)
+    for M in (8, 200):  # the streaming and the tensor-core path
+        for dtype in (torch.float32, torch.bfloat16):
+            check_com_matmul_inf(gen, M, dtype)
     conv_lines = [check_conv2d(gen, l.h_in, l.w_in, l.c_in, l.c_out, l.k, l.stride, l.padding)
                   for l in layers if isinstance(l, ConvSpec)]
     check_conv2d(gen, 112, 112, 64, 128, 3, 2, 1)
@@ -709,6 +802,9 @@ def main() -> None:
             check_flash(gen, S, dtype)
     check_flash(gen, 517, causal=False)
     check_flash(gen, 1024, H=9, KVH=3, hd=128)
+    for dtype in (torch.bfloat16, torch.float32):  # the reduced configs' hd 32, split
+        check_flash(gen, 1100, dtype, H=2, KVH=2, hd=32)
+    check_flash(gen, 517, H=4, KVH=2, hd=32, B=2)
     serve_cfg = get_config(SERVE_ARCH)
     flash_lines = [check_flash(gen, len(r.prompt), hd=serve_cfg.head_dim, H=serve_cfg.num_heads,
                                KVH=serve_cfg.num_kv_heads)
@@ -720,6 +816,8 @@ def main() -> None:
             check_slstm(gen, S, dtype, **xlstm_shape)
     check_slstm(gen, 77, torch.float32, B=2, **xlstm_shape)
     check_slstm(gen, 1, torch.bfloat16, **xlstm_shape)
+    check_slstm(gen, 130, torch.float32, B=2, H=4, hd=32)  # the reduced configs' cluster of 1
+    check_slstm(gen, 200, H=1, hd=512)  # the stream path
     slstm_lines = [check_slstm(gen, len(r.prompt), **xlstm_shape)
                    for r in serve_wave(xcfg.vocab_size)]
     phase_done("kernels")
@@ -791,7 +889,7 @@ def main() -> None:
     phase_done("serve")
 
     # 7. where a prefill's and a decode step's device time goes
-    profile_serve(model, eng, serve_cfg)
+    profile_serve(model, eng, serve_cfg, forbid=LIBRARY_ATTENTION)
     del model, eng
     torch.cuda.empty_cache()
     phase_done("profile-serve")

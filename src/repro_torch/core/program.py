@@ -120,6 +120,10 @@ class LayerProgram:
     def block(self, c_index: int, m_index: int) -> LayerBlock:
         return self.blocks[c_index * self.m_blocks + m_index]
 
+    @property
+    def n_blocks(self) -> int:
+        return len(self.blocks)
+
 
 @dataclass(frozen=True, eq=False)
 class CompiledProgram:

@@ -17,7 +17,11 @@
 // * float32 runs 3xTF32 on mma.sync.m16n8k8: each fragment element x is split
 //   into big = x rounded to TF32 and small = x - big (read as TF32), and
 //   acc += small*big' + big*small' + big*big' (small terms first; small*small
-//   dropped). The tensor cores add into the accumulator without rounding to
+//   dropped). The fast split (four instructions an element) turns an inf, a
+//   NaN or an |x| within half a TF32 ulp of FLT_MAX into a NaN product; a
+//   block whose sums come out non-finite runs its k range again with the
+//   saturating split, which carries those operands as the plain product does
+//   (see tf32_big). Where the fast split is finite the two agree bit for bit. The tensor cores add into the accumulator without rounding to
 //   nearest, so each k-tile's MMAs run on a fresh accumulator that is then
 //   added to an f32 register sum (the promotion that Hopper's FP8 GEMMs use):
 //   the truncation then acts on one k-tile's partial sum, not on the whole
@@ -154,15 +158,44 @@ __device__ __forceinline__ void cp_async_wait(int n) {
   }
 }
 
-// x = big + small: big is x rounded to TF32 (half a TF32 ulp added; the MMA
-// reads only the 19 high bits of a TF32 operand, so its truncation rounds
-// half away from zero, as cvt.rna does), small = x - big exactly in f32,
-// read by the MMA truncated to TF32. A fragment register holds x + half an
-// ulp, from which both follow: the big operand as it is, small in three
-// instructions.
-__device__ __forceinline__ uint32_t tf32_big(float x) { return __float_as_uint(x) + 0x1000u; }
-__device__ __forceinline__ uint32_t tf32_small(uint32_t big) {
+// x = big + small, the fast split: big is x rounded to TF32 (half a TF32 ulp
+// added; the MMA reads only the 19 high bits of a TF32 operand, so its
+// truncation rounds half away from zero, as cvt.rna does), small = x - big
+// exactly in f32, read by the MMA truncated to TF32. A fragment register
+// holds x + half an ulp, from which both follow: the big operand as it is,
+// small in three instructions. For |x| >= 0x7F7FF000 (inf, NaN, the top
+// half ulp below FLT_MAX) the add carries into the exponent and the products
+// come out NaN: the caller detects that and takes the saturating split.
+__device__ __forceinline__ uint32_t tf32_big_fast(float x) { return __float_as_uint(x) + 0x1000u; }
+__device__ __forceinline__ uint32_t tf32_small_fast(uint32_t big) {
   return __float_as_uint(__uint_as_float(big - 0x1000u) - __uint_as_float(big & 0xFFFFE000u));
+}
+
+// The saturating split: big is x rounded to TF32 and saturated at the
+// largest finite TF32, TF32_MAX (cvt.rna.satfinite: x clamped to
+// +-TF32_MAX, then half an ulp added), small = x - big, from x itself.
+// * |x| near FLT_MAX: big = TF32_MAX, small = x - TF32_MAX, exact;
+// * x = +-inf: big = +-TF32_MAX, small = +-inf, so that small x big' and
+//   big x big' carry the infinity with the right sign and big x small' stays
+//   finite (inf x 0 = NaN, where small' is 0, is never formed); inf x inf
+//   comes out inf;
+// * x = NaN: big = -TF32_MAX, small = NaN: the sum is NaN.
+// (A pass-through big = x, small = 0 would form inf x small', NaN or -inf
+// for an x' whose small is 0 or of the other sign.)
+constexpr float TF32_MAX = 3.40116213e38f;  // 0x7F7FE000
+__device__ __forceinline__ uint32_t tf32_big(float x) {
+  return __float_as_uint(fminf(fmaxf(x, -TF32_MAX), TF32_MAX)) + 0x1000u;
+}
+__device__ __forceinline__ uint32_t tf32_small(float x, uint32_t big) {
+  return __float_as_uint(x - __uint_as_float(big & 0xFFFFE000u));
+}
+// An 8-byte shared-memory load the compiler may not merge with an earlier
+// load of the same address: the split reloads x for its small half rather
+// than keeping x in registers.
+__device__ __forceinline__ float2 lds_f2(const float* p) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(smem_u32(p)));
+  return v;
 }
 
 // d = a b + d, or with FRESH d = a b (no accumulator to read)
@@ -209,7 +242,8 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
 
 // With FRESH the first MMA of each accumulator overwrites it (a promoted
 // k-tile starts from zero without clearing registers).
-template <int MT, int NT, int BS, int BK, bool FRESH>
+// With SAFE the saturating split, else the fast one.
+template <int MT, int NT, int BS, int BK, bool FRESH, bool SAFE>
 __device__ __forceinline__ void warp_ktile(float (&acc)[MT][NT][4], const float* A,
                                            const int (&aoff)[MT][2], const float* B, int wn0,
                                            int lane) {
@@ -217,28 +251,44 @@ __device__ __forceinline__ void warp_ktile(float (&acc)[MT][NT][4], const float*
 #pragma unroll
   for (int ks = 0; ks < BK; ks += 8) {
     uint32_t a[MT][4], b[NT][2], small[MT > NT / 2 ? MT * 4 : NT * 2];
+    float bx[SAFE ? NT : 1][2];
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       const float* bp = B + (ks + 2 * t) * BS + wn0 + j * 8 + g;
-      b[j][0] = tf32_big(bp[0]);
-      b[j][1] = tf32_big(bp[BS]);
+      if constexpr (SAFE) {
+        bx[j][0] = bp[0], bx[j][1] = bp[BS];
+        b[j][0] = tf32_big(bx[j][0]);
+        b[j][1] = tf32_big(bx[j][1]);
+      } else {
+        b[j][0] = tf32_big_fast(bp[0]);
+        b[j][1] = tf32_big_fast(bp[BS]);
+      }
     }
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
       const float2 lo = *reinterpret_cast<const float2*>(A + aoff[i][0] + ks + 2 * t);
       const float2 hi = *reinterpret_cast<const float2*>(A + aoff[i][1] + ks + 2 * t);
-      a[i][0] = tf32_big(lo.x);
-      a[i][1] = tf32_big(hi.x);
-      a[i][2] = tf32_big(lo.y);
-      a[i][3] = tf32_big(hi.y);
+      if constexpr (SAFE) {
+        a[i][0] = tf32_big(lo.x), a[i][1] = tf32_big(hi.x);
+        a[i][2] = tf32_big(lo.y), a[i][3] = tf32_big(hi.y);
+      } else {
+        a[i][0] = tf32_big_fast(lo.x), a[i][1] = tf32_big_fast(hi.x);
+        a[i][2] = tf32_big_fast(lo.y), a[i][3] = tf32_big_fast(hi.y);
+      }
     }
     // three passes over the MT x NT accumulators, so that consecutive MMAs
     // never wait on each other: big x small', small x big', big x big'. Each
-    // pass's small terms live only through that pass.
+    // pass's small terms live only through that pass (the saturating split
+    // reloads A for its small halves: it needs x, and registers are scarce).
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      small[2 * j] = tf32_small(b[j][0]);
-      small[2 * j + 1] = tf32_small(b[j][1]);
+      if constexpr (SAFE) {
+        small[2 * j] = tf32_small(bx[j][0], b[j][0]);
+        small[2 * j + 1] = tf32_small(bx[j][1], b[j][1]);
+      } else {
+        small[2 * j] = tf32_small_fast(b[j][0]);
+        small[2 * j + 1] = tf32_small_fast(b[j][1]);
+      }
     }
 #pragma unroll
     for (int i = 0; i < MT; ++i)
@@ -251,8 +301,15 @@ __device__ __forceinline__ void warp_ktile(float (&acc)[MT][NT][4], const float*
       }
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
+      if constexpr (SAFE) {
+        const float2 lo = lds_f2(A + aoff[i][0] + ks + 2 * t);
+        const float2 hi = lds_f2(A + aoff[i][1] + ks + 2 * t);
+        small[0] = tf32_small(lo.x, a[i][0]), small[1] = tf32_small(hi.x, a[i][1]);
+        small[2] = tf32_small(lo.y, a[i][2]), small[3] = tf32_small(hi.y, a[i][3]);
+      } else {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) small[c] = tf32_small(a[i][c]);
+        for (int c = 0; c < 4; ++c) small[c] = tf32_small_fast(a[i][c]);
+      }
 #pragma unroll
       for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], small, b[j]);
     }
@@ -265,7 +322,7 @@ __device__ __forceinline__ void warp_ktile(float (&acc)[MT][NT][4], const float*
 
 // bf16: `aoff[i][0]` is the offset of row wm0 + 16 i + (lane % 16), the row
 // whose address this lane gives ldmatrix.
-template <int MT, int NT, int BS, int BK, bool FRESH>
+template <int MT, int NT, int BS, int BK, bool FRESH, bool SAFE>
 __device__ __forceinline__ void warp_ktile(float (&acc)[MT][NT][4], const __nv_bfloat16* A,
                                            const int (&aoff)[MT][2], const __nv_bfloat16* B,
                                            int wn0, int lane) {
@@ -298,9 +355,9 @@ __device__ __forceinline__ void warp_ktile(float (&acc)[MT][NT][4], const __nv_b
 // k-tile kt; row_off(r) is the offset of A's block row r from a_tile.
 // `acc` receives the sum over k-tiles [kt0, kt0 + nkt).
 
-template <typename T, int BK, class P>
-__device__ __forceinline__ void mainloop(P& p, int kt0, int nkt, int stages,
-                                         float (&acc)[Layout<T, BK>::MT][Layout<T, BK>::NT][4]) {
+template <typename T, int BK, bool SAFE, class P>
+__device__ __forceinline__ void mainloop_pass(P& p, int kt0, int nkt, int stages,
+                                              float (&acc)[Layout<T, BK>::MT][Layout<T, BK>::NT][4]) {
   using L = Layout<T, BK>;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm0 = (warp / L::WARPS_N) * L::WTM, wn0 = (warp % L::WARPS_N) * L::WTN;
@@ -334,7 +391,7 @@ __device__ __forceinline__ void mainloop(P& p, int kt0, int nkt, int stages,
     if (i + stages - 1 < nkt) p.load(kt0 + i + stages - 1, next);
     cp_async_commit();
     if constexpr (std::is_same<T, float>::value && COM_PROMOTE) {
-      warp_ktile<L::MT, L::NT, L::BS, BK, true>(part, p.a_tile(kt0 + i, slot), aoff, p.b_tile(slot),
+      warp_ktile<L::MT, L::NT, L::BS, BK, true, SAFE>(part, p.a_tile(kt0 + i, slot), aoff, p.b_tile(slot),
                                             wn0, lane);
 #pragma unroll
       for (int a = 0; a < L::MT; ++a)
@@ -343,13 +400,34 @@ __device__ __forceinline__ void mainloop(P& p, int kt0, int nkt, int stages,
 #pragma unroll
           for (int c = 0; c < 4; ++c) acc[a][b][c] += part[a][b][c];
     } else {
-      warp_ktile<L::MT, L::NT, L::BS, BK, false>(acc, p.a_tile(kt0 + i, slot), aoff, p.b_tile(slot),
+      warp_ktile<L::MT, L::NT, L::BS, BK, false, SAFE>(acc, p.a_tile(kt0 + i, slot), aoff, p.b_tile(slot),
                                              wn0, lane);
     }
     slot = slot + 1 == stages ? 0 : slot + 1;
     next = next + 1 == stages ? 0 : next + 1;
   }
   cp_async_wait(0);
+}
+
+// The mainloop: the fast split; float32 blocks whose sums are not all finite
+// (an inf, NaN or near-overflow operand makes the fast split's products NaN)
+// run their k range again with the saturating split. One block-wide vote at
+// the end is all the fast path pays.
+template <typename T, int BK, class P>
+__device__ __forceinline__ void mainloop(P& p, int kt0, int nkt, int stages,
+                                         float (&acc)[Layout<T, BK>::MT][Layout<T, BK>::NT][4]) {
+  mainloop_pass<T, BK, false>(p, kt0, nkt, stages, acc);
+  if constexpr (std::is_same<T, float>::value) {
+    float sum = 0.f;  // NaN or inf if any sum is (or, harmlessly, if the total overflows)
+#pragma unroll
+    for (int i = 0; i < Layout<T, BK>::MT; ++i)
+#pragma unroll
+      for (int j = 0; j < Layout<T, BK>::NT; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) sum += acc[i][j][c];
+    // the barrier also ends every warp's reads of the ring before the rerun
+    if (__syncthreads_or(!isfinite(sum))) mainloop_pass<T, BK, true>(p, kt0, nkt, stages, acc);
+  }
 }
 
 // The block's accumulators out: row r of the block tile goes to output row

@@ -1,255 +1,498 @@
 // flash_attention: online-softmax attention forward, GQA, causal (top-left)
 // or not, for q (B, Sq, H, hd) and k, v (B, Skv, KVH, hd) in float32 or
-// bfloat16; out (B, Sq, H, hd) in q's type.
+// bfloat16, hd 32, 64 or 128; out (B, Sq, H, hd) in q's type.
 //
 // Replaces the Pallas TPU kernel repro.kernels.flash_attention.flash_attention
-// (src/repro/kernels/flash_attention.py:64, pallas_call at :87) and its GQA
-// wrapper flash_attention_gqa (:106). The TPU kernel walks the KV blocks as
-// the innermost, sequential grid axis with (acc, m, l) in VMEM scratch, and
-// its wrapper transposes to (B*H, S, hd) and repeats every KV head G = H/KVH
-// times in device memory. Here one block owns one (b, h, 64-row q tile) and
-// a loop inside the block walks the 64-row KV tiles, (acc, m, l) in registers and
-// shared memory. The block reads q, k and v in their (B, S, heads, hd) layout
-// through strides and reads KV head h / G itself, so nothing is transposed or
-// repeated. The Pallas kernel needs S to be a multiple of its block; here
-// ragged Sq and Skv are masked in the kernel, since prompts have any length.
+// (src/repro/kernels/flash_attention.py:64, pallas_call at :87, body :24-61)
+// and its GQA wrapper flash_attention_gqa (:106). The TPU kernel walks the KV
+// blocks as the innermost, sequential grid axis with (acc, m, l) in VMEM
+// scratch, and its wrapper transposes to (B*H, S, hd) and repeats every KV
+// head G = H/KVH times in device memory. Here a block owns one (b, h, 64-row
+// q tile) and a loop inside it walks a range of 64-row KV tiles; q, k and v
+// are read in their (B, S, heads, hd) layout, query head h reading KV head
+// h / G in place, and ragged Sq and Skv are masked in the kernel.
 //
-// The arithmetic follows the Pallas kernel: q is cast to f32 and then scaled
-// by 1/sqrt(hd); scores, the running max m, the running sum l and the
-// accumulator are f32; l is clamped at 1e-30 before the division; the result
-// is cast once to q's type. The causal mask is top-left, k_pos <= q_pos, and
-// KV tiles that lie wholly above the diagonal are skipped.
+// The arithmetic is the Pallas kernel's: scores, the running max m, the
+// running sum l and the accumulator are f32; the softmax scale is applied to
+// the f32 scores (the Pallas kernel scales f32 q first: the two differ by f32
+// rounding, where scaling bf16 q would round it again); masked scores are
+// NEG_INF = -1e30 (a key past Skv, which the Pallas kernel never has, is
+// -inf); l is clamped at 1e-30; the result is rounded once to q's type.
 //
-// What bounds it on an H100: a causal prefill of S tokens does 4*hd*H*S^2/2
-// flop on 4*S*(H + 2*KVH)*hd bytes (f32), far above the ridge for S >= 128,
-// so the bound is operations. This first version uses f32 FMAs on the CUDA
-// cores (67 TFLOP/s peak), not the tensor cores (989 TFLOP/s bf16): each
-// thread keeps an 8 x (BKV/16) block of scores and an 8 x (hd/16) block of
-// the accumulator in registers and forms both products from shared-memory
-// tiles. At batch-1 prefill the grid is small (H * ceil(S/64) blocks: 18 at
-// S = 128 for smollm), so short prompts leave most of the 132 SMs idle.
-// Left for later: mma.sync/wgmma, cp.async/TMA double buffering, splitting
-// the KV loop of a short prompt over more blocks.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// What bounds it on an H100: a causal prefill of S tokens does about
+// 4*hd*H*S^2/2 flop on 2*es*(H + KVH)*S*hd bytes: operations, at 989 TFLOP/s
+// in bf16. What the design does about it:
+// * Both products run on the tensor cores, mma.sync (FA2's layout: each of
+//   the 4 warps owns 16 q rows, the scores stay in registers and become the
+//   A operand of PV without leaving them).
+//   - bfloat16: m16n8k16 with ldmatrix fragments (.trans for V). P is split
+//     into bf16 hi + mid + lo, all three against the same V fragment: a
+//     single bf16 P errs by up to 2^-9 of sum|p v| on an output element
+//     whose sum cancels, more than one bf16 rounding of the result; hi + lo
+//     (~16 bits) pass that check but round the output otherwise than the
+//     f32 plain version often enough that smollm-135m's 30 bf16 layers carry
+//     it to prefill logits over 2e-2 of max from the plain attention's;
+//     hi + mid + lo keep ~24 bits, f32's.
+//   - float32: 3xTF32 on m16n8k8 with com_mma.cuh's saturating split. QK^T
+//     is promoted every 64 of hd.
+//   In both, each KV tile's PV runs on a fresh accumulator that is added to
+//   the f32 acc after the alpha rescale: the tensor cores truncate what they
+//   add into their accumulator, and an unpromoted sum drifts (com_mma.cuh).
+// * K and V tiles come through a two-slot cp.async ring: tile t + 1 loads
+//   while tile t computes; KV tiles wholly above the causal diagonal are
+//   skipped.
+// * Short prompts leave most SMs idle (B*H*ceil(S/64) blocks: 18 at
+//   smollm's S = 128). The launch plan (kernels/flash_attention.py:plan)
+//   splits the KV range of each q tile over `splits` blocks; each writes its
+//   unnormalised f32 acc and its (m, l) to a workspace, and a second kernel
+//   combines the splits in split order, so two calls give the same bits.
+// * The G query heads of a KV head are not packed into one block: each block
+//   reads its KV head's tiles, the G reads of a tile meet in L2, and the grid
+//   stays G times larger for short prompts.
 #include <math.h>
+
+#include "com_mma.cuh"
 
 namespace {
 
-constexpr int BQ = 64;   // q rows a block
-constexpr int BKV = 64;  // k/v rows a tile
-constexpr int NT = 128;  // threads a block: 16 columns x 8 rows of threads
-static_assert(NT == 2 * BQ, "the softmax pass gives each q row two threads");
+using namespace com;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+constexpr int BQ = 64;        // q rows a block (16 a warp)
+constexpr int BKV = 64;       // k/v rows a tile
+constexpr int THREADS = 128;  // 4 warps
+constexpr int STAGES = 2;     // K/V ring slots
+constexpr float NEG_INF = -1e30f;
 
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-template <int HD>
-constexpr size_t smem_bytes() {
-  // q tile, k tile, v tile (rows padded to HD + 1), score tile (rows padded to
-  // BKV + 1), and the per-row m, l and rescale factor
-  return sizeof(float) * ((size_t)(BQ + 2 * BKV) * (HD + 1) + (size_t)BQ * (BKV + 1) + 3 * BQ);
-}
-
-// Thread (ty, tx) = (tid / 16, tid % 16) owns q rows ty + 8 i (i < 8), score
-// columns tx + 16 j and output columns tx + 16 j. The +1 row padding puts the
-// 16 k rows a warp reads at one d on 16 different banks.
+// Shared-memory geometry. Rows are padded so that a warp's fragment loads
+// hit distinct banks: bf16 by 8 elements (ldmatrix rows 16 bytes apart in
+// bank), f32 q and k by 8 (float2 loads of rows g, columns 2t), f32 v by 4
+// (scalar loads down a column, rows 2t).
 template <typename T, int HD>
-__global__ void __launch_bounds__(NT)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                       T* __restrict__ out, int Sq, int Skv, int H, int KVH, int causal,
-                       float scale) {
-  constexpr int LD = HD + 1;
-  constexpr int LS = BKV + 1;
-  constexpr int RI = BQ / 8;
-  constexpr int CJ = BKV / 16;
-  constexpr int DJ = HD / 16;
-  extern __shared__ float smem[];
-  float* qs = smem;               // [BQ][LD]
-  float* ks = qs + BQ * LD;       // [BKV][LD]
-  float* vs = ks + BKV * LD;      // [BKV][LD]
-  float* ss = vs + BKV * LD;      // [BQ][LS]: scores, then probabilities
-  float* row_m = ss + BQ * LS;    // [BQ] running max
-  float* row_l = row_m + BQ;      // [BQ] running sum
-  float* row_a = row_l + BQ;      // [BQ] this tile's rescale of acc
+struct FL {
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int QS = HD + 8;                 // q and k row stride
+  static constexpr int VS = HD + (F32 ? 4 : 8);     // v row stride
+  static constexpr int Q_ELEMS = BQ * QS;
+  static constexpr int K_ELEMS = BKV * QS;
+  static constexpr int STAGE = K_ELEMS + BKV * VS;
+  static constexpr int SMEM = (Q_ELEMS + STAGES * STAGE) * (int)sizeof(T);
+  static constexpr int CE = 16 / sizeof(T);         // elements a 16-byte copy
+  static_assert(SMEM <= SMEM_LIMIT, "the tiles exceed a block's shared memory");
+};
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int qt = gridDim.x - 1 - blockIdx.x;  // the longest causal rows start first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KVH);
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* out;
+  float* ws_acc;   // [splits][B][H][Sq][HD] unnormalised acc (splits > 1)
+  float2* ws_ml;   // [splits][B][H][Sq] (m, l)
+  int B, Sq, Skv, H, KVH, causal, splits;
+  float scale;
+};
+
+// rows [r0, r0 + 64) of one head of a (B, S, heads, HD) tensor into a
+// [64][ld] tile; rows past S are zero-filled
+template <typename T, int HD>
+__device__ __forceinline__ void load_tile(T* dst, int ld, const T* head0, long long row_stride,
+                                          int r0, int S) {
+  constexpr int CPR = HD / FL<T, HD>::CE;  // 16-byte copies a row
+  for (int c = threadIdx.x; c < 64 * CPR; c += THREADS) {
+    const int r = c / CPR, e = (c % CPR) * FL<T, HD>::CE;
+    const bool ok = r0 + r < S;
+    cp_async16(dst + r * ld + e, ok ? head0 + (long long)(r0 + r) * row_stride + e : head0, ok);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// (x, y) = hi + mid + lo, each a bf16 pair: ~24 bits of each value, as
+// many as f32 keeps
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& mid,
+                                           uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const float rx = x - hf.x, ry = y - hf.y;  // exact
+  __nv_bfloat162 m = __floats2bfloat162_rn(rx, ry);
+  const float2 mf = __bfloat1622float2(m);
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  mid = *reinterpret_cast<uint32_t*>(&m);
+  lo = pack_bf16(rx - mf.x, ry - mf.y);
+}
+
+// ---- QK^T: s[j] (n8 tile j of the 64 keys) for the warp's 16 rows ----------
+
+// bf16: q and k fragments by ldmatrix (q reloaded every tile: registers
+// go to the accumulators)
+template <int HD>
+__device__ __forceinline__ void qk_tile(float (&s)[8][4], const __nv_bfloat16* Qw,
+                                        const __nv_bfloat16* Ks, int lane) {
+  constexpr int QS = FL<__nv_bfloat16, HD>::QS;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    uint32_t qf[4];
+    ldsm_x4(qf, Qw + (lane & 15) * QS + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int j = 0; j < 8; j += 2) {
+      uint32_t r[4];
+      ldsm_x4(r, Ks + (8 * (j + (lane >> 4)) + (lane & 7)) * QS + kk * 16 + ((lane >> 3) & 1) * 8);
+      mma_bf16(s[j], qf, r);
+      mma_bf16(s[j + 1], qf, r + 2);
+    }
+  }
+}
+
+// f32: 3xTF32, q from shared memory, promoted every 64 of hd (a fresh MMA
+// accumulator a chunk, added to s)
+template <int HD>
+__device__ __forceinline__ void qk_tile_f32(float (&s)[8][4], const float* Qw, const float* Ks,
+                                            int lane) {
+  constexpr int QS = FL<float, HD>::QS;
+  constexpr int CHUNK = HD < 64 ? HD : 64;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int d0 = 0; d0 < HD; d0 += CHUNK) {
+    float part[8][4];
+#pragma unroll
+    for (int kk = d0; kk < d0 + CHUNK; kk += 8) {
+      // k slots t and t + 4 take d = kk + 2t and kk + 2t + 1 in both operands
+      uint32_t a[4], as[4], b[8][2], bs[8][2];
+      const float2 lo = *reinterpret_cast<const float2*>(Qw + g * QS + kk + 2 * t);
+      const float2 hi = *reinterpret_cast<const float2*>(Qw + (g + 8) * QS + kk + 2 * t);
+      a[0] = tf32_big(lo.x), a[1] = tf32_big(hi.x), a[2] = tf32_big(lo.y), a[3] = tf32_big(hi.y);
+      as[0] = tf32_small(lo.x, a[0]), as[1] = tf32_small(hi.x, a[1]);
+      as[2] = tf32_small(lo.y, a[2]), as[3] = tf32_small(hi.y, a[3]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 kv = *reinterpret_cast<const float2*>(Ks + (8 * j + g) * QS + kk + 2 * t);
+        b[j][0] = tf32_big(kv.x), b[j][1] = tf32_big(kv.y);
+        bs[j][0] = tf32_small(kv.x, b[j][0]), bs[j][1] = tf32_small(kv.y, b[j][1]);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (kk == d0)
+          mma_tf32<true>(part[j], a, bs[j]);
+        else
+          mma_tf32(part[j], a, bs[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mma_tf32(part[j], as, b[j]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mma_tf32(part[j], a, b[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[j][c] = d0 == 0 ? part[j][c] : s[j][c] + part[j][c];
+  }
+}
+
+// ---- PV ------------------------------------------------------------------------
+
+// bf16: pv = P V on a fresh accumulator, P split into hi + mid + lo (the
+// smaller terms first). The d tiles go in groups of up to 8: a group's V
+// fragments are loaded first, then each pass runs over the group, so that
+// consecutive MMAs never wait on each other.
+template <int HD>
+__device__ __forceinline__ void pv_tile(float (&pv)[HD / 8][4], const float (&p)[8][4],
+                                        const __nv_bfloat16* Vs, int lane) {
+  constexpr int VS = FL<__nv_bfloat16, HD>::VS;
+  constexpr int JG = HD / 8 < 8 ? HD / 8 : 8;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) pv[j][c] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < BKV / 16; ++kk) {
+    // the C fragments of score tiles 2kk, 2kk + 1 are the A fragment of k16 step kk
+    uint32_t part[3][4];  // lo, mid, hi
+    split_bf16(p[2 * kk][0], p[2 * kk][1], part[2][0], part[1][0], part[0][0]);
+    split_bf16(p[2 * kk][2], p[2 * kk][3], part[2][1], part[1][1], part[0][1]);
+    split_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1], part[2][2], part[1][2], part[0][2]);
+    split_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3], part[2][3], part[1][3], part[0][3]);
+#pragma unroll
+    for (int j0 = 0; j0 < HD / 8; j0 += JG) {
+      uint32_t v[JG][2];
+#pragma unroll
+      for (int j = 0; j < JG; j += 2)
+        ldsm_x4_trans(&v[j][0], Vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * VS +
+                                    8 * (j0 + j + (lane >> 4)));
+#pragma unroll
+      for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+        for (int j = 0; j < JG; ++j) mma_bf16(pv[j0 + j], part[pass], v[j]);
+    }
+  }
+}
+
+// f32: pv = P V by 3xTF32 on a fresh accumulator (k slots t, t + 4 take keys
+// 2t, 2t + 1 of each k8 step, so the score C fragment is the A fragment as it
+// stands); d tiles in groups of four, so that consecutive MMAs are independent
+template <int HD>
+__device__ __forceinline__ void pv_tile_f32(float (&pv)[HD / 8][4], const float (&p)[8][4],
+                                            const float* Vs, int lane) {
+  constexpr int VS = FL<float, HD>::VS;
+  constexpr int JG = HD / 8 < 4 ? HD / 8 : 4;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < BKV / 8; ++kk) {
+    uint32_t a[4], as[4];
+    const float pa[4] = {p[kk][0], p[kk][2], p[kk][1], p[kk][3]};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      a[c] = tf32_big(pa[c]);
+      as[c] = tf32_small(pa[c], a[c]);
+    }
+    const float* v0 = Vs + (kk * 8 + 2 * t) * VS + g;
+#pragma unroll
+    for (int j0 = 0; j0 < HD / 8; j0 += JG) {
+      uint32_t b[JG][2], bs[JG][2];
+#pragma unroll
+      for (int j = 0; j < JG; ++j) {
+        const float x0 = v0[8 * (j0 + j)], x1 = v0[VS + 8 * (j0 + j)];
+        b[j][0] = tf32_big(x0), b[j][1] = tf32_big(x1);
+        bs[j][0] = tf32_small(x0, b[j][0]), bs[j][1] = tf32_small(x1, b[j][1]);
+      }
+#pragma unroll
+      for (int j = 0; j < JG; ++j) {
+        if (kk == 0)
+          mma_tf32<true>(pv[j0 + j], a, bs[j]);
+        else
+          mma_tf32(pv[j0 + j], a, bs[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < JG; ++j) mma_tf32(pv[j0 + j], as, b[j]);
+#pragma unroll
+      for (int j = 0; j < JG; ++j) mma_tf32(pv[j0 + j], a, b[j]);
+    }
+  }
+}
+
+// ---- the kernel ----------------------------------------------------------------
+// grid (q tiles, H, B * splits); the longest causal q tiles start first.
+// Split s of a q tile with n KV tiles walks tiles [s * ceil(n / splits), ...).
+// bf16 at hd <= 64 fits four blocks an SM within 128 registers a thread
+template <typename T, int HD>
+__global__ void __launch_bounds__(THREADS, sizeof(T) == 2 && HD <= 64 ? 4 : 1)
+flash_attention_kernel(const Args args) {
+  using L = FL<T, HD>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* ring = Qs + L::Q_ELEMS;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int Sq = args.Sq, Skv = args.Skv, H = args.H;
+  const int split = blockIdx.z % args.splits, b = blockIdx.z / args.splits;
+  const int qt = args.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int h = blockIdx.y, kvh = h / (H / args.KVH);
   const int q0 = qt * BQ;
-  const long long q_pos_stride = (long long)H * HD;    // one position of q / out
-  const long long kv_pos_stride = (long long)KVH * HD;  // one position of k / v
-  const T* qb = q + (long long)b * Sq * q_pos_stride + (long long)h * HD;
-  const T* kb = k + (long long)b * Skv * kv_pos_stride + (long long)kvh * HD;
-  const T* vb = v + (long long)b * Skv * kv_pos_stride + (long long)kvh * HD;
-  T* ob = out + (long long)b * Sq * q_pos_stride + (long long)h * HD;
-
-  for (int e = tid; e < BQ * HD; e += NT) {
-    const int r = e / HD, d = e % HD;
-    const int gq = q0 + r;
-    qs[r * LD + d] = gq < Sq ? to_f32(qb[gq * q_pos_stride + d]) * scale : 0.f;
-  }
-  if (tid < BQ) {
-    row_m[tid] = -INFINITY;
-    row_l[tid] = 0.f;
-  }
-
-  float acc[RI][DJ];
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+  const long long q_row = (long long)H * HD, kv_row = (long long)args.KVH * HD;
+  const T* qh = static_cast<const T*>(args.q) + (long long)b * Sq * q_row + (long long)h * HD;
+  const T* kh = static_cast<const T*>(args.k) + (long long)b * Skv * kv_row + (long long)kvh * HD;
+  const T* vh = static_cast<const T*>(args.v) + (long long)b * Skv * kv_row + (long long)kvh * HD;
 
   int n_tiles = (Skv + BKV - 1) / BKV;
-  if (causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BKV + 1);  // skip tiles above the diagonal
+  if (args.causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BKV + 1);  // tiles that touch k <= q
+  const int per = (n_tiles + args.splits - 1) / args.splits;
+  const int t0 = min(n_tiles, split * per), t1 = min(n_tiles, t0 + per);
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BKV;
-    __syncthreads();  // the last tile's readers of ks, vs and ss are done
-    for (int e = tid; e < BKV * HD; e += NT) {
-      const int r = e / HD, d = e % HD;
-      const int gk = k0 + r;
-      const bool in = gk < Skv;
-      ks[r * LD + d] = in ? to_f32(kb[gk * kv_pos_stride + d]) : 0.f;
-      vs[r * LD + d] = in ? to_f32(vb[gk * kv_pos_stride + d]) : 0.f;
-    }
-    __syncthreads();
+  // rows g and g + 8 of the warp's 16: running max, this thread's share of
+  // the running sum (its 16 columns a tile; summed over the quad at the end)
+  const int r_lo = q0 + warp * 16 + g;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float o[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[j][c] = 0.f;
 
-    // scores S = (q * scale) k^T of this tile, masked to -inf
-    float s[RI][CJ];
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float a[RI], kk[CJ];
-#pragma unroll
-      for (int i = 0; i < RI; ++i) a[i] = qs[(ty + 8 * i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) kk[j] = ks[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < RI; ++i)
-#pragma unroll
-        for (int j = 0; j < CJ; ++j) s[i][j] = fmaf(a[i], kk[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int r = ty + 8 * i, gq = q0 + r;
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        const int c = tx + 16 * j, gk = k0 + c;
-        const bool keep = gk < Skv && (!causal || gk <= gq);
-        ss[r * LS + c] = keep ? s[i][j] : -INFINITY;
-      }
-    }
-    __syncthreads();
-
-    // online softmax, two neighbouring threads a row, half the columns each
-    {
-      const int r = tid >> 1;
-      float* srow = ss + r * LS + (tid & 1) * (BKV / 2);
-      float mx = -INFINITY;
-      for (int c = 0; c < BKV / 2; ++c) mx = fmaxf(mx, srow[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      const float m_old = row_m[r];
-      const float m_new = fmaxf(m_old, mx);
-      // a row with nothing unmasked yet keeps exp() finite: p = 0, alpha = 1
-      const float m_safe = fmaxf(m_new, -1e30f);
-      float sum = 0.f;
-      for (int c = 0; c < BKV / 2; ++c) {
-        const float p = expf(srow[c] - m_safe);
-        srow[c] = p;
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      const float alpha = expf(fmaxf(m_old, -1e30f) - m_safe);
-      __syncwarp();  // both threads of the row have read row_m[r]
-      if ((tid & 1) == 0) {
-        row_m[r] = m_new;
-        row_l[r] = row_l[r] * alpha + sum;
-        row_a[r] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + P v
-#pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const float alpha = row_a[ty + 8 * i];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= alpha;
-    }
-#pragma unroll 4
-    for (int c = 0; c < BKV; ++c) {
-      float p[RI], vv[DJ];
-#pragma unroll
-      for (int i = 0; i < RI; ++i) p[i] = ss[(ty + 8 * i) * LS + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) vv[j] = vs[c * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RI; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(p[i], vv[j], acc[i][j]);
-    }
+  if (t1 > t0) {
+    load_tile<T, HD>(Qs, L::QS, qh, q_row, q0, Sq);
+    load_tile<T, HD>(ring, L::QS, kh, kv_row, t0 * BKV, Skv);
+    load_tile<T, HD>(ring + L::K_ELEMS, L::VS, vh, kv_row, t0 * BKV, Skv);
+    cp_async_commit();
   }
-  __syncthreads();  // the last row_l writes are visible
+  for (int it = t0; it < t1; ++it) {
+    const int slot = (it - t0) & 1;
+    cp_async_wait(0);  // tile it (and q) landed: this thread's copies
+    __syncthreads();   // everyone's; everyone is done with tile it - 1's slot
+    if (it + 1 < t1) {
+      T* nxt = ring + (slot ^ 1) * L::STAGE;
+      load_tile<T, HD>(nxt, L::QS, kh, kv_row, (it + 1) * BKV, Skv);
+      load_tile<T, HD>(nxt + L::K_ELEMS, L::VS, vh, kv_row, (it + 1) * BKV, Skv);
+    }
+    cp_async_commit();
+    const T* Ks = ring + slot * L::STAGE;
+    const T* Vs = Ks + L::K_ELEMS;
+
+    float s[8][4];
+    if constexpr (L::F32)
+      qk_tile_f32<HD>(s, Qs + warp * 16 * L::QS, Ks, lane);
+    else
+      qk_tile<HD>(s, Qs + warp * 16 * L::QS, Ks, lane);
+
+    // scale, mask, online softmax (row g: c = 0, 1; row g + 8: c = 2, 3)
+    const int k0 = it * BKV;
+    const bool edge = k0 + BKV > Skv || (args.causal && k0 + BKV - 1 > q0 + warp * 16);
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float x = s[j][c] * args.scale;
+        if (edge) {
+          const int col = k0 + 8 * j + 2 * t + (c & 1), row = r_lo + 8 * (c >> 1);
+          if (col >= Skv)
+            x = -INFINITY;
+          else if (args.causal && col > row)
+            x = NEG_INF;
+        }
+        s[j][c] = x;
+        mx[c >> 1] = fmaxf(mx[c >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = expf(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float pr = expf(s[j][c] - m[c >> 1]);
+        s[j][c] = pr;
+        l[c >> 1] += pr;
+      }
+
+    // acc = acc * alpha + P V, the tile's P V on a fresh MMA accumulator
+    // (promoted: the tensor cores truncate what they add into it)
+    float pv[HD / 8][4];
+    if constexpr (L::F32)
+      pv_tile_f32<HD>(pv, s, Vs, lane);
+    else
+      pv_tile<HD>(pv, s, Vs, lane);
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) o[j][c] = o[j][c] * alpha[c >> 1] + pv[j][c];
+  }
+  cp_async_wait(0);
 
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int r = ty + 8 * i, gq = q0 + r;
-    if (gq >= Sq) continue;
-    const float l = fmaxf(row_l[r], 1e-30f);
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  if (args.splits == 1) {
+    T* oh = static_cast<T*>(args.out) + (long long)b * Sq * q_row + (long long)h * HD;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) ob[gq * q_pos_stride + tx + 16 * j] = from_f32<T>(acc[i][j] / l);
+    for (int r = 0; r < 2; ++r) {
+      const int row = r_lo + 8 * r;
+      if (row >= Sq) continue;
+      const float lc = fmaxf(l[r], 1e-30f);
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        store2(oh + row * q_row + 8 * j + 2 * t, o[j][2 * r] / lc, o[j][2 * r + 1] / lc);
+    }
+    return;
+  }
+  // a split's partial: unnormalised acc and (m, l); a split with no tiles
+  // writes m = -inf, l = 0, acc = 0, which the combine weighs by 0
+  const long long base = ((long long)split * args.B + b) * H * Sq + (long long)h * Sq;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r_lo + 8 * r;
+    if (row >= Sq) continue;
+    const bool empty = t1 <= t0;
+    float* wa = args.ws_acc + (base + row) * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<float2*>(wa + 8 * j + 2 * t) = make_float2(o[j][2 * r], o[j][2 * r + 1]);
+    if (t == 0) args.ws_ml[base + row] = make_float2(empty ? -INFINITY : m[r], l[r]);
   }
 }
 
+// The second pass of a split launch: for each (row, d), the splits' partials
+// in split order, each weighed by exp(m_s - max m).
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv, int H,
-           int KVH, int causal, float scale, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
-  static_assert(smem <= 232448, "the tiles exceed a block's 227 KB of shared memory");
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+__global__ void __launch_bounds__(256)
+flash_combine_kernel(const float* __restrict__ ws_acc, const float2* __restrict__ ws_ml,
+                     T* __restrict__ out, int splits, int B, int H, int Sq) {
+  const long long rows = (long long)B * H * Sq;
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= rows * HD) return;
+  const long long row = e / HD;  // (b * H + h) * Sq + q
+  const int d = (int)(e % HD);
+  float mx = -INFINITY;
+  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, ws_ml[s * rows + row].x);
+  float l = 0.f, acc = 0.f;
+  for (int s = 0; s < splits; ++s) {
+    const float2 ml = ws_ml[s * rows + row];
+    const float w = expf(ml.x - mx);
+    l += w * ml.y;
+    acc += w * ws_acc[(s * rows + row) * HD + d];
+  }
+  const int q = (int)(row % Sq);
+  const long long bh = row / Sq;
+  const int h = (int)(bh % H);
+  const long long b = bh / H;
+  out[((b * Sq + q) * H + h) * HD + d] = from_f32<T>(acc / fmaxf(l, 1e-30f));
+}
+
+template <typename T, int HD>
+int launch(const Args& a, cudaStream_t stream) {
+  using L = FL<T, HD>;
+  cudaError_t err = allow_smem(flash_attention_kernel<T, HD>, L::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_attention_kernel<T, HD><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), Sq, Skv, H, KVH, causal, scale);
+  const dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B * a.splits);
+  flash_attention_kernel<T, HD><<<grid, THREADS, L::SMEM, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return static_cast<int>(err);
+  const long long total = (long long)a.B * a.H * a.Sq * HD;
+  flash_combine_kernel<T, HD><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
+      a.ws_acc, a.ws_ml, static_cast<T*>(a.out), a.splits, a.B, a.H, a.Sq);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_hd(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
-              int H, int KVH, int hd, int causal, float scale, cudaStream_t stream) {
-  if (hd == 64) return launch<T, 64>(q, k, v, out, B, Sq, Skv, H, KVH, causal, scale, stream);
-  if (hd == 128) return launch<T, 128>(q, k, v, out, B, Sq, Skv, H, KVH, causal, scale, stream);
+int launch_hd(const Args& a, int hd, cudaStream_t stream) {
+  if (hd == 32) return launch<T, 32>(a, stream);
+  if (hd == 64) return launch<T, 64>(a, stream);
+  if (hd == 128) return launch<T, 128>(a, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. hd: 64 or 128. causal: 0 or 1. scale:
-// 1/sqrt(hd) as float32. q, k, v and out are contiguous. Returns cudaGetLastError() after the launch (or the error
-// that kept it from launching).
+// dtype: 0 = float32, 1 = bfloat16. hd: 32, 64 or 128. causal: 0 or 1.
+// scale: 1/sqrt(hd) as float32. q, k, v and out are contiguous and 16-byte
+// aligned. splits (kernels/flash_attention.py:plan): the KV range of each q
+// tile is cut into that many blocks; with splits > 1, ws_acc holds
+// splits*B*H*Sq*hd floats and ws_ml splits*B*H*Sq float pairs, and a second
+// kernel combines them. Returns cudaGetLastError() after the launches (or the
+// error that kept one from launching).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
-                                     int B, int Sq, int Skv, int H, int KVH, int hd,
-                                     int causal, float scale, int dtype, void* stream) {
+                                     void* ws_acc, void* ws_ml, int B, int Sq, int Skv, int H,
+                                     int KVH, int hd, int causal, float scale, int dtype,
+                                     int splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || Sq <= 0 || Skv <= 0 || KVH <= 0 || H % KVH != 0 || H > 65535 || B > 65535)
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || KVH <= 0 || H % KVH != 0 || H > 65535 || splits < 1 ||
+      (long long)B * splits > 65535 || (splits > 1 && (ws_acc == nullptr || ws_ml == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return launch_hd<float>(q, k, v, out, B, Sq, Skv, H, KVH, hd, causal, scale, s);
-  if (dtype == 1)
-    return launch_hd<__nv_bfloat16>(q, k, v, out, B, Sq, Skv, H, KVH, hd, causal, scale, s);
+  const Args a{q, k, v, out, static_cast<float*>(ws_acc), static_cast<float2*>(ws_ml),
+               B, Sq, Skv, H, KVH, causal, splits, scale};
+  if (dtype == 0) return launch_hd<float>(a, hd, s);
+  if (dtype == 1) return launch_hd<__nv_bfloat16>(a, hd, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -8,35 +8,45 @@
 // kernel keeps all of R (4 MiB f32 for xlstm-350m) and the (c, n, h, m)
 // state in VMEM and walks the sequence as a sequential grid axis of chunks.
 // Here the heads are independent (R is block-diagonal, the gating is
-// elementwise), so one block owns one (batch row, head) and persists over
-// the whole sequence, a loop inside it taking the place of the sequential
-// grid axis. Each step has two phases, split by __syncthreads:
-//   1. products: worker (jg, ks) forms, for the VEC hidden units j of its
-//      group jg and the k of its slice ks, the partial sums
-//      sum_k h[k] * R[q, head, k, j] of all four gates q, reading R rows as
-//      float4 (VEC = 4), and leaves them in shared memory;
-//   2. gating: thread j < hd adds gx[b, t, q, head*hd + j] to the KS
-//      partial sums of each gate, applies the cell to its own float32
-//      (c, n, m) in registers, writes h[j] to shared memory for the next
-//      step and to h_out in gx's type.
-// Any S >= 1 (the Pallas kernel's S % chunk == 0 is a VMEM detail) and any
-// hd <= 1024 (VEC = 1 where hd % 4 or R's address is not 16-byte aligned).
+// elementwise), so each (batch row, head) is walked by its own blocks, a loop
+// inside them taking the place of the sequential grid axis. Any S >= 1 (the
+// Pallas kernel's S % chunk == 0 is a VMEM detail).
 //
 // The arithmetic is repro.models.xlstm._slstm_cell's in float32: the running
 // max m starts at -1e30, c, n and h at zero; the forget gate's log-sigmoid
 // is taken in the stable form min(x, 0) - log1p(exp(-|x|)) (the Pallas body's
-// -log1p(exp(-x)) overflows for x < -88); n is clamped at 1e-6. The recurrent
-// sums are taken slice by slice, then over the slices in order.
+// -log1p(exp(-x)) overflows for x < -88); n is clamped at 1e-6; h is rounded
+// to gx's type only where it is written out.
 //
-// What bounds it on an H100: a step does 8*hd^2 flop per (row, head) and
-// reads that head's f32 R, 16*hd^2 bytes (1 MiB at hd 256), which does not
-// fit in a block's 227 KB of shared memory. This first version streams R
-// from L2 every step (all heads' R, 4 MiB, stays resident in the 50 MB L2),
-// so a step is bound by one SM's L2 bandwidth and latency; the split of the
-// k loop over KS slices (up to 512 workers) keeps many loads in flight. A
-// batch-1 prefill fills only B*H = 4 of the 132 SMs: a sequential
-// recurrence. Left for later: a thread-block cluster per (row, head) holding
-// R in distributed shared memory (ROADMAP).
+// What bounds it on an H100: a step does 8*hd^2 flop per (row, head) on that
+// head's f32 R, 16*hd^2 bytes (1 MiB at hd 256), and the steps are
+// sequential: a batch-1 prefill is S dependent steps on B*H = 4 heads. R
+// does not fit one SM (228 KB of shared memory, 256 KB of registers), so a
+// single block must stream it from L2 at every step (9.7 us a step at hd 256,
+// one SM's L2 bandwidth). Two paths, chosen by shape in Python
+// (kernels/slstm.py:plan):
+// * cluster (the rule): a thread-block cluster of C CTAs per (row, head),
+//   C the smallest power of two <= 8 whose CTA slice of R fits (8 at hd 256:
+//   128 KB a CTA). CTA r owns hidden units [r U, (r + 1) U), U = hd / C, and
+//   loads R's columns of those units for all four gates and all k ONCE,
+//   before the time loop, into registers (64 a thread at hd 256, 512
+//   threads). R in shared memory was tried and was slower: a step then
+//   reads 128 KB of shared memory an SM (PERF.md has both times).
+//   Thread (unit j, gate q, k slice ks) sums h[k] R[q, k, j] over its k; the
+//   k slices meet by warp shuffles, and the 4 KS lanes of each gate of a unit
+//   sit in one warp, so every lane of the unit's group forms the cell. Each
+//   CTA reads the whole h_t from its own shared buffer hs[t % 2] and writes
+//   its units' h_{t+1} into hs[(t + 1) % 2] of every CTA of the cluster
+//   (distributed shared memory), then one barrier.cluster arrive.release /
+//   wait.acquire ends the step: double-buffered h makes one barrier a step
+//   enough. The gate pre-activations do not depend on the recurrence and are
+//   loaded 4 steps ahead into registers. A step is bounded by the cluster
+//   barrier, the DSMEM stores and the cell's latency, not by bytes.
+// * stream (hd whose R cannot fit the registers of eight CTAs, hd > 256): one block per
+//   (row, head) streams R from L2 every step, the k loop split over up to 512
+//   workers whose partial sums meet in shared memory, two __syncthreads a
+//   step.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -59,6 +69,8 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 __device__ __forceinline__ float log_sigmoid(float x) {
   return fminf(x, 0.0f) - log1pf(expf(-fabsf(x)));
 }
+
+// ---- the stream path --------------------------------------------------------------
 
 // grid (H, B). Shared memory: h (hd floats), then the partial sums
 // part[ks][q][j] (KS * 4 * hd floats). Threads tid < JG * KS are workers
@@ -176,19 +188,172 @@ int launch(const void* gx, const float* R, void* h_out, float* c, float* n, floa
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---- the cluster path -------------------------------------------------------------
+
+namespace cg = cooperative_groups;
+
+constexpr int GX_AHEAD = 4;  // steps of gate pre-activations loaded ahead
+
+// grid (C, H, B), clusters of (C, 1, 1): CTA r = blockIdx.x of the cluster of
+// (b, head). Thread tid = (j * 4 + q) * KS + ks owns gate q of unit
+// jg = r U + j and the k of slice ks: k = 4 (KS m + ks) + e, m < KPT / 4,
+// e < 4 (the four ks of a warp read four neighbouring float4 of h). Shared
+// memory: hs[2][HP] (HP = KS KPT >= hd, zero past hd).
+template <typename T, int KPT>
+__global__ void __launch_bounds__(512, 1) slstm_cluster_kernel(
+    const T* __restrict__ gx, const float* __restrict__ R, T* __restrict__ h_out,
+    float* __restrict__ c_fin, float* __restrict__ n_fin, float* __restrict__ h_fin,
+    float* __restrict__ m_fin, int S, int H, int hd, int KS) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = gridDim.x, rank = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
+  const int U = hd / C, HP = KS * KPT, NT = blockDim.x;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int ks = tid % KS, q = (tid / KS) % 4, j = tid / (4 * KS);
+  const int jg = rank * U + j, D = H * hd;
+  const int grp = 4 * KS;                   // lanes of one unit: 4 gates x KS
+  const int base = lane - lane % grp, li = lane % grp;
+  float* hs = smem;
+
+  // this thread's R, once: R[q, head, k, jg] for its k (0 past hd)
+  float r[KPT];
+  const float* Rq = R + ((size_t)q * H + head) * hd * hd + jg;
+#pragma unroll
+  for (int i = 0; i < KPT; ++i) {
+    const int k = 4 * (KS * (i / 4) + ks) + i % 4;
+    r[i] = k < hd ? __ldg(Rq + (size_t)k * hd) : 0.f;
+  }
+  for (int i = tid; i < 2 * HP; i += NT) hs[i] = 0.f;
+  // every CTA's h buffers are zero before any CTA writes into them
+  cluster.sync();
+
+  const bool lead = ks == 0;  // adds gx to its gate's sum
+  const T* gp = gx + (size_t)b * S * 4 * D + (size_t)q * D + (size_t)head * hd + jg;
+  float ring[GX_AHEAD];
+#pragma unroll
+  for (int u = 0; u < GX_AHEAD; ++u)
+    ring[u] = lead && u < S ? to_f32(gp[(size_t)u * 4 * D]) : 0.f;
+  float c = 0.f, n = 0.f, h = 0.f, m = -1e30f;
+  T* ho = h_out + (size_t)b * S * D + (size_t)head * hd + jg;
+
+  for (int t0 = 0; t0 < S; t0 += GX_AHEAD) {
+#pragma unroll
+    for (int u = 0; u < GX_AHEAD; ++u) {
+      const int t = t0 + u;
+      if (t >= S) break;
+      float acc[4] = {ring[u], 0.f, 0.f, 0.f};
+      ring[u] = lead && t + GX_AHEAD < S ? to_f32(gp[(size_t)(t + GX_AHEAD) * 4 * D]) : 0.f;
+      const float4* h4 = reinterpret_cast<const float4*>(hs + (t & 1) * HP);
+#pragma unroll
+      for (int mm = 0; mm < KPT / 4; ++mm) {
+        const float4 hv = h4[KS * mm + ks];
+        acc[0] = fmaf(hv.x, r[4 * mm], acc[0]);
+        acc[1] = fmaf(hv.y, r[4 * mm + 1], acc[1]);
+        acc[2] = fmaf(hv.z, r[4 * mm + 2], acc[2]);
+        acc[3] = fmaf(hv.w, r[4 * mm + 3], acc[3]);
+      }
+      float sum = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+      for (int off = 1; off < KS; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      // the unit's four gates, in every lane of its group
+      const float it = __shfl_sync(0xffffffffu, sum, base);
+      const float ft = __shfl_sync(0xffffffffu, sum, base + KS);
+      const float zt = __shfl_sync(0xffffffffu, sum, base + 2 * KS);
+      const float ot = __shfl_sync(0xffffffffu, sum, base + 3 * KS);
+      const float logf = log_sigmoid(ft);
+      const float m_new = fmaxf(logf + m, it);
+      const float ig = expf(it - m_new);
+      const float fg = expf(logf + m - m_new);
+      c = fg * c + ig * tanhf(zt);
+      n = fg * n + ig;
+      h = (1.0f / (1.0f + expf(-ot))) * c / fmaxf(n, 1e-6f);
+      m = m_new;
+      float* nxt = hs + ((t + 1) & 1) * HP + jg;
+      for (int dst = li; dst < C; dst += grp) *cluster.map_shared_rank(nxt, dst) = h;
+      if (li == 0) ho[(size_t)t * D] = from_f32<T>(h);
+      // h_{t+1} is whole in every CTA, and every CTA is done reading h_t
+      asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+      asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+    }
+  }
+  if (li == 0) {
+    const size_t st = ((size_t)b * H + head) * hd + jg;
+    c_fin[st] = c;
+    n_fin[st] = n;
+    h_fin[st] = h;
+    m_fin[st] = m;
+  }
+}
+
+template <typename T, int KPT>
+int launch_cluster_kpt(const void* gx, const float* R, void* h_out, float* c, float* n, float* h,
+                       float* m, int B, int S, int H, int hd, int C, int KS,
+                       cudaStream_t stream) {
+  auto kernel = slstm_cluster_kernel<T, KPT>;
+  const int threads = 4 * (hd / C) * KS;
+  const size_t smem = sizeof(float) * 2 * (size_t)KS * KPT;  // h twice, <= 4 KB
+  if (threads > 512 || threads % 32) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, H, B);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(gx), R,
+                                             static_cast<T*>(h_out), c, n, h, m, S, H, hd, KS);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_cluster(const void* gx, const float* R, void* h_out, float* c, float* n, float* h,
+                   float* m, int B, int S, int H, int hd, int C, int KS, int kpt,
+                   cudaStream_t stream) {
+  if (C < 1 || C > 8 || hd % C || KS < 1 || KS > 8 || 32 % (4 * KS) ||
+      (long long)KS * kpt < hd)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (kpt) {
+    case 8:
+      return launch_cluster_kpt<T, 8>(gx, R, h_out, c, n, h, m, B, S, H, hd, C, KS, stream);
+    case 16:
+      return launch_cluster_kpt<T, 16>(gx, R, h_out, c, n, h, m, B, S, H, hd, C, KS, stream);
+    case 32:
+      return launch_cluster_kpt<T, 32>(gx, R, h_out, c, n, h, m, B, S, H, hd, C, KS, stream);
+    case 64:
+      return launch_cluster_kpt<T, 64>(gx, R, h_out, c, n, h, m, B, S, H, hd, C, KS, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (gx and h_out); R and the four state
-// outputs are float32. All are contiguous. 1 <= hd <= 1024. Returns
+// outputs are float32. All are contiguous. The launch plan
+// (kernels/slstm.py:plan): path 0 = cluster, with C CTAs a (row, head), KS k
+// slices and kpt k a thread (one of 8, 16, 32, 64), R in registers; path 1
+// = stream (1 <= hd <= 1024; C, KS, kpt unused). Returns
 // cudaGetLastError() after the launch (or the error that kept it from
 // launching).
 extern "C" int repro_slstm(const void* gx, const float* R, void* h_out, float* c, float* n,
-                           float* h, float* m, int B, int S, int H, int hd, int dtype,
-                           void* stream) {
+                           float* h, float* m, int B, int S, int H, int hd, int dtype, int path,
+                           int C, int KS, int kpt, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || S <= 0 || H <= 0 || hd <= 0 || hd > MAX_HD || B > 65535)
+  if (B <= 0 || S <= 0 || H <= 0 || hd <= 0 || hd > MAX_HD || B > 65535 || H > 65535 ||
+      dtype < 0 || dtype > 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (path == 0) {
+    if (dtype == 0)
+      return launch_cluster<float>(gx, R, h_out, c, n, h, m, B, S, H, hd, C, KS, kpt, s);
+    return launch_cluster<__nv_bfloat16>(gx, R, h_out, c, n, h, m, B, S, H, hd, C, KS, kpt, s);
+  }
+  if (path != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0) return launch<float>(gx, R, h_out, c, n, h, m, B, S, H, hd, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(gx, R, h_out, c, n, h, m, B, S, H, hd, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch<__nv_bfloat16>(gx, R, h_out, c, n, h, m, B, S, H, hd, s);
 }

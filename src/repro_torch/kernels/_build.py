@@ -138,6 +138,18 @@ def function(name: str, symbol: str, argtypes):
     return fn
 
 
+def call(fn, device, *args) -> int:
+    """``fn(*args, stream)`` on ``device``'s current stream, with ``device``
+    made current only where it is not already (the guard costs host time on
+    every launch)."""
+    import torch
+
+    if device.index is not None and device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+
+
 def all_kernels() -> tuple:
     """Names of every CUDA source of the port."""
     return tuple(sorted(p.stem for p in CSRC.glob("*.cu")))

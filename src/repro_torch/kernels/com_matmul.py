@@ -185,16 +185,13 @@ def com_matmul(x: torch.Tensor, w: torch.Tensor, *, bias: Optional[torch.Tensor]
     ws = (torch.empty(p.workspace // 4, dtype=torch.float32, device=x.device)
           if p.workspace else None)
     kernel = _build.function("com_matmul", "repro_com_matmul", _ARGTYPES)
-    with torch.cuda.device(x.device):
-        err = kernel(
-            x.data_ptr(), w.data_ptr(),
-            None if bias is None else bias.data_ptr(),
-            None if residual is None else residual.data_ptr(),
-            out.data_ptr(), None if ws is None else ws.data_ptr(),
-            M, N, K, ACTIVATIONS.index(activation), _DTYPES[x.dtype],
-            int(p.path == "skinny"), p.stages, p.splits, p.kchunk,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+    err = _build.call(
+        kernel, x.device, x.data_ptr(), w.data_ptr(),
+        None if bias is None else bias.data_ptr(),
+        None if residual is None else residual.data_ptr(),
+        out.data_ptr(), None if ws is None else ws.data_ptr(),
+        M, N, K, ACTIVATIONS.index(activation), _DTYPES[x.dtype],
+        int(p.path == "skinny"), p.stages, p.splits, p.kchunk)
     if err != 0:
         raise RuntimeError(f"com_matmul kernel launch failed: CUDA error {err}")
     com_matmul.launches += 1

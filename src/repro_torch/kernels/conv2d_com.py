@@ -136,13 +136,10 @@ def conv2d_com(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1, padding: in
     ws = (torch.empty(p.workspace // 4, dtype=torch.float32, device=x.device)
           if p.workspace else None)
     kernel = _build.function("conv2d_com", "repro_conv2d_com", _ARGTYPES)
-    with torch.cuda.device(x.device):
-        err = kernel(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), None if ws is None else ws.data_ptr(),
-            H, W, C, K, M, stride, padding, H_out, W_out, int(activation == "relu"),
-            _DTYPES[x.dtype], p.stages, p.splits, p.kps,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+    err = _build.call(
+        kernel, x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), H, W, C, K, M, stride, padding, H_out, W_out,
+        int(activation == "relu"), _DTYPES[x.dtype], p.stages, p.splits, p.kps)
     if err != 0:
         raise RuntimeError(f"conv2d_com kernel launch failed: CUDA error {err}")
     conv2d_com.launches += 1

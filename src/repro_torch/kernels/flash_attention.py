@@ -1,42 +1,125 @@
 """``flash_attention``: online-softmax (flash) attention forward, as a CUDA
-kernel.
+kernel on the tensor cores.
 
 Scores never reach device memory: each block keeps its running max, sum
 and f32 accumulator on chip while it walks the KV tiles, the attention
 analogue of COM partial sums staying on the ROFM plane. GQA is read in
-place: query head ``h`` reads KV head ``h // (H / KVH)``.
+place: query head ``h`` reads KV head ``h // (H / KVH)``. Where the q tiles
+alone leave the card idle, the KV range of each q tile is split over
+several blocks, and a second pass combines their partials in a fixed
+order, so two calls give the same bits.
 
 Counterpart of ``repro.kernels.flash_attention`` (``flash_attention`` and
 ``flash_attention_gqa``); the kernel is
-``src/repro_torch/csrc/flash_attention.cu``. For a tensor on the CPU the
-wrapper runs the plain version
+``src/repro_torch/csrc/flash_attention.cu``, launched as :func:`plan` says.
+For a tensor on the CPU the wrapper runs the plain version
 (:func:`repro_torch.kernels.ref.flash_attention_ref`); for a CUDA tensor it
 launches the kernel or raises.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from dataclasses import dataclass
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.com_matmul import SMEM_LIMIT, SMS
 from repro_torch.kernels.ref import flash_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)  # the head sizes the kernel is instantiated for
+HEAD_DIMS = (32, 64, 128)  # the head sizes the kernel is instantiated for
+BLOCK_Q = 64   # q rows a block (4 warps of 16)
 BLOCK_KV = 64  # the kernel's KV tile
-# q, k, v, out, B, Sq, Skv, H, KVH, hd, causal, scale, dtype, stream
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+THREADS = 128
+MAX_SPLITS = 4  # KV splits of a q tile at most
+SM_SMEM = 233_472  # shared memory of an SM (228 KB); each block also takes 1 KB
+# q, k, v, out, ws_acc, ws_ml, B, Sq, Skv, H, KVH, hd, causal, scale, dtype,
+# splits, stream
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How one attention call is launched: a block of ``threads`` owns a
+    ``block_q``-row q tile of one (batch row, head) and walks its share of
+    the ``kv_tiles`` KV tiles of ``block_kv`` rows; the KV range of each q
+    tile is cut into ``splits`` shares. With more than one, the partials go
+    to a ``workspace``-byte buffer that a second kernel combines. ``smem``
+    is shared memory a block."""
+    block_q: int
+    block_kv: int
+    threads: int
+    q_tiles: int
+    kv_tiles: int
+    splits: int
+    grid: Tuple[int, int, int]
+    smem: int
+    workspace: int
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+def smem_bytes(hd: int, dtype: torch.dtype) -> int:
+    """Shared memory of one block: the q tile and two slots of K and V tiles,
+    rows padded as csrc/flash_attention.cu pads them."""
+    es = torch.empty((), dtype=dtype).element_size()
+    qs, vs = hd + 8, hd + (4 if dtype == torch.float32 else 8)
+    return es * (BLOCK_Q * qs + 2 * BLOCK_KV * (qs + vs))
+
+
+def occupancy(hd: int, dtype: torch.dtype) -> int:
+    """Blocks of the kernel an SM is sure to hold: the launch bound's 4
+    for bf16 at hd <= 64 (128 registers a thread), else the 2 that a thread's
+    255 registers at most leave room for, and no more than the SM's shared
+    memory holds (1 at f32 hd 128)."""
+    regs = 4 if dtype == torch.bfloat16 and hd <= 64 else 2
+    return max(1, min(regs, SM_SMEM // (smem_bytes(hd, dtype) + 1024)))
+
+
+def kv_tiles_of(q_tile: int, Skv: int, causal: bool) -> int:
+    """KV tiles the q tile walks: all of them, or (causal, top-left) those
+    that hold a key at or before its last row."""
+    n = math.ceil(Skv / BLOCK_KV)
+    return min(n, ((q_tile + 1) * BLOCK_Q - 1) // BLOCK_KV + 1) if causal else n
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(B: int, Sq: int, Skv: int, H: int, KVH: int, hd: int, dtype: torch.dtype,
+         causal: bool) -> Plan:
+    """The launch of one attention call on an H100 (pure: no device is
+    asked). A block's KV tiles run one after another, at about the same
+    rate whether it has the SM to itself or shares it, so the KV range of
+    each q tile is split until the grid holds two waves of
+    :func:`occupancy` blocks an SM (the longest q tile's chain of tiles is what a short grid
+    waits for), at most ``MAX_SPLITS`` ways and never into more shares than
+    the longest q tile has tiles: past four, the combine pass's reads cost
+    more than the shorter chains save."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {hd}; the kernel is built for {HEAD_DIMS}")
+    q_tiles = math.ceil(Sq / BLOCK_Q)
+    longest = max(kv_tiles_of(i, Skv, causal) for i in range(q_tiles))
+    base = B * H * q_tiles
+    splits = max(1, min(MAX_SPLITS, longest, math.ceil(2 * occupancy(hd, dtype) * SMS / base),
+                        65535 // B))
+    return Plan(BLOCK_Q, BLOCK_KV, THREADS, q_tiles, math.ceil(Skv / BLOCK_KV), splits,
+                (q_tiles, H, B * splits), smem_bytes(hd, dtype),
+                4 * splits * B * H * Sq * (hd + 2) if splits > 1 else 0)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
                     block_kv: int = BLOCK_KV) -> torch.Tensor:
     """q: (B, Sq, H, hd); k, v: (B, Skv, KVH, hd) -> (B, Sq, H, hd) in
-    ``q.dtype`` (float32 or bfloat16 on the card). The causal mask is
-    top-left aligned (``k_pos <= q_pos``). ``block_kv`` names the kernel's
-    KV tile, which is built as ``BLOCK_KV`` only; the plain version has none."""
+    ``q.dtype`` (float32 or bfloat16, hd 32, 64 or 128 on the card). The
+    causal mask is top-left aligned (``k_pos <= q_pos``). ``block_kv``
+    names the kernel's KV tile, which is built as ``BLOCK_KV`` only; the
+    plain version has none."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)} and "
                          f"v {tuple(v.shape)} are not (B, Sq, H, hd) and (B, Skv, KVH, hd)")
@@ -61,21 +144,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
         raise ValueError(f"flash_attention: q, k, v are on {q.device}, {k.device}, {v.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k and v must be contiguous")
-    if B > 65535 or H > 65535:
-        raise ValueError(f"flash_attention: B={B} or H={H} exceeds the grid's 65535")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k and v must start on a 16-byte boundary")
+    if H > 65535:
+        raise ValueError(f"flash_attention: H={H} exceeds the grid's 65535")
+    return _launch(q, k, v, bool(causal), plan(B, Sq, Skv, H, KVH, hd, q.dtype, bool(causal)))
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, p: Plan):
+    """Launch the kernel (and, split, its combine pass) as ``p`` says on
+    checked inputs."""
+    B, Sq, H, hd = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    ws = (torch.empty(p.workspace // 4, dtype=torch.float32, device=q.device)
+          if p.workspace else None)
+    rows = B * H * Sq
     kernel = _build.function("flash_attention", "repro_flash_attention", _ARGTYPES)
-    with torch.cuda.device(q.device):
-        err = kernel(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Skv, H, KVH, hd,
-            int(bool(causal)), 1.0 / math.sqrt(hd), _DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+    err = _build.call(
+        kernel, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(),
+        None if ws is None else ws.data_ptr() + 4 * p.splits * rows * hd,
+        B, Sq, Skv, H, KVH, hd, int(causal), 1.0 / math.sqrt(hd), _DTYPES[q.dtype], p.splits)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     flash_attention.launches += 1
     return out
 
 
-# kernel launches since the last reset (plain integer; set it to 0 to reset)
+# wrapper calls that launched the kernel (the combine pass included) since the
+# last reset (plain integer; set it to 0 to reset)
 flash_attention.launches = 0

@@ -16,6 +16,7 @@ from __future__ import annotations
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.com_matmul import com_matmul as _com_matmul
 from repro_torch.kernels.conv2d_com import conv2d_com as _conv2d_com
+from repro_torch.kernels.flash_attention import BLOCK_KV
 from repro_torch.kernels.flash_attention import flash_attention as _flash_attention
 from repro_torch.kernels.slstm import slstm_fused as _slstm_fused
 
@@ -45,7 +46,7 @@ def conv2d(x, w, *, stride=1, padding=1, activation=None, backend=None):
     return _conv2d_com(x, w, stride=stride, padding=padding, activation=activation)
 
 
-def flash_attention(q, k, v, *, causal=True, backend=None, block_kv=64):
+def flash_attention(q, k, v, *, causal=True, backend=None, block_kv=BLOCK_KV):
     """q: (B, Sq, H, hd); k, v: (B, Skv, KVH, hd) -> (B, Sq, H, hd), GQA read
     in place, causal mask top-left aligned."""
     if _resolve(q, backend) == "ref":

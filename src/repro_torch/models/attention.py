@@ -19,6 +19,7 @@ from typing import Mapping, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import BLOCK_KV
 from repro_torch.models.layers import apply_rope, dense_init
 
 Params = Mapping[str, torch.Tensor]
@@ -74,7 +75,7 @@ def naive_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, block_kv: int = 64,
+def flash_attention(q, k, v, *, causal: bool = True, block_kv: int = BLOCK_KV,
                     backend: Optional[str] = None) -> torch.Tensor:
     """Online-softmax attention, O(S·block) memory: the ported kernel.
 
@@ -134,7 +135,7 @@ def attention_block(
     rope_theta: float,
     rope_fraction: float = 1.0,
     causal: bool = True,
-    block_kv: int = 64,
+    block_kv: int = BLOCK_KV,
     backend: Optional[str] = None,
     kv_cache: Optional[KVCache] = None,
     cache_pos=None,

@@ -34,6 +34,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.convert import resolve_device
+from repro_torch.kernels.flash_attention import BLOCK_KV
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import embed, make_norm, mlp, mlp_params, norm_params, unembed
@@ -46,7 +47,7 @@ FAMILIES = ("dense", "ssm")  # the ported layer layouts
 class CallConfig:
     """Per-call (not per-arch) knobs."""
 
-    block_kv: int = 64                      # the flash kernel's KV tile (built for 64 only)
+    block_kv: int = BLOCK_KV                # the flash kernel's KV tile (built for one only)
     compute_dtype: torch.dtype = torch.bfloat16
     cache_dtype: torch.dtype = torch.bfloat16
     # the prefill's kernels (attention, the sLSTM recurrence): None lets the

@@ -1,0 +1,312 @@
+"""Launch plans and numerics of the port's flash_attention and slstm_fused
+kernels, on the CPU.
+
+Both kernels run on the card only, so what surrounds them is held here:
+their pure-Python launch plans (``kernels/flash_attention.py:plan``,
+``kernels/slstm.py:plan``), and plain PyTorch models of the arithmetic the
+CUDA sources do in another order than the plain versions: flash_attention's
+split KV range with its ordered combine, its three-way bfloat16 split of the
+probabilities P, and slstm_fused's cluster-path sums over k slices. The
+models are held against the JAX package's kernels in interpret mode (the
+same numpy inputs) within the JAX package's float32 tolerances, rtol 2e-5
+for attention (tests/test_kernels.py:18-19) and 2e-4 for the recurrence
+(tests/test_kernels.py:142).
+"""
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention_gqa as jax_flash_attention_gqa
+from repro.kernels.slstm import slstm_fused as jax_slstm_fused
+from repro_torch.kernels.com_matmul import SMEM_LIMIT, SMS
+from repro_torch.kernels.flash_attention import (BLOCK_KV, BLOCK_Q, HEAD_DIMS, MAX_SPLITS,
+                                                 kv_tiles_of, occupancy, smem_bytes)
+from repro_torch.kernels.flash_attention import plan as flash_plan
+from repro_torch.kernels.ref import flash_attention_ref, log_sigmoid
+from repro_torch.kernels.slstm import CLUSTER_THREADS, MAX_CLUSTER, REG_KPT, _cluster_plan
+from repro_torch.kernels.slstm import plan as slstm_plan
+
+NEG_INF = -1e30
+
+# ---- flash_attention: the plan -------------------------------------------------
+
+SERVED = [int(n) for n in np.random.default_rng(2).integers(128, 1025, size=16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("S", [1, 77, 128, 1024, 2048] + SERVED[:4])
+def test_flash_plan_covers_every_tile_and_fits(S, hd, dtype):
+    for B, H, KVH, causal in ((1, 9, 3, True), (2, 4, 1, False), (8, 9, 3, True)):
+        p = flash_plan(B, S, S, H, KVH, hd, dtype, causal)
+        assert (p.block_q, p.block_kv, p.threads) == (BLOCK_Q, BLOCK_KV, 128)
+        assert p.q_tiles == math.ceil(S / BLOCK_Q) and p.kv_tiles == math.ceil(S / BLOCK_KV)
+        assert p.grid == (p.q_tiles, H, B * p.splits)
+        longest = max(kv_tiles_of(i, S, causal) for i in range(p.q_tiles))
+        assert 1 <= p.splits <= min(MAX_SPLITS, longest)
+        # a grid already two waves deep is not split
+        if B * H * p.q_tiles >= 2 * occupancy(hd, dtype) * SMS:
+            assert p.splits == 1
+        assert p.smem == smem_bytes(hd, dtype) <= SMEM_LIMIT
+        assert p.workspace == (4 * p.splits * B * H * S * (hd + 2) if p.splits > 1 else 0)
+
+
+def test_flash_plan_splits_short_grids_and_rejects_unbuilt_head_dims():
+    served = [flash_plan(1, S, S, 9, 3, 64, torch.bfloat16, True) for S in SERVED]
+    assert all(p.splits > 1 for p in served)  # 9 heads x <= 16 q tiles: under a wave
+    # causal, Sq = Skv: the last q tile walks all q_tiles KV tiles
+    assert all(p.splits == min(MAX_SPLITS, p.q_tiles) for p in served)
+    assert flash_plan(1, 64, 64, 9, 3, 64, torch.bfloat16, True).splits == 1  # one tile
+    with pytest.raises(ValueError, match="head_dim 48"):
+        flash_plan(1, 64, 64, 2, 2, 48, torch.bfloat16, True)
+    # blocks an SM: the launch bound's 4 where bf16 hd <= 64, 2 by registers
+    # elsewhere, fewer where shared memory runs out (1 KB reserved a block)
+    want = {(torch.bfloat16, 32): 4, (torch.bfloat16, 64): 4, (torch.bfloat16, 128): 2,
+            (torch.float32, 32): 2, (torch.float32, 64): 2, (torch.float32, 128): 1}
+    assert {k: occupancy(k[1], k[0]) for k in want} == want
+    for (dtype, hd), n in want.items():
+        assert n * (smem_bytes(hd, dtype) + 1024) <= 233_472
+    # f32 hd 128 (168 KB a block): one block an SM, so fewer splits fill the card
+    assert [flash_plan(1, 1024, 1024, 9, 3, 128, dt, True).splits
+            for dt in (torch.float32, torch.bfloat16)] == [2, 4]
+
+
+def test_causal_kv_tiles_are_those_at_or_before_the_last_row():
+    # top-left mask: q tile i (rows 64 i .. 64 i + 63) needs keys <= 64 i + 63
+    assert [kv_tiles_of(i, 300, True) for i in range(5)] == [1, 2, 3, 4, 5]
+    assert [kv_tiles_of(i, 100, True) for i in range(5)] == [1, 2, 2, 2, 2]  # Sq > Skv
+    assert kv_tiles_of(0, 300, False) == 5
+
+
+# ---- flash_attention: the split KV range and its ordered combine -------------
+
+def _split_kv_model(q, k, v, causal, splits):
+    """csrc/flash_attention.cu's arithmetic in plain float32 torch: each q
+    tile's KV tiles cut into ``splits`` shares; each share an online softmax
+    over its 64-key tiles (m from NEG_INF, masked scores NEG_INF, keys past
+    Skv -inf, the scale applied to the f32 scores); the shares combined in
+    share order, each weighed by exp(m_s - max m); l clamped at 1e-30."""
+    B, Sq, H, hd = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    G, scale = H // KVH, 1.0 / math.sqrt(hd)
+    out = torch.empty((B, Sq, H, hd), dtype=torch.float32)
+    for qt in range(math.ceil(Sq / BLOCK_Q)):
+        rows = torch.arange(qt * BLOCK_Q, min(Sq, (qt + 1) * BLOCK_Q))
+        n = kv_tiles_of(qt, Skv, causal)
+        per = math.ceil(n / splits)
+        qh = q[:, rows].float()  # (B, R, H, hd)
+        parts = []
+        for s in range(splits):
+            t0, t1 = min(n, s * per), min(n, (s + 1) * per)
+            m = torch.full((B, len(rows), H), NEG_INF)
+            l = torch.zeros((B, len(rows), H))
+            acc = torch.zeros((B, len(rows), H, hd))
+            if t1 <= t0:
+                parts.append((torch.full_like(m, -math.inf), l, acc))
+                continue
+            for t in range(t0, t1):
+                cols = torch.arange(t * BLOCK_KV, (t + 1) * BLOCK_KV)
+                ok = cols < Skv
+                kt = torch.zeros((B, BLOCK_KV, KVH, hd))
+                vt = torch.zeros((B, BLOCK_KV, KVH, hd))
+                kt[:, ok], vt[:, ok] = k[:, cols[ok]].float(), v[:, cols[ok]].float()
+                kt, vt = kt.repeat_interleave(G, 2), vt.repeat_interleave(G, 2)
+                sc = torch.einsum("brhd,bchd->brhc", qh, kt) * scale
+                if causal:
+                    sc = sc.masked_fill((cols[None, :] > rows[:, None])[None, :, None, :],
+                                        NEG_INF)
+                sc = sc.masked_fill(~ok[None, None, None, :], -math.inf)
+                m_new = torch.maximum(m, sc.amax(-1))
+                alpha = torch.exp(m - m_new)
+                p = torch.exp(sc - m_new[..., None])
+                l = l * alpha + p.sum(-1)
+                acc = acc * alpha[..., None] + torch.einsum("brhc,bchd->brhd", p, vt)
+                m = m_new
+            parts.append((m, l, acc))
+        mx = torch.stack([pm for pm, _, _ in parts]).amax(0)
+        lt, at = torch.zeros_like(mx), torch.zeros((B, len(rows), H, hd))
+        for pm, pl, pa in parts:  # share order
+            w = torch.exp(pm - mx)
+            lt, at = lt + w * pl, at + w[..., None] * pa
+        out[:, rows] = at / torch.clamp(lt, min=1e-30)[..., None]
+    return out
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4])
+@pytest.mark.parametrize("b,s,h,kvh,causal", [(1, 150, 4, 2, True), (2, 77, 2, 1, False),
+                                               (1, 200, 2, 2, True)])
+def test_split_kv_combine_matches_the_jax_kernel(b, s, h, kvh, causal, splits):
+    """hd 32, ragged S (the Pallas kernel takes it as one block), several
+    KV tiles: every share count, empty shares included, gives the JAX
+    kernel's attention within the float32 tolerance."""
+    rng = np.random.default_rng(s + splits)
+    qn, kn, vn = (rng.normal(size=shape).astype(np.float32)
+                  for shape in ((b, s, h, 32), (b, s, kvh, 32), (b, s, kvh, 32)))
+    want = np.asarray(jax_flash_attention_gqa(jnp.asarray(qn), jnp.asarray(kn), jnp.asarray(vn),
+                                              causal=causal, block_q=s, block_kv=s,
+                                              interpret=True))
+    got = _split_kv_model(torch.from_numpy(qn), torch.from_numpy(kn), torch.from_numpy(vn),
+                          causal, splits).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-6)
+    plain = flash_attention_ref(torch.from_numpy(qn), torch.from_numpy(kn),
+                                torch.from_numpy(vn), causal=causal).numpy()
+    np.testing.assert_allclose(got, plain, rtol=2e-5, atol=1e-6)
+
+
+# ---- flash_attention: bfloat16 P against bfloat16 V ---------------------------
+
+def _bf16_terms(p, n):
+    """p as the sum of ``n`` bfloat16 terms, each the rounding of what the
+    ones before left (csrc/flash_attention.cu:split_bf16 for n = 3)."""
+    terms, rest = [], p.double()
+    for _ in range(n):
+        t = rest.float().to(torch.bfloat16).double()
+        terms.append(t)
+        rest = rest - t
+    return terms
+
+
+def _pv_model(p, v, n):
+    """(sum_k p v) / l with P in ``n`` bfloat16 terms against bfloat16 V, each
+    product exact and the sum exact (float64), then one rounding to bfloat16."""
+    acc = sum(t @ v.double() for t in _bf16_terms(p, n))
+    return (acc / p.double().sum(-1, keepdim=True)).float().to(torch.bfloat16)
+
+
+def _cancelling_case():
+    """64 query rows over 512 keys: softmax probabilities of unit-scale
+    scores, and a bfloat16 V whose column 0 nearly cancels under every row's
+    P (a mean-removed sign pattern) while column 1 is all ones, so max|out|
+    is 1 and the cancelling outputs are ~1e-3 of it."""
+    rng = np.random.default_rng(11)
+    p = torch.softmax(torch.from_numpy(rng.normal(size=(64, 512))).float(), -1)
+    v = torch.from_numpy(rng.normal(size=(512, 8))).float()
+    sign = torch.from_numpy(np.where(rng.random(512) < 0.5, -1.0, 1.0)).float()
+    v[:, 0] = sign * (1 + 0.01 * torch.from_numpy(rng.random(512)).float())
+    v[:, 1] = 1.0
+    v = v.to(torch.bfloat16)
+    col0 = p.double() @ v[:, 0].double()
+    assert col0.abs().max() < 0.2  # column 0 cancels
+    return p, v
+
+
+def _one_rounding_ratio(got, want):
+    """chip_smoke.py's per-element check: |got - want| over one bfloat16
+    rounding of want plus 2e-5 of max|want| (at most 1 to pass)."""
+    diff = (got.double() - want.double()).abs()
+    limit = 2.0 ** -7 * want.double().abs() + 2e-5 * want.double().abs().max()
+    return (diff / limit).max().item()
+
+
+def test_three_bf16_terms_of_p_hold_one_rounding_where_one_term_fails():
+    p, v = _cancelling_case()
+    exact = ((p.double() @ v.double()) / p.double().sum(-1, keepdim=True)).float()
+    want = exact.to(torch.bfloat16)  # the plain version: f32 result, one rounding
+    ratios = {n: _one_rounding_ratio(_pv_model(p, v, n), want) for n in (1, 2, 3)}
+    print(f"one-rounding ratio with P in 1, 2, 3 bf16 terms: {ratios}")
+    assert ratios[1] > 1.0  # a single bf16 P fails the check on a cancelling sum
+    assert ratios[2] <= 1.0 and ratios[3] <= 1.0
+    # how far each form sits from the f32 result, before the final rounding
+    err = {n: (sum(t @ v.double() for t in _bf16_terms(p, n))
+               / p.double().sum(-1, keepdim=True) - exact.double()).abs().max().item()
+           for n in (1, 2, 3)}
+    assert err[3] < 1e-7 < err[2] < err[1]
+
+
+# ---- slstm_fused: the plan ---------------------------------------------------
+
+@pytest.mark.parametrize("hd", [1, 8, 16, 32, 40, 64, 96, 128, 200, 256, 320, 330, 512, 1024])
+def test_slstm_plan_paths_fit_their_budgets(hd):
+    p = slstm_plan(2, 100, 4, hd, torch.bfloat16)
+    if p.path == "stream":
+        assert p.grid == (4, 2, 1) and p.r_bytes == 16 * hd * hd
+        # eight CTAs cannot hold this R in registers
+        assert _cluster_plan(2, 4, hd, MAX_CLUSTER) is None
+        return
+    C, U, KS = p.cluster, p.units, p.k_slices
+    assert C in (1, 2, 4, 8) and C <= MAX_CLUSTER and C * U == hd
+    assert p.threads == 4 * U * KS <= CLUSTER_THREADS and p.threads % 32 == 0
+    assert 32 % (4 * KS) == 0  # a unit's 4 x KS lanes sit in one warp
+    assert KS * p.kpt >= hd and p.kpt in REG_KPT
+    assert p.grid == (C, 4, 2) and p.r_bytes == 16 * hd * U
+    assert p.smem == 4 * 2 * KS * p.kpt <= SMEM_LIMIT
+    # C is the smallest power of two that fits: half of it does not
+    if C > 1:
+        assert _cluster_plan(2, 4, hd, C // 2) is None
+
+
+def test_slstm_plan_picks_the_cluster_by_shape():
+    p32, p256 = (slstm_plan(1, 9, 4, hd, torch.bfloat16) for hd in (32, 256))
+    assert (p32.path, p32.cluster) == ("cluster", 1)
+    assert (p256.path, p256.cluster, p256.threads, p256.kpt) == ("cluster", 8, 512, 64)
+    assert p256.r_bytes == 128 * 1024  # xlstm-350m: 1 MiB of R, 128 KB a CTA
+    assert slstm_plan(1, 9, 4, 128, torch.bfloat16).cluster == 2
+    assert slstm_plan(1, 9, 4, 320, torch.bfloat16).path == "stream"  # > 64 registers a thread
+    assert slstm_plan(1, 9, 4, 330, torch.bfloat16).path == "stream"  # 8 does not divide 330
+    assert slstm_plan(1, 9, 4, 512, torch.bfloat16).path == "stream"  # 512 KB a CTA at C = 8
+    # the plan depends on the shape alone: not on S, B or the type
+    assert {(p.path, p.cluster, p.kpt) for p in (
+        slstm_plan(b, s, 4, 256, dt) for b in (1, 3) for s in (1, 999)
+        for dt in (torch.float32, torch.bfloat16))} == {("cluster", 8, 64)}
+
+
+# ---- slstm_fused: the cluster path's sums --------------------------------------
+
+def _cluster_model(gx, rg, num_heads, ks, kpt):
+    """The cluster path's arithmetic in plain float32 torch: thread (unit j,
+    gate q, slice s) sums h[k] R[q, k, j] over k = 4 (ks m + s) + e into four
+    accumulators (e), gx added into slice 0's first; the accumulators are
+    added pairwise, the slices by an xor butterfly; then the cell."""
+    B, S, _, D = gx.shape
+    H, hd = num_heads, D // num_heads
+    hp = ks * kpt
+    r = torch.zeros((4, H, hp, hd))
+    r[:, :, :hd] = rg.float()
+    c = torch.zeros((B, H, hd))
+    n, h, m = torch.zeros_like(c), torch.zeros_like(c), torch.full_like(c, -1e30)
+    out = torch.empty((B, S, D))
+    kidx = torch.tensor([[[4 * (ks * mm + s) + e for mm in range(kpt // 4)] for e in range(4)]
+                         for s in range(ks)])  # (ks, 4, kpt / 4)
+    for t in range(S):
+        hpad = torch.zeros((B, H, hp))
+        hpad[..., :hd] = h
+        g = gx[:, t].float().reshape(B, 4, H, hd)
+        # acc[b, q, head, j, s, e] = sum_mm h[k] r[q, head, k, j]
+        prod = hpad[:, None, :, kidx, None] * r[None][:, :, :, kidx, :]  # b q H s e mm j
+        acc = prod.sum(-2).permute(0, 1, 2, 5, 3, 4).contiguous()  # b q H j s e
+        acc[..., 0, 0] += g
+        part = (acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3])  # b q H j s
+        off = 1
+        while off < ks:  # butterfly: slice s adds slice s ^ off
+            part = part + part[..., [s ^ off for s in range(ks)]]
+            off *= 2
+        it, ft, zt, ot = part[..., 0].unbind(1)
+        logf = log_sigmoid(ft)
+        m_new = torch.maximum(logf + m, it)
+        i, f = torch.exp(it - m_new), torch.exp(logf + m - m_new)
+        c = f * c + i * torch.tanh(zt)
+        n = f * n + i
+        h = torch.sigmoid(ot) * c / torch.clamp(n, min=1e-6)
+        m = m_new
+        out[:, t] = h.reshape(B, D)
+    return out, (c, n, h, m)
+
+
+@pytest.mark.parametrize("b,s,h,hd", [(1, 37, 2, 32), (2, 16, 1, 64)])
+def test_cluster_sum_order_matches_the_jax_kernel(b, s, h, hd):
+    """The plan's k slices and k a thread at the shape, against the Pallas
+    sLSTM kernel in interpret mode (chunk = S), within the recurrence's
+    float32 tolerance."""
+    p = slstm_plan(b, s, h, hd, torch.float32)
+    assert p.path == "cluster"
+    rng = np.random.default_rng(hd + s)
+    gx = rng.normal(size=(b, s, 4, h * hd)).astype(np.float32)
+    rg = (rng.normal(size=(4, h, hd, hd)) / np.sqrt(hd)).astype(np.float32)
+    want = np.asarray(jax_slstm_fused(jnp.asarray(gx), jnp.asarray(rg), h, chunk=s,
+                                      interpret=True))
+    got, _ = _cluster_model(torch.from_numpy(gx), torch.from_numpy(rg), h, p.k_slices, p.kpt)
+    scale = np.abs(want).max()
+    assert np.abs(got.numpy() - want).max() <= 2e-4 * scale

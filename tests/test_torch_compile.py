@@ -70,7 +70,7 @@ def test_allocs_and_blocks_equal(name):
             ja.n_tiles, ja.grid, ja.chip_ids, ja.crosses_chip)
         assert _spec(ta.layer) == _spec(ja.layer)
     for jl, tl in zip(jp.layer_programs, tp.layer_programs, strict=True):
-        assert (tl.c_blocks, tl.m_blocks) == (jl.c_blocks, jl.m_blocks)
+        assert (tl.c_blocks, tl.m_blocks, tl.n_blocks) == (jl.c_blocks, jl.m_blocks, jl.n_blocks)
         for jb, tb in zip(jl.blocks, tl.blocks, strict=True):
             assert (tb.layer_name, tb.c_index, tb.m_index, tb.c_range, tb.m_range,
                     tb.roles, tb.n_tiles, tb.is_last_c) == (
@@ -103,6 +103,17 @@ def test_schedule_words_equal(name):
             # and the port's decoder round-trips its own words
             assert [decode(w).encode() for w in ts[role].table.words] == ts[role].table.words
         assert tl.schedules is ts
+
+
+def test_n_blocks_counts_the_block_grid():
+    """tests/test_program.py:113's case: a 3 x 3 block grid at n_c = n_m = 8."""
+    arch = tarch.DEFAULT_ARCH.replace(n_c=8, n_m=8)
+    layer = tmap.ConvSpec("c", 3, 20, 20, 6, 6)
+    lp = tprog.compile_program(tprog.Workload("one", (layer,)), arch).layer_programs[0]
+    jlp = jprog.compile_program(jprog.Workload("one", (jmap.ConvSpec("c", 3, 20, 20, 6, 6),)),
+                                jarch.DEFAULT_ARCH.replace(n_c=8, n_m=8)).layer_programs[0]
+    assert lp.n_blocks == jlp.n_blocks == 9 == len(lp.blocks)
+    assert [b.c_index * lp.m_blocks + b.m_index for b in lp.blocks] == list(range(lp.n_blocks))
 
 
 def test_unported_compile_modes_raise():

@@ -15,8 +15,6 @@ against its float64 reference backend within 2e-5 · max|ref|
 bfloat16 element of h within one bfloat16 rounding plus that. TF32 is off in
 the plain versions.
 """
-import dataclasses
-
 import numpy as np
 import pytest
 import torch
@@ -28,6 +26,7 @@ from repro_torch.core.mapping import ConvSpec, FCSpec, vgg11_cifar
 from repro_torch.core.program import Workload, compile_program
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.com_matmul import com_matmul
+from repro_torch.kernels.com_matmul import plan as com_matmul_plan
 from repro_torch.kernels.conv2d_com import conv2d_com
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.slstm import slstm_fused
@@ -122,6 +121,35 @@ def test_conv2d_com_vgg16_layers_match_plain_version(cuda, h, w, c, m, dtype):
     _within(got, ref.conv2d_com_ref(x, wt, activation="relu"), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [8, 200], ids=["skinny", "mma"])
+def test_com_matmul_carries_an_infinite_operand_like_the_plain_version(cuda, m, dtype):
+    """An inf in x and a -inf in w, each meeting an exact 1.0 (whose 3xTF32
+    small half is 0), and a near-overflow value: the same infinities, NaNs
+    and finite values as com_matmul_ref, on the streaming (M <= 32) and the
+    tensor-core (M > 32) paths."""
+    k, n = 96, 40
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    x = torch.randn((m, k), generator=gen, device=cuda)
+    w = torch.randn((k, n), generator=gen, device=cuda) * 1e-3
+    w[7, 3] = 1.0
+    x[5, 7] = float("inf")
+    x[6, 9] = 3.4028e38
+    w[11, 20] = float("-inf")
+    x, w = x.to(dtype), w.to(dtype)
+    assert com_matmul_plan(m, n, k, dtype).path == ("skinny" if m <= 32 else "mma")
+    got = com_matmul(x, w)
+    torch.cuda.synchronize()
+    want = ref.com_matmul_ref(x, w)
+    assert torch.equal(got.isnan(), want.isnan()) and torch.equal(got.isinf(), want.isinf())
+    assert torch.equal(got[got.isinf()], want[want.isinf()])
+    assert got[5].isinf().any() and got[:, 20].isinf().any()
+    fin = want.isfinite()
+    scale = want[fin].double().abs().max()
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    assert (got[fin].double() - want[fin].double()).abs().max() <= tol * scale
+
+
 def test_split_k_calls_return_identical_bits(cuda):
     """Split-K adds its slices in a fixed order, with no atomics."""
     from repro_torch.kernels.com_matmul import plan
@@ -191,8 +219,9 @@ def test_cuda_executor_matches_reference_on_the_card(cuda, case):
     assert res.events == dict(program.event_totals) == want.events
 
 
-# (B, Sq, Skv, H, KVH, hd, causal): ragged lengths, GQA, causal and not, both
-# head sizes, Sq != Skv (top-left causal mask)
+# (B, Sq, Skv, H, KVH, hd, causal): ragged lengths, GQA, causal and not, the
+# three head sizes, Sq != Skv (top-left causal mask), and shapes whose plan
+# splits the KV range (a second pass combines the splits)
 FLASH_CASES = [
     (1, 128, 128, 9, 3, 64, True),
     (1, 77, 77, 9, 3, 64, True),
@@ -201,7 +230,13 @@ FLASH_CASES = [
     (1, 65, 65, 2, 2, 128, False),
     (2, 50, 130, 6, 2, 64, True),
     (1, 130, 50, 6, 3, 128, True),
+    (1, 100, 100, 4, 2, 32, True),
+    (2, 70, 33, 2, 1, 32, False),
+    (1, 1024, 1024, 9, 3, 64, True),
+    (1, 1100, 1100, 2, 2, 32, True),
+    (1, 1000, 1000, 2, 1, 128, False),
 ]
+SPLIT_CASES = [c for c in FLASH_CASES if c[1] >= 700]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -225,6 +260,25 @@ def test_flash_attention_kernel_matches_plain_version(cuda, b, sq, skv, h, kvh, 
         assert (diff <= limit).all(), (diff / limit).max().item()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,kvh,hd,causal", SPLIT_CASES)
+def test_flash_attention_split_calls_return_identical_bits(cuda, b, sq, skv, h, kvh, hd, causal,
+                                                           dtype):
+    """The splits' partials are combined in split order, with no atomics."""
+    from repro_torch.kernels.flash_attention import plan
+
+    for dt in (torch.float32, torch.bfloat16):  # every split case splits in both types
+        assert plan(b, sq, skv, h, kvh, hd, dt, causal).splits > 1
+    gen = torch.Generator(device=cuda).manual_seed(sq + hd)
+    q = torch.randn((b, sq, h, hd), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, skv, kvh, hd), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    first = flash_attention(q, k, v, causal=causal)
+    second = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 def test_flash_attention_routes_and_rejects(cuda):
     q = torch.randn((1, 16, 4, 64), device=cuda)
     k = torch.randn((1, 16, 2, 64), device=cuda)
@@ -232,9 +286,9 @@ def test_flash_attention_routes_and_rejects(cuda):
     ops.flash_attention(q, k, k)
     ops.flash_attention(q, k, k, backend="ref")
     assert flash_attention.launches == before + 1
-    with pytest.raises(ValueError, match="head_dim 32"):
-        flash_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
-                        k[..., :32].contiguous())
+    with pytest.raises(ValueError, match="head_dim 48"):
+        flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                        k[..., :48].contiguous())
     with pytest.raises(ValueError, match="block_kv 128"):
         flash_attention(q, k, k, block_kv=128)
     with pytest.raises(ValueError, match="contiguous"):
@@ -245,8 +299,9 @@ def test_flash_attention_routes_and_rejects(cuda):
 
 
 def test_greedy_batched_matches_sequential_on_the_card(cuda):
-    # reduced smollm with head_dim 64, the kernel's size
-    cfg = dataclasses.replace(get_config("smollm-135m").reduced(), num_heads=2, num_kv_heads=1)
+    # the reduced smollm as it is: head_dim 32
+    cfg = get_config("smollm-135m").reduced()
+    assert cfg.head_dim == 32
     model = build_model(cfg, CallConfig(), device=cuda, seed=0)
     rng = np.random.default_rng(0)
 
@@ -265,10 +320,12 @@ def test_greedy_batched_matches_sequential_on_the_card(cuda):
     assert all(len(r.out_tokens) == r.max_new_tokens for r in got)
 
 
-# (B, S, H, hd): ragged S, B = 2, the reduced test config's hd 32 and
-# xlstm-350m's hd 256, an hd that is no multiple of a warp
-SLSTM_CASES = [(1, 37, 4, 32), (2, 130, 4, 32), (1, 517, 4, 256), (2, 64, 4, 256),
-               (2, 19, 3, 40)]
+# (B, S, H, hd): ragged S, B = 2, S = 1, the reduced test config's hd 32
+# (a cluster of 1), hd 128 (a cluster of 2), xlstm-350m's hd 256 (a cluster
+# of 8), an hd that is no multiple of a warp, and hd 512 (the stream path)
+SLSTM_CASES = [(1, 37, 4, 32), (2, 130, 4, 32), (1, 1, 4, 32), (1, 517, 4, 256),
+               (2, 64, 4, 256), (1, 1, 4, 256), (2, 45, 2, 128), (2, 19, 3, 40),
+               (1, 20, 1, 512)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -294,6 +351,13 @@ def test_slstm_fused_kernel_matches_plain_version(cuda, b, s, h, hd, dtype):
     for g, w in zip(state, want_state):  # c, n, h, m: float32 whatever gx's type
         assert g.dtype == torch.float32 and g.shape == (b, h, hd)
         assert (g.double() - w.double()).abs().max() <= 2e-4 * w.double().abs().max()
+
+
+def test_slstm_plan_paths_on_the_card(cuda):
+    from repro_torch.kernels.slstm import plan
+
+    assert (plan(1, 9, 4, 32, torch.float32).cluster, plan(1, 9, 4, 256, torch.float32).cluster,
+            plan(1, 9, 4, 512, torch.float32).path) == (1, 8, "stream")
 
 
 def test_slstm_routes_and_rejects(cuda):

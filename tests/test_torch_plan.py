@@ -124,13 +124,19 @@ def test_conv_split_order_over_channel_chunks_and_positions_matches_the_plain_ve
 # ---- 3xTF32: the arithmetic of csrc/com_mma.cuh -----------------------------
 
 MASK = -8192  # 0xFFFFE000: the 19 bits of a TF32 number
+TF32_MAX = 3.40116213e38  # 0x7F7FE000, the largest finite TF32
 
 
 def _tf32_split(t):
-    """big = t rounded to TF32 (half a TF32 ulp added, 13 low bits cleared:
-    cvt.rna done with integer bit operations), small = t - big, read as the
-    MMA reads it (truncated to TF32)."""
-    bits = t.contiguous().view(torch.int32)
+    """big = t rounded to TF32 and saturated at TF32_MAX (t clamped to
+    +-TF32_MAX, half a TF32 ulp added, 13 low bits cleared: cvt.rna.satfinite
+    done with a clamp and integer bit operations), small = t - big, read as
+    the MMA reads it (truncated to TF32). This is csrc/com_mma.cuh's
+    saturating split. The kernel runs a faster split first and takes this
+    one only for a block whose sums come out non-finite; wherever the fast
+    split's sums are finite the two give the same bits, so this one split
+    models the kernel everywhere."""
+    bits = t.clamp(-TF32_MAX, TF32_MAX).nan_to_num(-TF32_MAX).contiguous().view(torch.int32)
     big = ((bits + 0x1000) & MASK).view(torch.float32)
     small = ((t - big).contiguous().view(torch.int32) & MASK).view(torch.float32)
     return big, small
@@ -201,6 +207,44 @@ def test_3xtf32_model_holds_the_full_depth_vgg16_executor_at_reduced_width(monke
     print(f"3xTF32 model, VGG-16 / 8 executor: {err:.3e} of max|ref| (limit {TOL}, "
           f"headroom {TOL / err:.1f}x)")
     assert got.shape == (2, 10) and err <= TOL
+
+
+def _same_non_finite_and_close(got, want):
+    """NaN where ``want`` is NaN, the same infinities, and the finite rest
+    within the float32 tolerance of the finite part's largest magnitude."""
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.isinf(), want.isinf())
+    assert torch.equal(got[got.isinf()], want[want.isinf()])
+    fin = want.isfinite()
+    scale = want[fin].double().abs().max()
+    assert (got[fin].double() - want[fin].double()).abs().max() <= TOL * scale
+
+
+@pytest.mark.parametrize("x0", [float("inf"), float("-inf"), 3.4028e38, -3.4028e38,
+                                3.4028235e38, float("nan")],
+                         ids=["inf", "-inf", "3.4028e38", "-3.4028e38", "flt-max", "nan"])
+def test_3xtf32_model_gives_the_plain_result_at_the_edges_of_the_range(x0):
+    """The split keeps an infinite operand infinite (no inf x 0 in the cross
+    terms), a near-overflow one exact, and a NaN a NaN: one such operand of x
+    and one of w, against com_matmul_ref."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(24, 64)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(64, 16)) * 1e-3).astype(np.float32))
+    w[7, 3] = 1.0  # exact in TF32: its small half is 0
+    edge = torch.tensor(np.float32(x0))
+    x[5, 7] = edge  # meets row 7 of w, the exact 1.0 among it
+    x[9, 2] = edge
+    _same_non_finite_and_close(mma_3xtf32(x, w), com_matmul_ref(x, w))
+    xt, wt = w.t().contiguous(), x.t().contiguous()  # the edge value on the other side
+    _same_non_finite_and_close(mma_3xtf32(xt, wt), com_matmul_ref(xt, wt))
+    assert torch.isfinite(_tf32_split(edge[None])[0]).all()  # big never overflows
+
+
+def test_3xtf32_model_of_inf_times_inf_is_inf():
+    x = torch.zeros((16, 8))
+    w = torch.zeros((8, 8))
+    x[0, 0], w[0, 0], w[0, 1], x[1, 0] = float("inf"), float("inf"), float("-inf"), 2.0
+    _same_non_finite_and_close(mma_3xtf32(x, w), com_matmul_ref(x, w))
 
 
 # ---- the build cache ----------------------------------------------------------
