@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py        # from the repository root; one CUDA card, nvcc
 
-Three paths: the compiled VGG-16 executor (phases 3-5), serving smollm-135m
+Four paths: the compiled VGG-16 executor (phases 3-5), serving smollm-135m
 (phases 3, 6 and 7) and serving xlstm-350m (phases 3, 8 and 9), both at their
-full published widths. Phases, each printing JSON lines:
+full published widths, and the paper's Tab. IV evaluation and design-space
+sweep (phases 10-12). Phases, each printing JSON lines:
 
 1. card      — the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build     — the four CUDA kernels built from src/repro_torch/csrc/*.cu for
@@ -71,7 +72,28 @@ full published widths. Phases, each printing JSON lines:
                the plain version's own rounding noise (reported, not gated:
                see logits_xlstm);
 9. profile-serve — the same two windows for xlstm-350m;
-10. the seconds of each phase, the kernels line, the card line, the result line.
+10. tab4     — repro_torch.launch.table_iv.run() for the com and minimal_buffer
+               dataflows: the com rows within the reference's bands of the
+               paper's Tab. IV (CE within 25 %, off-chip under 10 % of the
+               power, CE improvement in 1.3-2.6x; tests/test_simulator.py:93-108),
+               the rival's under 10 % off-chip and below COM's CE; then
+               DominoModel(vgg16-imagenet).functional_forward on the card with
+               phase 4's weights and images: its logits bit for bit phase 4's,
+               its events the program's, 16 com_matmul launches;
+11. comgrid  — COMGridSim in float64 on the card at full VGG-16 width, on the
+               first 14x14x512 -> 512 conv (2 x 2 blocks) and on FC0 (25088 ->
+               4096, 98 x 16 blocks, 0.82 GB of float64 weights), phase 4's
+               weights: within rtol = atol = 1e-10 of reference_conv /
+               reference_fc (tests/test_simulator.py:39), events equal to
+               conv_events / fc_events; sim and oracle ms;
+12. sweep    — smoke_1e6_grid() (1,002,240 scenarios): the cold batch build
+               (216 compiles), then the NumPy oracle (full and in chunks of
+               65536) and the torch backend on the card (full and chunked, each
+               twice), every column within 1e-6 of the oracle
+               (tests/test_sweep_backends.py:26), batch-build and backend
+               seconds and scenarios/s apart; the oracle against the scalar
+               path (DominoModel.evaluate) at 1e-9 on 1,000 sampled scenarios;
+13. the seconds of each phase, the kernels line, the card line, the result line.
 
 Any failed check exits non-zero before the result line is printed. Finding no
 card is a failure. Tolerances: float32 results within 2e-5 of the reference's
@@ -104,9 +126,12 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.energy import COUNTERPARTS, PAPER_DOMINO  # noqa: E402
 from repro_torch.core.executor import _maxpool, random_weights  # noqa: E402
 from repro_torch.core.mapping import ConvSpec, vgg16_imagenet  # noqa: E402
 from repro_torch.core.program import compile_program  # noqa: E402
+from repro_torch.core.simulator import (  # noqa: E402
+    COMGridSim, DominoModel, Events, conv_events, fc_events, reference_conv, reference_fc)
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.com_matmul import com_matmul  # noqa: E402
 from repro_torch.kernels.com_matmul import plan as com_matmul_plan  # noqa: E402
@@ -119,7 +144,10 @@ from repro_torch.kernels.ref import (  # noqa: E402
 from repro_torch.kernels.slstm import plan as slstm_plan  # noqa: E402
 from repro_torch.kernels.slstm import slstm_fused  # noqa: E402
 from repro_torch.models.transformer import CallConfig, build_model  # noqa: E402
+from repro_torch.launch import table_iv  # noqa: E402
+from repro_torch.launch.sweep import check_against_scalar, smoke_1e6_grid  # noqa: E402
 from repro_torch.serve.engine import Engine, Request  # noqa: E402
+from repro_torch.sweep import COLUMNS, build_batch, resolve_network, run_sweep  # noqa: E402
 
 # published H100 SXM peaks (dense): f32 outside the tensor cores, bf16 tensor
 # cores, TF32 tensor cores (the 3xTF32 float32 products take three passes), HBM3
@@ -142,6 +170,7 @@ BATCH = 8
 SERVE_ARCH, N_REQUESTS, MAX_NEW, SLOTS, MAX_SEQ = "smollm-135m", 16, 64, 8, 2048
 XLSTM_ARCH = "xlstm-350m"
 SLSTM_TOL = 2e-4  # float32 tolerance of the recurrence (tests/test_kernels.py:142)
+SWEEP_RTOL = 1e-6  # the float64 sweep backend against NumPy (tests/test_sweep_backends.py:26)
 
 
 def emit(obj) -> None:
@@ -741,6 +770,166 @@ def profile_serve(model, eng, cfg, forbid=None) -> None:
                                         "a decode step")})
 
 
+def close_within(got, want, rtol: float, atol: float) -> tuple:
+    """Largest |got - want| and largest |got - want| / (atol + rtol |want|):
+    the second is at most 1 where every element is within the tolerance
+    (torch.testing.assert_close's rule)."""
+    diff = (got - want).abs()
+    return diff.max().item(), (diff / (atol + rtol * want.abs())).max().item()
+
+
+def tab4_phase(weights, images, e2e_logits) -> None:
+    """The Tab. IV evaluation through the port's own entry points, and the
+    VGG-16 forward through DominoModel.functional_forward on the card."""
+    rows = {df: table_iv.run(df) for df in ("com", "minimal_buffer")}
+    for df, rs in rows.items():
+        imps = [r["ce_improvement"] for r in rs]
+        emit({"phase": "tab4", "dataflow": df,
+              "ce_improvement": [min(imps), max(imps)],
+              "rows": [{k: r[k] for k in ("counterpart", "model", "ours_ce", "paper_ce",
+                                          "ours_thr", "paper_thr", "ours_onchip_w",
+                                          "ours_offchip_w", "ours_power_w",
+                                          "ce_improvement")} for r in rs]})
+        for r in rs:
+            vals = [v for v in r.values() if isinstance(v, float)]
+            if not all(np.isfinite(vals)):
+                fail(f"tab4 {df} {r['counterpart']}: a non-finite column")
+            # off-chip power stays a small fraction (paper: 0.1%-3%)
+            if not r["ours_offchip_w"] < 0.1 * r["ours_power_w"]:
+                fail(f"tab4 {df} {r['counterpart']}: off-chip {r['ours_offchip_w']} W is "
+                     f"not under 10 % of {r['ours_power_w']} W")
+    # the paper's dataflow against its Tab. IV Domino column: CE within 25 %
+    # of each published value, the headline CE improvement in 1.3-2.6x
+    # (the reference's bands, tests/test_simulator.py:93-108)
+    for r in rows["com"]:
+        p = PAPER_DOMINO[r["counterpart"]]
+        if COUNTERPARTS[r["counterpart"]].model != r["model"] or r["paper_ce"] != p["ce"]:
+            fail(f"tab4 row {r['counterpart']} is not the paper's column")
+        if abs(r["ours_ce"] - p["ce"]) > 0.25 * p["ce"]:
+            fail(f"tab4 com {r['counterpart']}: CE {r['ours_ce']} not within 25 % of {p['ce']}")
+    imps = [r["ce_improvement"] for r in rows["com"]]
+    if not (min(imps) > 1.3 and max(imps) < 2.6):
+        fail(f"tab4 com: CE improvement {min(imps)}-{max(imps)}x outside 1.3-2.6x")
+    # the buffer-centric rival on the same silicon scores below COM
+    for r, c in zip(rows["minimal_buffer"], rows["com"]):
+        if not r["ours_ce"] < c["ours_ce"]:
+            fail(f"tab4 minimal_buffer {r['counterpart']}: CE {r['ours_ce']} is not below "
+                 f"COM's {c['ours_ce']}")
+
+    model = DominoModel(resolve_network("vgg16-imagenet"))
+    com_matmul.launches = conv2d_com.launches = 0
+    t0 = time.perf_counter()
+    res = model.functional_forward(images, weights)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"com_matmul": com_matmul.launches, "conv2d_com": conv2d_com.launches}
+    bitwise = bool(torch.equal(res.outputs, e2e_logits))
+    events_match = dict(res.events) == dict(model.program.event_totals)
+    emit({"phase": "tab4-forward", "workload": model.workload.name, "batch": BATCH,
+          "device": str(res.outputs.device), "wall_ms": wall * 1e3, "launches": launches,
+          "logits_bitwise_equal_e2e": bitwise, "events_match": events_match})
+    if res.outputs.device.type != "cuda" or not bitwise:
+        fail("DominoModel.functional_forward's logits are not the e2e executor's bit for bit")
+    if not events_match:
+        fail(f"functional_forward events {res.events} != {dict(model.program.event_totals)}")
+    if launches != {"com_matmul": len(model.layers), "conv2d_com": 0}:
+        fail(f"functional_forward launched {launches}, expected {len(model.layers)} com_matmul")
+
+
+def comgrid_phase(program, weights) -> None:
+    """COMGridSim in float64 on the card at full VGG-16 width, against the
+    float64 oracles at rtol = atol = 1e-10 (tests/test_simulator.py:39)."""
+    rng = np.random.default_rng(4)
+    conv = next(lp.layer for lp in program.layer_programs
+                if isinstance(lp.layer, ConvSpec) and lp.layer.c_in == 512 and lp.layer.h_in == 14)
+    fc = next(lp.layer for lp in program.layer_programs if not isinstance(lp.layer, ConvSpec))
+    cases = [(conv, rng.normal(size=(conv.h_in, conv.w_in, conv.c_in)), reference_conv,
+              conv_events),
+             (fc, np.maximum(rng.normal(size=(fc.c_in,)), 0.0), reference_fc, fc_events)]
+    for layer, x, oracle, closed_form in cases:
+        lp = program.layer_program(layer.name)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim = COMGridSim.from_program(program, layer.name, weights[layer.name])
+        torch.cuda.synchronize()
+        upload_s = time.perf_counter() - t0
+        xd = torch.as_tensor(x, device="cuda")
+        sim.run(xd)  # warm-up
+        sim.ev = Events()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = sim.run(xd)
+        torch.cuda.synchronize()
+        sim_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = (oracle(xd, sim.w, layer) if isinstance(layer, ConvSpec) else oracle(xd, sim.w))
+        torch.cuda.synchronize()
+        oracle_s = time.perf_counter() - t0
+        err, over = close_within(got, want, 1e-10, 1e-10)
+        events_match = sim.ev == closed_form(layer)
+        emit({"phase": "comgrid", "layer": layer.name, "shape": list(sim.w.shape),
+              "c_blocks": lp.c_blocks, "m_blocks": lp.m_blocks, "device": str(got.device),
+              "dtype": str(got.dtype).replace("torch.", ""),
+              "weights_gb": sim.w.numel() * 8 / 1e9, "upload_s": upload_s,
+              "sim_ms": sim_s * 1e3, "oracle_ms": oracle_s * 1e3, "max_abs_err": err,
+              "max_err_over_tol": over, "rtol": 1e-10, "atol": 1e-10,
+              "events_match": events_match})
+        if got.device.type != "cuda" or got.dtype != torch.float64:
+            fail(f"COMGridSim ran on {got.device} in {got.dtype}, not float64 on the card")
+        if not torch.isfinite(got).all().item() or over > 1.0:
+            fail(f"COMGridSim {layer.name}: {err} off the oracle ({over} x the tolerance)")
+        if not events_match:
+            fail(f"COMGridSim {layer.name}: events {sim.ev} != {closed_form(layer)}")
+        del sim, got, want
+    torch.cuda.empty_cache()
+
+
+def sweep_phase() -> None:
+    """smoke_1e6_grid through the torch backend on the card, full grid and in
+    chunks of 65536, against the NumPy oracle on every column at the
+    reference's 1e-6, and the NumPy oracle against the scalar path at 1e-9
+    on 1,000 sampled scenarios."""
+    grid = smoke_1e6_grid()
+    n = grid.n_scenarios
+    t0 = time.perf_counter()
+    build_batch(grid)  # the cold build: 4 networks x 54 architectures compiled
+    build_cold_s = time.perf_counter() - t0
+    oracle = run_sweep(grid, backend="numpy")
+    runs = [("numpy", None, oracle), ("numpy", 65536, run_sweep(grid, backend="numpy",
+                                                               chunk_size=65536))]
+    for chunk in (None, 65536):
+        for _ in range(2):  # the second run is warm
+            runs.append(("torch", chunk, run_sweep(grid, chunk_size=chunk)))
+    worst = 0.0
+    for backend, chunk, r in runs:
+        errs = {c: float(np.max(np.abs(r.columns[c] - oracle.columns[c])
+                                / np.maximum(np.abs(oracle.columns[c]), 1e-300)))
+                for c in COLUMNS}
+        backend_s = r.engine_wall_s - r.build_wall_s
+        emit({"phase": "sweep", "backend": backend, "chunk_size": chunk, "n_scenarios": n,
+              "rows": int(r.columns["ce_tops_w"].shape[0]),
+              "engine_wall_s": r.engine_wall_s, "build_wall_s": r.build_wall_s,
+              "backend_s": backend_s, "scenarios_per_s": n / max(backend_s, 1e-12),
+              "scenarios_per_s_with_build": n / max(r.engine_wall_s, 1e-12),
+              "peak_chunk_bytes": r.peak_chunk_bytes,
+              "max_rel_err_vs_numpy": max(errs.values()), "rtol": SWEEP_RTOL})
+        if any(r.columns[c].shape != (n,) for c in COLUMNS):
+            fail(f"sweep {backend} chunk={chunk}: a column does not hold {n} scenarios")
+        if max(errs.values()) > SWEEP_RTOL:
+            fail(f"sweep {backend} chunk={chunk}: {errs} over {SWEEP_RTOL}")
+        if backend == "numpy" and max(errs.values()) != 0.0:
+            fail(f"sweep numpy chunk={chunk}: not chunking-invariant ({errs})")
+        worst = max(worst, max(errs.values()))
+    sample = np.random.default_rng(0).choice(n, size=1000, replace=False)
+    t0 = time.perf_counter()
+    scalar_err = check_against_scalar(oracle, 1e-9, sample)
+    emit({"phase": "sweep-scalar", "sampled": len(sample), "max_rel_err": scalar_err,
+          "rtol": 1e-9, "seconds": time.perf_counter() - t0})
+    emit({"phase": "sweep-summary", "n_scenarios": n, "build_cold_s": build_cold_s,
+          "torch_max_rel_err_vs_numpy": worst, "rtol": SWEEP_RTOL,
+          "device": torch.cuda.get_device_name(0)})
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
@@ -827,7 +1016,6 @@ def main() -> None:
     images = np.random.default_rng(1).normal(size=(BATCH, 224, 224, 3))
     ex = program.executor(weights)
     ref = program.executor(weights, backend="reference").run(images)
-    del weights
     ex.run(images)  # warm-up
     com_matmul.launches = conv2d_com.launches = 0
     res = ex.run(images)
@@ -904,7 +1092,22 @@ def main() -> None:
     profile_serve(xmodel, xeng, xcfg)
     phase_done("profile-serve-xlstm")
 
-    # 10. the phases' seconds, the kernels line, the card, the result
+    del xmodel, xeng
+    torch.cuda.empty_cache()
+
+    # 10. the Tab. IV evaluation, and the VGG-16 forward through DominoModel
+    tab4_phase(weights, images, res.outputs)
+    phase_done("tab4")
+
+    # 11. COMGridSim in float64 on the card at full width
+    comgrid_phase(program, weights)
+    phase_done("comgrid")
+
+    # 12. the design-space sweep's float64 columns on the card
+    sweep_phase()
+    phase_done("sweep")
+
+    # 13. the phases' seconds, the kernels line, the card, the result
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
     emit({"kernels": [
         {"name": "com_matmul", "route": "cuda", "source": "src/repro_torch/csrc/com_matmul.cu",

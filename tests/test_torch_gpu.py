@@ -393,3 +393,54 @@ def test_xlstm_greedy_batched_matches_sequential_on_the_card(cuda):
     want = eng.generate_sequential(ref_reqs, seed=0)
     assert [r.out_tokens for r in got] == [r.out_tokens for r in want]
     assert all(len(r.out_tokens) == r.max_new_tokens for r in got)
+
+
+# ---------------------------------------------------------------------------
+# the Tab. IV evaluation and the sweep engine on the card (float64)
+# ---------------------------------------------------------------------------
+
+SWEEP_GRID = dict(networks=("vgg11-cifar", "resnet18-cifar", "llm:smollm-135m"),
+                  chip_counts=(1, 7, 24), precisions=(8, 16), e_mac_pj=(0.02, 0.1),
+                  tiles_per_chip=(120, 240), n_c=(128, 256), n_m=(64, 256),
+                  node_nm=(45.0, 16.0), dataflow=("com", "minimal_buffer"))
+
+
+@pytest.mark.parametrize("chunk_size", [None, 1000])
+def test_torch_sweep_backend_on_the_card_matches_numpy(cuda, chunk_size):
+    """The float64 column math on the card against the NumPy oracle within
+    tests/test_sweep_backends.py:26's 1e-6, full grid and chunked; with no
+    backend or device named, ``run_sweep`` is that backend on the card."""
+    from repro_torch.sweep import COLUMNS, SweepGrid, make_torch_backend, run_sweep
+
+    grid = SweepGrid(**SWEEP_GRID)
+    want = run_sweep(grid, backend="numpy")
+    for got in (run_sweep(grid, chunk_size=chunk_size),
+                run_sweep(grid, backend=make_torch_backend(cuda), chunk_size=chunk_size)):
+        assert got.backend == "torch"
+        for c in COLUMNS:
+            a, b = got.columns[c], want.columns[c]
+            assert a.dtype == np.float64 and a.shape == (grid.n_scenarios,)
+            err = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+            assert err < 1e-6, (c, err)
+
+
+def test_com_grid_sim_on_the_card_matches_reference_conv(cuda):
+    """One VGG-16 conv at full width (14 x 14 x 512 -> 512, two C-blocks
+    and two M-blocks) in float64 on the card, held to reference_conv at
+    tests/test_simulator.py:39's rtol = atol = 1e-10."""
+    from repro_torch.core.mapping import vgg16_imagenet
+    from repro_torch.core.simulator import COMGridSim, conv_events, reference_conv
+
+    program = compile_program(vgg16_imagenet())
+    lp = program.layer_programs[10]
+    L = lp.layer
+    assert (L.h_in, L.c_in, L.c_out, lp.c_blocks, lp.m_blocks) == (14, 512, 512, 2, 2)
+    rng = np.random.default_rng(5)
+    w = rng.normal(size=(3, 3, 512, 512)) * (2.0 / (9 * 512)) ** 0.5
+    x = rng.normal(size=(14, 14, 512))
+    sim = COMGridSim.from_program(program, L.name, w)
+    got = sim.run(x)
+    assert got.device.type == "cuda" and got.dtype == torch.float64
+    want = reference_conv(torch.as_tensor(x, device=cuda), torch.as_tensor(w, device=cuda), L)
+    torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-10)
+    assert sim.ev == conv_events(L)
