@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py        # from the repository root; one CUDA card, nvcc
 
-Four paths: the compiled VGG-16 executor (phases 3-5), serving smollm-135m
+Five paths: the compiled VGG-16 executor (phases 3-5), serving smollm-135m
 (phases 3, 6 and 7) and serving xlstm-350m (phases 3, 8 and 9), both at their
-full published widths, and the paper's Tab. IV evaluation and design-space
-sweep (phases 10-12). Phases, each printing JSON lines:
+full published widths, the paper's Tab. IV evaluation and design-space
+sweep (phases 10-12), and VGG-16 compiled around faults and from a searched
+mapping (phases 13-14). Phases, each printing JSON lines:
 
 1. card      — the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build     — the four CUDA kernels built from src/repro_torch/csrc/*.cu for
@@ -93,7 +94,29 @@ sweep (phases 10-12). Phases, each printing JSON lines:
                (tests/test_sweep_backends.py:26), batch-build and backend
                seconds and scenarios/s apart; the oracle against the scalar
                path (DominoModel.evaluate) at 1e-9 on 1,000 sampled scenarios;
-13. the seconds of each phase, the kernels line, the card line, the result line.
+13. faults   — compile_program(vgg16_imagenet(), faults=FaultSet.empty()) is
+               the pristine program, and its executor gives phase 4's logits
+               bit for bit; then FaultSet.sample(0.002, seed=0, n_chips=9 + 6
+               spares, cell_rate=0.002) with a dropped block on conv0 and on
+               fc0: the degraded placement (validate_fault_allocs), its chips
+               and off-chip J per image against the pristine program's, the
+               host seconds of the compile and of the weight-fault realization,
+               then both executor backends on the one faulted weight list
+               (phase 4's weights and images): logits within 2e-5 · max|ref|,
+               equal fault_info, events equal to event_totals, 16 com_matmul
+               launches, images/s, argmax agreement with the clean logits;
+14. search   — search_mapping(vgg16, budget=96, seed=0) with evolve and anneal
+               (host seconds, hop-energy ratio to greedy, never above 1), then
+               compile_program(mapping="searched") (budget 256); the greedy and
+               searched candidates' Tab. IV columns through
+               PopulationEvaluator.columns on the card within 1e-6 of NumPy;
+               the searched program and a custom-blocked one (the widest
+               layer's block_c halved: more tiles) through both backends: the
+               same checks as phase 13, "cuda" logits bit for bit phase 4's
+               (the im2col path does not read the block partition), reference
+               logits within rtol 1e-9, atol 1e-12 of phase 4's
+               (tests/test_search.py:290-292);
+15. the seconds of each phase, the kernels line, the card line, the result line.
 
 Any failed check exits non-zero before the result line is printed. Finding no
 card is a failure. Tolerances: float32 results within 2e-5 of the reference's
@@ -132,6 +155,8 @@ from repro_torch.core.mapping import ConvSpec, vgg16_imagenet  # noqa: E402
 from repro_torch.core.program import compile_program  # noqa: E402
 from repro_torch.core.simulator import (  # noqa: E402
     COMGridSim, DominoModel, Events, conv_events, fc_events, reference_conv, reference_fc)
+from repro_torch.faults import (  # noqa: E402
+    BlockFault, FaultSet, apply_weight_faults, degraded_chips, usable_tiles, validate_fault_allocs)
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.com_matmul import com_matmul  # noqa: E402
 from repro_torch.kernels.com_matmul import plan as com_matmul_plan  # noqa: E402
@@ -146,6 +171,8 @@ from repro_torch.kernels.slstm import slstm_fused  # noqa: E402
 from repro_torch.models.transformer import CallConfig, build_model  # noqa: E402
 from repro_torch.launch import table_iv  # noqa: E402
 from repro_torch.launch.sweep import check_against_scalar, smoke_1e6_grid  # noqa: E402
+from repro_torch.search import PopulationEvaluator, greedy_candidate, search_mapping  # noqa: E402
+from repro_torch.search.cost import timed  # noqa: E402
 from repro_torch.serve.engine import Engine, Request  # noqa: E402
 from repro_torch.sweep import COLUMNS, build_batch, resolve_network, run_sweep  # noqa: E402
 
@@ -171,6 +198,7 @@ SERVE_ARCH, N_REQUESTS, MAX_NEW, SLOTS, MAX_SEQ = "smollm-135m", 16, 64, 8, 2048
 XLSTM_ARCH = "xlstm-350m"
 SLSTM_TOL = 2e-4  # float32 tolerance of the recurrence (tests/test_kernels.py:142)
 SWEEP_RTOL = 1e-6  # the float64 sweep backend against NumPy (tests/test_sweep_backends.py:26)
+FAULT_SPARES = 6  # spare chips past the pristine placement (benchmarks/faults_bench.py's default)
 
 
 def emit(obj) -> None:
@@ -930,6 +958,178 @@ def sweep_phase() -> None:
           "device": torch.cuda.get_device_name(0)})
 
 
+def forward_checks(what: str, program, weights, images, **kw) -> tuple:
+    """One program's VGG-16 B=8 forward on the card through both executor
+    backends: the "cuda" run (counts set to 0 just before it, read just
+    after) against the float64 "reference" run within 2e-5 · max|ref|, both
+    runs' events against the program's event_totals, 16 com_matmul launches
+    and no conv2d_com, equal fault_info. Returns the two executors, the
+    "cuda" and "reference" results, the seconds each executor took to build
+    (the host's fault realization and the weights' upload) and the line."""
+    t0 = time.perf_counter()
+    ex = program.executor(weights, **kw)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref_ex = program.executor(weights, backend="reference", **kw)
+    ref_build_s = time.perf_counter() - t0
+    ex.run(images)  # warm-up
+    com_matmul.launches = conv2d_com.launches = 0
+    res = ex.run(images)
+    launches = {"com_matmul": com_matmul.launches, "conv2d_com": conv2d_com.launches}
+    walls = [ex.run(images).wall_s for _ in range(5)]
+    want = ref_ex.run(images)
+    out = res.outputs.double()
+    err = (out - want.outputs).abs().max().item()
+    scale = want.outputs.abs().max().item()
+    events_match = res.events == dict(program.event_totals) == want.events
+    n_layers = len(program.layer_programs)
+    line = {"what": what, "batch": BATCH, "mapping": program.mapping, "n_tiles": program.n_tiles,
+            "n_chips": program.n_chips, "images_s": BATCH / statistics.median(walls),
+            "wall_ms": [w * 1e3 for w in walls], "executor_build_s": build_s,
+            "reference_build_s": ref_build_s, "fault_info": ex.fault_info,
+            "logits_max_abs_err": err, "logits_max_rel_err": err / max(scale, 1e-30),
+            "tol": TOL[torch.float32], "events_match": events_match, "launches": launches}
+    if tuple(out.shape) != (BATCH, program.workload.layers[-1].c_out) or \
+            not torch.isfinite(out).all().item():
+        fail(f"{what}: logits of shape {tuple(out.shape)} are not finite")
+    if scale == 0.0 or err > TOL[torch.float32] * scale:
+        fail(f"{what}: logits max_abs_err {err} > {TOL[torch.float32]} * {scale}")
+    if not events_match:
+        fail(f"{what}: events {res.events} / {want.events} != {dict(program.event_totals)}")
+    if launches != {"com_matmul": n_layers, "conv2d_com": 0}:
+        fail(f"{what}: the forward launched {launches}, expected {n_layers} com_matmul")
+    if ex.fault_info != ref_ex.fault_info:
+        fail(f"{what}: fault_info {ex.fault_info} != {ref_ex.fault_info}")
+    return ex, ref_ex, res, want, line
+
+
+def faults_phase(program, weights, images, e2e_logits) -> tuple:
+    """VGG-16 compiled and run around a fault set: the empty set is the
+    pristine program and gives phase 4's logits bit for bit; a sampled set
+    (rate 0.002 on the pristine chips plus faults_bench.py's 6 spares, cell
+    rate 0.002, seed 0) with a dropped block on conv0 and on fc0 compiles
+    onto a degraded placement and runs through both backends on one faulted
+    weight list. Returns the faulted run's com_matmul launches and its
+    line."""
+    wl = program.workload
+    # the sweep's 216 compiles may have evicted phase 4's cache line: compare
+    # with the pristine program as the cache holds it now
+    pristine = compile_program(wl)
+    if compile_program(wl, faults=FaultSet.empty()) is not pristine:
+        fail("faults: compile_program(faults=FaultSet.empty()) is not the pristine program")
+    empty = pristine.executor(weights, faults=FaultSet.empty())
+    empty_bits = bool(torch.equal(empty.run(images).outputs, e2e_logits))
+    emit({"phase": "faults", "what": "empty", "same_program": True,
+          "fault_info": empty.fault_info, "logits_bitwise_e2e": empty_bits})
+    if not empty_bits or empty.fault_info is not None:
+        fail("faults: the empty fault set did not give phase 4's logits bit for bit")
+    del empty
+
+    fc0 = next(i for i, l in enumerate(wl.layers) if not isinstance(l, ConvSpec))
+    fs = FaultSet.sample(0.002, seed=0, n_chips=program.n_chips + FAULT_SPARES,
+                         cell_rate=0.002)
+    lp = program.layer_programs[fc0]
+    fs = dataclasses.replace(fs, dead_blocks=(
+        BlockFault(0, 4, 0, 0), BlockFault(fc0, 0, lp.c_blocks // 2, lp.m_blocks // 2)))
+    t0 = time.perf_counter()
+    pf = compile_program(wl, faults=fs)
+    compile_s = time.perf_counter() - t0
+    validate_fault_allocs(pf.allocs, pf.arch, fs)
+    t0 = time.perf_counter()
+    _, info = apply_weight_faults(wl.layers, weights, fs, pf.arch)
+    realize_s = time.perf_counter() - t0
+    ex, _, res, _, line = forward_checks("faulted", pf, weights, images)
+    if info != ex.fault_info or info["n_blocks"] != 2 or info["n_cells"] == 0:
+        fail(f"faults: fault_info {ex.fault_info} != the realization's {info}")
+    agree = (res.outputs.argmax(-1) == e2e_logits.argmax(-1)).float().mean().item()
+    emit({"phase": "faults", **line, "dead_tiles": len(fs.dead_tiles),
+          "dead_links": len(fs.dead_links), "dead_chips": len(fs.dead_chips),
+          "fleet": fs.n_chips, "pristine_chips": program.n_chips,
+          "degraded_chips": degraded_chips(pf.allocs),
+          "usable_tiles": [usable_tiles(fs, c) for c in range(fs.n_chips)],
+          "crossing_layers": [a.layer.name for a in pf.allocs if a.crosses_chip],
+          "pristine_crossing_layers": [a.layer.name for a in program.allocs if a.crosses_chip],
+          "offchip_j_img": DominoModel(pf).offchip_energy_img_j(),
+          "pristine_offchip_j_img": DominoModel(program).offchip_energy_img_j(),
+          "compile_s": compile_s, "realize_s": realize_s,
+          "argmax_agreement_with_clean": agree})
+    return line["launches"]["com_matmul"], line
+
+
+def search_phase(program, weights, images, e2e_logits, ref_logits) -> tuple:
+    """VGG-16's mapping search on the host (search_bench.py's CI recipe:
+    budget 96, seed 0, both engines; then compile_program(mapping=
+    "searched"), budget 256), the two candidates' Tab. IV columns through
+    the torch sweep backend on the card against NumPy, and the searched
+    and a custom-blocked program (fc0's block_c halved) through both
+    executor backends. Returns the searched run's com_matmul launches and
+    the lines."""
+    wl = program.workload
+    lines = []
+    for engine in ("evolve", "anneal"):
+        t0 = time.perf_counter()
+        r = search_mapping(wl, budget=96, engine=engine, seed=0)
+        lines.append({"phase": "search", "engine": engine, "budget": 96, "seed": 0,
+                      "host_s": time.perf_counter() - t0, "evaluations": r.evaluations,
+                      "energy_ratio": r.energy_ratio, "improved": r.improved})
+        emit(lines[-1])
+        if r.cost.hop_energy_pj > r.greedy_cost.hop_energy_pj:
+            fail(f"search {engine}: searched hop energy {r.cost.hop_energy_pj} > greedy's")
+    t0 = time.perf_counter()
+    ps = compile_program(wl, mapping="searched")
+    searched_s = time.perf_counter() - t0
+    r = search_mapping(wl)
+    if ps.candidate != r.candidate or r.cost.hop_energy_pj > r.greedy_cost.hop_energy_pj:
+        fail("search: the searched program is not search_mapping's candidate, or costs more")
+    greedy = greedy_candidate(wl.layers, program.arch)
+    cols = PopulationEvaluator(wl.layers).columns([greedy, ps.candidate])
+    oracle = PopulationEvaluator(wl.layers, backend="numpy").columns([greedy, ps.candidate])
+    col_ms = 1e3 * min(timed(PopulationEvaluator(wl.layers).columns,
+                             [greedy, ps.candidate])[1] for _ in range(3))
+    col_err = max(float(np.max(np.abs(cols[c] - oracle[c]) / np.maximum(np.abs(oracle[c]),
+                                                                          1e-300)))
+                  for c in oracle)
+    ex, _, res, want, line = forward_checks("searched", ps, weights, images)
+    bits = bool(torch.equal(res.outputs, e2e_logits))
+    ref_ok = bool(torch.allclose(want.outputs, ref_logits, rtol=1e-9, atol=1e-12))
+    lines.append({"phase": "search", **line, "budget": 256, "compile_searched_s": searched_s,
+                  "energy_ratio": r.energy_ratio, "keeps_greedy_blocking":
+                  (ps.candidate.block_c, ps.candidate.block_m) == (greedy.block_c,
+                                                                   greedy.block_m),
+                  "columns_ms_card": col_ms, "columns_max_rel_err_vs_numpy": col_err,
+                  "rtol": SWEEP_RTOL, "logits_bitwise_e2e": bits,
+                  "reference_logits_within_1e-9_of_e2e_reference": ref_ok})
+    emit(lines[-1])
+    if col_err > SWEEP_RTOL:
+        fail(f"search: PopulationEvaluator.columns on the card {col_err} off NumPy")
+    if not bits:
+        fail("search: the searched program's cuda logits are not phase 4's bit for bit")
+    if not ref_ok:
+        fail("search: the searched program's reference logits are not within rtol 1e-9 of "
+             "phase 4's")
+    launches = line["launches"]["com_matmul"]
+    del ex
+
+    i = max(range(len(wl.layers)), key=lambda j: wl.layers[j].c_in)
+    bc = list(greedy.block_c)
+    bc[i] = max(1, bc[i] // 2)
+    custom = dataclasses.replace(greedy, block_c=tuple(bc))
+    pc = compile_program(wl, mapping=custom)
+    ex, _, res, want, line = forward_checks("custom-blocking", pc, weights, images)
+    bits = bool(torch.equal(res.outputs, e2e_logits))
+    ref_ok = bool(torch.allclose(want.outputs, ref_logits, rtol=1e-9, atol=1e-12))
+    lines.append({"phase": "search", **line, "layer": wl.layers[i].name,
+                  "block_c": bc[i], "greedy_n_tiles": program.n_tiles,
+                  "logits_bitwise_e2e": bits,
+                  "reference_logits_within_1e-9_of_e2e_reference": ref_ok})
+    emit(lines[-1])
+    if pc.n_tiles <= program.n_tiles:
+        fail(f"search: the custom blocking has {pc.n_tiles} tiles, greedy {program.n_tiles}")
+    if not bits or not ref_ok:
+        fail(f"search: custom-blocked logits: cuda bitwise {bits}, reference within 1e-9 {ref_ok}")
+    return launches, lines
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
@@ -1107,7 +1307,15 @@ def main() -> None:
     sweep_phase()
     phase_done("sweep")
 
-    # 13. the phases' seconds, the kernels line, the card, the result
+    # 13. VGG-16 compiled and run around a fault set
+    faults_phase(program, weights, images, res.outputs)
+    phase_done("faults")
+
+    # 14. the mapping search, and the searched and custom-blocked programs
+    search_phase(program, weights, images, res.outputs, ref.outputs)
+    phase_done("search")
+
+    # 15. the phases' seconds, the kernels line, the card, the result
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
     emit({"kernels": [
         {"name": "com_matmul", "route": "cuda", "source": "src/repro_torch/csrc/com_matmul.cu",

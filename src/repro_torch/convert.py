@@ -1,7 +1,9 @@
 """Weights of the JAX package → the port's tensors, and back.
 
 Two kinds of weights: the executor's per-layer arrays (below), and a
-language model's parameter pytree (:func:`model_params_to_port`).
+language model's parameter pytree (:func:`model_params_to_port`). Fault
+sets and mapping candidates carry over by their fields
+(:func:`faultset_to_port`, :func:`candidate_to_port`).
 
 The JAX package's executor takes one float array per layer — conv
 ``(K, K, C, M)``, FC ``(C_in, C_out)`` — as a ``layer name → ndarray`` dict
@@ -61,21 +63,28 @@ def _aligned(layers, weights) -> Sequence:
     return seq
 
 
+def host_weights(layers, weights) -> List[np.ndarray]:
+    """JAX-package weights (dict or aligned list of arrays) → one float64
+    NumPy array per layer in the JAX package's shape, checked."""
+    out: List[np.ndarray] = []
+    for l, w in zip(layers, _aligned(layers, weights)):
+        w = np.asarray(w, dtype=np.float64)
+        if w.shape != weight_shape(l):
+            raise ValueError(
+                f"weights shape {w.shape} != {weight_shape(l)} for {l.name!r}")
+        out.append(w)
+    return out
+
+
 def to_port(layers, weights, *, dtype: torch.dtype = torch.float32,
             device=None) -> List[torch.Tensor]:
     """JAX-package weights (dict or aligned list of arrays) → one
     contiguous ``dtype`` tensor per layer in the kernel layout, on
     ``device`` (``None`` = the card)."""
     dev = resolve_device(device)
-    out: List[torch.Tensor] = []
-    for l, w in zip(layers, _aligned(layers, weights)):
-        w = np.asarray(w)
-        if w.shape != weight_shape(l):
-            raise ValueError(
-                f"weights shape {w.shape} != {weight_shape(l)} for {l.name!r}")
-        t = torch.from_numpy(np.ascontiguousarray(w, dtype=np.float64))
-        out.append(t.reshape(kernel_shape(l)).to(device=dev, dtype=dtype).contiguous())
-    return out
+    return [torch.from_numpy(np.ascontiguousarray(w)).reshape(kernel_shape(l))
+            .to(device=dev, dtype=dtype).contiguous()
+            for l, w in zip(layers, host_weights(layers, weights))]
 
 
 def from_port(layers, tensors: Sequence[torch.Tensor]) -> Dict[str, np.ndarray]:
@@ -88,6 +97,38 @@ def from_port(layers, tensors: Sequence[torch.Tensor]) -> Dict[str, np.ndarray]:
         l.name: t.detach().to("cpu", torch.float64).numpy().reshape(weight_shape(l))
         for l, t in zip(layers, tensors)
     }
+
+
+def faultset_to_port(fs, arch=None):
+    """A fault set of the JAX package (or anything with its fields) → the
+    port's :class:`~repro_torch.faults.FaultSet`, field by field. ``arch``
+    (the port's ``ArchSpec``; default ``DEFAULT_ARCH``) takes the place of
+    the source's, which equality ignores."""
+    from repro_torch.core.arch import DEFAULT_ARCH
+    from repro_torch.faults import BlockFault, FaultSet, WeightFault
+
+    return FaultSet(
+        dead_tiles=tuple(fs.dead_tiles), dead_links=tuple(fs.dead_links),
+        dead_chips=tuple(fs.dead_chips), n_chips=fs.n_chips,
+        weight_faults=tuple(WeightFault(int(w.layer), int(w.index), str(w.kind))
+                            for w in fs.weight_faults),
+        cell_rate=float(fs.cell_rate), cell_seed=int(fs.cell_seed),
+        dead_blocks=tuple(BlockFault(int(b.layer), int(b.k_index), int(b.c_index),
+                                     int(b.m_index)) for b in fs.dead_blocks),
+        arch=DEFAULT_ARCH if arch is None else arch)
+
+
+def candidate_to_port(cand):
+    """A mapping candidate of the JAX package (or anything with its fields)
+    → the port's :class:`~repro_torch.search.space.MappingCandidate`."""
+    from repro_torch.search.space import MappingCandidate
+
+    return MappingCandidate(
+        gaps=tuple(int(g) for g in cand.gaps),
+        block_c=tuple(int(b) for b in cand.block_c),
+        block_m=tuple(int(b) for b in cand.block_m),
+        order=tuple(str(o) for o in cand.order),
+        egress_rot=tuple(int(r) for r in cand.egress_rot))
 
 
 def _leaves(tree: Mapping[str, Any], prefix: str = "") -> Iterator[Tuple[str, Any]]:

@@ -23,8 +23,10 @@ Two backends:
 ``device=None`` means the card. ``backend="cuda"`` on the CPU, or with no
 card, raises. Event accounting is backend-independent: per-image events
 are recounted from the explicit block grids and equal the program's
-``event_totals``. Sharding over several cards and weight faults are not
-ported yet.
+``event_totals``. Weight faults (``faults=``, or the program's own
+FaultSet) are realized once on the host, on the float64 weight list,
+before it moves to the device, so both backends consume the same faulted
+values. Sharding the batch over several cards is not ported yet.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.convert import resolve_device, to_port, weight_shape
+from repro_torch.convert import host_weights, resolve_device, to_port, weight_shape
 from repro_torch.core.mapping import ConvSpec
 from repro_torch.core.simulator import (
     EVENT_FIELDS,
@@ -206,9 +208,17 @@ class ProgramExecutor:
     ``"cuda"`` (the CUDA ``com_matmul`` kernel path, float32) or
     ``"reference"`` (float64 block chains); ``device=None`` means the
     card.
+
+    ``faults`` (a :class:`repro_torch.faults.FaultSet`) realizes weight-cell
+    faults and logical-tile dropout on the float64 weights
+    (:func:`repro_torch.faults.apply_weight_faults`, on the host) before
+    they move to the device; ``faults=None`` inherits ``program.faults``.
+    ``fault_info`` holds the realization's summary (``n_cells``,
+    ``n_blocks``, ``mask_checksum``), or None when no weight was faulted.
     """
 
-    def __init__(self, program, weights, *, backend: str = "cuda", device=None):
+    def __init__(self, program, weights, *, backend: str = "cuda", device=None,
+                 faults=None):
         if backend not in BACKENDS:
             raise ValueError(
                 f"unknown executor backend {backend!r}; available: {list(BACKENDS)}")
@@ -222,6 +232,13 @@ class ProgramExecutor:
         self.dtype = torch.float32 if backend == "cuda" else torch.float64
         layers = program.workload.layers
         self.input_shape = _chain_shapes(layers)[0]
+        self.faults = faults if faults is not None else program.faults
+        self.fault_info: Optional[Dict[str, float]] = None
+        if self.faults is not None and self.faults.has_workload_faults:
+            from repro_torch.faults.inject import apply_weight_faults
+
+            weights, self.fault_info = apply_weight_faults(
+                layers, host_weights(layers, weights), self.faults, program.arch)
         self.weights = to_port(layers, weights, dtype=self.dtype, device=self.device)
         self._events: Optional[Dict[str, int]] = None
 

@@ -1,8 +1,8 @@
 """Layer -> tile mapping (paper §III) and chip partitioning.
 
-The PyTorch port's own copy of the pristine-fabric part of
-``repro.core.mapping``: the same layer specs, the same greedy walk and the
-same Tab. IV network constructors, so both packages compile a workload to
+The PyTorch port's own copy of ``repro.core.mapping``: the same layer
+specs, the same greedy walk (pristine or around a fault set) and the same
+Tab. IV network constructors, so both packages compile a workload to
 equal integers.
 
 CONV K x K x C x M  ->  K² x ceil(C/Nc) x ceil(M/Nm) tiles (kernel pixels
@@ -17,11 +17,11 @@ off-chip accounting (paper §IV-B3).
 """
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 from repro_torch.core.arch import DEFAULT_ARCH, ArchSpec
-from repro_torch.search.space import validate_allocs
 
 
 @dataclass(frozen=True)
@@ -91,14 +91,25 @@ def tiles_for(layer, arch: ArchSpec = DEFAULT_ARCH) -> Tuple[int, Tuple[int, int
     return cb * mb, (1, cb, mb)
 
 
-def greedy_place(layers: List, arch: ArchSpec = DEFAULT_ARCH) -> List[TileAlloc]:
+def greedy_place(layers: List, arch: ArchSpec = DEFAULT_ARCH,
+                 faults=None) -> List[TileAlloc]:
     """Greedy in-order placement pass; per-layer allocations w/ chip ids.
 
     This is the placement *algorithm*; ``repro_torch.core.program
     .compile_program`` is the public entry point that runs (and caches) it
-    as part of building a ``CompiledProgram``. Placement on a degraded
-    fabric (the JAX package's ``faults=``) is not ported yet.
+    as part of building a ``CompiledProgram``.
+
+    ``faults`` (a :class:`repro_torch.faults.FaultSet`) switches to the
+    fault-aware walk: chips contribute only their longest healthy
+    serpentine segment, layers spill past dead tiles/links/chips, and a
+    bounded fleet raises :class:`repro_torch.faults.FaultCapacityError`
+    when the workload no longer fits. An empty FaultSet reproduces the
+    pristine placement.
     """
+    if faults is not None and not faults.is_empty:
+        from repro_torch.faults.place import fault_place
+
+        return fault_place(list(layers), arch, faults)
     tiles_per_chip = arch.tiles_per_chip
     allocs: List[TileAlloc] = []
     chip, used = 0, 0
@@ -121,13 +132,53 @@ def greedy_place(layers: List, arch: ArchSpec = DEFAULT_ARCH) -> List[TileAlloc]
                       crosses_chip=len(set(chips)) > 1 or chips[0] != start_chip)
         )
     # a capacity overflow or span inconsistency becomes a ValueError
-    # instead of a silent mis-mapping
+    # instead of a silent mis-mapping (late import: the search package
+    # imports this module)
+    from repro_torch.search.space import validate_allocs
+
     validate_allocs(allocs, arch)
     return allocs
 
 
+def map_network(layers: List, arch: ArchSpec = DEFAULT_ARCH) -> List[TileAlloc]:
+    """Deprecated: compile the workload instead and read its allocations.
+
+    Thin shim over :func:`repro_torch.core.program.compile_program` — the
+    returned allocations are the program's own (the same frozen
+    ``TileAlloc`` objects)."""
+    warnings.warn(
+        "map_network() is deprecated; use repro_torch.core.program.compile_program"
+        "(workload, arch) and read CompiledProgram.allocs",
+        DeprecationWarning, stacklevel=2,
+    )
+    layers = list(layers)
+    if not layers:
+        return []
+    from repro_torch.core.program import Workload, compile_program
+
+    return list(compile_program(Workload.of(layers), arch).allocs)
+
+
+def map_network_cached(layers: Tuple, arch: ArchSpec = DEFAULT_ARCH) -> Tuple[TileAlloc, ...]:
+    """The compiled program's allocation tuple (memoized with the program,
+    so repeated calls return the same objects)."""
+    from repro_torch.core.program import Workload, compile_program
+
+    return compile_program(Workload.of(layers), arch).allocs
+
+
 def total_chips(allocs: List[TileAlloc]) -> int:
     return max(c for a in allocs for c in a.chip_ids) + 1
+
+
+def weight_bytes(layers: List, precision_bits: int = 8) -> int:
+    total = 0
+    for l in layers:
+        if isinstance(l, ConvSpec):
+            total += l.k * l.k * l.c_in * l.c_out
+        else:
+            total += l.c_in * l.c_out
+    return total * precision_bits // 8
 
 
 # ---------------------------------------------------------------------------

@@ -361,6 +361,11 @@ class LayerTable:
     padding: np.ndarray
     pool_k: np.ndarray
     pool_stride: np.ndarray
+    ops: np.ndarray
+
+    @property
+    def n_layers(self) -> int:
+        return int(self.is_conv.shape[0])
 
 
 @lru_cache(maxsize=1024)
@@ -383,18 +388,23 @@ def layer_table(layers: Tuple) -> LayerTable:
         padding=col(lambda l: l.padding, lambda l: 0),
         pool_k=col(lambda l: l.pool_k, lambda l: 0),
         pool_stride=col(lambda l: l.pool_stride, lambda l: 1),
+        ops=col(lambda l: l.ops, lambda l: l.ops),
     )
 
 
-def batched_layer_events(t: LayerTable, arch: ArchSpec = DEFAULT_ARCH) -> Dict[str, np.ndarray]:
+def batched_layer_events(t: LayerTable, arch: ArchSpec = DEFAULT_ARCH,
+                         n_c_eff=None, n_m_eff=None) -> Dict[str, np.ndarray]:
     """Per-layer event counts, (n_layers,) int64 per Events field — the
     closed forms validated against the block-grid recount. The ``arch``
     geometry (``n_c`` x ``n_m``) sets the block factors and on-chip value
-    widths."""
+    widths; ``n_c_eff``/``n_m_eff`` (broadcastable int arrays, per layer
+    ``(n_layers,)`` or per population ``(P, n_layers)``) override them with
+    a candidate mapping's per-layer blocking. ``None`` keeps ``arch``'s."""
     conv = t.is_conv
     K = t.k
     K2 = K * K
-    nc, nm = arch.n_c, arch.n_m
+    nc = arch.n_c if n_c_eff is None else np.asarray(n_c_eff, dtype=np.int64)
+    nm = arch.n_m if n_m_eff is None else np.asarray(n_m_eff, dtype=np.int64)
     cb = -(-t.c_in // nc)                  # ceil-div
     mb = -(-t.c_out // nm)
     px = t.h_out * t.w_out

@@ -117,13 +117,22 @@ def test_n_blocks_counts_the_block_grid():
 
 
 def test_unported_compile_modes_raise():
+    """Every compile mode of the JAX package is ported: what still raises is
+    what the JAX package rejects too, with its ValueError (an unknown
+    mapping, a non-greedy mapping around a non-empty fault set)."""
+    from repro_torch.faults import FaultSet
+    from repro_torch.search.space import greedy_candidate
+
     wl = tmap.vgg11_cifar()
-    with pytest.raises(NotImplementedError, match="repro.search"):
-        tprog.compile_program(wl, mapping="searched")
-    with pytest.raises(NotImplementedError, match="repro.search"):
+    assert tprog.compile_program(wl, mapping="searched").mapping == "searched"
+    cand = greedy_candidate(wl.layers, tarch.DEFAULT_ARCH)
+    assert tprog.compile_program(wl, mapping=cand).candidate == cand
+    assert tprog.compile_program(wl, faults=FaultSet.empty()) is tprog.compile_program(wl)
+    assert tprog.compile_program(wl, faults=FaultSet(dead_tiles=(0,))).faults is not None
+    with pytest.raises(ValueError, match="unknown mapping"):
         tprog.compile_program(wl, mapping=object())
-    with pytest.raises(NotImplementedError, match="repro.faults"):
-        tprog.compile_program(wl, faults=object())
+    with pytest.raises(ValueError, match="mapping='searched' is not supported"):
+        tprog.compile_program(wl, mapping="searched", faults=FaultSet(dead_tiles=(0,)))
     with pytest.raises(ValueError, match="unknown mapping"):
         tprog.compile_program(wl, mapping="best")
 

@@ -15,6 +15,8 @@ against its float64 reference backend within 2e-5 · max|ref|
 bfloat16 element of h within one bfloat16 rounding plus that. TF32 is off in
 the plain versions.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -215,6 +217,43 @@ def test_cuda_executor_matches_reference_on_the_card(cuda, case):
     res = program.execute(images, weights)
     assert com_matmul.launches == len(program.layer_programs)
     assert res.outputs.device.type == "cuda" and res.outputs.dtype == torch.float32
+    _within(res.outputs, want.outputs, torch.float32)
+    assert res.events == dict(program.event_totals) == want.events
+
+
+def _faulted_and_searched():
+    """A multi-block program compiled around a fault set with weight faults,
+    one compiled from a custom-blocked candidate, and the searched one."""
+    from repro_torch.faults import BlockFault, FaultSet
+    from repro_torch.search import greedy_candidate
+
+    arch = DEFAULT_ARCH.replace(n_c=8, n_m=8)
+    wl = _programs()[1][0].workload
+    fs = FaultSet(dead_tiles=(2, 30), dead_links=(11,), cell_rate=0.03, cell_seed=4,
+                  dead_blocks=(BlockFault(2, 0, 1, 2),), arch=arch)
+    g = greedy_candidate(wl.layers, arch)
+    halved = dataclasses.replace(g, block_c=(g.block_c[0], 4) + g.block_c[2:])
+    return {"faulted": compile_program(wl, arch, faults=fs),
+            "custom-blocking": compile_program(wl, arch, mapping=halved),
+            "searched": compile_program(wl, arch, mapping="searched")}
+
+
+@pytest.mark.parametrize("case", ["faulted", "custom-blocking", "searched"])
+def test_faulted_and_searched_programs_on_the_card(cuda, case):
+    program = _faulted_and_searched()[case]
+    weights = random_weights(program, seed=100)
+    images = np.random.default_rng(42).normal(size=(3, 8, 8, 3))
+    ref_ex = program.executor(weights, backend="reference", device=cuda)
+    want = ref_ex.run(images)
+    com_matmul.launches = 0
+    ex = program.executor(weights)
+    res = ex.run(images)
+    assert com_matmul.launches == len(program.layer_programs)
+    # both backends consume the same faulted float64 list
+    assert ex.fault_info == ref_ex.fault_info
+    assert (ex.fault_info is not None) == (case == "faulted")
+    for a, b in zip(ex.weights, ref_ex.weights):
+        assert torch.equal(a, b.float())
     _within(res.outputs, want.outputs, torch.float32)
     assert res.events == dict(program.event_totals) == want.events
 
