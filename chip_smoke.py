@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py        # from the repository root; one CUDA card, nvcc
 
-Five paths: the compiled VGG-16 executor (phases 3-5), serving smollm-135m
-(phases 3, 6 and 7) and serving xlstm-350m (phases 3, 8 and 9), both at their
-full published widths, the paper's Tab. IV evaluation and design-space
-sweep (phases 10-12), and VGG-16 compiled around faults and from a searched
-mapping (phases 13-14). Phases, each printing JSON lines:
+Six paths: the compiled VGG-16 executor (phases 3-5, and split over two
+shards in phase 15), serving smollm-135m (phases 3, 6 and 7; streaming, paged
+and faulted in phases 16-17) and serving xlstm-350m (phases 3, 8 and 9), both
+at their full published widths, the paper's Tab. IV evaluation and
+design-space sweep (phases 10-12), and VGG-16 compiled around faults and from
+a searched mapping (phases 13-14). Phases, each printing JSON lines:
 
 1. card      — the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build     — the four CUDA kernels built from src/repro_torch/csrc/*.cu for
@@ -116,7 +117,37 @@ mapping (phases 13-14). Phases, each printing JSON lines:
                (the im2col path does not read the block partition), reference
                logits within rtol 1e-9, atol 1e-12 of phase 4's
                (tests/test_search.py:290-292);
-15. the seconds of each phase, the kernels line, the card line, the result line.
+15. e2e-shard — phase 4's program, weights and images through
+               ProgramExecutor(shard="auto") (one card: n_shards 1, logits bit
+               for bit phase 4's), then shard=[cuda:0, cuda:0] (n_shards 2, two
+               shards of 4 images, 32 com_matmul launches): logits within
+               2e-5 · max|ref| of the float64 reference and bit for bit phase
+               4's unless a layer's com_matmul plan (split-K) changes at the
+               shard's rows; the layers whose plans change, images/s;
+16. serve-traffic — smollm-135m at full width, bf16, weights from seed 0,
+               through simulate(check=True) on Engine(batch=8, max_seq=544,
+               page_size=16, pool_pages=96) (35 % of the 272 pages a contiguous
+               pool needs) with the profile chip-burst-24 (24 greedy requests in
+               bursts of 8, prompts of 128/256/512 and budgets of 8/16/32
+               tokens weighted 1:2:1, admission deadline 40 ticks):
+               matches_sequential, the virtual-clock payload equal to the JAX
+               package's numbers (TRAFFIC_CLOCK), flash_attention launches (30 a
+               prefill), wall time, tokens/s, decode step, page gather and
+               scatter times, peak memory;
+17. serve-faults — chip-burst-24-patient (no deadline) through Engine.serve on
+               that engine, fault-free and with TransientFaults(slot_rate=0.05,
+               page_rate=0.002, seed=0) under RestartPolicy(max_restarts=10000,
+               backoff_s=1, backoff_mult=1): counters and makespans equal to the
+               JAX package's (FAULTS_CLOCK), 30 flash launches a prefill and a
+               re-prefill; in bf16 the tokens of every request whose slot never
+               failed, and of each retried request up to its first retry, equal
+               the fault-free run's (a re-prefill's KV rows round otherwise
+               than the decode steps' on the card), how many retried requests
+               stay identical reported; in float32 (3xTF32 flash) the first
+               burst of 8 requests token-identical with and without faults;
+               a poisoned token halts with the reference's RuntimeError;
+18. the seconds of each phase, the kernels line (each kernel's launches on
+               every path), the card line, the result line.
 
 Any failed check exits non-zero before the result line is printed. Finding no
 card is a failure. Tolerances: float32 results within 2e-5 of the reference's
@@ -156,7 +187,8 @@ from repro_torch.core.program import compile_program  # noqa: E402
 from repro_torch.core.simulator import (  # noqa: E402
     COMGridSim, DominoModel, Events, conv_events, fc_events, reference_conv, reference_fc)
 from repro_torch.faults import (  # noqa: E402
-    BlockFault, FaultSet, apply_weight_faults, degraded_chips, usable_tiles, validate_fault_allocs)
+    BlockFault, FaultSet, TransientFaults, apply_weight_faults, degraded_chips, usable_tiles,
+    validate_fault_allocs)
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.com_matmul import com_matmul  # noqa: E402
 from repro_torch.kernels.com_matmul import plan as com_matmul_plan  # noqa: E402
@@ -172,8 +204,10 @@ from repro_torch.models.transformer import CallConfig, build_model  # noqa: E402
 from repro_torch.launch import table_iv  # noqa: E402
 from repro_torch.launch.sweep import check_against_scalar, smoke_1e6_grid  # noqa: E402
 from repro_torch.search import PopulationEvaluator, greedy_candidate, search_mapping  # noqa: E402
+from repro_torch.runtime.fault_tolerance import RestartPolicy  # noqa: E402
 from repro_torch.search.cost import timed  # noqa: E402
-from repro_torch.serve.engine import Engine, Request  # noqa: E402
+from repro_torch.serve import (  # noqa: E402
+    AdmissionQueue, Engine, Request, TrafficProfile, generate_arrivals, simulate)
 from repro_torch.sweep import COLUMNS, build_batch, resolve_network, run_sweep  # noqa: E402
 
 # published H100 SXM peaks (dense): f32 outside the tensor cores, bf16 tensor
@@ -199,6 +233,30 @@ XLSTM_ARCH = "xlstm-350m"
 SLSTM_TOL = 2e-4  # float32 tolerance of the recurrence (tests/test_kernels.py:142)
 SWEEP_RTOL = 1e-6  # the float64 sweep backend against NumPy (tests/test_sweep_backends.py:26)
 FAULT_SPARES = 6  # spare chips past the pristine placement (benchmarks/faults_bench.py's default)
+# the streaming phases: smollm-135m through Engine.serve on a paged cache of 96
+# 16-row pages (35 % of the 272 a contiguous pool of 8 x 544 rows needs), on a
+# burst profile; the patient profile has no deadline
+TRAFFIC = dict(
+    name="chip-burst-24", num_requests=24, arrival="burst", burst_size=8, num_users=8,
+    requests_per_user_tick=0.05, prompt_lens={"choices": [128, 256, 512], "weights": [1, 2, 1]},
+    output_lens={"choices": [8, 16, 32], "weights": [1, 2, 1]}, temperature=0.0, deadline=40,
+    seed=0)
+PATIENT_TRAFFIC = dict(TRAFFIC, name="chip-burst-24-patient", deadline=None)
+PAGED_POOL = dict(batch=SLOTS, page_size=16, pool_pages=96)
+CHIP_FAULTS = dict(slot_rate=0.05, page_rate=0.002, seed=0)
+PATIENT = dict(max_restarts=10_000, backoff_s=1.0, backoff_mult=1.0)  # tests/test_serve_faults.py:56
+# the virtual clock is a function of the profile, the pool and the fault draws
+# (eos_id=None): the JAX package's numbers on these profiles, which the CPU
+# tests hold the port to (tests/test_torch_traffic.py, test_torch_serve_faults.py)
+TRAFFIC_CLOCK = dict(n_accepted=21, n_rejected=3, n_deadline_rejected=3, generated_tokens=352,
+                     decode_steps=91, makespan_ticks=91.0, latency_p50_ticks=31.0,
+                     ttft_p50_ticks=15.0, pages_peak_max=34)
+FAULTS_CLOCK = {(24, False): dict(n_accepted=24, decode_steps=98, makespan_ticks=98.0),
+                (24, True): dict(n_accepted=24, decode_steps=111, makespan_ticks=150.0,
+                                 faults_injected=39, retries=39, reprefills=39),
+                (8, False): dict(n_accepted=8, makespan_ticks=46.0),
+                (8, True): dict(n_accepted=8, decode_steps=47, makespan_ticks=58.0,
+                                faults_injected=11, retries=11, reprefills=11)}
 
 
 def emit(obj) -> None:
@@ -712,6 +770,31 @@ def logits_xlstm(model, reqs) -> dict:
     return line
 
 
+class HostTimers:
+    """Each (object, method name) wrapped by a host timer that ends in a
+    synchronize (the engine reads each result on the host anyway), until
+    :meth:`close`; ``ms(name)`` lists the calls' times."""
+
+    def __init__(self, *targets):
+        self.targets = targets
+        self.marks = {name: [] for _, name in targets}
+        for obj, name in targets:
+            def run(*args, _fn=getattr(obj, name), _name=name, **kwargs):
+                t = time.perf_counter()
+                out = _fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                self.marks[_name].append((t, time.perf_counter()))
+                return out
+            setattr(obj, name, run)
+
+    def close(self) -> None:
+        for obj, name in self.targets:
+            delattr(obj, name)  # back to the class's method
+
+    def ms(self, name, before: float = float("inf")) -> list:
+        return [(e - s) * 1e3 for s, e in self.marks[name] if e <= before]
+
+
 def serve(model, cfg, kernel, per_prefill: int, logits_check, phase: str) -> tuple:
     """Serve the wave through Engine.generate and check it: ``per_prefill``
     launches of ``kernel`` a prefill, greedy tokens equal to
@@ -721,20 +804,9 @@ def serve(model, cfg, kernel, per_prefill: int, logits_check, phase: str) -> tup
     eng = Engine(model, batch=SLOTS, max_seq=MAX_SEQ)
     eng.generate([Request(prompt=np.arange(1, 200, dtype=np.int32), max_new_tokens=4)
                   for _ in range(2)])  # warm-up: the pool, the libraries' first calls
-    marks = {"prefill": [], "decode_step": []}
-
-    def timed(name, fn):
-        def run(*args, **kwargs):
-            t = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()  # the engine reads each result on the host anyway
-            marks[name].append((t, time.perf_counter()))
-            return out
-        return run
-
     reqs = serve_wave(cfg.vocab_size)
-    model.prefill = timed("prefill", model.prefill)
-    model.decode_step = timed("decode_step", model.decode_step)
+    timers = HostTimers((model, "prefill"), (model, "decode_step"))
+    marks = timers.marks
     torch.cuda.reset_peak_memory_stats()
     kernel.launches = 0
     torch.cuda.synchronize()
@@ -744,7 +816,7 @@ def serve(model, cfg, kernel, per_prefill: int, logits_check, phase: str) -> tup
     wall = time.perf_counter() - t0
     launches = kernel.launches
     peak = torch.cuda.max_memory_allocated()
-    del model.prefill, model.decode_step  # back to the class's methods
+    timers.close()
     stats = eng.last_stats
     n_prompt = sum(len(r.prompt) for r in reqs)
     prefill_s = sum(e - s for s, e in marks["prefill"])
@@ -1130,6 +1202,242 @@ def search_phase(program, weights, images, e2e_logits, ref_logits) -> tuple:
     return launches, lines
 
 
+def rounding_plan(M: int, K: int, N: int) -> tuple:
+    """The fields of com_matmul's float32 plan that set its rounding: the
+    path, the k-tile, and how K is split (the order of the f32 sums)."""
+    p = com_matmul_plan(M, N, K, torch.float32)
+    return p.path, p.bk, p.splits, p.kchunk
+
+
+def shard_phase(program, weights, images, e2e_logits, ref_logits) -> tuple:
+    """Phase 4's program, weights and images through ProgramExecutor(shard=):
+    "auto" on this one-card machine falls back (n_shards 1, logits bitwise
+    phase 4's); [cuda:0, cuda:0] drives the split path (n_shards 2, two
+    shards of B/2, 2 x 16 com_matmul launches), held against the float64
+    reference within 2e-5 · max, bitwise phase 4's where no layer's plan
+    changes at the shard's rows. Returns the split run's launches and line."""
+    auto = program.executor(weights, shard="auto")
+    got = auto.run(images)
+    if auto.n_shards != 1 or got.n_shards != 1 or not torch.equal(got.outputs, e2e_logits):
+        fail(f"e2e-shard: shard='auto' on one card gave n_shards {auto.n_shards} or other logits")
+    del auto
+    dev = torch.device("cuda", 0)
+    ex = program.executor(weights, shard=[dev, dev])
+    ex.run(images)  # warm-up
+    com_matmul.launches = conv2d_com.launches = 0
+    res = ex.run(images)
+    launches = {"com_matmul": com_matmul.launches, "conv2d_com": conv2d_com.launches}
+    walls = [ex.run(images).wall_s for _ in range(7)]
+    changed = []
+    for l in program.workload.layers:
+        dims = ((l.h_out * l.w_out, l.k * l.k * l.c_in, l.c_out) if isinstance(l, ConvSpec)
+                else (1, l.c_in, l.c_out))
+        whole, half = (rounding_plan(b * dims[0], dims[1], dims[2]) for b in (BATCH, BATCH // 2))
+        if whole != half:
+            changed.append({"layer": l.name, "whole": list(whole), "shard": list(half)})
+    out = res.outputs.double()
+    err = (out - ref_logits).abs().max().item()
+    scale = ref_logits.abs().max().item()
+    bits = bool(torch.equal(res.outputs, e2e_logits))
+    line = {"phase": "e2e-shard", "batch": BATCH, "n_shards": res.n_shards,
+            "shards": [str(dev)] * 2, "auto_n_shards": 1, "auto_logits_bitwise_e2e": True,
+            "images_s": BATCH / statistics.median(walls), "wall_ms": [w * 1e3 for w in walls],
+            "launches": launches, "plans_changed": changed,
+            "logits_max_rel_err_vs_reference": err / max(scale, 1e-30), "tol": TOL[torch.float32],
+            "logits_bitwise_e2e": bits,
+            "max_abs_diff_from_e2e": (res.outputs - e2e_logits).abs().max().item()}
+    emit(line)
+    n_layers = len(program.layer_programs)
+    if ex.n_shards != 2 or res.n_shards != 2:
+        fail(f"e2e-shard: n_shards {ex.n_shards} / {res.n_shards}, expected 2")
+    if launches != {"com_matmul": 2 * n_layers, "conv2d_com": 0}:
+        fail(f"e2e-shard: the split forward launched {launches}, expected {2 * n_layers} com_matmul")
+    if tuple(out.shape) != tuple(ref_logits.shape) or not torch.isfinite(out).all().item():
+        fail(f"e2e-shard: logits of shape {tuple(out.shape)} are not finite")
+    if scale == 0.0 or err > TOL[torch.float32] * scale:
+        fail(f"e2e-shard: logits max_abs_err {err} > {TOL[torch.float32]} * {scale}")
+    if not changed and not bits:
+        fail("e2e-shard: no layer's plan changed, yet the logits differ from phase 4's")
+    return launches["com_matmul"], line
+
+
+def check_clock(what: str, got: dict, want: dict) -> None:
+    off = {k: (got.get(k), v) for k, v in want.items() if got.get(k) != v}
+    if off:
+        fail(f"{what}: the virtual clock is not the JAX package's: {off} (got, want)")
+
+
+def serve_traffic_phase(model, cfg) -> tuple:
+    """chip-burst-24 through simulate(check=True) on a paged engine: the
+    payload, matches_sequential, the virtual clock equal to TRAFFIC_CLOCK,
+    30 flash_attention launches a prefill of the served run (the oracle
+    replay's own prefills follow it), and the host times of the decode
+    step and of the page gather and scatter. Returns the served run's
+    flash launches, the engine and the line."""
+    profile = TrafficProfile.from_dict(TRAFFIC)
+    eng = Engine(model, max_seq=profile.max_rows, **PAGED_POOL)
+    eng.generate([Request(prompt=np.arange(1, 200, dtype=np.int32), max_new_tokens=4)
+                  for _ in range(2)])  # warm-up: the pool, the libraries' first calls
+    timers = HostTimers((model, "prefill"), (model, "decode_step"),
+                        (eng.slots, "gather_dense"), (eng.slots, "scatter_dense"))
+    served = {}
+    oracle = eng.generate_sequential
+
+    def replay(*args, **kwargs):  # the served run ends where the oracle starts
+        served.update(launches=flash_attention.launches, t=time.perf_counter(),
+                      peak=torch.cuda.max_memory_allocated())
+        return oracle(*args, **kwargs)
+
+    eng.generate_sequential = replay
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    torch.cuda.synchronize()
+    payload = simulate(eng, profile, check=True)
+    oracle_launches = flash_attention.launches - served["launches"]
+    timers.close()
+    del eng.generate_sequential
+    steps = timers.ms("decode_step", served["t"])
+    line = {"phase": "serve-traffic", "arch": cfg.name, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "dtype": "bfloat16", **payload,
+            "max_seq": eng.max_seq, "slots": eng.batch,
+            "contiguous_pages": eng.batch * eng.slots.pages_per_slot,
+            "median_decode_step_ms": statistics.median(steps), "decode_step_calls": len(steps),
+            "median_gather_ms": statistics.median(timers.ms("gather_dense", served["t"])),
+            "median_scatter_ms": statistics.median(timers.ms("scatter_dense", served["t"])),
+            "prefill_s": sum(timers.ms("prefill", served["t"])) / 1e3,
+            "peak_mem_gib": served["peak"] / 2**30,
+            "flash_attention_launches": served["launches"],
+            "oracle_flash_attention_launches": oracle_launches}
+    emit(line)
+    if not payload["matches_sequential"]:
+        fail("serve-traffic: the served tokens differ from generate_sequential's")
+    check_clock("serve-traffic", payload, TRAFFIC_CLOCK)
+    if (served["launches"] != cfg.num_layers * payload["prefills"]
+            or oracle_launches != cfg.num_layers * payload["n_accepted"]):
+        fail(f"serve-traffic: flash_attention launched {served['launches']} (+{oracle_launches} "
+             f"in the oracle) for {payload['prefills']} prefills, expected "
+             f"{cfg.num_layers} each")
+    if eng.slots.allocator.n_held != 0:
+        fail("serve-traffic: pages still held after the run")
+    return served["launches"], eng, line
+
+
+class LoggedPolicy(RestartPolicy):
+    """RestartPolicy that keeps every fault identity it is asked about
+    (``arrival_index * 1_000_000 + produced``, the engine's numbering)."""
+
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self.log = []
+
+    def on_fault(self, step: int) -> str:
+        self.log.append(step)
+        return super().on_fault(step)
+
+
+def serve_pair(eng, vocab, profile_dict) -> tuple:
+    """A profile through Engine.serve, fault-free and then with CHIP_FAULTS
+    under the patient budget: the two runs' requests in arrival order,
+    their stats, flash launches, wall seconds, and each retried request's
+    first retry point (tokens produced when its slot first failed)."""
+    profile = TrafficProfile.from_dict(profile_dict)
+    runs = []
+    for faulted in (False, True):
+        arrivals = generate_arrivals(profile, vocab)
+        policy = LoggedPolicy(**PATIENT)
+        kw = dict(faults=TransientFaults(**CHIP_FAULTS), restart_policy=policy) if faulted else {}
+        flash_attention.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.serve(AdmissionQueue(arrivals, max_seq=eng.max_seq), seed=0, do_sample=False, **kw)
+        torch.cuda.synchronize()
+        runs.append(([a.request for a in arrivals], dict(eng.last_stats),
+                     flash_attention.launches, time.perf_counter() - t0, policy.log))
+    first = {}
+    for attempt in runs[1][4]:
+        index, produced = divmod(attempt, 1_000_000)
+        first[index] = min(first.get(index, produced), produced)
+    return runs[0], runs[1], first
+
+
+def check_pair(what, cfg, clean, faulty, first, n) -> dict:
+    """The counters and makespans of a fault-free and a faulted run against
+    FAULTS_CLOCK, flash launches (30 per prefill and per re-prefill), and
+    token identity: every request whose slot never failed, and every
+    retried request up to its first retry. Returns the line's numbers."""
+    (creqs, cstats, claunch, cwall, _), (freqs, fstats, flaunch, fwall, _) = clean, faulty
+    check_clock(f"{what} fault-free", cstats, FAULTS_CLOCK[(n, False)])
+    check_clock(f"{what} faulted", fstats, FAULTS_CLOCK[(n, True)])
+    if fstats["makespan_ticks"] <= cstats["makespan_ticks"]:
+        fail(f"{what}: the faulted makespan is not larger than the fault-free one")
+    if (claunch != cfg.num_layers * cstats["prefills"]
+            or flaunch != cfg.num_layers * (fstats["prefills"] + fstats["reprefills"])):
+        fail(f"{what}: flash_attention launched {claunch} / {flaunch}, expected {cfg.num_layers} "
+             "per prefill and re-prefill")
+    for c, f in zip(creqs, freqs):
+        if not (c.done and f.done and len(c.out_tokens) == len(f.out_tokens) == c.max_new_tokens):
+            fail(f"{what}: a request did not come back whole")
+    unfailed = [i for i in range(n) if i not in first]
+    same_unfailed = all(creqs[i].out_tokens == freqs[i].out_tokens for i in unfailed)
+    same_prefix = all(creqs[i].out_tokens[:p] == freqs[i].out_tokens[:p] for i, p in first.items())
+    same_after = sum(creqs[i].out_tokens == freqs[i].out_tokens for i in first)
+    return {"fault_free": {k: cstats[k] for k in ("decode_steps", "makespan_ticks", "prefills",
+                                                  "generated_tokens")},
+            "faulted": {k: fstats[k] for k in ("decode_steps", "makespan_ticks", "prefills",
+                                               "faults_injected", "retries", "reprefills",
+                                               "generated_tokens")},
+            "wall_s": [cwall, fwall], "flash_attention_launches": [claunch, flaunch],
+            "requests_never_failed": len(unfailed), "requests_retried": len(first),
+            "never_failed_identical": same_unfailed, "retried_identical_to_first_retry": same_prefix,
+            "retried_identical_after_retry": same_after}
+
+
+def serve_faults_phase(model, cfg, eng) -> tuple:
+    """chip-burst-24-patient through Engine.serve on the paged engine of
+    serve-traffic, fault-free and with CHIP_FAULTS: counters and makespans
+    equal FAULTS_CLOCK, and the bfloat16 identities (check_pair); then the
+    same on the first burst (8 requests) in float32, where every request
+    must come back token-identical; then a poisoned token must halt the
+    loop with the reference's RuntimeError. Returns the bf16 runs' flash
+    launches and the lines."""
+    clean, faulty, first = serve_pair(eng, cfg.vocab_size, PATIENT_TRAFFIC)
+    bf16 = {"phase": "serve-faults", "dtype": "bfloat16", "profile": PATIENT_TRAFFIC["name"],
+            "faults": CHIP_FAULTS, "restart_policy": PATIENT,
+            **check_pair("serve-faults bf16", cfg, clean, faulty, first, 24)}
+    emit(bf16)
+    if not bf16["never_failed_identical"] or not bf16["retried_identical_to_first_retry"]:
+        fail("serve-faults bf16: a request's tokens differ from the fault-free run's where they "
+             "must not (never failed, or before its first retry)")
+    cc = model.cc
+    model.cc = dataclasses.replace(cc, compute_dtype=torch.float32, cache_dtype=torch.float32)
+    eng32 = Engine(model, max_seq=eng.max_seq, **PAGED_POOL)
+    burst = dict(PATIENT_TRAFFIC, name="chip-burst-8-patient", num_requests=8)
+    clean, faulty, first = serve_pair(eng32, cfg.vocab_size, burst)
+    model.cc = cc
+    del eng32
+    f32 = {"phase": "serve-faults", "dtype": "float32", "profile": burst["name"],
+           **check_pair("serve-faults f32", cfg, clean, faulty, first, 8)}
+    f32["all_identical"] = [r.out_tokens for r in clean[0]] == [r.out_tokens for r in faulty[0]]
+    emit(f32)
+    if not f32["all_identical"]:
+        fail("serve-faults f32: the faulted run's tokens differ from the fault-free run's")
+    poisoned = Engine(model, max_seq=eng.max_seq, **PAGED_POOL)
+    want = ("serve loop halted after repeated faults at request 0, token 2 "
+            f"(restart budget {PATIENT['max_restarts']})")
+    try:
+        poisoned.serve(AdmissionQueue(generate_arrivals(TrafficProfile.from_dict(burst),
+                                                        cfg.vocab_size), max_seq=poisoned.max_seq),
+                       seed=0, do_sample=False, faults=TransientFaults(poison=((0, 2),)),
+                       restart_policy=RestartPolicy(**PATIENT))
+        got = None
+    except RuntimeError as e:
+        got = str(e)
+    emit({"phase": "serve-faults", "what": "poison", "poison": [[0, 2]], "error": got})
+    if got != want:
+        fail(f"serve-faults: a poisoned token gave {got!r}, expected RuntimeError({want!r})")
+    return bf16["flash_attention_launches"], [bf16, f32]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
@@ -1181,6 +1489,11 @@ def main() -> None:
     for M in (8, 200):  # the streaming and the tensor-core path
         for dtype in (torch.float32, torch.bfloat16):
             check_com_matmul_inf(gen, M, dtype)
+    for l in layers:  # a shard's products (phase e2e-shard: B/2 images a shard)
+        if isinstance(l, ConvSpec):
+            check_com_matmul(gen, BATCH // 2 * l.h_out * l.w_out, l.k * l.k * l.c_in, l.c_out)
+        else:
+            check_com_matmul(gen, BATCH // 2, l.c_in, l.c_out)
     conv_lines = [check_conv2d(gen, l.h_in, l.w_in, l.c_in, l.c_out, l.k, l.stride, l.padding)
                   for l in layers if isinstance(l, ConvSpec)]
     check_conv2d(gen, 112, 112, 64, 128, 3, 2, 1)
@@ -1198,6 +1511,9 @@ def main() -> None:
     flash_lines = [check_flash(gen, len(r.prompt), hd=serve_cfg.head_dim, H=serve_cfg.num_heads,
                                KVH=serve_cfg.num_kv_heads)
                    for r in serve_wave(serve_cfg.vocab_size)]
+    for S in (256, 512, 542):  # the traffic phases' prompts, and their longest re-prefill
+        check_flash(gen, S, hd=serve_cfg.head_dim, H=serve_cfg.num_heads,
+                    KVH=serve_cfg.num_kv_heads)
     xcfg = get_config(XLSTM_ARCH)
     xlstm_shape = dict(H=xcfg.num_heads, hd=xcfg.head_dim)
     for S in (128, 517, 1024):  # xlstm-350m's batch-1 prefill recurrence
@@ -1308,29 +1624,54 @@ def main() -> None:
     phase_done("sweep")
 
     # 13. VGG-16 compiled and run around a fault set
-    faults_phase(program, weights, images, res.outputs)
+    faults_launches, _ = faults_phase(program, weights, images, res.outputs)
     phase_done("faults")
 
     # 14. the mapping search, and the searched and custom-blocked programs
-    search_phase(program, weights, images, res.outputs, ref.outputs)
+    search_launches, _ = search_phase(program, weights, images, res.outputs, ref.outputs)
     phase_done("search")
 
-    # 15. the phases' seconds, the kernels line, the card, the result
+    # 15. the executor's batch split over devices (shard=)
+    shard_launches, _ = shard_phase(program, weights, images, res.outputs, ref.outputs)
+    phase_done("e2e-shard")
+
+    # 16. streaming serving: smollm-135m through Engine.serve on a paged cache
+    model = build_model(serve_cfg, CallConfig(), device="cuda", seed=0)
+    traffic_launches, paged_eng, _ = serve_traffic_phase(model, serve_cfg)
+    phase_done("serve-traffic")
+
+    # 17. transient faults with retry-and-re-prefill, bfloat16 and float32
+    fault_launches, _ = serve_faults_phase(model, serve_cfg, paged_eng)
+    del model, paged_eng
+    torch.cuda.empty_cache()
+    phase_done("serve-faults")
+
+    # 18. the phases' seconds, the kernels line, the card, the result
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
     emit({"kernels": [
         {"name": "com_matmul", "route": "cuda", "source": "src/repro_torch/csrc/com_matmul.cu",
          "replaces": "src/repro/kernels/com_matmul.py:69",
-         "launches": launches["com_matmul"], **summary(gemm_lines)},
+         "launches": launches["com_matmul"],
+         "launches_by_path": {"e2e": launches["com_matmul"],
+                              "e2e-direct-conv": direct_launches["com_matmul"],
+                              "faults": faults_launches, "search": search_launches,
+                              "e2e-shard": shard_launches}, **summary(gemm_lines)},
         {"name": "conv2d_com", "route": "cuda", "source": "src/repro_torch/csrc/conv2d_com.cu",
          "replaces": "src/repro/kernels/conv2d_com.py:61",
-         "launches": direct_launches["conv2d_com"], **summary(conv_lines, BATCH)},
+         "launches": direct_launches["conv2d_com"],
+         "launches_by_path": {"e2e-direct-conv": direct_launches["conv2d_com"]},
+         **summary(conv_lines, BATCH)},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:64",
-         "launches": flash_launches, **summary(flash_lines, serve_cfg.num_layers)},
+         "launches": flash_launches,
+         "launches_by_path": {"serve": flash_launches, "serve-traffic": traffic_launches,
+                              "serve-faults": fault_launches},
+         **summary(flash_lines, serve_cfg.num_layers)},
         {"name": "slstm_fused", "route": "cuda", "source": "src/repro_torch/csrc/slstm.cu",
          "replaces": "src/repro/kernels/slstm.py:70",
-         "launches": slstm_launches, **summary(slstm_lines, xcfg.num_layers // 2)},
+         "launches": slstm_launches, "launches_by_path": {"serve-xlstm": slstm_launches},
+         **summary(slstm_lines, xcfg.num_layers // 2)},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -26,13 +26,15 @@ are recounted from the explicit block grids and equal the program's
 ``event_totals``. Weight faults (``faults=``, or the program's own
 FaultSet) are realized once on the host, on the float64 weight list,
 before it moves to the device, so both backends consume the same faulted
-values. Sharding the batch over several cards is not ported yet.
+values. ``shard=`` splits the image batch over several devices of one
+process (:func:`sharded_forward`), the counterpart of the JAX package's
+``shard_map`` over a ``("data",)`` mesh of the local devices.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -184,6 +186,33 @@ def reference_forward(program, weights: List[torch.Tensor], x: torch.Tensor) -> 
     return x
 
 
+def sharded_forward(forward, program, weights: Mapping[torch.device, List[torch.Tensor]],
+                    x: torch.Tensor, devices: Sequence[torch.device]) -> torch.Tensor:
+    """``forward(program, weights, x)`` with the batch axis split over
+    ``devices``: ``x`` is zero-padded to a multiple of ``len(devices)``,
+    shard ``i`` runs on ``devices[i]`` with ``weights[devices[i]]`` (the
+    shards are launched in turn; launches on different cards overlap by
+    themselves), the outputs gather on ``x``'s device and the pad rows are
+    sliced off. The chain has no cross-image arithmetic, so each image's
+    logits are those of the unsharded forward wherever a shard's products
+    round as the whole batch's do (see :class:`ProgramExecutor`)."""
+    n, b = len(devices), x.shape[0]
+    pad = (-b) % n
+    if pad:  # B need not divide the device count: pad rows are sliced off
+        x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+    per = x.shape[0] // n
+    outs = [forward(program, weights[d], x[i * per:(i + 1) * per].to(d))
+            for i, d in enumerate(devices)]
+    return torch.cat([o.to(x.device) for o in outs])[:b]
+
+
+def _canonical(device: torch.device) -> torch.device:
+    """``cuda`` as ``cuda:<current>``, so equal devices compare equal."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 @dataclass(frozen=True)
 class ExecutionResult:
     """One batched program run: outputs + per-image events + timing."""
@@ -193,6 +222,7 @@ class ExecutionResult:
     backend: str
     batch: int
     wall_s: float                # host clock, images copied in and synchronized
+    n_shards: int = 1            # devices the batch axis was split over
 
     @property
     def images_s(self) -> float:
@@ -215,10 +245,24 @@ class ProgramExecutor:
     they move to the device; ``faults=None`` inherits ``program.faults``.
     ``fault_info`` holds the realization's summary (``n_cells``,
     ``n_blocks``, ``mask_checksum``), or None when no weight was faulted.
+
+    ``shard`` splits the leading image axis over devices of this process
+    (``"cuda"`` backend only; the float64 reference is single-device):
+    ``None``/``False`` is off; ``"auto"``, ``"data"`` or ``True`` take every
+    visible device of the executor's type; a sequence of ``torch.device``
+    is an explicit list, and may repeat a device (``[cuda:0, cuda:0]``
+    drives the split path on a machine with one card). One device falls
+    back to the unsharded path. The weights are copied once to each
+    distinct device; the batch is zero-padded to a multiple of
+    ``n_shards`` (:func:`sharded_forward`). The logits equal the
+    unsharded path's bit for bit for every product whose
+    ``com_matmul`` plan (split-K, chosen from the output tile count) is
+    the same at a shard's rows as at the whole batch's, and lie within
+    ``2e-5 · max|ref|`` otherwise.
     """
 
     def __init__(self, program, weights, *, backend: str = "cuda", device=None,
-                 faults=None):
+                 faults=None, shard=None):
         if backend not in BACKENDS:
             raise ValueError(
                 f"unknown executor backend {backend!r}; available: {list(BACKENDS)}")
@@ -230,6 +274,7 @@ class ProgramExecutor:
         self.program = program
         self.backend = backend
         self.dtype = torch.float32 if backend == "cuda" else torch.float64
+        self._shards = self._resolve_shard(shard)
         layers = program.workload.layers
         self.input_shape = _chain_shapes(layers)[0]
         self.faults = faults if faults is not None else program.faults
@@ -241,6 +286,37 @@ class ProgramExecutor:
                 layers, host_weights(layers, weights), self.faults, program.arch)
         self.weights = to_port(layers, weights, dtype=self.dtype, device=self.device)
         self._events: Optional[Dict[str, int]] = None
+        self._shard_weights = None
+        if self._shards is not None:
+            home = _canonical(self.device)
+            self._shard_weights = {d: self.weights if d == home else
+                                   [w.to(d) for w in self.weights] for d in set(self._shards)}
+
+    def _resolve_shard(self, shard) -> Optional[List[torch.device]]:
+        """``shard`` → the devices of each shard (two or more), or None
+        (sharding off, or one device)."""
+        if shard is None or shard is False:
+            return None
+        if self.backend != "cuda":
+            raise ValueError(f"shard={shard!r} requires backend='cuda'; the float64 reference "
+                             "is single-device by design")
+        if isinstance(shard, str) or shard is True:
+            if shard not in ("auto", "data", True):
+                raise ValueError(f"shard={shard!r}: expected 'auto', 'data', True, or a "
+                                 "sequence of torch.device")
+            devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        else:
+            devices = [_canonical(torch.device(d)) for d in shard]
+            wrong = [str(d) for d in devices if d.type != self.device.type]
+            if not devices or wrong:
+                raise ValueError(f"shard={shard!r}: expected a non-empty sequence of "
+                                 f"{self.device.type} devices")
+        return devices if len(devices) > 1 else None
+
+    @property
+    def n_shards(self) -> int:
+        """Devices the batch axis is split over (1 = unsharded)."""
+        return len(self._shards) if self._shards is not None else 1
 
     @property
     def events(self) -> Dict[str, int]:
@@ -269,8 +345,9 @@ class ProgramExecutor:
         return x
 
     def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for d in {self.device, *(self._shards or ())}:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     def run(self, images) -> ExecutionResult:
         """Execute the whole program on a batch of images → logits."""
@@ -279,12 +356,15 @@ class ProgramExecutor:
         t0 = time.perf_counter()
         x = x.to(device=self.device, dtype=self.dtype)
         forward = com_forward if self.backend == "cuda" else reference_forward
-        out = forward(self.program, self.weights, x)
+        if self._shards is None:
+            out = forward(self.program, self.weights, x)
+        else:
+            out = sharded_forward(forward, self.program, self._shard_weights, x, self._shards)
         self._sync()
         wall = time.perf_counter() - t0
         return ExecutionResult(
             outputs=out, events=self.events, backend=self.backend,
-            batch=x.shape[0], wall_s=wall,
+            batch=x.shape[0], wall_s=wall, n_shards=self.n_shards,
         )
 
     def __call__(self, images) -> torch.Tensor:

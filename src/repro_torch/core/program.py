@@ -166,25 +166,27 @@ class CompiledProgram:
             )
         return matches[0]
 
-    def executor(self, weights, *, backend: str = "cuda", device=None, faults=None):
+    def executor(self, weights, *, backend: str = "cuda", device=None, faults=None,
+                 shard=None):
         """A :class:`~repro_torch.core.executor.ProgramExecutor` over this
         program: runs the whole layer chain image→logits, batched over a
         leading image axis, through the CUDA ``com_matmul`` kernel
         (``backend="cuda"``, the default) or the float64 block-chain
         reference (``backend="reference"``). ``device=None`` means the
         card; pass ``device="cpu"`` to run the reference on the CPU.
-        ``faults=None`` executes the program's own FaultSet."""
+        ``faults=None`` executes the program's own FaultSet; ``shard`` splits
+        the batch over devices (see ``ProgramExecutor``)."""
         from repro_torch.core.executor import ProgramExecutor
 
         return ProgramExecutor(self, weights, backend=backend, device=device,
-                               faults=faults)
+                               faults=faults, shard=shard)
 
     def execute(self, images, weights, *, backend: str = "cuda", device=None,
-                faults=None):
+                faults=None, shard=None):
         """One-shot whole-program run: build an executor and run the batch.
         Returns an :class:`~repro_torch.core.executor.ExecutionResult`."""
         return self.executor(weights, backend=backend, device=device,
-                             faults=faults).run(images)
+                             faults=faults, shard=shard).run(images)
 
 
 def _blocks_for(layer: LayerSpec, arch: ArchSpec,

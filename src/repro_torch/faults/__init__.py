@@ -1,7 +1,8 @@
-"""Seeded, deterministic fault injection in the compiler and the executor
-(the port's counterpart of ``repro.faults``).
+"""Seeded, deterministic fault injection in the compiler, the executor and
+the serving tier (the port's counterpart of ``repro.faults``).
 
-One frozen :class:`FaultSet` threads through the stack:
+One frozen :class:`FaultSet` threads through the compiler and the executor,
+and :class:`TransientFaults` through the serving tier:
 
 * **compile** — ``compile_program(workload, arch, faults=...)`` places
   layers around dead tiles/links/chips on the longest healthy serpentine
@@ -9,10 +10,9 @@ One frozen :class:`FaultSet` threads through the stack:
   model) or raising :class:`FaultCapacityError` on a bounded fleet;
 * **execute** — weight-cell faults and logical-tile dropout are realized
   once on the host, on the float64 weights, so the float64 reference and
-  the CUDA kernel path consume byte-identical faulted arrays.
-
-Serving's transient faults (``repro.faults.transient``) wait for the
-port's streaming ``Engine.serve``.
+  the CUDA kernel path consume byte-identical faulted arrays;
+* **serve** — :class:`TransientFaults` fails decode slots and KV pages per
+  step in ``Engine.serve``, which recovers by retry-and-re-prefill.
 """
 from repro_torch.faults.inject import apply_weight_faults
 from repro_torch.faults.model import (
@@ -31,12 +31,14 @@ from repro_torch.faults.place import (
     fault_place,
     validate_fault_allocs,
 )
+from repro_torch.faults.transient import TransientFaults
 
 __all__ = [
     "BlockFault",
     "CELL_KINDS",
     "FaultCapacityError",
     "FaultSet",
+    "TransientFaults",
     "WeightFault",
     "apply_weight_faults",
     "chip_segments",

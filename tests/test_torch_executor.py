@@ -211,3 +211,69 @@ def test_fc_only_program():
     assert tuple(res.outputs.shape) == (1, 3)
     want = np.maximum(np.maximum(x @ weights["a"], 0) @ weights["b"], 0)
     np.testing.assert_allclose(res.outputs[0].numpy(), want, rtol=1e-12)
+
+
+# -------------------- the batch split over devices (shard=) --------------------
+CPU = torch.device("cpu")
+
+
+@pytest.mark.parametrize("n_dev", [2, 3])
+def test_sharded_com_forward_pads_and_matches_both_references(vgg11, n_dev):
+    """The split path on [cpu] * n_dev with B = 5 (padded to a multiple):
+    each shard's rows are com_forward's on that shard bit for bit, and the
+    whole is within the executor tolerance of the unsharded path and of the
+    JAX package's numpy backend."""
+    jp, tp, weights, _, _ = vgg11
+    images = np.random.default_rng(5).normal(size=(5, 32, 32, 3))
+    want = jp.execute(images, weights, backend="numpy").outputs
+    ws = to_port(tp.workload, weights, dtype=torch.float32, device="cpu")
+    x = torch.as_tensor(images, dtype=torch.float32)
+    got = tex.sharded_forward(tex.com_forward, tp, {CPU: ws}, x, [CPU] * n_dev)
+    assert tuple(got.shape) == (5, 10) and got.dtype == torch.float32
+    per = -(-5 // n_dev)
+    padded = torch.cat([x, x.new_zeros((per * n_dev - 5,) + tuple(x.shape[1:]))])
+    for i in range(n_dev):
+        shard = tex.com_forward(tp, ws, padded[i * per:(i + 1) * per])
+        assert torch.equal(got[i * per:(i + 1) * per], shard[:max(0, min(per, 5 - i * per))])
+    scale = np.abs(want).max()
+    full = tex.com_forward(tp, ws, x)
+    np.testing.assert_allclose(got.double().numpy(), full.double().numpy(), atol=2e-5 * scale)
+    np.testing.assert_allclose(got.double().numpy(), want, atol=2e-5 * scale)
+
+
+def test_sharded_reference_forward_matches_the_jax_oracle(multiblock):
+    """The split logic is the forward's own: the float64 chain split over
+    [cpu, cpu] keeps the reference's 1e-9 agreement (B = 3: one pad row)."""
+    jp, tp, weights, images, want_np, _ = multiblock
+    ws = to_port(tp.workload, weights, dtype=torch.float64, device="cpu")
+    got = tex.sharded_forward(tex.reference_forward, tp, {CPU: ws},
+                              torch.as_tensor(images), [CPU, CPU])
+    np.testing.assert_allclose(got.numpy(), want_np, rtol=1e-9, atol=1e-12)
+
+
+def test_shard_options_resolve_as_the_reference(vgg11, monkeypatch):
+    """None/False are off; the reference backend refuses shard (the message
+    names "cuda"); a bad value raises; "auto" on a one-card machine falls
+    back to the unsharded path; n_shards rides on the result."""
+    _, tp, weights, images, want = vgg11
+    for off in (None, False):
+        ex = tp.executor(weights, backend="reference", device="cpu", shard=off)
+        assert ex.n_shards == 1 and ex.run(images).n_shards == 1
+    for on in ("auto", "data", True, [CPU, CPU]):
+        with pytest.raises(ValueError, match="requires backend='cuda'"):
+            tp.executor(weights, backend="reference", device="cpu", shard=on)
+    assert jex.ExecutionResult(outputs=None, events={}, backend="numpy", batch=1,
+                               wall_s=1.0).n_shards == tex.ExecutionResult(
+        outputs=None, events={}, backend="cuda", batch=1, wall_s=1.0).n_shards == 1
+    # the "cuda" executor's resolution, without a card: a stand-in object
+    stub = object.__new__(tex.ProgramExecutor)
+    stub.backend, stub.device = "cuda", torch.device("cuda", 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert stub._resolve_shard("auto") is None and stub._resolve_shard(True) is None
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert stub._resolve_shard("data") == [torch.device("cuda", i) for i in range(4)]
+    assert stub._resolve_shard(["cuda:0", "cuda:0"]) == [torch.device("cuda", 0)] * 2
+    assert stub._resolve_shard([torch.device("cuda", 1)]) is None  # one device: fallback
+    for bad in ("mesh", [CPU, CPU], []):
+        with pytest.raises(ValueError, match="shard="):
+            stub._resolve_shard(bad)

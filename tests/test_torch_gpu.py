@@ -483,3 +483,82 @@ def test_com_grid_sim_on_the_card_matches_reference_conv(cuda):
     want = reference_conv(torch.as_tensor(x, device=cuda), torch.as_tensor(w, device=cuda), L)
     torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-10)
     assert sim.ev == conv_events(L)
+
+
+# -------------------- streaming serving and the sharded batch --------------------
+def _burst(n, **over):
+    from repro_torch.serve import TrafficProfile
+
+    base = dict(name="gpu-burst", num_requests=n, arrival="burst", burst_size=5, num_users=4,
+                requests_per_user_tick=0.1, prompt_lens=[20, 40, 70], output_lens=[4, 8, 12],
+                temperature=0.0, seed=0)
+    base.update(over)
+    return TrafficProfile.from_dict(base)
+
+
+def test_paged_serve_matches_sequential_on_the_card(cuda):
+    """Engine.serve on a paged cache smaller than the contiguous one, the
+    reduced smollm on the card: the oracle replay is token-identical, and
+    every prefill of the served run goes through flash_attention."""
+    from repro_torch.serve import simulate
+
+    cfg = get_config("smollm-135m").reduced()
+    model = build_model(cfg, CallConfig(), device=cuda, seed=0)
+    profile = _burst(10, deadline=None)
+    eng = Engine(model, batch=4, max_seq=profile.max_rows, page_size=8, pool_pages=16)
+    assert eng.slots.pool_pages < 4 * eng.slots.pages_per_slot
+    flash_attention.launches = 0
+    payload = simulate(eng, profile, check=True)
+    assert payload["matches_sequential"] and payload["n_accepted"] == 10
+    # the served run's prefills and the oracle's, 2 layers each
+    assert flash_attention.launches == cfg.num_layers * (payload["prefills"] + 10)
+    assert eng.slots.allocator.n_held == 0
+
+
+def test_faulted_float32_serve_is_identical_on_the_card(cuda):
+    """In float32 a re-prefill's KV rows round within ~1e-6 of the decode
+    steps' on the card: a faulted run gives the fault-free run's tokens."""
+    from repro_torch.faults import TransientFaults
+    from repro_torch.runtime.fault_tolerance import RestartPolicy
+    from repro_torch.serve import AdmissionQueue, generate_arrivals
+
+    cfg = get_config("smollm-135m").reduced()
+    model = build_model(cfg, CallConfig(compute_dtype=torch.float32, cache_dtype=torch.float32),
+                        device=cuda, seed=0)
+    profile = _burst(10, deadline=None)
+    eng = Engine(model, batch=4, max_seq=profile.max_rows, page_size=8, pool_pages=16)
+    runs = []
+    # chip_smoke.py's fault rates: 5 faults on this traffic, none three times
+    # at one token (which the restart policy halts on, as a deterministic fault)
+    for faults in (None, TransientFaults(slot_rate=0.05, page_rate=0.002, seed=0)):
+        arrivals = generate_arrivals(profile, cfg.vocab_size)
+        eng.serve(AdmissionQueue(arrivals, max_seq=eng.max_seq), seed=0, do_sample=False,
+                  faults=faults, restart_policy=RestartPolicy(max_restarts=10_000,
+                                                              backoff_mult=1.0))
+        runs.append(([a.request.out_tokens for a in arrivals], dict(eng.last_stats)))
+    assert runs[1][1]["faults_injected"] > 0
+    assert runs[1][1]["makespan_ticks"] > runs[0][1]["makespan_ticks"]
+    assert runs[0][0] == runs[1][0]
+
+
+def test_sharded_executor_on_the_card(cuda):
+    """shard=[cuda:0, cuda:0] drives the split path on one card (B = 5: a
+    pad row): n_shards 2, a com_matmul launch per layer per shard, logits
+    within the executor tolerance of the float64 reference; "auto" takes
+    every visible card."""
+    program, _ = _programs()[0]
+    weights = random_weights(program, seed=1)
+    images = np.random.default_rng(3).normal(size=(5, 32, 32, 3))
+    want = program.execute(images, weights, backend="reference", device=cuda)
+    dev = torch.device("cuda", 0)
+    ex = program.executor(weights, shard=[dev, dev])
+    com_matmul.launches = 0
+    res = ex.run(images)
+    assert ex.n_shards == res.n_shards == 2
+    assert com_matmul.launches == 2 * len(program.layer_programs)
+    assert tuple(res.outputs.shape) == (5, 10) and res.outputs.device.type == "cuda"
+    _within(res.outputs, want.outputs, torch.float32)
+    auto = program.executor(weights, shard="auto")
+    count = torch.cuda.device_count()
+    assert auto.n_shards == (count if count > 1 else 1)
+    _within(auto.run(images).outputs, want.outputs, torch.float32)
