@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py        # from the repository root; one CUDA card, nvcc
 
-Six paths: the compiled VGG-16 executor (phases 3-5, and split over two
+Eight paths: the compiled VGG-16 executor (phases 3-5, and split over two
 shards in phase 15), serving smollm-135m (phases 3, 6 and 7; streaming, paged
 and faulted in phases 16-17) and serving xlstm-350m (phases 3, 8 and 9), both
 at their full published widths, the paper's Tab. IV evaluation and
-design-space sweep (phases 10-12), and VGG-16 compiled around faults and from
-a searched mapping (phases 13-14). Phases, each printing JSON lines:
+design-space sweep (phases 10-12), VGG-16 compiled around faults and from a
+searched mapping (phases 13-14), serving dbrx-132b at full width with its
+depth cut to 4 layers (phases 18-19) and serving zamba2-1.2b whole,
+contiguous and paged (phases 20-21). Phases, each printing JSON lines:
 
 1. card      — the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build     — the four CUDA kernels built from src/repro_torch/csrc/*.cu for
@@ -18,8 +20,10 @@ a searched mapping (phases 13-14). Phases, each printing JSON lines:
                main paths give it (the 16 VGG-16 products of a B=8 forward for
                com_matmul, the 13 VGG-16 per-image convolutions for conv2d_com,
                smollm's batch-1 prefill attention at S = 128, 517, 1024, 2048 and
-               at every prompt length the serve phase prefills, for
-               flash_attention; xlstm-350m's batch-1 prefill recurrence
+               at every prompt length the serve phase prefills, dbrx-132b's
+               (48 heads, 8 KV heads, hd 128) at S = 128 and 512 and
+               zamba2-1.2b's (32 heads, 32 KV heads, hd 64) at S = 1024, in
+               bfloat16 and float32, for flash_attention; xlstm-350m's batch-1 prefill recurrence
                (1, S, 4, 1024) with 4 heads of 256 at S = 128, 517, 1024 and at
                every prompt length the xlstm serve phase prefills, for
                slstm_fused) plus the epilogue, stride-2, 5x5, bf16,
@@ -146,7 +150,44 @@ a searched mapping (phases 13-14). Phases, each printing JSON lines:
                stay identical reported; in float32 (3xTF32 flash) the first
                burst of 8 requests token-identical with and without faults;
                a poisoned token halts with the reference's RuntimeError;
-18. the seconds of each phase, the kernels line (each kernel's launches on
+18. serve-moe — dbrx-132b at its published widths (d_model 6144, 48 heads, 8
+               KV heads, d_ff 10752, 16 experts top-4, vocab 100352, rope
+               theta 5e5) with its 40 layers cut to 4 (the line's "reduced";
+               53.2 GiB of float32 weights), bf16, weights from seed 0,
+               capacity_factor 4.5 (the engine guard's drop-free value for
+               8 slots): 8 greedy requests, prompts uniform in 128-512 from
+               numpy.random.default_rng(2), 32 new tokens each, 8 slots,
+               max_seq 1024, through Engine.generate: phase 6's numbers,
+               4 flash_attention launches a prefill, the tokens against
+               generate_sequential, no expert choice dropped (served run and
+               oracle); every prefill's last-token logits with the kernel
+               against the plain attention: float32 within 2e-5 of
+               max|plain|, bfloat16 within 2e-2 with the expert choices
+               pinned to the plain run's, and unpinned reported beside the
+               (layer, token) pairs whose experts differ;
+19. profile-serve — the same two windows for dbrx-132b (its first prompt);
+20. serve-hybrid — zamba2-1.2b whole (38 Mamba2 blocks of 64 SSD heads of 64,
+               state 64, chunk 256, in 6 groups of 6 each followed by the
+               shared attention + MLP block, then 2 tail blocks; d_model 2048,
+               vocab 32000), bf16, weights from seed 0, on phase 6's wave:
+               phase 6's numbers, 6 flash_attention launches a prefill, the
+               tokens against generate_sequential; every prefill's float32
+               last-token logits with the kernel within 1e-4 of max|plain|
+               (the state-space families' tolerance, tests/test_layers.py:95:
+               the attention's float32 rounding carries through 38 blocks,
+               and both paths stand as far from a float64 attention, which
+               the line reports), every flash_attention call of those
+               prefills within one rounding of the plain attention on its
+               own inputs in both dtypes, the bfloat16 logits reported beside
+               the plain path's own distance to the float64 attention; then
+               the first burst of chip-burst-24-patient (8 requests) through
+               simulate(check=True) on Engine(batch=8, max_seq=544,
+               page_size=16, pool_pages=96), the KV rows paged and the Mamba2
+               states dense per slot: matches_sequential, the virtual clock
+               equal to the JAX package's (FAULTS_CLOCK), 6 flash launches a
+               prefill, decode step, gather and scatter times;
+21. profile-serve — the same two windows for zamba2-1.2b;
+22. the seconds of each phase, the kernels line (each kernel's launches on
                every path), the card line, the result line.
 
 Any failed check exits non-zero before the result line is printed. Finding no
@@ -166,6 +207,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -200,6 +242,7 @@ from repro_torch.kernels.ref import (  # noqa: E402
     com_matmul_ref, conv2d_com_ref, flash_attention_ref, slstm_ref)
 from repro_torch.kernels.slstm import plan as slstm_plan  # noqa: E402
 from repro_torch.kernels.slstm import slstm_fused  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models.transformer import CallConfig, build_model  # noqa: E402
 from repro_torch.launch import table_iv  # noqa: E402
 from repro_torch.launch.sweep import check_against_scalar, smoke_1e6_grid  # noqa: E402
@@ -231,6 +274,7 @@ BATCH = 8
 SERVE_ARCH, N_REQUESTS, MAX_NEW, SLOTS, MAX_SEQ = "smollm-135m", 16, 64, 8, 2048
 XLSTM_ARCH = "xlstm-350m"
 SLSTM_TOL = 2e-4  # float32 tolerance of the recurrence (tests/test_kernels.py:142)
+SSM_TOL = 1e-4  # float32 tolerance of the state-space families' models (tests/test_layers.py:95)
 SWEEP_RTOL = 1e-6  # the float64 sweep backend against NumPy (tests/test_sweep_backends.py:26)
 FAULT_SPARES = 6  # spare chips past the pristine placement (benchmarks/faults_bench.py's default)
 # the streaming phases: smollm-135m through Engine.serve on a paged cache of 96
@@ -245,6 +289,14 @@ PATIENT_TRAFFIC = dict(TRAFFIC, name="chip-burst-24-patient", deadline=None)
 PAGED_POOL = dict(batch=SLOTS, page_size=16, pool_pages=96)
 CHIP_FAULTS = dict(slot_rate=0.05, page_rate=0.002, seed=0)
 PATIENT = dict(max_restarts=10_000, backoff_s=1.0, backoff_mult=1.0)  # tests/test_serve_faults.py:56
+# the moe and hybrid serve phases: dbrx-132b at full width with its depth cut
+# to MOE_LAYERS (f32 weights: ~13.0 GB a layer and 4.9 GB of embed and
+# unembed), 8 requests of 128-512 prompt tokens; zamba2-1.2b whole, on the
+# serve phase's wave, then its first burst through a paged pool
+MOE_ARCH, MOE_LAYERS, MOE_REQUESTS, MOE_PROMPTS, MOE_NEW, MOE_MAX_SEQ = (
+    "dbrx-132b", 4, 8, (128, 512), 32, 1024)
+HYBRID_ARCH = "zamba2-1.2b"
+FIRST_BURST = dict(PATIENT_TRAFFIC, name="chip-burst-8-patient", num_requests=8)
 # the virtual clock is a function of the profile, the pool and the fault draws
 # (eos_id=None): the JAX package's numbers on these profiles, which the CPU
 # tests hold the port to (tests/test_torch_traffic.py, test_torch_serve_faults.py)
@@ -645,13 +697,14 @@ def profile_window(fn, what: str, forbid=None) -> dict:
     return line
 
 
-def serve_wave(vocab: int):
-    """The serve phase's 16 greedy requests: prompt lengths uniform in
-    128-1024 and prompt tokens, both from numpy.random.default_rng(2)."""
+def serve_wave(vocab: int, n: int = N_REQUESTS, prompts=(128, 1024), max_new: int = MAX_NEW):
+    """A serve phase's greedy requests (by default the 16 of phases 6 and 8):
+    prompt lengths uniform in ``prompts`` and prompt tokens, both from
+    numpy.random.default_rng(2)."""
     rng = np.random.default_rng(2)
-    lengths = rng.integers(128, 1025, size=N_REQUESTS)
-    return [Request(prompt=rng.integers(1, vocab, size=int(n)).astype(np.int32),
-                    max_new_tokens=MAX_NEW) for n in lengths]
+    lengths = rng.integers(prompts[0], prompts[1] + 1, size=n)
+    return [Request(prompt=rng.integers(1, vocab, size=int(k)).astype(np.int32),
+                    max_new_tokens=max_new) for k in lengths]
 
 
 def prefill_logits(model, prompt, dtype, **changes):
@@ -670,6 +723,21 @@ def rel_err(got, want) -> float:
     if not torch.isfinite(got).all().item() or scale == 0.0:
         fail("non-finite prefill logits, or plain ones all zero")
     return (got.double() - want.double()).abs().max().item() / max(scale, 1e-30)
+
+
+def attention_f64(q, k, v, *, causal=True, backend=None, block_kv=None):
+    """Causal (top-left) GQA softmax attention computed in float64, cast back
+    to ``q.dtype``: the yardstick both attention paths are measured against
+    where their float32 rounding is the question."""
+    B, Sq, H, hd = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    qd = q.double().reshape(B, Sq, KVH, H // KVH, hd) / math.sqrt(hd)
+    s = torch.einsum("bqkgh,bskh->bkgqs", qd, k.double())
+    if causal:
+        keep = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+    out = torch.einsum("bkgqs,bskh->bqkgh", torch.softmax(s, dim=-1), v.double())
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
 def logits_kernel_vs_plain(f32_tol: float):
@@ -795,16 +863,18 @@ class HostTimers:
         return [(e - s) * 1e3 for s, e in self.marks[name] if e <= before]
 
 
-def serve(model, cfg, kernel, per_prefill: int, logits_check, phase: str) -> tuple:
-    """Serve the wave through Engine.generate and check it: ``per_prefill``
+def serve(model, cfg, kernel, per_prefill: int, logits_check, phase: str, reqs=None,
+          max_seq: int = MAX_SEQ) -> tuple:
+    """Serve ``reqs`` (default: the wave) through Engine.generate with 8
+    slots and ``max_seq`` rows a slot, and check it: ``per_prefill``
     launches of ``kernel`` a prefill, greedy tokens equal to
     generate_sequential's, and ``logits_check(model, reqs)``, whose fields
     join the phase's line. Returns the line, the kernel's launches in the
     run and the engine."""
-    eng = Engine(model, batch=SLOTS, max_seq=MAX_SEQ)
+    eng = Engine(model, batch=SLOTS, max_seq=max_seq)
     eng.generate([Request(prompt=np.arange(1, 200, dtype=np.int32), max_new_tokens=4)
                   for _ in range(2)])  # warm-up: the pool, the libraries' first calls
-    reqs = serve_wave(cfg.vocab_size)
+    reqs = serve_wave(cfg.vocab_size) if reqs is None else reqs
     timers = HostTimers((model, "prefill"), (model, "decode_step"))
     marks = timers.marks
     torch.cuda.reset_peak_memory_stats()
@@ -828,12 +898,13 @@ def serve(model, cfg, kernel, per_prefill: int, logits_check, phase: str) -> tup
     identical = [r.out_tokens for r in reqs] == [r.out_tokens for r in oracle]
 
     logits = logits_check(model, reqs)
+    failures = logits.pop("_failures", [])
 
     gen_tokens = stats["generated_tokens"]
     line = {"phase": phase, "arch": cfg.name, "layers": cfg.num_layers,
             "d_model": cfg.d_model, "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
             "vocab": cfg.vocab_size, "dtype": str(model.cc.compute_dtype).replace("torch.", ""),
-            "requests": len(reqs), "slots": SLOTS, "max_seq": MAX_SEQ,
+            "requests": len(reqs), "slots": SLOTS, "max_seq": max_seq,
             "prompt_tokens": n_prompt, "generated_tokens": gen_tokens, "wall_s": wall,
             "generated_tokens_s": gen_tokens / wall, "prefill_tokens_s": n_prompt / prefill_s,
             "prefill_s": prefill_s, "median_ttft_ms": statistics.median(ttft) * 1e3,
@@ -845,21 +916,24 @@ def serve(model, cfg, kernel, per_prefill: int, logits_check, phase: str) -> tup
     if launches != per_prefill * stats["prefills"]:
         fail(f"serving launched {kernel.__name__} {launches} times for {stats['prefills']} "
              f"prefills, expected {per_prefill} each")
-    if stats["prefills"] != len(reqs) or gen_tokens != len(reqs) * MAX_NEW or not all(
-            r.done and len(r.out_tokens) == MAX_NEW
+    if stats["prefills"] != len(reqs) or gen_tokens != sum(r.max_new_tokens for r in reqs) \
+            or not all(r.done and len(r.out_tokens) == r.max_new_tokens
             and all(0 <= t < cfg.vocab_size for t in r.out_tokens) for r in reqs):
         fail(f"the wave did not come back whole: {stats}")
     if not identical:
         fail("Engine.generate's greedy tokens differ from generate_sequential's")
+    if failures:
+        fail("; ".join(failures))
     return line, launches, eng
 
 
-def profile_serve(model, eng, cfg, forbid=None) -> None:
-    """Where a prefill's (the wave's first prompt) and an 8-slot decode
-    step's device time goes; with ``forbid``, fails if a kernel of that name
-    pattern runs in the prefill."""
-    prompt = serve_wave(cfg.vocab_size)[0].prompt[None, :]
-    one = model.init_cache(1, MAX_SEQ)
+def profile_serve(model, eng, cfg, forbid=None, prompt=None) -> None:
+    """Where a prefill's (``prompt``, by default the wave's first) and an
+    8-slot decode step's (at row 1000 of ``eng``'s pool) device time goes;
+    with ``forbid``, fails if a kernel of that name pattern runs in the
+    prefill."""
+    prompt = (serve_wave(cfg.vocab_size)[0].prompt if prompt is None else prompt)[None, :]
+    one = model.init_cache(1, eng.max_seq)
     emit({"phase": "profile-serve", "arch": cfg.name, "what": "prefill",
           "prompt_len": prompt.shape[1],
           **profile_window(lambda: model.prefill(prompt, one), "a prefill", forbid=forbid)})
@@ -1438,6 +1512,275 @@ def serve_faults_phase(model, cfg, eng) -> tuple:
     return bf16["flash_attention_launches"], [bf16, f32]
 
 
+def pinned_dispatch(x, logits, top_k: int, capacity: int, num_experts: int, experts):
+    """repro_torch.models.moe._dispatch_group with its choice of experts
+    given (``experts``, (T, k)) in place of the sort of the gates: the
+    same gates, ranks, slots and scatter. Only this script's routing pin
+    uses it."""
+    T, D = x.shape
+    gates_full = torch.softmax(logits.float(), dim=-1)
+    gates = gates_full.gather(1, experts)
+    gates = gates / gates.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    flat_e = experts.reshape(-1)
+    ranks = (F.one_hot(flat_e, num_experts).cumsum(dim=0) - 1).gather(1, flat_e[:, None])[:, 0]
+    slot = torch.where(ranks < capacity, flat_e * capacity + ranks,
+                       torch.full_like(flat_e, num_experts * capacity))
+    tok = torch.arange(T, device=x.device).repeat_interleave(top_k)
+    buf = x.new_zeros((num_experts * capacity + 1, D)).index_add_(0, slot, x[tok])
+    return buf, slot.reshape(T, top_k), gates.to(x.dtype), gates_full
+
+
+class Routing:
+    """While open, keeps the experts every moe dispatch chooses, one (T, k)
+    tensor a call (slot // C: a dropped choice reads E); with ``pin``
+    (another run's ``choices``, drop-free) every call takes the pinned
+    experts instead (pinned_dispatch)."""
+
+    def __init__(self, pin=None):
+        self.pin = pin
+        self.choices = []
+
+    def __enter__(self):
+        self.orig = moe_lib._dispatch_group
+
+        def run(x, logits, top_k, capacity, num_experts):
+            if self.pin is None:
+                out = self.orig(x, logits, top_k, capacity, num_experts)
+            else:
+                out = pinned_dispatch(x, logits, top_k, capacity, num_experts,
+                                      self.pin[len(self.choices)])
+            self.choices.append(out[1] // capacity)
+            return out
+        moe_lib._dispatch_group = run
+        return self
+
+    def __exit__(self, *exc):
+        moe_lib._dispatch_group = self.orig
+
+    def dropped(self, num_experts: int) -> int:
+        """The choices the dispatch dropped (slot E·C) while open."""
+        return sum(int((c == num_experts).sum()) for c in self.choices)
+
+
+def routing_differences(a: list, b: list) -> dict:
+    """Between two runs' choices: the (layer, token) pairs whose sets of
+    experts differ, and whether the last token's do in some layer."""
+    diff = [(x.sort(dim=-1).values != y.sort(dim=-1).values).any(dim=-1) for x, y in zip(a, b)]
+    return {"tokens": int(sum(d.sum().item() for d in diff)),
+            "last_token": bool(any(d[-1].item() for d in diff))}
+
+
+def logits_moe(model, reqs) -> dict:
+    """The moe serve phase's logits check, every request's prefill: the
+    kernel path against the plain attention. Float32: within 2e-5 · max,
+    decisive. Bfloat16: with the expert choices pinned to the plain run's
+    (the two paths then differ by the attention's rounding alone), within
+    2e-2 · max; unpinned, reported beside the (layer, token) pairs whose
+    experts differ: a bf16 router meets near-ties, and one expert swapped at
+    the last token moves the logits by several percent."""
+    errs, pinned, routing = {}, {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        errs[name], pinned[name], routing[name] = [], [], []
+        for r in reqs:
+            with Routing() as plain_route:
+                plain = prefill_logits(model, r.prompt, dtype, kernel_backend="ref")
+            with Routing() as kernel_route:
+                got = prefill_logits(model, r.prompt, dtype)
+            with Routing(pin=plain_route.choices):
+                got_pinned = prefill_logits(model, r.prompt, dtype)
+            errs[name].append(rel_err(got, plain))
+            pinned[name].append(rel_err(got_pinned, plain))
+            routing[name].append(routing_differences(kernel_route.choices, plain_route.choices))
+    failures = [f"{name} prefill logits with the kernel, prompt of {len(r.prompt)}: "
+                f"{e} of max|plain| > {tol}"
+                for name, lst, tol in (("float32", errs["float32"], TOL[torch.float32]),
+                                       ("bfloat16, routing pinned", pinned["bfloat16"],
+                                        TOL[torch.bfloat16]))
+                for r, e in zip(reqs, lst) if e > tol]
+    return {"_failures": failures, "prefill_logits_max_rel_err": errs,
+            "prefill_logits_pinned_max_rel_err": pinned,
+            "prefill_routing_differences": routing,
+            "prefill_logits_tol": {"float32": TOL[torch.float32],
+                                   "bfloat16": f"{TOL[torch.bfloat16]} with the routing pinned"},
+            "prefill_logits_headroom": {
+                "float32": TOL[torch.float32] / max(max(errs["float32"]), 1e-30),
+                "bfloat16_pinned": TOL[torch.bfloat16] / max(max(pinned["bfloat16"]), 1e-30)}}
+
+
+def flash_held(kernel_path, worst: dict):
+    """``ops.flash_attention`` that also holds each kernel-path call against
+    the plain attention on the same inputs (the model's own activations):
+    every element within one rounding of the dtype (2^-7 of the element for
+    bfloat16, none for float32) plus TOL[dtype] of max|plain|; the worst
+    ratio of error to limit goes to ``worst[dtype]``."""
+    def run(q, k, v, *, causal=True, backend=None, block_kv=None):
+        out = kernel_path(q, k, v, causal=causal, backend=backend)
+        if backend is None:
+            want = flash_attention_ref(q, k, v, causal=causal).double()
+            limit = TOL[q.dtype] * want.abs().max() + (
+                BF16_ULP * want.abs() if q.dtype == torch.bfloat16 else 0.0)
+            name = str(q.dtype).replace("torch.", "")
+            worst[name] = max(worst.get(name, 0.0),
+                              ((out.double() - want).abs() / limit).max().item())
+        return out
+    return run
+
+
+def logits_hybrid(model, reqs) -> dict:
+    """zamba2's logits check, every request's prefill, the kernel path
+    against the plain attention: float32 within SSM_TOL of max|plain|;
+    every flash_attention call of those kernel-path prefills, in both
+    dtypes, within one rounding of the plain attention on its own inputs
+    (flash_held); the float32 logits of both paths against the same model
+    with a float64 attention (attention_f64), and the bfloat16 logits
+    beside the plain path's own distance to that float64 attention,
+    reported. Returns the fields, failures under ``_failures``."""
+    kernel_path, worst, failures = ops.flash_attention, {}, []
+    errs, exact_err = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        errs[name], exact_err[name] = [], {"kernel": [], "plain": []}
+        for r in reqs:
+            ops.flash_attention = flash_held(kernel_path, worst)
+            got = prefill_logits(model, r.prompt, dtype)
+            ops.flash_attention = attention_f64
+            exact = prefill_logits(model, r.prompt, dtype)
+            ops.flash_attention = kernel_path
+            plain = prefill_logits(model, r.prompt, dtype, kernel_backend="ref")
+            errs[name].append(rel_err(got, plain))
+            exact_err[name]["kernel"].append(rel_err(got, exact))
+            exact_err[name]["plain"].append(rel_err(plain, exact))
+    for r, e in zip(reqs, errs["float32"]):
+        if e > SSM_TOL:
+            failures.append(f"float32 prefill logits with the kernel, prompt of "
+                            f"{len(r.prompt)}: {e} of max|plain| > {SSM_TOL}")
+    if max(worst.values()) > 1.0:
+        failures.append(f"a flash_attention call of a served prefill is off the plain "
+                        f"attention on its inputs: {worst} x the limit")
+    return {"prefill_logits_max_rel_err": errs, "prefill_logits_vs_f64_attention": exact_err,
+            "prefill_logits_tol": {"float32": SSM_TOL, "bfloat16": "reported, not gated"},
+            "prefill_logits_headroom": {"float32": SSM_TOL / max(max(errs["float32"]), 1e-30)},
+            "flash_calls_worst_err_over_limit": worst, "_failures": failures}
+
+
+def moe_config():
+    """dbrx-132b at its published widths, depth cut to MOE_LAYERS, with the
+    engine guard's own drop-free capacity factor for the 8-slot pool:
+    (8 + 1) · E / (8 · k) = 4.5 (a batch-1 prefill of T tokens gets a
+    capacity of int(1.125 T) >= T, drop-free too)."""
+    cfg = get_config(MOE_ARCH)
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    cf = (SLOTS + 1) * E / (SLOTS * k)
+    return dataclasses.replace(cfg, num_layers=MOE_LAYERS,
+                               moe=dataclasses.replace(cfg.moe, capacity_factor=cf))
+
+
+def with_fields(check, fields: dict, route=None):
+    """``check`` (a serve phase's logits check) whose line also carries
+    ``fields`` and, with ``route`` (an open Routing, closed here), the
+    choices the moe dispatch dropped in the served run and its oracle
+    (gated: none)."""
+    def run(model, reqs) -> dict:
+        out = dict(fields)
+        if route is not None:
+            route.__exit__()
+            out.update(dispatch_choices=sum(c.numel() for c in route.choices),
+                       dropped_choices=route.dropped(model.cfg.moe.num_experts))
+        out.update(check(model, reqs))
+        if out.get("dropped_choices"):
+            out["_failures"] = out.get("_failures", []) + [
+                f"the moe dispatch dropped {out['dropped_choices']} of "
+                f"{out['dispatch_choices']} choices at a drop-free capacity factor"]
+        return out
+    return run
+
+
+def serve_moe_phase() -> tuple:
+    """dbrx-132b (full width, MOE_LAYERS layers, bf16, seed 0) serving 8
+    requests through Engine.generate: serve()'s numbers and gates (4
+    flash_attention launches a prefill, greedy identity, prefill logits of
+    the kernel path against the plain attention: logits_moe), no dropped
+    choice; then its profile windows.
+    Returns the flash launches of the served run and the line."""
+    cfg = moe_config()
+    full = get_config(MOE_ARCH)
+    t0 = time.perf_counter()
+    model = build_model(cfg, CallConfig(), device="cuda", seed=0)
+    torch.cuda.synchronize()
+    fields = {"reduced": {"num_layers": [full.num_layers, cfg.num_layers]},
+              "d_ff": cfg.d_ff, "experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k,
+              "capacity_factor": cfg.moe.capacity_factor, "rope_theta": cfg.rope_theta,
+              "weights_gib": sum(p.numel() * p.element_size() for p in model.parameters()) / 2**30,
+              "init_s": time.perf_counter() - t0}
+    reqs = serve_wave(cfg.vocab_size, MOE_REQUESTS, MOE_PROMPTS, MOE_NEW)
+    line, launches, eng = serve(model, cfg, flash_attention, cfg.num_layers,
+                                with_fields(logits_moe, fields, Routing().__enter__()),
+                                "serve-moe", reqs=reqs, max_seq=MOE_MAX_SEQ)
+    profile_serve(model, eng, cfg, prompt=reqs[0].prompt)
+    return launches, line
+
+
+def serve_hybrid_phase() -> tuple:
+    """zamba2-1.2b whole (38 layers: 6 groups of 6 Mamba2 blocks and the
+    shared attention block, 2 tail blocks; bf16, seed 0) on the serve
+    phase's wave: serve()'s numbers and gates with 6 flash_attention
+    launches a prefill (the float32 prefill logits within SSM_TOL of the
+    plain attention's, the state-space families' tolerance: the attention's
+    rounding carries through 38 blocks, reported against a float64
+    attention); its profile windows; then the first burst of
+    chip-burst-24-patient through simulate(check=True) on a paged pool
+    (KV rows paged, the Mamba2 states dense per slot): matches_sequential,
+    the virtual clock equal to the JAX package's (FAULTS_CLOCK), 6 launches
+    a prefill. Returns the two runs' flash launches and the lines."""
+    cfg = get_config(HYBRID_ARCH)
+    per_prefill = cfg.num_layers // cfg.hybrid_attn_every
+    model = build_model(cfg, CallConfig(), device="cuda", seed=0)
+    fields = {"groups": per_prefill, "mamba_blocks": cfg.num_layers,
+              "ssd_heads": cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim,
+              "ssd_head_dim": cfg.ssm.head_dim, "ssd_state": cfg.ssm.state_dim,
+              "ssd_chunk": cfg.ssm.chunk}
+    line, launches, eng = serve(model, cfg, flash_attention, per_prefill,
+                                with_fields(logits_hybrid, fields),
+                                "serve-hybrid")
+    profile_serve(model, eng, cfg)
+    del eng
+    torch.cuda.empty_cache()
+
+    profile = TrafficProfile.from_dict(FIRST_BURST)
+    peng = Engine(model, max_seq=profile.max_rows, **PAGED_POOL)
+    timers = HostTimers((model, "decode_step"), (peng.slots, "gather_dense"),
+                        (peng.slots, "scatter_dense"))
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    payload = simulate(peng, profile, check=True)  # the served run, then the oracle's replay
+    wall = time.perf_counter() - t0
+    timers.close()
+    paged = {"phase": "serve-hybrid-paged", "arch": cfg.name, "layers": cfg.num_layers,
+             "dtype": "bfloat16", "profile": profile.name, **payload,
+             "max_seq": peng.max_seq, "slots": peng.batch, "pool_pages": peng.slots.pool_pages,
+             "contiguous_pages": peng.batch * peng.slots.pages_per_slot,
+             "wall_s_with_oracle": wall,
+             "median_decode_step_ms": statistics.median(timers.ms("decode_step")),
+             "median_gather_ms": statistics.median(timers.ms("gather_dense")),
+             "median_scatter_ms": statistics.median(timers.ms("scatter_dense")),
+             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+             "flash_attention_launches": flash_attention.launches}
+    emit(paged)
+    if not payload["matches_sequential"]:
+        fail("serve-hybrid-paged: the served tokens differ from generate_sequential's")
+    check_clock("serve-hybrid-paged", payload, FAULTS_CLOCK[(8, False)])
+    if flash_attention.launches != per_prefill * (payload["prefills"] + payload["n_accepted"]):
+        fail(f"serve-hybrid-paged: flash_attention launched {flash_attention.launches} for "
+             f"{payload['prefills']} prefills and {payload['n_accepted']} in the oracle, "
+             f"expected {per_prefill} each")
+    if peng.slots.allocator.n_held != 0:
+        fail("serve-hybrid-paged: pages still held after the run")
+    return launches, paged["flash_attention_launches"], [line, paged]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
@@ -1514,6 +1857,11 @@ def main() -> None:
     for S in (256, 512, 542):  # the traffic phases' prompts, and their longest re-prefill
         check_flash(gen, S, hd=serve_cfg.head_dim, H=serve_cfg.num_heads,
                     KVH=serve_cfg.num_kv_heads)
+    for arch, lengths in ((MOE_ARCH, MOE_PROMPTS), (HYBRID_ARCH, (1024,))):
+        c = get_config(arch)  # dbrx's prefill attention at its prompts' ends; zamba2's
+        for S in lengths:
+            for dtype in (torch.bfloat16, torch.float32):
+                check_flash(gen, S, dtype, H=c.num_heads, KVH=c.num_kv_heads, hd=c.head_dim)
     xcfg = get_config(XLSTM_ARCH)
     xlstm_shape = dict(H=xcfg.num_heads, hd=xcfg.head_dim)
     for S in (128, 517, 1024):  # xlstm-350m's batch-1 prefill recurrence
@@ -1646,7 +1994,17 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_done("serve-faults")
 
-    # 18. the phases' seconds, the kernels line, the card, the result
+    # 18-19. serving dbrx-132b at full width (4 layers) and its profile windows
+    moe_launches, _ = serve_moe_phase()
+    torch.cuda.empty_cache()
+    phase_done("serve-moe")
+
+    # 20-21. serving zamba2-1.2b whole, contiguous and paged, and its profile windows
+    hybrid_launches, hybrid_paged_launches, _ = serve_hybrid_phase()
+    torch.cuda.empty_cache()
+    phase_done("serve-hybrid")
+
+    # 22. the phases' seconds, the kernels line, the card, the result
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
     emit({"kernels": [
         {"name": "com_matmul", "route": "cuda", "source": "src/repro_torch/csrc/com_matmul.cu",
@@ -1666,7 +2024,9 @@ def main() -> None:
          "replaces": "src/repro/kernels/flash_attention.py:64",
          "launches": flash_launches,
          "launches_by_path": {"serve": flash_launches, "serve-traffic": traffic_launches,
-                              "serve-faults": fault_launches},
+                              "serve-faults": fault_launches, "serve-moe": moe_launches,
+                              "serve-hybrid": hybrid_launches,
+                              "serve-hybrid-paged": hybrid_paged_launches},
          **summary(flash_lines, serve_cfg.num_layers)},
         {"name": "slstm_fused", "route": "cuda", "source": "src/repro_torch/csrc/slstm.cu",
          "replaces": "src/repro/kernels/slstm.py:70",

@@ -144,28 +144,37 @@ def model_params_to_port(cfg, params: Mapping[str, Any], *, cc=None, device=None
     ``Model.init`` parameters.
 
     ``params`` is the JAX pytree (nested dicts) with numpy (or array-like)
-    leaves; the leaves under ``blocks`` are stacked on a leading axis, one
-    entry per block of the port's model (a layer for dense, an
-    ``[mLSTM, sLSTM]`` pair, ``num_layers // 2`` of them, for ssm), and go
-    to ``blocks.<l>``. Every parameter of the port's model must be given,
-    with its exact shape.
+    leaves. The leaves under ``blocks`` are stacked on a leading axis, one
+    entry per block of the port's model (a layer for dense and moe every
+    layer, a ``{dense, moe_l}`` group for moe every other layer, an
+    ``[mLSTM, sLSTM]`` pair for ssm), and go to ``blocks.<l>``; the hybrid
+    family's ``blocks`` are stacked on two, ``(NG, ke)``, and go to
+    ``blocks.<g>.<i>``, its ``tail`` on one (``tail.<r>``), and its
+    ``shared_attn`` is not stacked. Every parameter of the port's model
+    must be given, with its exact shape.
     """
     from repro_torch.models.transformer import Model
 
     model = Model(cfg, cc, device=device)
-    n_blocks = len(model.blocks)
+    stacked = {"blocks": (len(model.blocks),)}
+    if cfg.family == "hybrid":
+        stacked["blocks"] += (cfg.hybrid_attn_every,)
+        stacked["tail"] = (len(getattr(model, "tail", ())),)
     state = {}
     for name, leaf in _leaves(params):
         a = np.asarray(leaf, dtype=np.float32)
-        if name.startswith("blocks."):
-            rest = name[len("blocks."):]
-            if a.shape[0] != n_blocks:
-                raise ValueError(f"{name} stacks {a.shape[0]} blocks, the config has "
-                                 f"{n_blocks}")
-            for l in range(n_blocks):
-                state[f"blocks.{l}.{rest}"] = torch.tensor(a[l])
-        else:
+        top, _, rest = name.partition(".")
+        axes = stacked.get(top)
+        if axes is None:
             state[name] = torch.tensor(a)
+            continue
+        if a.shape[:len(axes)] != axes:
+            got, want = a.shape[:len(axes)], axes
+            if len(axes) == 1:
+                got, want = got[0] if got else None, want[0]
+            raise ValueError(f"{name} stacks {got} blocks, the config has {want}")
+        for idx in np.ndindex(*axes):
+            state[".".join([top, *map(str, idx), rest])] = torch.tensor(a[idx])
     own = model.state_dict()
     if set(state) != set(own):
         raise KeyError(f"parameters missing: {sorted(set(own) - set(state))}, "

@@ -4,10 +4,14 @@ card by default.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-350m --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --reduced --device cpu
 
 The port's copy of ``repro.launch.serve``: the same flags, plus
-``--device``. Serves the ported families, dense and ssm (xlstm-350m).
-Weights are random, drawn from ``--seed``.
+``--device``. Serves the ported families: dense, moe, hybrid (zamba2-1.2b)
+and ssm (xlstm-350m). Weights are random, drawn from ``--seed``. As in the
+reference, an moe config whose ``capacity_factor`` is not drop-free at the
+slot-pool size (``dbrx-132b`` as published, 1.25, at more than one slot) is
+refused by the engine with a ``ValueError`` that names a drop-free value.
 """
 from __future__ import annotations
 

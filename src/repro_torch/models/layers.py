@@ -99,6 +99,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return torch.cat([y, x_pass], dim=-1) if rot_dim < head_dim else y
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as the reference's JAX computes it: ``x * (1 / (1 +
+    exp(-x)))``, each operation rounded in ``x``'s dtype. In bfloat16 that
+    differs from ``F.silu`` (one rounding of the float32 result) in about a
+    third of the elements."""
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
 # ---------------------------------------------------------------------------
 # MLP (SwiGLU / GELU)
 # ---------------------------------------------------------------------------

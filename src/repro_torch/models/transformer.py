@@ -1,28 +1,53 @@
-"""The model stack: ``Model`` / ``build_model``, for the dense and ssm families.
+"""The model stack: ``Model`` / ``build_model``, for the dense, moe, hybrid
+and ssm families.
 
-The port's copy of ``repro.models.transformer`` for two layer layouts:
+The port's copy of ``repro.models.transformer`` for these layer layouts:
 
 * ``dense``: uniform ``[attn + mlp] x L``, a KV cache;
+* ``moe`` with ``moe_every == 1`` (dbrx-132b): uniform ``[attn + moe] x L``;
+  with ``moe_every == 2`` (llama4-maverick): ``L / 2`` groups
+  ``{dense, moe_l}``, a dense layer followed by an moe layer;
+* ``hybrid`` (zamba2-1.2b): ``NG = L // ke`` groups of ``ke =
+  hybrid_attn_every`` Mamba2 blocks, each group followed by the one
+  **shared** attention + MLP block (one set of weights, its own KV cache
+  in every group), then ``L % ke`` tail Mamba2 blocks;
 * ``ssm`` (xlstm-350m): ``L / 2`` pairs ``[mLSTM, sLSTM]``, a recurrent state.
 
-Other families raise ``NotImplementedError`` until their slices are ported.
+vlm and audio raise ``NotImplementedError`` until their slices are ported.
 
 ``Model`` is an ``nn.Module`` whose parameters keep the JAX package's names
-and layouts: ``embed.table`` ``(V, D)``, ``ln_f.scale``, and per layer
-``blocks.<l>.{ln1,attn,ln2,mlp}.<leaf>`` (dense) or per pair
-``blocks.<g>.{ln_m,mlstm,ln_s,slstm}.<leaf>`` (ssm), a JAX leaf of the
-stacked ``blocks`` pytree cut at ``l`` or ``g``
-(:func:`repro_torch.convert.model_params_to_port`). Parameters are float32
-and every product casts them to the compute dtype, as the reference does.
+and layouts: ``embed.table`` ``(V, D)``, ``ln_f.scale``, and per block
+``blocks.<l>.{ln1,attn,ln2,mlp|moe}.<leaf>`` (dense, moe every layer),
+``blocks.<g>.{dense,moe_l}.<...>`` (moe every other layer),
+``blocks.<g>.<i>.{ln,mamba}.<leaf>``, ``tail.<r>.{ln,mamba}.<leaf>`` and
+``shared_attn.<...>`` (hybrid) or ``blocks.<g>.{ln_m,mlstm,ln_s,slstm}.<leaf>``
+(ssm): a JAX leaf of the stacked ``blocks`` (``tail``) pytree cut at its
+stacked axes (:func:`repro_torch.convert.model_params_to_port`). Parameters
+are float32 and every product casts them to the compute dtype, as the
+reference does.
 
-The cache is a tuple of tensors whose slot (batch) axis is 1. Dense: a pair
-``(k, v)`` of ``(L, B, max_seq, KVH, hd)`` tensors. ssm: the seven float32
-leaves of the reference's state pytree, in ``jax.tree.leaves`` order
-(:data:`repro_torch.models.xlstm.STATE_LEAVES`: mLSTM ``C (NG, B, H, hd, hd)``,
-``m (NG, B, H)``, ``n (NG, B, H, hd)``; sLSTM ``c, h, m, n``, each
-``(NG, B, H, hd)``), stacked over the ``NG = L / 2`` pairs.
+The cache is a flat tuple of tensors, the reference's cache pytree in
+``jax.tree.leaves`` order:
+
+* dense, moe every layer: ``(k, v)``, each ``(L, B, max_seq, KVH, hd)``;
+* moe every other layer: ``dense.k, dense.v, moe_l.k, moe_l.v``, each
+  ``(L/2, B, max_seq, KVH, hd)``;
+* hybrid: ``groups.attn`` k and v, each ``(NG, B, max_seq, KVH, hd)``;
+  ``groups.mamba.conv (NG, ke, B, W-1, C)`` and ``groups.mamba.ssd (NG,
+  ke, B, H, N, P)``; then, with a tail, ``tail.conv (rem, B, W-1, C)`` and
+  ``tail.ssd (rem, B, H, N, P)``; the Mamba2 states are float32 whatever
+  the cache dtype;
+* ssm: the seven float32 leaves of the reference's state pytree
+  (:data:`repro_torch.models.xlstm.STATE_LEAVES`: mLSTM ``C (NG, B, H, hd,
+  hd)``, ``m (NG, B, H)``, ``n (NG, B, H, hd)``; sLSTM ``c, h, m, n``, each
+  ``(NG, B, H, hd)``), stacked over the ``NG = L / 2`` pairs.
+
+The slot (batch) axis is 1, except on the hybrid group Mamba2 leaves,
+where it is 2 (:func:`repro_torch.serve.kvcache.batch_axes` probes it).
 Prefill and decode write into the cache they are given, in place, where
-JAX returns a new one.
+JAX returns a new one. The moe load-balance loss is computed by
+:func:`repro_torch.models.moe.moe_forward` and not returned: serving has no
+use for it.
 """
 from __future__ import annotations
 
@@ -36,17 +61,20 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.convert import resolve_device
 from repro_torch.kernels.flash_attention import BLOCK_KV
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import embed, make_norm, mlp, mlp_params, norm_params, unembed
 
-Cache = Tuple[torch.Tensor, ...]  # dense: (k, v); ssm: xlstm.STATE_LEAVES
-FAMILIES = ("dense", "ssm")  # the ported layer layouts
+Cache = Tuple[torch.Tensor, ...]  # the reference's cache leaves (see the module docstring)
+FAMILIES = ("dense", "moe", "hybrid", "ssm")  # the ported layer layouts
 
 
 @dataclass(frozen=True)
 class CallConfig:
     """Per-call (not per-arch) knobs."""
 
+    dp_size: int = 1                        # dispatch groups of the moe layers
     block_kv: int = BLOCK_KV                # the flash kernel's KV tile (built for one only)
     compute_dtype: torch.dtype = torch.bfloat16
     cache_dtype: torch.dtype = torch.bfloat16
@@ -60,18 +88,32 @@ def _params(d: dict) -> nn.ParameterDict:
     return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False) for k, v in d.items()})
 
 
-class Block(nn.Module):
-    """One decoder layer: ``x + attn(ln1(x))``, then ``x + mlp(ln2(x))``."""
+def _moe_every(cfg: ArchConfig) -> int:
+    """1 for every family but moe; the moe layout's period, 1 or 2."""
+    every = cfg.moe.moe_every if cfg.family == "moe" else 1
+    if every not in (1, 2):
+        raise ValueError(f"moe_every={every}; moe_every in {{1,2}} supported")
+    return every
 
-    def __init__(self, cfg: ArchConfig, gen: torch.Generator):
+
+class Block(nn.Module):
+    """One decoder layer: ``x + attn(ln1(x))``, then ``x + mlp(ln2(x))``, or
+    ``x + moe(ln2(x))`` for an moe layer."""
+
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator, *, is_moe_layer: bool = False):
         super().__init__()
         dev = gen.device
         self.ln1 = _params(norm_params(cfg.norm, cfg.d_model, dev))
         self.attn = _params(attn_lib.attention_params(
             gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, qkv_bias=cfg.qkv_bias))
+        self.is_moe_layer = is_moe_layer and cfg.d_ff > 0
         if cfg.d_ff > 0:
             self.ln2 = _params(norm_params(cfg.norm, cfg.d_model, dev))
-            self.mlp = _params(mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.activation))
+            if self.is_moe_layer:
+                self.moe = _params(moe_lib.init_moe(gen, cfg.d_model, cfg.d_ff,
+                                                    cfg.moe.num_experts, ep_split=cfg.moe.ep_split))
+            else:
+                self.mlp = _params(mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.activation))
 
     def forward(self, x, positions, cfg: ArchConfig, cc: CallConfig,
                 cache: Optional[Cache] = None, cache_pos=None):
@@ -82,8 +124,54 @@ class Block(nn.Module):
             block_kv=cc.block_kv, backend=cc.kernel_backend, kv_cache=cache, cache_pos=cache_pos)
         x = x + y
         if cfg.d_ff > 0:
-            x = x + mlp(self.mlp, norm(self.ln2, x), cfg.activation)
+            h = norm(self.ln2, x)
+            if self.is_moe_layer:
+                moe = cfg.moe
+                y, _ = moe_lib.moe_forward(
+                    self.moe, h, top_k=moe.top_k, num_experts=moe.num_experts,
+                    capacity_factor=moe.capacity_factor, dp_size=cc.dp_size,
+                    ep_split=moe.ep_split)
+            else:
+                y = mlp(self.mlp, h, cfg.activation)
+            x = x + y
         return x
+
+
+class MoEGroup(nn.Module):
+    """One group of the ``moe_every == 2`` layout: a dense layer, then an
+    moe layer."""
+
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator):
+        super().__init__()
+        self.dense = Block(cfg, gen)
+        self.moe_l = Block(cfg, gen, is_moe_layer=True)
+
+
+class MambaBlock(nn.Module):
+    """One hybrid Mamba2 block: ``x + mamba(ln(x))``."""
+
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator):
+        super().__init__()
+        s = cfg.ssm
+        self.ln = _params(norm_params(cfg.norm, cfg.d_model, gen.device))
+        self.mamba = _params(ssm_lib.init_mamba2(
+            gen, cfg.d_model, expand=s.expand, head_dim=s.head_dim, state_dim=s.state_dim,
+            conv_width=s.conv_width))
+
+    def forward(self, x, cfg: ArchConfig, *, return_state: bool):
+        """The whole sequence from the zero state; returns ``x`` and, with
+        ``return_state``, the block's decode state (else None)."""
+        h = make_norm(cfg.norm)(self.ln, x)
+        if return_state:
+            y, st = ssm_lib.mamba2_forward(self.mamba, h, cfg, return_state=True)
+            return x + y, st
+        return x + ssm_lib.mamba2_forward(self.mamba, h, cfg), None
+
+    def step(self, x, cfg: ArchConfig, state):
+        """One token from the block's state; returns ``x`` and the new state."""
+        y, st = ssm_lib.mamba2_decode_step(self.mamba, make_norm(cfg.norm)(self.ln, x), state,
+                                           cfg)
+        return x + y, st
 
 
 class XLSTMPair(nn.Module):
@@ -125,6 +213,12 @@ def _write_ssm_states(cache: Cache, g: int, st_m, st_s) -> None:
         dst[g].copy_(src)
 
 
+def _write_mamba_state(conv: torch.Tensor, ssd: torch.Tensor, st) -> None:
+    """Write one Mamba2 block's state into its cache slices, in place."""
+    conv.copy_(st["conv"])
+    ssd.copy_(st["ssd"])
+
+
 class Model(nn.Module):
     """Model facade: init / init_cache / forward / prefill / decode_step.
 
@@ -137,6 +231,7 @@ class Model(nn.Module):
         super().__init__()
         if cfg.family not in FAMILIES:
             raise NotImplementedError(f"the {cfg.family!r} family is not ported yet")
+        _moe_every(cfg)
         self.cfg = cfg
         self.cc = cc or CallConfig()
         self.device = resolve_device(device)
@@ -158,10 +253,22 @@ class Model(nn.Module):
         self.ln_f = _params(norm_params(cfg.norm, cfg.d_model, self.device))
         if not cfg.tie_embeddings:
             self.unembed = _params({"table": table()})
-        if cfg.family == "ssm":
+        fam = cfg.family
+        if fam == "ssm":
             self.blocks = nn.ModuleList(XLSTMPair(cfg, gen) for _ in range(cfg.num_layers // 2))
+        elif fam == "hybrid":
+            ke = cfg.hybrid_attn_every
+            ng, rem = divmod(cfg.num_layers, ke)
+            self.blocks = nn.ModuleList(
+                nn.ModuleList(MambaBlock(cfg, gen) for _ in range(ke)) for _ in range(ng))
+            if rem:
+                self.tail = nn.ModuleList(MambaBlock(cfg, gen) for _ in range(rem))
+            self.shared_attn = Block(cfg, gen)
+        elif _moe_every(cfg) == 2:
+            self.blocks = nn.ModuleList(MoEGroup(cfg, gen) for _ in range(cfg.num_layers // 2))
         else:
-            self.blocks = nn.ModuleList(Block(cfg, gen) for _ in range(cfg.num_layers))
+            self.blocks = nn.ModuleList(Block(cfg, gen, is_moe_layer=fam == "moe")
+                                        for _ in range(cfg.num_layers))
         return self
 
     # -------------------- embedding / logits --------------------
@@ -177,11 +284,11 @@ class Model(nn.Module):
     # -------------------- cache construction --------------------
     def init_cache(self, batch: int, max_seq: int, *, device=None) -> Cache:
         """The initial cache on the model's device (or ``device``, e.g.
-        ``"meta"`` for shapes alone). Dense: zero ``(k, v)``, each
-        ``(L, batch, max_seq, KVH, hd)`` in the cache dtype. ssm: the
-        reference's initial states (zeros, ``m = -1e30``) as the float32
-        leaves of ``xlstm.STATE_LEAVES``, whatever the cache dtype;
-        ``max_seq`` is not used."""
+        ``"meta"`` for shapes alone), in the layout of the module docstring:
+        zero KV leaves in the cache dtype; the recurrent states as the
+        reference initialises them, float32 whatever the cache dtype (ssm:
+        zeros, ``m = -1e30``; hybrid: zeros). ``max_seq`` sizes the KV
+        leaves only."""
         cfg = self.cfg
         dev = self.device if device is None else device
         if cfg.family == "ssm":
@@ -190,22 +297,84 @@ class Model(nn.Module):
                                           xlstm_lib.init_slstm_state(*args))
             ng = cfg.num_layers // 2
             return tuple(t.expand(ng, *t.shape).contiguous() for t in pair)
-        shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
-        return (torch.zeros(shape, dtype=self.cc.cache_dtype, device=dev),
-                torch.zeros(shape, dtype=self.cc.cache_dtype, device=dev))
+
+        def kv(n):
+            shape = (n, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+            return (torch.zeros(shape, dtype=self.cc.cache_dtype, device=dev),
+                    torch.zeros(shape, dtype=self.cc.cache_dtype, device=dev))
+
+        if cfg.family == "hybrid":
+            ke = cfg.hybrid_attn_every
+            ng, rem = divmod(cfg.num_layers, ke)
+            st = ssm_lib.init_mamba2_state(batch, cfg.d_model, cfg, torch.float32, dev)
+            leaves = kv(ng) + tuple(st[k].expand(ng, ke, *st[k].shape).contiguous()
+                                    for k in ("conv", "ssd"))
+            if rem:
+                leaves += tuple(st[k].expand(rem, *st[k].shape).contiguous()
+                                for k in ("conv", "ssd"))
+            return leaves
+        if _moe_every(cfg) == 2:
+            return kv(cfg.num_layers // 2) + kv(cfg.num_layers // 2)
+        return kv(cfg.num_layers)
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
+
+    def _attn_caches(self, cache: Optional[Cache]):
+        """Each attention layer's ``(k, v)`` slices of ``cache`` (or None),
+        in the order :meth:`_attn_layers` runs them."""
+        n = len(self._attn_layers())
+        if cache is None:
+            return [None] * n
+        if self.cfg.family == "hybrid" or _moe_every(self.cfg) == 1:
+            return [(cache[0][l], cache[1][l]) for l in range(n)]
+        # moe every other layer: dense.k, dense.v, moe_l.k, moe_l.v
+        return [(cache[2 * (l % 2)][l // 2], cache[2 * (l % 2) + 1][l // 2]) for l in range(n)]
+
+    def _attn_layers(self):
+        """The attention layers in their order (dense, moe)."""
+        if _moe_every(self.cfg) == 2:
+            return [blk for grp in self.blocks for blk in (grp.dense, grp.moe_l)]
+        return list(self.blocks)
+
+    def _hybrid(self, x, positions, cache: Optional[Cache], pos=None):
+        """The hybrid stack over ``x``: the whole sequence (``pos`` None),
+        from the zero states, writing the KV rows and the final states into
+        ``cache`` if given; or one decode step at ``pos`` from the states
+        in ``cache``, written back in place."""
+        cfg, cc = self.cfg, self.cc
+        for g, group in enumerate(self.blocks):
+            for i, blk in enumerate(group):
+                x = self._mamba(blk, x, cache, pos, (2, 3), (g, i))
+            lc = None if cache is None else (cache[0][g], cache[1][g])
+            x = self.shared_attn(x, positions, cfg, cc, lc, pos)
+        for r, blk in enumerate(getattr(self, "tail", ())):
+            x = self._mamba(blk, x, cache, pos, (4, 5), (r,))
+        return x
+
+    def _mamba(self, blk, x, cache, pos, leaves, at):
+        """One Mamba2 block of the hybrid stack; its state lives at index
+        ``at`` of the cache leaves ``leaves`` (conv, ssd)."""
+        cfg = self.cfg
+        if cache is None:
+            return blk(x, cfg, return_state=False)[0]
+        conv, ssd = cache[leaves[0]][at], cache[leaves[1]][at]
+        if pos is None:
+            x, st = blk(x, cfg, return_state=True)
+        else:
+            x, st = blk.step(x, cfg, {"conv": conv, "ssd": ssd})
+        _write_mamba_state(conv, ssd, st)
+        return x
 
     # -------------------- full-sequence forward (prefill) --------------------
     @torch.no_grad()
     def forward(self, tokens, *, cache: Optional[Cache] = None,
                 logits_last_only: bool = False):
         """tokens: (B, S) -> ``(logits, cache)``. With ``cache`` given, every
-        layer's RoPE'd k/v are written into its rows ``[0, S)`` (dense), or
-        every leaf is overwritten with the final state of the prompt
-        (ssm: the scans start from the zero state and never read the cache,
-        as the reference's do)."""
+        attention layer's RoPE'd k/v are written into its rows ``[0, S)``,
+        and every recurrent state leaf is overwritten with the final state
+        of the prompt (the scans start from the zero state and never read
+        the cache, as the reference's do)."""
         cfg, cc = self.cfg, self.cc
         tokens = self._tokens(tokens)
         x = embed(self.embed, tokens, cc.compute_dtype)
@@ -215,13 +384,13 @@ class Model(nn.Module):
                 x, st_m, st_s = pair(x, cfg, cc)
                 if cache is not None:
                     _write_ssm_states(cache, g, st_m, st_s)
-            if logits_last_only:
-                x = x[:, -1:]
-            return self._logits(x), cache
-        positions = torch.arange(S, device=self.device)[None, :].expand(B, S)
-        for l, blk in enumerate(self.blocks):
-            lc = None if cache is None else (cache[0][l], cache[1][l])
-            x = blk(x, positions, cfg, cc, lc)
+        else:
+            positions = torch.arange(S, device=self.device)[None, :].expand(B, S)
+            if cfg.family == "hybrid":
+                x = self._hybrid(x, positions, cache)
+            else:
+                for blk, lc in zip(self._attn_layers(), self._attn_caches(cache)):
+                    x = blk(x, positions, cfg, cc, lc)
         if logits_last_only:
             x = x[:, -1:]  # prefill: unembed only the last position
         return self._logits(x), cache
@@ -239,12 +408,14 @@ class Model(nn.Module):
         ``pos`` is a () scalar (every row decodes at the same position) or a
         (B,) vector of per-row positions (the continuous-batching serve
         engine: each cache slot at its own offset; a row parked at
-        ``pos >= max_seq`` attends but writes nothing). Writes this step's
-        k/v into ``cache`` in place; returns (logits (B, 1, V), cache).
+        ``pos >= max_seq`` attends but writes no KV row). Writes this step's
+        k/v and the new recurrent states into ``cache`` in place; returns
+        (logits (B, 1, V), cache).
 
-        ssm: ``pos`` is ignored, as the reference ignores it; every row's
-        state advances in place, parked rows too (admission's prefill
-        overwrites a slot's every leaf before it is read again).
+        Recurrent states (ssm, the hybrid's Mamba2 blocks) ignore ``pos``, as
+        the reference's do: every row's state advances in place, parked rows
+        too (admission's prefill overwrites a slot's every state leaf before
+        it is read again).
         """
         cfg, cc = self.cfg, self.cc
         token = self._tokens(token)
@@ -258,12 +429,14 @@ class Model(nn.Module):
         if isinstance(pos, torch.Tensor):
             pos = pos.to(self.device)
         positions = torch.as_tensor(pos, device=self.device).reshape(-1, 1).expand(B, 1)
-        for l, blk in enumerate(self.blocks):
-            x = blk(x, positions, cfg, cc, (cache[0][l], cache[1][l]), pos)
+        if cfg.family == "hybrid":
+            x = self._hybrid(x, positions, cache, pos)
+        else:
+            for blk, lc in zip(self._attn_layers(), self._attn_caches(cache)):
+                x = blk(x, positions, cfg, cc, lc, pos)
         return self._logits(x), cache
 
 
 def build_model(cfg: ArchConfig, cc: Optional[CallConfig] = None, *, device=None,
                 seed: int = 0) -> Model:
     return Model(cfg, cc, device=device, seed=seed)
-

@@ -8,8 +8,8 @@ with ``page_size=``). Every generated token costs exactly one
 ``model.decode_step`` call that advances **all** active slots at once:
 per-slot sequence offsets ride in a ``(batch,)`` position vector, idle
 slots are parked at ``pos >= max_seq`` (their KV writes are dropped and
-their outputs discarded; the recurrent state of an ssm model still
-advances on parked rows, which is harmless, because admission's prefill
+their outputs discarded; the recurrent state of an ssm or hybrid model
+still advances on parked rows, which is harmless, because admission's prefill
 overwrites every state leaf of a slot before reuse, so nothing a parked
 row computes ever reaches a request). Finished sequences (EOS or length)
 retire between steps and their slots are refilled through the admission
@@ -36,8 +36,9 @@ k/v into the pool, and contiguous admission prefills straight into a view
 of the slot's rows. Dense KV rows past the new prompt may still hold the
 previous occupant's values; they are never read unmasked, because a decode
 step at ``pos`` writes row ``pos`` before it attends to rows ``<= pos``,
-and a masked row enters the softmax with weight exactly 0. An ssm prefill
-starts from the zero state and overwrites the slot's state whole.
+and a masked row enters the softmax with weight exactly 0. A recurrent
+prefill (ssm, the hybrid's Mamba2 blocks) starts from the zero state and
+overwrites the slot's state whole.
 
 Paged mode (``page_size=``): admission is *reservation-based*: a request
 is admitted only when the pool can commit its worst case
@@ -48,8 +49,9 @@ at retirement. A prefill fills a batch-1 cache of the prompt's length,
 which :meth:`PagedSlotCache.write_prefill` copies into the slot's pages.
 The decode step gathers the dense view through the page table, runs the
 same ``decode_step`` as the contiguous path, and scatters the view back:
-the logits are bitwise the contiguous cache's. The ssm family has no rows
-to page and serves on the contiguous cache only.
+the logits are bitwise the contiguous cache's. The hybrid family's Mamba2
+states have no rows to page and stay dense per slot in the paged pool; the
+ssm family has nothing to page and serves on the contiguous cache only.
 
 Determinism contract (``tests/test_torch_serve.py``,
 ``tests/test_torch_traffic.py``, ``chip_smoke.py``):
@@ -75,10 +77,12 @@ from decode steps: their low bits differ, and in bfloat16 a retried
 request's later tokens may differ from a fault-free run's. Requests whose
 slot never failed are unaffected.
 
-The dense and ssm (xlstm) families are ported, so they can be served. The
-guards of the reference stay: multi-codebook audio needs ``(B, 1, K)``
+The dense, moe, hybrid and ssm families are ported, so they can be served.
+The guards of the reference stay: multi-codebook audio needs ``(B, 1, K)``
 token feedback, vlm prefill needs ``image_embeds``, and moe needs a
-drop-free expert capacity at the pool size.
+drop-free expert capacity at the pool size, checked with
+:func:`repro_torch.models.moe.expert_capacity`, the formula the dispatch
+itself uses.
 """
 from __future__ import annotations
 
@@ -89,9 +93,10 @@ from typing import Any, Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.models.moe import expert_capacity
 from repro_torch.runtime.fault_tolerance import RestartPolicy
 from repro_torch.serve.admission import AdmissionQueue
-from repro_torch.serve.kvcache import init_paged_slots, init_slots
+from repro_torch.serve.kvcache import batch_axes, init_paged_slots, init_slots
 
 
 @dataclass
@@ -129,18 +134,6 @@ def fold_in(key: int, data: int) -> int:
     ``jax.random.fold_in``; its bits are not reproduced)."""
     digest = hashlib.blake2b(f"{key}/{data}".encode(), digest_size=8).digest()
     return int.from_bytes(digest, "little") >> 1
-
-
-def _expert_capacity(n_tokens: int, *, top_k: int, num_experts: int,
-                     capacity_factor: float, dp_size: int = 1):
-    """The (dp groups, tokens per group, per-expert buffer depth) of the
-    reference's ``moe_forward`` for ``n_tokens`` (``repro.models.moe``'s
-    ``expert_capacity``, copied for the guard until the moe family is ported)."""
-    dp = max(1, min(dp_size, n_tokens))
-    while n_tokens % dp:
-        dp //= 2
-    tl = n_tokens // dp
-    return dp, tl, max(1, int((tl * top_k / num_experts) * capacity_factor))
 
 
 class Engine:
@@ -232,7 +225,7 @@ class Engine:
         if moe is not None:
             # every decode row of a dispatch group routing to one expert must
             # fit, or batched outputs diverge from the batch-1 oracle
-            _, tl, cap = _expert_capacity(
+            _, tl, cap = expert_capacity(
                 self.batch, top_k=moe.top_k, num_experts=moe.num_experts,
                 capacity_factor=moe.capacity_factor,
                 dp_size=getattr(getattr(self.model, "cc", None), "dp_size", 1))
@@ -536,10 +529,12 @@ class Engine:
         if len(idxs) != len(requests):
             raise ValueError(f"indices has {len(idxs)} entries for {len(requests)} requests")
         B, dev = self.batch, self.model.device
+        axes = batch_axes(self.model, self.max_seq)
         for ri, req in zip(idxs, requests):
             cache = self.model.init_cache(B, self.max_seq)
             prompt = self._prompt(req)
-            logits, _ = self.model.prefill(prompt, tuple(t[:, :1] for t in cache))
+            row0 = tuple(t if ax is None else t.narrow(ax, 0, 1) for t, ax in zip(cache, axes))
+            logits, _ = self.model.prefill(prompt, row0)
             pos = prompt.shape[1]
             key_r = fold_in(seed, ri)
             tok = self._sample(logits[0, -1], req.temperature, key_r)

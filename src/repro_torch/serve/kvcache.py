@@ -7,7 +7,8 @@ decode *slots*; the serve engine advances every slot with a single
 per-leaf batch-axis map (dense KV leaves are ``(L, B, S, KVH, hd)``, the
 ssm state leaves ``(NG, B, H, ...)``: the slot axis is 1 in both),
 discovered structurally by comparing ``init_cache(1)`` with
-``init_cache(2)`` shapes on the ``meta`` device.
+``init_cache(2)`` shapes on the ``meta`` device (the hybrid family's group
+Mamba2 states ``(NG, ke, B, ...)`` have it at 2).
 
 JAX's slot writers are jitted with donation; here every slot operation
 writes the pool's tensors in place:
@@ -24,7 +25,8 @@ only ``ceil(rows_written / page_size)`` pages, and its pages return to the
 free list (:class:`PagePool`) the moment its request retires. The decode
 step reads a dense view gathered through the table (``index_select``) and
 the stepped view is scattered back (``index_copy_``); both are plain
-indexing, as ``jnp.take`` and ``.at[].set`` are in the JAX package.
+indexing, as ``jnp.take`` and ``.at[].set`` are in the JAX package. Leaves
+with no rows to page (recurrent state) stay dense per slot.
 """
 from __future__ import annotations
 
@@ -197,10 +199,14 @@ class PagedSlotCache:
     * :meth:`write_prefill` writes a prefilled batch-1 cache (of any length
       up to ``max_seq``) into the slot's pages, zeros past its rows.
 
-    Every leaf is paged, its sequence axis right after its slot axis (the
-    dense family's KV). A model with no ``max_seq``-scaling leaf (the ssm
-    family) is refused; the reference keeps such leaves dense per slot for
-    the mixed families (vlm, hybrid), which the port does not build yet.
+    Only the leaves whose sequence axis follows their slot axis are paged
+    (every KV layout of the port). The others (the hybrid family's Mamba2
+    states) stay dense per slot, as the reference keeps them: the pool
+    holds the leaf repeated along its slot axis, :meth:`write_prefill`
+    writes it at the slot, :meth:`gather_dense` passes it through (the
+    decode step then updates it in place) and :meth:`scatter_dense` writes
+    a stepped copy back. A model with no ``max_seq``-scaling leaf (the ssm
+    family) is refused.
     """
 
     def __init__(self, model, batch: int, max_seq: int, page_size: int, *,
@@ -224,22 +230,31 @@ class PagedSlotCache:
         shapes = model.init_cache(1, max_seq, device="meta")
         self._b_ax = batch_axes(model, max_seq)
         s_axes = seq_axes(model)
-        if all(s is None for s in s_axes):
-            raise ValueError("model cache has no max_seq-scaling leaves to page; use the "
-                             "contiguous SlotCache")
+        self._paged = []
         for shp, b_ax, s_ax in zip(shapes, self._b_ax, s_axes):
-            if b_ax is None or s_ax != b_ax + 1:
+            if s_ax is None or b_ax is None:
+                self._paged.append(False)
+                continue
+            if s_ax != b_ax + 1:
                 raise NotImplementedError(
                     "paged cache needs the sequence axis immediately after the slot axis; "
                     f"leaf {tuple(shp.shape)} has batch axis {b_ax} and sequence axis {s_ax}")
+            self._paged.append(True)
+        if not any(self._paged):
+            raise ValueError("model cache has no max_seq-scaling leaves to page; use the "
+                             "contiguous SlotCache")
         template = model.init_cache(1, max_seq)
         # the zero page stands for the initial cache, so the initial KV must
         # be zeros
-        if any(leaf.any() for leaf in template):
+        if any(leaf.any() for leaf, paged in zip(template, self._paged) if paged):
             raise ValueError("pageable cache leaf has a nonzero template; the paged "
                              "gather's zero page for unallocated rows assumes KV zeros")
         pool = []
-        for leaf, b_ax in zip(template, self._b_ax):
+        for leaf, b_ax, paged in zip(template, self._b_ax, self._paged):
+            if not paged:  # dense per slot (a leaf with no slot axis is shared)
+                pool.append(leaf if b_ax is None else
+                            leaf.repeat_interleave(batch, dim=b_ax).contiguous())
+                continue
             shp = list(leaf.shape)
             shp[b_ax], shp[b_ax + 1] = pool_pages + 1, page_size
             pool.append(torch.zeros(shp, dtype=leaf.dtype, device=leaf.device))
@@ -263,12 +278,15 @@ class PagedSlotCache:
     # -------------------- pool <-> dense views --------------------
     def gather_dense(self) -> Cache:
         """The dense ``init_cache(batch, max_seq)`` view of the pool, each
-        leaf gathered through the table (rows without a page read the zero
-        page)."""
+        paged leaf gathered through the table (rows without a page read the
+        zero page); a dense-per-slot leaf is the pool's own tensor."""
         B, P, ps, S = self.batch, self.pages_per_slot, self.page_size, self.max_seq
         flat = self.table.reshape(-1)
         out = []
-        for p, b_ax in zip(self.pool, self._b_ax):
+        for p, b_ax, paged in zip(self.pool, self._b_ax, self._paged):
+            if not paged:
+                out.append(p)
+                continue
             g = p.index_select(b_ax, flat)  # (..., B*P, ps, ...)
             g = g.reshape(g.shape[:b_ax] + (B, P * ps) + g.shape[b_ax + 2:])
             if P * ps != S:
@@ -279,9 +297,15 @@ class PagedSlotCache:
     def scatter_dense(self, dense: Cache) -> None:
         """Write a (stepped) dense view back into the slots' allocated
         pages. Rows without a page are dropped: the engine backs every row
-        a decode step writes (:meth:`ensure_rows`) first."""
+        a decode step writes (:meth:`ensure_rows`) first. A dense-per-slot
+        leaf is copied back whole (nothing to do when the view is the
+        pool's own tensor, which the decode step updated in place)."""
         B, P, ps, S = self.batch, self.pages_per_slot, self.page_size, self.max_seq
-        for p, d, b_ax in zip(self.pool, dense, self._b_ax):
+        for p, d, b_ax, paged in zip(self.pool, dense, self._b_ax, self._paged):
+            if not paged:
+                if d is not p:
+                    p.copy_(d)
+                continue
             if P * ps != S:
                 pad = list(d.shape)
                 pad[b_ax + 1] = P * ps - S
@@ -329,14 +353,18 @@ class PagedSlotCache:
         """Install a prefilled batch-1 cache into ``slot``: its rows
         ``[0, n)`` (``n`` its sequence length, at most ``max_seq``) and
         zeros after them, into every page the slot holds; rows past the
-        slot's pages are dropped. The caller backs the prompt's rows with
-        :meth:`ensure_rows` first."""
+        slot's pages are dropped; and its dense-per-slot leaves at the slot.
+        The caller backs the prompt's rows with :meth:`ensure_rows` first."""
         held = self._slot_pages[slot]
-        if not held:
-            return
         ps = self.page_size
         ids = torch.as_tensor(held, device=self.device)
-        for p, o, b_ax in zip(self.pool, one_cache, self._b_ax):
+        for p, o, b_ax, paged in zip(self.pool, one_cache, self._b_ax, self._paged):
+            if not paged:
+                if b_ax is not None:
+                    p.narrow(b_ax, slot, 1).copy_(o)
+                continue
+            if not held:
+                continue
             shp = list(o.shape)
             n = min(shp[b_ax + 1], len(held) * ps)
             shp[b_ax], shp[b_ax + 1] = len(held), ps

@@ -274,6 +274,9 @@ FLASH_CASES = [
     (1, 1024, 1024, 9, 3, 64, True),
     (1, 1100, 1100, 2, 2, 32, True),
     (1, 1000, 1000, 2, 1, 128, False),
+    (1, 128, 128, 48, 8, 128, True),    # dbrx-132b's prefill attention
+    (1, 512, 512, 48, 8, 128, True),
+    (1, 1024, 1024, 32, 32, 64, True),  # zamba2-1.2b's shared block
 ]
 SPLIT_CASES = [c for c in FLASH_CASES if c[1] >= 700]
 
@@ -357,6 +360,66 @@ def test_greedy_batched_matches_sequential_on_the_card(cuda):
     want = eng.generate_sequential(ref_reqs, seed=0)
     assert [r.out_tokens for r in got] == [r.out_tokens for r in want]
     assert all(len(r.out_tokens) == r.max_new_tokens for r in got)
+
+
+def _ragged_wave(cfg):
+    rng = np.random.default_rng(0)
+    return [Request(prompt=rng.integers(1, cfg.vocab_size, size=n).astype(np.int32),
+                    max_new_tokens=m) for n, m in ((5, 6), (70, 3), (9, 8), (33, 5), (2, 4))]
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "zamba2-1.2b"])
+def test_moe_and_hybrid_greedy_batched_matches_sequential_on_the_card(cuda, arch):
+    """Reduced dbrx (drop-free capacity_factor = num_experts, as
+    tests/test_serve.py:185 serves it) and reduced zamba2 on the card:
+    Engine.generate == generate_sequential, every prefill through
+    flash_attention (dbrx: one launch a layer; zamba2: one a group)."""
+    cfg = get_config(arch).reduced()
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+    per_prefill = (cfg.num_layers // cfg.hybrid_attn_every if cfg.family == "hybrid"
+                   else cfg.num_layers)
+    model = build_model(cfg, CallConfig(), device=cuda, seed=0)
+    eng = Engine(model, batch=2, max_seq=96)
+    reqs = _ragged_wave(cfg)
+    flash_attention.launches = 0
+    got = eng.generate(reqs, seed=0)
+    assert flash_attention.launches == per_prefill * len(reqs)
+    oracle = [Request(prompt=r.prompt.copy(), max_new_tokens=r.max_new_tokens) for r in reqs]
+    want = eng.generate_sequential(oracle, seed=0)
+    assert [r.out_tokens for r in got] == [r.out_tokens for r in want]
+
+
+def test_paged_zamba2_matches_contiguous_on_the_card(cuda):
+    """A paged pool (KV rows in pages, Mamba2 states dense per slot) against
+    the contiguous pool on the card: the same greedy tokens, and a decode
+    step's logits bit for bit from the same prefills."""
+    from repro_torch.serve import PagedSlotCache, init_slots
+
+    cfg = get_config("zamba2-1.2b").reduced()
+    model = build_model(cfg, CallConfig(), device=cuda, seed=0)
+    runs = []
+    for kw in ({}, dict(page_size=8, pool_pages=20)):
+        runs.append([r.out_tokens for r in Engine(model, batch=2, max_seq=96, **kw)
+                     .generate(_ragged_wave(cfg), seed=0)])
+    assert runs[0] == runs[1]
+    dense, paged = init_slots(model, 3, 40), PagedSlotCache(model, 3, 40, 8)
+    rng = np.random.default_rng(1)
+    for b, n in ((0, 17), (2, 30)):
+        prompt = torch.as_tensor(rng.integers(1, cfg.vocab_size, size=(1, n)), device=cuda)
+        _, one = model.prefill(prompt, model.init_cache(1, 40))
+        paged.ensure_rows(b, n + 1)
+        paged.write_prefill(b, one)
+        dense.write_prefill(b, one)
+    tok = torch.ones((3, 1), dtype=torch.long, device=cuda)
+    pos = torch.tensor([17, 40, 30], device=cuda)
+    view = paged.gather_dense()
+    lp, _ = model.decode_step(tok, view, pos)
+    paged.scatter_dense(view)
+    ld, _ = model.decode_step(tok, dense.cache, pos)
+    assert torch.equal(lp, ld)
+    assert all(torch.equal(a, b) for a, b in zip(dense.cache, paged.gather_dense()))
 
 
 # (B, S, H, hd): ragged S, B = 2, S = 1, the reduced test config's hd 32

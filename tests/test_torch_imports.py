@@ -37,6 +37,13 @@ def test_source_imports_no_jax_and_no_repro(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_the_source_check_covers_every_model_family_module():
+    """The ported families' modules are among the files checked above."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("attention", "layers", "moe", "ssm", "transformer", "xlstm"):
+        assert f"src/repro_torch/models/{mod}.py" in names
+
+
 def test_importing_the_port_loads_no_jax():
     mods = sorted(
         "repro_torch." + ".".join(p.relative_to(ROOT / "src" / "repro_torch").with_suffix("").parts)

@@ -325,7 +325,7 @@ def test_model_init_is_seeded_and_dense_only():
     k, v = a.init_cache(2, 8)
     assert k.shape == (cfg.num_layers, 2, 8, cfg.num_kv_heads, cfg.head_dim)
     assert k.dtype == torch.bfloat16 and not k.any()
-    for arch in ("zamba2-1.2b", "dbrx-132b", "musicgen-large"):
+    for arch in ("llama-3.2-vision-90b", "musicgen-large"):  # vlm, audio
         with pytest.raises(NotImplementedError, match="not ported yet"):
             build_model(get_config(arch).reduced(), device="cpu")
 

@@ -12,7 +12,10 @@
 * the constructors' errors and ``OutOfPages`` carry the reference's words;
 * ``seq_axes`` finds the dense KV's sequence axis, and the ssm family
   (xlstm), whose state does not scale with ``max_seq``, is refused by the
-  paged cache in both packages.
+  paged cache in both packages;
+* mixed leaves (reduced zamba2: paged KV rows, Mamba2 states dense per
+  slot): the pool's leaves take the reference's shapes, and paged reads
+  equal contiguous reads bitwise through admits, retires and refills.
 
 Property tests run under real hypothesis when installed and under
 ``tests/_hypothesis_stub.py`` otherwise; the model and caches live in a
@@ -70,6 +73,15 @@ def served():
         cfg = get_config("smollm-135m").reduced()
         _MEMO["served"] = (cfg, build_model(cfg, device="cpu", seed=0))
     return _MEMO["served"]
+
+
+def hybrid():
+    """Reduced zamba2-1.2b in the port (its cache mixes pageable KV leaves
+    with per-slot Mamba2 states), bfloat16."""
+    if "hybrid" not in _MEMO:
+        cfg = get_config("zamba2-1.2b").reduced()
+        _MEMO["hybrid"] = (cfg, build_model(cfg, device="cpu", seed=0))
+    return _MEMO["hybrid"]
 
 
 def cache_pair(page_size):
@@ -314,3 +326,60 @@ def test_paged_memory_footprint_smaller():
     assert cache_bytes(paged.pool) == cache_bytes(dense.cache) * 5 // 9
     assert trim_report(paged.pool) == {"n_leaves": 2,
                                        "total_gb": cache_bytes(paged.pool) / 1e9}
+
+
+# -------------------- mixed leaves: paged KV, per-slot recurrent state --------------------
+def test_mixed_leaves_pool_layout_is_the_reference():
+    """zamba2's six leaves: the two KV leaves paged as (NG, pool_pages + 1,
+    page_size, KVH, hd), the four Mamba2 states repeated along their slot
+    axis (2 on the group states, 1 on the tail's), as the reference's pool
+    holds them; the axes are the reference's too."""
+    _, model = hybrid()
+    jm = jax_build_model(jax_get_config("zamba2-1.2b").reduced(), JaxCallConfig(remat="none"))
+    paged, ref = PagedSlotCache(model, B, S, 5, pool_pages=4), \
+        jkv.PagedSlotCache(jm, B, S, 5, pool_pages=4)
+    assert paged._paged == list(ref._paged) == [True, True, False, False, False, False]
+    assert list(paged._b_ax) == list(ref._b_ax) == [1, 1, 2, 2, 1, 1]
+    assert seq_axes(model) == tuple(ref._s_ax) == (2, 2, None, None, None, None)
+    assert [tuple(t.shape) for t in paged.pool] == \
+        [tuple(a.shape) for a in jax.tree.leaves(ref.pool)]
+    contiguous = model.init_cache(B, S)
+    for t, c, pg in zip(paged.pool, contiguous, paged._paged):
+        if not pg:
+            assert t.shape == c.shape and torch.equal(t, c)
+
+
+@settings(max_examples=8, deadline=None)
+@given(page_size=st.sampled_from([1, 4, 5, 12]), seed=st.integers(0, 2**31 - 1))
+def test_mixed_paged_reads_match_contiguous_bitwise(page_size, seed):
+    """Random admit/retire/refill sequences through a SlotCache and a
+    PagedSlotCache of zamba2: after every operation the paged dense view
+    equals the contiguous cache leaf for leaf (the KV rows through the
+    table, the per-slot states written at their slot), and the dense view
+    of a per-slot state is the pool's own tensor."""
+    cfg, model = hybrid()
+    rng = np.random.RandomState(seed)
+    dense, paged = init_slots(model, B, S), PagedSlotCache(model, B, S, page_size)
+    rows_in = [0] * B
+    for _ in range(6):
+        b = rng.randint(B)
+        if rows_in[b]:
+            dense.reset_slot(b)
+            paged.free_slot(b)
+            paged.write_prefill(b, model.init_cache(1, S))  # the per-slot states, reset
+            rows_in[b] = 0
+            if rng.rand() < 0.35:
+                continue
+        plen = int(rng.choice([2, 5, 9]))
+        one = prefilled(model, rng.randint(1, cfg.vocab_size, size=plen).astype(np.int32))
+        paged.ensure_rows(b, plen)
+        paged.write_prefill(b, one)
+        dense.write_prefill(b, one)
+        rows_in[b] = plen
+        view = paged.gather_dense()
+        assert leaves_equal(dense.cache, view), page_size
+        assert all(v is p for v, p, pg in zip(view, paged.pool, paged._paged) if not pg)
+        assert leaves_equal(paged.read_slot(b), dense.read_slot(b))
+    view = tuple(t.clone() for t in paged.gather_dense())
+    paged.scatter_dense(view)  # a stepped copy of the states is written back
+    assert leaves_equal(view, paged.gather_dense())
