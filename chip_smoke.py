@@ -3,14 +3,17 @@
 
     python3 chip_smoke.py        # from the repository root; one CUDA card, nvcc
 
-Eight paths: the compiled VGG-16 executor (phases 3-5, and split over two
+Ten paths: the compiled VGG-16 executor (phases 3-5, and split over two
 shards in phase 15), serving smollm-135m (phases 3, 6 and 7; streaming, paged
 and faulted in phases 16-17) and serving xlstm-350m (phases 3, 8 and 9), both
 at their full published widths, the paper's Tab. IV evaluation and
 design-space sweep (phases 10-12), VGG-16 compiled around faults and from a
 searched mapping (phases 13-14), serving dbrx-132b at full width with its
-depth cut to 4 layers (phases 18-19) and serving zamba2-1.2b whole,
-contiguous and paged (phases 20-21). Phases, each printing JSON lines:
+depth cut to 4 layers (phases 18-19), serving zamba2-1.2b whole,
+contiguous and paged (phases 20-21), and the model's own prefill and decode
+of llama-3.2-vision-90b at full width cut to 2 of its 20 groups (phases
+22-23) and of musicgen-large whole (phases 24-25), which no engine serves.
+Phases, each printing JSON lines:
 
 1. card      — the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build     — the four CUDA kernels built from src/repro_torch/csrc/*.cu for
@@ -22,7 +25,12 @@ contiguous and paged (phases 20-21). Phases, each printing JSON lines:
                smollm's batch-1 prefill attention at S = 128, 517, 1024, 2048 and
                at every prompt length the serve phase prefills, dbrx-132b's
                (48 heads, 8 KV heads, hd 128) at S = 128 and 512 and
-               zamba2-1.2b's (32 heads, 32 KV heads, hd 64) at S = 1024, in
+               zamba2-1.2b's (32 heads, 32 KV heads, hd 64) at S = 1024,
+               llama-3.2-vision-90b's 8-row cross attention (64 heads, 8 KV
+               heads, hd 128, non-causal, Skv = 1,601 image tokens) at
+               Sq = 1 (a decode step) and 512 (a prefill) and its self
+               attention at S = 512, musicgen-large's 8-row prefill (32
+               heads, 32 KV heads, hd 64) at S = 512, in
                bfloat16 and float32, for flash_attention; xlstm-350m's batch-1 prefill recurrence
                (1, S, 4, 1024) with 4 heads of 256 at S = 128, 517, 1024 and at
                every prompt length the xlstm serve phase prefills, for
@@ -187,7 +195,38 @@ contiguous and paged (phases 20-21). Phases, each printing JSON lines:
                equal to the JAX package's (FAULTS_CLOCK), 6 flash launches a
                prefill, decode step, gather and scatter times;
 21. profile-serve — the same two windows for zamba2-1.2b;
-22. the seconds of each phase, the kernels line (each kernel's launches on
+22. model-vlm — llama-3.2-vision-90b at its published widths (d_model 8192,
+               64 heads, 8 KV heads, d_ff 28672, vocab 128256, rope theta 5e5,
+               1,601 image tokens) with its 100 layers cut to 10, 2 of its 20
+               groups of 4 self layers and 1 cross layer (the line's
+               "reduced"; 39.7 GiB of float32 weights), bf16, weights from
+               seed 0, image embeddings from synth_image_embeds with seed 1:
+               8 rows of a 512-token prompt (numpy.random.default_rng(2)) and
+               one image each, one prefill and 32 greedy decode steps in
+               lockstep (a shared position) through Model.prefill /
+               decode_step: prefill ms, TTFT, decode-step ms, decode tokens/s,
+               peak memory, flash_attention launches (10 a prefill, 2 a decode
+               step: the cross layers at Sq = 1); the same run with the plain
+               attention and how many greedy tokens agree; the prefill's
+               last-token logits of the kernel path against the plain
+               attention, float32 on 2 rows within 2e-5 of max|plain|, every
+               flash call of those prefills within one rounding of plain on
+               its own inputs (both dtypes), bfloat16 on every row within
+               2e-2 unless the plain attention itself stands further from a
+               float64 attention (then reported, and the line says which case
+               held); prefill(t[:512]) + decode_step(t[512]) against
+               forward(t) in float32 within rtol = atol = 2e-2
+               (tests/test_models.py:86-98), the distance reported;
+23. profile-serve — the 8-row prefill's and decode step's windows for it;
+24. model-audio — musicgen-large whole (48 layers, d_model 2048, 32 heads,
+               d_ff 8192, layernorm, gelu, 4 codebooks of 2048), bf16, weights
+               from seed 0: 8 rows of 512 frames x 4 codebooks
+               (numpy.random.default_rng(3)), one prefill and 64 greedy decode
+               steps, each feeding back every codebook's argmax as the
+               (B, 1, K) token: phase 22's numbers and gates, 48
+               flash_attention launches a prefill and none a step;
+25. profile-serve — the same two windows for it;
+26. the seconds of each phase, the kernels line (each kernel's launches on
                every path), the card line, the result line.
 
 Any failed check exits non-zero before the result line is printed. Finding no
@@ -243,6 +282,7 @@ from repro_torch.kernels.ref import (  # noqa: E402
 from repro_torch.kernels.slstm import plan as slstm_plan  # noqa: E402
 from repro_torch.kernels.slstm import slstm_fused  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
+from repro_torch.models.frontend import synth_image_embeds  # noqa: E402
 from repro_torch.models.transformer import CallConfig, build_model  # noqa: E402
 from repro_torch.launch import table_iv  # noqa: E402
 from repro_torch.launch.sweep import check_against_scalar, smoke_1e6_grid  # noqa: E402
@@ -296,6 +336,15 @@ PATIENT = dict(max_restarts=10_000, backoff_s=1.0, backoff_mult=1.0)  # tests/te
 MOE_ARCH, MOE_LAYERS, MOE_REQUESTS, MOE_PROMPTS, MOE_NEW, MOE_MAX_SEQ = (
     "dbrx-132b", 4, 8, (128, 512), 32, 1024)
 HYBRID_ARCH = "zamba2-1.2b"
+# the vlm and audio phases: llama-3.2-vision-90b at full width with its 100
+# layers cut to VLM_LAYERS (2 of its 20 groups of 5: 8 self and 2 cross
+# layers; f32 weights ~42.6 GB), musicgen-large whole (~9.8 GB); ROWS rows in
+# lockstep: one prefill, then greedy decode steps at a shared position. The
+# float32 checks run on CHECK_ROWS of them
+VLM_ARCH, VLM_LAYERS, VLM_PROMPT, VLM_NEW = "llama-3.2-vision-90b", 10, 512, 32
+AUDIO_ARCH, AUDIO_FRAMES, AUDIO_NEW = "musicgen-large", 512, 64
+ROWS, CHECK_ROWS = 8, 2
+DECODE_RTOL = 2e-2  # prefill + decode against forward (tests/test_models.py:86-98, rtol = atol)
 FIRST_BURST = dict(PATIENT_TRAFFIC, name="chip-burst-8-patient", num_requests=8)
 # the virtual clock is a function of the profile, the pool and the fault draws
 # (eos_id=None): the JAX package's numbers on these profiles, which the CPU
@@ -519,25 +568,30 @@ def sdpa(q, k, v, causal):
     return out.transpose(1, 2)
 
 
-def check_flash(gen, S, dtype=torch.bfloat16, causal=True, H=9, KVH=3, hd=64, B=1):
+def check_flash(gen, S, dtype=torch.bfloat16, causal=True, H=9, KVH=3, hd=64, B=1, Skv=None):
+    """flash_attention at (B, Sq = S, Skv (default S), H, KVH, hd) against
+    its plain version and SDPA; the causal mask is top-left."""
+    Skv = S if Skv is None else Skv
     q = randn((B, S, H, hd), gen, dtype)
-    k, v = randn((B, S, KVH, hd), gen, dtype), randn((B, S, KVH, hd), gen, dtype)
+    k, v = randn((B, Skv, KVH, hd), gen, dtype), randn((B, Skv, KVH, hd), gen, dtype)
     got = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     want = flash_attention_ref(q, k, v, causal=causal)
     n_bytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-    pairs = S * (S + 1) // 2 if causal else S * S  # (q, k) pairs the mask keeps
+    # (q, k) pairs the mask keeps
+    pairs = sum(min(i + 1, Skv) for i in range(S)) if causal else S * Skv
     n_ops = 4.0 * hd * H * B * pairs
     t_parts, by = bound(n_bytes, n_ops, dtype)
-    p = flash_plan(B, S, S, H, KVH, hd, dtype, causal)
+    p = flash_plan(B, S, Skv, H, KVH, hd, dtype, causal)
+    shape = (B, S, H, KVH, hd) if Skv == S else (B, S, Skv, H, KVH, hd)
     extra = {"plan": dataclasses.asdict(p), "bound_3xtf32_ms": bound_3xtf32(n_bytes, n_ops, dtype),
              "graph_ms": graph_ms(lambda: flash_attention(q, k, v, causal=causal)),
              "library_graph_ms": graph_ms(lambda: sdpa(q, k, v, causal))}
     if p.splits > 1:
         extra["split_kv_same_bits"] = same_bits(lambda: flash_attention(q, k, v, causal=causal),
-                                                got, "flash_attention", (B, S, H, KVH, hd))
+                                                got, "flash_attention", shape)
     return compare(
-        "flash_attention" + ("" if causal else "(non-causal)"), (B, S, H, KVH, hd), dtype,
+        "flash_attention" + ("" if causal else "(non-causal)"), shape, dtype,
         got, want, cuda_ms(lambda: flash_attention(q, k, v, causal=causal)),
         cuda_ms(lambda: flash_attention_ref(q, k, v, causal=causal)),
         cuda_ms(lambda: sdpa(q, k, v, causal)), t_parts, by, one_rounding=True, extra=extra)
@@ -710,11 +764,7 @@ def serve_wave(vocab: int, n: int = N_REQUESTS, prompts=(128, 1024), max_new: in
 def prefill_logits(model, prompt, dtype, **changes):
     """The last-token logits of one batch-1 prefill of ``prompt`` with the
     model's CallConfig in ``dtype`` and ``changes``."""
-    cc = model.cc
-    model.cc = dataclasses.replace(cc, compute_dtype=dtype, cache_dtype=dtype, **changes)
-    out, _ = model.prefill(prompt[None, :], model.init_cache(1, len(prompt)))
-    model.cc = cc
-    return out
+    return lockstep_logits(model, prompt[None, :], {}, dtype, **changes)
 
 
 def rel_err(got, want) -> float:
@@ -1781,6 +1831,276 @@ def serve_hybrid_phase() -> tuple:
     return launches, paged["flash_attention_launches"], [line, paged]
 
 
+class configured:
+    """``with configured(model, **changes)``: the model's CallConfig with
+    ``changes`` inside the block, restored after it."""
+
+    def __init__(self, model, **changes):
+        self.model, self.changes = model, changes
+
+    def __enter__(self):
+        self.cc = self.model.cc
+        self.model.cc = dataclasses.replace(self.cc, **self.changes)
+        return self.model
+
+    def __exit__(self, *exc):
+        self.model.cc = self.cc
+
+
+def greedy(logits):
+    """The next tokens from last-position logits: (B, 1, V) -> (B, 1), and
+    for audio (B, 1, K, V) -> (B, 1, K), every codebook's argmax."""
+    return logits.argmax(dim=-1)
+
+
+def lockstep(model, tokens, new: int, kw: dict) -> dict:
+    """``tokens`` (B, S), or (B, S, K) for audio, prefilled at once, then
+    ``new`` greedy decode steps at a shared position, each feeding back the
+    argmax. Host-clock times ending in a synchronize (TTFT: until the first
+    tokens are on the host), flash_attention launches of the prefill and of
+    the decode steps, peak memory, the prefill's logits and the
+    ``new + 1`` generated tokens on the host."""
+    B, S = tokens.shape[:2]
+    cache = model.init_cache(B, S + new)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(tokens, cache, **kw)
+    tok = greedy(logits)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    out = [tok.cpu()]
+    ttft = time.perf_counter() - t0
+    prefill_launches = flash_attention.launches
+    steps = []
+    for i in range(new):
+        t = time.perf_counter()
+        step_logits, cache = model.decode_step(tok, cache, S + i)
+        tok = greedy(step_logits)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t) * 1e3)
+        out.append(tok.cpu())
+    if not (torch.isfinite(logits).all() and torch.isfinite(step_logits).all()):
+        fail(f"{model.cfg.name}: non-finite logits in the lockstep run")
+    return {"prefill_ms": prefill_s * 1e3, "ttft_ms": ttft * 1e3, "steps_ms": steps,
+            "prefill_launches": prefill_launches,
+            "decode_launches": flash_attention.launches - prefill_launches,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "logits": logits, "tokens": torch.cat(out, dim=1)}
+
+
+def lockstep_logits(model, tokens, kw: dict, dtype, attention=None, **changes):
+    """The prefill's last-token logits of ``tokens`` with the model's
+    CallConfig in ``dtype`` (cache too) and ``changes``; with ``attention``,
+    that function in place of ops.flash_attention."""
+    kernel_path = ops.flash_attention
+    if attention is not None:
+        ops.flash_attention = attention
+    try:
+        with configured(model, compute_dtype=dtype, cache_dtype=dtype, **changes):
+            return model.prefill(tokens, model.init_cache(tokens.shape[0], tokens.shape[1]),
+                                 **kw)[0]
+    finally:
+        ops.flash_attention = kernel_path
+
+
+def row_errs(got, want) -> list:
+    """rel_err of each row."""
+    return [rel_err(g, w) for g, w in zip(got, want)]
+
+
+def model_checks(model, tokens, kw: dict, run: dict, plain: dict) -> dict:
+    """The logits checks of a lockstep phase. Prefill last-token logits of
+    the kernel path against the plain attention (kernel_backend="ref"):
+    float32 on CHECK_ROWS rows within 2e-5 of max|plain| (and both paths
+    reported against a float64 attention), every flash_attention call of
+    the kernel-path prefills in both dtypes within one rounding of the plain
+    attention on its own inputs (flash_held); bfloat16 on every row (the
+    timed runs' logits) within 2e-2, unless the plain attention itself
+    stands further than 2e-2 from a float64 attention, which is then
+    reported as the case that holds. Then prefill(t[:S]) + decode_step(t[S])
+    against forward(t) in float32 on CHECK_ROWS rows, rtol = atol =
+    DECODE_RTOL. Returns the fields, failures under ``_failures``."""
+    kernel_path, worst, failures = ops.flash_attention, {}, []
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = tokens[:CHECK_ROWS]
+    rkw = {k: v[:CHECK_ROWS] for k, v in kw.items()}
+    got = lockstep_logits(model, rows, rkw, f32, flash_held(kernel_path, worst))
+    plain32 = lockstep_logits(model, rows, rkw, f32, kernel_backend="ref")
+    exact32 = lockstep_logits(model, rows, rkw, f32, attention_f64)
+    errs32 = row_errs(got, plain32)
+    lockstep_logits(model, tokens, kw, bf16, flash_held(kernel_path, worst))
+    exact16 = lockstep_logits(model, tokens, kw, bf16, attention_f64)
+    errs16 = row_errs(run["logits"], plain["logits"])
+    plain16_vs_f64 = row_errs(plain["logits"], exact16)
+    if max(errs32) > TOL[f32]:
+        failures.append(f"float32 prefill logits with the kernel: {max(errs32)} of max|plain| > "
+                        f"{TOL[f32]}")
+    if max(worst.values()) > 1.0:
+        failures.append(f"a flash_attention call of a prefill is off the plain attention on "
+                        f"its inputs: {worst} x the limit")
+    if max(errs16) <= TOL[bf16]:
+        case = "gated: within 2e-2 of max|plain|"
+    elif max(plain16_vs_f64) > TOL[bf16]:
+        case = (f"reported: the plain attention stands {max(plain16_vs_f64)} from a float64 "
+                f"attention, further than {TOL[bf16]}")
+    else:
+        case = "failed"
+        failures.append(f"bfloat16 prefill logits with the kernel: {max(errs16)} of max|plain| "
+                        f"> {TOL[bf16]}, the plain attention within it of a float64 one")
+
+    # decode against forward, float32, the kernel path: t = the prompt and
+    # the kernel path's first generated token
+    S = tokens.shape[1]
+    t = torch.cat([rows, run["tokens"][:CHECK_ROWS, :1].to(rows.device)], dim=1)
+    with configured(model, compute_dtype=f32, cache_dtype=f32):
+        full, _ = model.forward(t, **rkw)
+        lg, cache = model.prefill(t[:, :S], model.init_cache(CHECK_ROWS, S + 1), **rkw)
+        step, _ = model.decode_step(t[:, S:S + 1], cache, S)
+    decode = {"prefill": rel_err(lg[:, 0], full[:, S - 1]),
+              "decode_step": rel_err(step[:, 0], full[:, S])}
+    ratio = max(close_within(lg[:, 0], full[:, S - 1], DECODE_RTOL, DECODE_RTOL)[1],
+                close_within(step[:, 0], full[:, S], DECODE_RTOL, DECODE_RTOL)[1])
+    if ratio > 1.0:
+        failures.append(f"prefill + decode_step off forward by {ratio} x rtol = atol = "
+                        f"{DECODE_RTOL}")
+    return {"prefill_logits_max_rel_err": {"float32": errs32, "bfloat16": errs16},
+            "prefill_logits_vs_f64_attention": {
+                "float32": {"kernel": row_errs(got, exact32), "plain": row_errs(plain32, exact32)},
+                "bfloat16": {"plain": plain16_vs_f64}},
+            "prefill_logits_tol": {"float32": TOL[f32], "bfloat16": TOL[bf16]},
+            "bfloat16_case": case,
+            "flash_calls_worst_err_over_limit": worst,
+            "decode_vs_forward_rel_err": decode, "decode_vs_forward_over_tol": ratio,
+            "decode_vs_forward_tol": {"rtol": DECODE_RTOL, "atol": DECODE_RTOL},
+            "_failures": failures}
+
+
+def profile_lockstep(model, cfg, tokens, kw: dict) -> None:
+    """Where a lockstep prefill's and decode step's device time goes (all
+    ROWS rows; the step at position S); fails if a library attention kernel
+    runs in the prefill."""
+    B, S = tokens.shape[:2]
+    cache = model.init_cache(B, S + 1)
+    emit({"phase": "profile-serve", "arch": cfg.name, "what": "prefill", "rows": B,
+          "prompt_len": S, **profile_window(lambda: model.prefill(tokens, cache, **kw),
+                                            "a prefill", forbid=LIBRARY_ATTENTION)})
+    tok = greedy(model.prefill(tokens, cache, **kw)[0])
+    emit({"phase": "profile-serve", "arch": cfg.name, "what": "decode_step", "rows": B,
+          "pos": S, **profile_window(lambda: model.decode_step(tok, cache, S),
+                                     "a decode step")})
+
+
+def model_phase(phase: str, model, cfg, tokens, kw: dict, new: int, per_prefill: int,
+                per_step: int, fields: dict) -> tuple:
+    """A lockstep run of ``model`` (bf16) through its prefill and ``new``
+    greedy decode steps, warmed up once: prefill ms, TTFT, decode-step ms,
+    decode tokens/s, peak memory, flash_attention launches (``per_prefill``
+    a prefill, ``per_step`` a decode step); the same run with the plain
+    attention and how many of its greedy tokens the kernel path's equal;
+    then model_checks. Returns the line and the kernel path's launches."""
+    B, S = tokens.shape[:2]
+    warm = model.init_cache(B, S + 2)
+    logits, warm = model.prefill(tokens, warm, **kw)
+    for i in range(2):
+        logits, warm = model.decode_step(greedy(logits), warm, S + i)
+    del warm, logits
+    run = lockstep(model, tokens, new, kw)
+    with configured(model, kernel_backend="ref"):
+        plain = lockstep(model, tokens, new, kw)
+    equal = run["tokens"] == plain["tokens"]
+    diverged = (~equal).reshape(B, new + 1, -1).any(dim=-1)
+    first_diff = [int(d.nonzero()[0]) if d.any() else None for d in diverged]
+    checks = model_checks(model, tokens, kw, run, plain)
+    failures = checks.pop("_failures")
+    steps = run["steps_ms"]
+    launches = run["prefill_launches"] + run["decode_launches"]
+    line = {"phase": phase, "arch": cfg.name, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+            "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "dtype": "bfloat16", "rows": B,
+            "prompt_len": S, "decode_steps": new, **fields,
+            "prefill_ms": run["prefill_ms"], "ttft_ms": run["ttft_ms"],
+            "prefill_tokens_s": B * S / run["prefill_ms"] * 1e3,
+            "median_decode_step_ms": statistics.median(steps), "decode_steps_ms": steps,
+            "decode_tokens_s": B * new / sum(steps) * 1e3,
+            "peak_mem_gib": run["peak_mem_gib"],
+            "flash_attention_launches": {"prefill": run["prefill_launches"],
+                                         "decode": run["decode_launches"]},
+            "greedy_tokens_equal_to_plain": [int(equal.sum()), equal.numel()],
+            "first_token_differing_from_plain": first_diff,
+            "plain_prefill_ms": plain["prefill_ms"],
+            "plain_median_decode_step_ms": statistics.median(plain["steps_ms"]), **checks}
+    emit(line)
+    if run["prefill_launches"] != per_prefill or run["decode_launches"] != per_step * new:
+        fail(f"{phase}: flash_attention launched {run['prefill_launches']} times in the "
+             f"prefill and {run['decode_launches']} in {new} decode steps, expected "
+             f"{per_prefill} and {per_step} each")
+    if plain["prefill_launches"] + plain["decode_launches"] != 0:
+        fail(f"{phase}: the plain path launched flash_attention")
+    tok = run["tokens"]
+    if tok.shape[:2] != (B, new + 1) or tok.min() < 0 or tok.max() >= cfg.vocab_size:
+        fail(f"{phase}: generated tokens of shape {tuple(tok.shape)} outside [0, "
+             f"{cfg.vocab_size})")
+    if failures:
+        fail(f"{phase}: " + "; ".join(failures))
+    return line, launches
+
+
+def model_vlm_phase() -> tuple:
+    """llama-3.2-vision-90b at full width, VLM_LAYERS layers (bf16, weights
+    from seed 0, image embeds from synth_image_embeds with seed 1): ROWS
+    rows of a VLM_PROMPT-token prompt (default_rng(2)) and one image each,
+    one prefill and VLM_NEW lockstep decode steps (model_phase: 10
+    flash_attention launches a prefill, 8 self and 2 cross, and 2 a decode
+    step, the cross layers at Sq = 1); its profile windows. Returns the
+    kernel path's flash launches and the line."""
+    full = get_config(VLM_ARCH)
+    cfg = dataclasses.replace(full, num_layers=VLM_LAYERS)
+    groups = cfg.num_layers // cfg.cross_attn_every
+    t0 = time.perf_counter()
+    model = build_model(cfg, CallConfig(), device="cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    image = synth_image_embeds(torch.Generator(device="cuda").manual_seed(1), cfg, ROWS)
+    tokens = torch.as_tensor(np.random.default_rng(2).integers(
+        1, cfg.vocab_size, size=(ROWS, VLM_PROMPT)), device="cuda")
+    kw = {"image_embeds": image}
+    fields = {"reduced": {"num_layers": [full.num_layers, cfg.num_layers],
+                          "groups": [full.num_layers // cfg.cross_attn_every, groups]},
+              "cross_attn_every": cfg.cross_attn_every, "image_tokens": cfg.num_image_tokens,
+              "rope_theta": cfg.rope_theta,
+              "weights_gib": sum(p.numel() * p.element_size()
+                                 for p in model.parameters()) / 2**30, "init_s": init_s}
+    line, launches = model_phase("model-vlm", model, cfg, tokens, kw, VLM_NEW, cfg.num_layers,
+                                 groups, fields)
+    profile_lockstep(model, cfg, tokens, kw)
+    return launches, line
+
+
+def model_audio_phase() -> tuple:
+    """musicgen-large whole (bf16, weights from seed 0): ROWS rows of
+    AUDIO_FRAMES frames x 4 codebooks (default_rng(3)), one prefill and
+    AUDIO_NEW lockstep decode steps, each feeding back every codebook's
+    argmax as the (B, 1, K) token (model_phase: 48 flash_attention launches
+    a prefill, none a decode step); its profile windows. Returns the kernel
+    path's flash launches and the line."""
+    cfg = get_config(AUDIO_ARCH)
+    t0 = time.perf_counter()
+    model = build_model(cfg, CallConfig(), device="cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, size=(ROWS, AUDIO_FRAMES, cfg.num_codebooks)), device="cuda")
+    fields = {"codebooks": cfg.num_codebooks, "norm": cfg.norm, "activation": cfg.activation,
+              "weights_gib": sum(p.numel() * p.element_size()
+                                 for p in model.parameters()) / 2**30, "init_s": init_s}
+    line, launches = model_phase("model-audio", model, cfg, tokens, {}, AUDIO_NEW,
+                                 cfg.num_layers, 0, fields)
+    profile_lockstep(model, cfg, tokens, {})
+    return launches, line
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
@@ -1862,6 +2182,16 @@ def main() -> None:
         for S in lengths:
             for dtype in (torch.bfloat16, torch.float32):
                 check_flash(gen, S, dtype, H=c.num_heads, KVH=c.num_kv_heads, hd=c.head_dim)
+    vcfg, acfg = get_config(VLM_ARCH), get_config(AUDIO_ARCH)
+    vshape = dict(H=vcfg.num_heads, KVH=vcfg.num_kv_heads, hd=vcfg.head_dim, B=ROWS)
+    for dtype in (torch.bfloat16, torch.float32):
+        # the vlm's cross layers in a decode step (Sq = 1) and a prefill, its
+        # self layers' prefill; musicgen's prefill attention
+        check_flash(gen, 1, dtype, causal=False, Skv=vcfg.num_image_tokens, **vshape)
+        check_flash(gen, VLM_PROMPT, dtype, causal=False, Skv=vcfg.num_image_tokens, **vshape)
+        check_flash(gen, VLM_PROMPT, dtype, **vshape)
+        check_flash(gen, AUDIO_FRAMES, dtype, H=acfg.num_heads, KVH=acfg.num_kv_heads,
+                    hd=acfg.head_dim, B=ROWS)
     xcfg = get_config(XLSTM_ARCH)
     xlstm_shape = dict(H=xcfg.num_heads, hd=xcfg.head_dim)
     for S in (128, 517, 1024):  # xlstm-350m's batch-1 prefill recurrence
@@ -2004,7 +2334,17 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_done("serve-hybrid")
 
-    # 22. the phases' seconds, the kernels line, the card, the result
+    # 22-23. llama-3.2-vision-90b at full width (10 layers): prefill and decode in lockstep
+    vlm_launches, _ = model_vlm_phase()
+    torch.cuda.empty_cache()
+    phase_done("model-vlm")
+
+    # 24-25. musicgen-large whole: prefill and decode in lockstep
+    audio_launches, _ = model_audio_phase()
+    torch.cuda.empty_cache()
+    phase_done("model-audio")
+
+    # 26. the phases' seconds, the kernels line, the card, the result
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
     emit({"kernels": [
         {"name": "com_matmul", "route": "cuda", "source": "src/repro_torch/csrc/com_matmul.cu",
@@ -2026,7 +2366,8 @@ def main() -> None:
          "launches_by_path": {"serve": flash_launches, "serve-traffic": traffic_launches,
                               "serve-faults": fault_launches, "serve-moe": moe_launches,
                               "serve-hybrid": hybrid_launches,
-                              "serve-hybrid-paged": hybrid_paged_launches},
+                              "serve-hybrid-paged": hybrid_paged_launches,
+                              "model-vlm": vlm_launches, "model-audio": audio_launches},
          **summary(flash_lines, serve_cfg.num_layers)},
         {"name": "slstm_fused", "route": "cuda", "source": "src/repro_torch/csrc/slstm.cu",
          "replaces": "src/repro/kernels/slstm.py:70",

@@ -1,7 +1,8 @@
 """Weights of the JAX package → the port's tensors, and back.
 
 Two kinds of weights: the executor's per-layer arrays (below), and a
-language model's parameter pytree (:func:`model_params_to_port`). Fault
+language model's parameter pytree of any of the six families
+(:func:`model_params_to_port`). Fault
 sets and mapping candidates carry over by their fields
 (:func:`faultset_to_port`, :func:`candidate_to_port`).
 
@@ -139,42 +140,60 @@ def _leaves(tree: Mapping[str, Any], prefix: str = "") -> Iterator[Tuple[str, An
             yield prefix + k, v
 
 
+def _stacking(cfg, model) -> Dict[str, Tuple[Tuple[int, ...], ...]]:
+    """Where the JAX tree is stacked: a name prefix → for each component of
+    the prefix, the stacked axes that follow it (``blocks.<g>.selfs.<i>``
+    is ``"blocks.selfs": ((NG,), (ce - 1,))``)."""
+    n = (len(model.blocks),)
+    if cfg.family == "hybrid":
+        return {"blocks": (n + (cfg.hybrid_attn_every,),),
+                "tail": ((len(getattr(model, "tail", ())),),)}
+    if cfg.family == "vlm":
+        return {"blocks.selfs": (n, (cfg.cross_attn_every - 1,)), "blocks.cross": (n, ())}
+    return {"blocks": (n,)}
+
+
 def model_params_to_port(cfg, params: Mapping[str, Any], *, cc=None, device=None):
     """A ``repro_torch.models.transformer.Model`` holding the JAX package's
     ``Model.init`` parameters.
 
     ``params`` is the JAX pytree (nested dicts) with numpy (or array-like)
     leaves. The leaves under ``blocks`` are stacked on a leading axis, one
-    entry per block of the port's model (a layer for dense and moe every
-    layer, a ``{dense, moe_l}`` group for moe every other layer, an
+    entry per block of the port's model (a layer for dense, audio and moe
+    every layer, a ``{dense, moe_l}`` group for moe every other layer, an
     ``[mLSTM, sLSTM]`` pair for ssm), and go to ``blocks.<l>``; the hybrid
     family's ``blocks`` are stacked on two, ``(NG, ke)``, and go to
     ``blocks.<g>.<i>``, its ``tail`` on one (``tail.<r>``), and its
-    ``shared_attn`` is not stacked. Every parameter of the port's model
-    must be given, with its exact shape.
+    ``shared_attn`` is not stacked. The vlm family's stacking differs per
+    subtree: ``blocks.selfs`` on ``(NG, ce - 1)`` → ``blocks.<g>.selfs.<i>``,
+    ``blocks.cross`` on ``(NG,)`` → ``blocks.<g>.cross``. The audio tables
+    ``(K, V, D)`` are not stacked. Every parameter of the port's model must
+    be given, with its exact shape.
     """
     from repro_torch.models.transformer import Model
 
     model = Model(cfg, cc, device=device)
-    stacked = {"blocks": (len(model.blocks),)}
-    if cfg.family == "hybrid":
-        stacked["blocks"] += (cfg.hybrid_attn_every,)
-        stacked["tail"] = (len(getattr(model, "tail", ())),)
+    stacking = _stacking(cfg, model)
     state = {}
     for name, leaf in _leaves(params):
         a = np.asarray(leaf, dtype=np.float32)
-        top, _, rest = name.partition(".")
-        axes = stacked.get(top)
-        if axes is None:
+        prefix = next((p for p in stacking if name.startswith(p + ".")), None)
+        if prefix is None:
             state[name] = torch.tensor(a)
             continue
+        levels = stacking[prefix]
+        axes = sum(levels, ())
         if a.shape[:len(axes)] != axes:
             got, want = a.shape[:len(axes)], axes
             if len(axes) == 1:
                 got, want = got[0] if got else None, want[0]
             raise ValueError(f"{name} stacks {got} blocks, the config has {want}")
+        rest = name[len(prefix) + 1:]
         for idx in np.ndindex(*axes):
-            state[".".join([top, *map(str, idx), rest])] = torch.tensor(a[idx])
+            parts, it = [], iter(idx)
+            for comp, lvl in zip(prefix.split("."), levels):
+                parts += [comp, *(str(next(it)) for _ in lvl)]
+            state[".".join(parts + [rest])] = torch.tensor(a[idx])
     own = model.state_dict()
     if set(state) != set(own):
         raise KeyError(f"parameters missing: {sorted(set(own) - set(state))}, "

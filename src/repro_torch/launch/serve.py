@@ -7,11 +7,18 @@ card by default.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --reduced --device cpu
 
 The port's copy of ``repro.launch.serve``: the same flags, plus
-``--device``. Serves the ported families: dense, moe, hybrid (zamba2-1.2b)
-and ssm (xlstm-350m). Weights are random, drawn from ``--seed``. As in the
-reference, an moe config whose ``capacity_factor`` is not drop-free at the
-slot-pool size (``dbrx-132b`` as published, 1.25, at more than one slot) is
-refused by the engine with a ``ValueError`` that names a drop-free value.
+``--device``. Serves the dense, moe, hybrid (zamba2-1.2b) and ssm
+(xlstm-350m) families. Weights are random, drawn from ``--seed``. As in the
+reference:
+
+* an moe config whose ``capacity_factor`` is not drop-free at the
+  slot-pool size (``dbrx-132b`` as published, 1.25, at more than one slot)
+  is refused by the engine with a ``ValueError`` that names a drop-free
+  value;
+* a vlm config (``llama-3.2-vision-90b``) builds, and the engine refuses
+  it with a ``ValueError``: a ``Request`` carries no ``image_embeds``;
+* an audio config (``musicgen-large``) exits before a model is built: the
+  slot pool feeds back one token a row, not ``(B, 1, K)`` codebook tokens.
 """
 from __future__ import annotations
 
@@ -46,6 +53,11 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.num_codebooks:
+        raise SystemExit(
+            f"{cfg.name}: the serving launcher does not serve multi-codebook audio (the slot "
+            "pool feeds back one token a row); call Model.prefill and Model.decode_step with "
+            "(B, 1, num_codebooks) tokens instead")
     model = build_model(cfg, CallConfig(), device=args.device, seed=args.seed)
 
     rng = np.random.default_rng(args.seed)

@@ -1,12 +1,12 @@
 """Attention: GQA projections, flash causal attention for prefill, decode
-attention against a KV cache.
+attention against a KV cache, and the vlm family's cross attention.
 
-The port's copy of ``repro.models.attention`` for self-attention (the
-cross-attention of the vlm family waits for that family). Prefill
-attention goes through :func:`repro_torch.kernels.ops.flash_attention`:
-the hand-written CUDA kernel for a tensor on the card, its plain PyTorch
-version for one on the CPU. Decode attention is the reference's explicit
-max-subtracted softmax chain in plain PyTorch.
+The port's copy of ``repro.models.attention``. Prefill attention and every
+cross attention (prefill and decode, non-causal, against the image tokens'
+K/V) go through :func:`repro_torch.kernels.ops.flash_attention`: the
+hand-written CUDA kernel for a tensor on the card, its plain PyTorch
+version for one on the CPU. Self-attention's decode step is the
+reference's explicit max-subtracted softmax chain in plain PyTorch.
 
 Where JAX returns an updated cache, the port writes the KV rows into the
 cache tensors it is given, in place.
@@ -123,6 +123,49 @@ def _write_decode_rows(cache: torch.Tensor, new: torch.Tensor, pos) -> None:
     at = pos.clamp(max=S - 1)
     keep = (pos < S)[:, None, None]
     cache[rows, at] = torch.where(keep, new, cache[rows, at])
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (vlm): queries from the text stream, K/V from image embeddings
+# ---------------------------------------------------------------------------
+
+
+def init_cross_attention(gen: torch.Generator, d: int, num_heads: int,
+                         num_kv_heads: int) -> dict:
+    """Attention parameters with no bias."""
+    return attention_params(gen, d, num_heads, num_kv_heads)
+
+
+def cross_kv(params: Params, ctx: torch.Tensor, num_heads: int, num_kv_heads: int, d: int):
+    """Project image embeddings to the cross K/V. ctx: (B, T, D) -> k, v,
+    each (B, T, KVH, hd), in ``ctx.dtype``."""
+    hd = d // num_heads
+    B, T = ctx.shape[:2]
+    k = (ctx @ params["wk"].to(ctx.dtype)).reshape(B, T, num_kv_heads, hd)
+    v = (ctx @ params["wv"].to(ctx.dtype)).reshape(B, T, num_kv_heads, hd)
+    return k, v
+
+
+def cross_attention_kv(params: Params, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       num_heads: int, *, block_kv: int = BLOCK_KV,
+                       backend: Optional[str] = None) -> torch.Tensor:
+    """Cross attention against precomputed (cached) K/V: q from ``wq`` with
+    no RoPE, non-causal flash attention over every image token (at Sq = 1
+    in a decode step), then ``wo``. k, v are cast to ``x.dtype``."""
+    B, S, d = x.shape
+    hd = d // num_heads
+    q = (x @ params["wq"].to(x.dtype)).reshape(B, S, num_heads, hd)
+    out = flash_attention(q, k.to(x.dtype), v.to(x.dtype), causal=False, block_kv=block_kv,
+                          backend=backend)
+    return out.reshape(B, S, num_heads * hd) @ params["wo"].to(x.dtype)
+
+
+def cross_attention(params: Params, x: torch.Tensor, ctx: torch.Tensor, num_heads: int,
+                    num_kv_heads: int, *, block_kv: int = BLOCK_KV,
+                    backend: Optional[str] = None) -> torch.Tensor:
+    """x: (B, S, D) text stream; ctx: (B, T, D) precomputed image embeddings."""
+    k, v = cross_kv(params, ctx, num_heads, num_kv_heads, x.shape[-1])
+    return cross_attention_kv(params, x, k, v, num_heads, block_kv=block_kv, backend=backend)
 
 
 def attention_block(

@@ -107,6 +107,19 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.reciprocal(1 + torch.exp(-x))
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (its default tanh form) as the reference's JAX
+    computes it: ``x * (0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 *
+    x**3))))``, each operation rounded in ``x``'s dtype, the constants cast
+    to it first (0.044677734375 and 0.796875 in bfloat16) and the cube two
+    rounded products (``integer_pow`` is ``x * x * x``). In bfloat16 that
+    differs from ``F.gelu(approximate="tanh")`` (one rounding) in about
+    two fifths of the elements."""
+    c = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
+    s = torch.tensor(math.sqrt(2.0 / math.pi), dtype=x.dtype, device=x.device)
+    return x * (0.5 * (1 + torch.tanh(s * (x + c * (x * x * x)))))
+
+
 # ---------------------------------------------------------------------------
 # MLP (SwiGLU / GELU)
 # ---------------------------------------------------------------------------
@@ -123,9 +136,13 @@ def mlp(params: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
     if activation == "silu":
         g = x @ params["wi_gate"].to(x.dtype)
         u = x @ params["wi_up"].to(x.dtype)
+        # F.silu rounds once where jax.nn.silu (layers.silu) rounds each
+        # operation in bfloat16; with layers.silu here, reduced zamba2's bf16
+        # tail state lands 2.08e-2 · max from the reference's, past the 2e-2
+        # of tests/test_torch_hybrid.py (ROADMAP Queue 3, item 18)
         h = F.silu(g) * u
-    else:  # jax.nn.gelu's default is the tanh form
-        h = F.gelu(x @ params["wi"].to(x.dtype), approximate="tanh")
+    else:
+        h = gelu(x @ params["wi"].to(x.dtype))
     return h @ params["wo"].to(x.dtype)
 
 

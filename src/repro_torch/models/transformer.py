@@ -1,24 +1,30 @@
-"""The model stack: ``Model`` / ``build_model``, for the dense, moe, hybrid
-and ssm families.
+"""The model stack: ``Model`` / ``build_model``, for all six families.
 
-The port's copy of ``repro.models.transformer`` for these layer layouts:
+The port's copy of ``repro.models.transformer``. The layer layouts:
 
-* ``dense``: uniform ``[attn + mlp] x L``, a KV cache;
+* ``dense`` and ``audio`` (musicgen-large): uniform ``[attn + mlp] x L``,
+  a KV cache; audio embeds ``K = num_codebooks`` token streams (the sum
+  of K table lookups) and returns ``(B, S, K, V)`` logits;
 * ``moe`` with ``moe_every == 1`` (dbrx-132b): uniform ``[attn + moe] x L``;
   with ``moe_every == 2`` (llama4-maverick): ``L / 2`` groups
   ``{dense, moe_l}``, a dense layer followed by an moe layer;
+* ``vlm`` (llama-3.2-vision-90b): ``NG = L // ce`` groups of ``ce - 1 =
+  cross_attn_every - 1`` self-attention layers (``selfs``) and one
+  cross-attention layer (``cross``) whose K/V are projected from the image
+  embeddings (``image_embeds=``, cast to the compute dtype);
 * ``hybrid`` (zamba2-1.2b): ``NG = L // ke`` groups of ``ke =
   hybrid_attn_every`` Mamba2 blocks, each group followed by the one
   **shared** attention + MLP block (one set of weights, its own KV cache
   in every group), then ``L % ke`` tail Mamba2 blocks;
 * ``ssm`` (xlstm-350m): ``L / 2`` pairs ``[mLSTM, sLSTM]``, a recurrent state.
 
-vlm and audio raise ``NotImplementedError`` until their slices are ported.
-
 ``Model`` is an ``nn.Module`` whose parameters keep the JAX package's names
-and layouts: ``embed.table`` ``(V, D)``, ``ln_f.scale``, and per block
-``blocks.<l>.{ln1,attn,ln2,mlp|moe}.<leaf>`` (dense, moe every layer),
-``blocks.<g>.{dense,moe_l}.<...>`` (moe every other layer),
+and layouts: ``embed.table`` ``(V, D)`` (audio: ``(K, V, D)``, and so
+``unembed.table``), ``ln_f.scale``, and per block
+``blocks.<l>.{ln1,attn,ln2,mlp|moe}.<leaf>`` (dense, audio, moe every
+layer), ``blocks.<g>.{dense,moe_l}.<...>`` (moe every other layer),
+``blocks.<g>.selfs.<i>.<...>`` and ``blocks.<g>.cross.{ln1,attn,ln2,mlp}.<leaf>``
+(vlm; the cross ``attn`` has no qkv bias),
 ``blocks.<g>.<i>.{ln,mamba}.<leaf>``, ``tail.<r>.{ln,mamba}.<leaf>`` and
 ``shared_attn.<...>`` (hybrid) or ``blocks.<g>.{ln_m,mlstm,ln_s,slstm}.<leaf>``
 (ssm): a JAX leaf of the stacked ``blocks`` (``tail``) pytree cut at its
@@ -29,9 +35,14 @@ reference does.
 The cache is a flat tuple of tensors, the reference's cache pytree in
 ``jax.tree.leaves`` order:
 
-* dense, moe every layer: ``(k, v)``, each ``(L, B, max_seq, KVH, hd)``;
+* dense, audio, moe every layer: ``(k, v)``, each ``(L, B, max_seq, KVH, hd)``;
 * moe every other layer: ``dense.k, dense.v, moe_l.k, moe_l.v``, each
   ``(L/2, B, max_seq, KVH, hd)``;
+* vlm (dict keys sort, so the cross leaves come first): ``cross.k,
+  cross.v``, each ``(NG, B, T, KVH, hd)`` with ``T = num_image_tokens``,
+  then ``selfs.k, selfs.v``, each ``(NG, ce-1, B, max_seq, KVH, hd)``; a
+  prefill writes the cross K/V in the cache dtype, a decode step reads
+  them cast to the compute dtype;
 * hybrid: ``groups.attn`` k and v, each ``(NG, B, max_seq, KVH, hd)``;
   ``groups.mamba.conv (NG, ke, B, W-1, C)`` and ``groups.mamba.ssd (NG,
   ke, B, H, N, P)``; then, with a tail, ``tail.conv (rem, B, W-1, C)`` and
@@ -42,8 +53,9 @@ The cache is a flat tuple of tensors, the reference's cache pytree in
   hd)``, ``m (NG, B, H)``, ``n (NG, B, H, hd)``; sLSTM ``c, h, m, n``, each
   ``(NG, B, H, hd)``), stacked over the ``NG = L / 2`` pairs.
 
-The slot (batch) axis is 1, except on the hybrid group Mamba2 leaves,
-where it is 2 (:func:`repro_torch.serve.kvcache.batch_axes` probes it).
+The slot (batch) axis is 1, except on the hybrid group Mamba2 leaves and
+the vlm ``selfs`` leaves, where it is 2
+(:func:`repro_torch.serve.kvcache.batch_axes` finds it).
 Prefill and decode write into the cache they are given, in place, where
 JAX returns a new one. The moe load-balance loss is computed by
 :func:`repro_torch.models.moe.moe_forward` and not returned: serving has no
@@ -67,7 +79,7 @@ from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import embed, make_norm, mlp, mlp_params, norm_params, unembed
 
 Cache = Tuple[torch.Tensor, ...]  # the reference's cache leaves (see the module docstring)
-FAMILIES = ("dense", "moe", "hybrid", "ssm")  # the ported layer layouts
+FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")  # the reference's layer layouts
 
 
 @dataclass(frozen=True)
@@ -98,14 +110,20 @@ def _moe_every(cfg: ArchConfig) -> int:
 
 class Block(nn.Module):
     """One decoder layer: ``x + attn(ln1(x))``, then ``x + mlp(ln2(x))``, or
-    ``x + moe(ln2(x))`` for an moe layer."""
+    ``x + moe(ln2(x))`` for an moe layer. A vlm cross layer (``cross``) has
+    no qkv bias and attends to image K/V (:meth:`forward_cross`)."""
 
-    def __init__(self, cfg: ArchConfig, gen: torch.Generator, *, is_moe_layer: bool = False):
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator, *, is_moe_layer: bool = False,
+                 cross: bool = False):
         super().__init__()
         dev = gen.device
         self.ln1 = _params(norm_params(cfg.norm, cfg.d_model, dev))
-        self.attn = _params(attn_lib.attention_params(
-            gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, qkv_bias=cfg.qkv_bias))
+        if cross:
+            self.attn = _params(attn_lib.init_cross_attention(
+                gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads))
+        else:
+            self.attn = _params(attn_lib.attention_params(
+                gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, qkv_bias=cfg.qkv_bias))
         self.is_moe_layer = is_moe_layer and cfg.d_ff > 0
         if cfg.d_ff > 0:
             self.ln2 = _params(norm_params(cfg.norm, cfg.d_model, dev))
@@ -122,9 +140,20 @@ class Block(nn.Module):
             self.attn, norm(self.ln1, x), positions, cfg.num_heads, cfg.num_kv_heads,
             rope_theta=cfg.rope_theta, rope_fraction=cfg.rope_fraction,
             block_kv=cc.block_kv, backend=cc.kernel_backend, kv_cache=cache, cache_pos=cache_pos)
-        x = x + y
+        return self._ffn(x + y, cfg, cc)
+
+    def forward_cross(self, x, k, v, cfg: ArchConfig, cc: CallConfig):
+        """The cross layer: ``x + cross_attn(ln1(x); k, v)`` against image
+        K/V ``(B, T, KVH, hd)`` (cast to ``x.dtype``), then the MLP."""
+        y = attn_lib.cross_attention_kv(self.attn, make_norm(cfg.norm)(self.ln1, x), k, v,
+                                        cfg.num_heads, block_kv=cc.block_kv,
+                                        backend=cc.kernel_backend)
+        return self._ffn(x + y, cfg, cc)
+
+    def _ffn(self, x, cfg: ArchConfig, cc: CallConfig):
+        """``x + mlp(ln2(x))``, or the moe, where the layer has a feed-forward part."""
         if cfg.d_ff > 0:
-            h = norm(self.ln2, x)
+            h = make_norm(cfg.norm)(self.ln2, x)
             if self.is_moe_layer:
                 moe = cfg.moe
                 y, _ = moe_lib.moe_forward(
@@ -145,6 +174,16 @@ class MoEGroup(nn.Module):
         super().__init__()
         self.dense = Block(cfg, gen)
         self.moe_l = Block(cfg, gen, is_moe_layer=True)
+
+
+class VLMGroup(nn.Module):
+    """One vlm group: ``cross_attn_every - 1`` self-attention layers
+    (``selfs``), then a cross-attention layer (``cross``)."""
+
+    def __init__(self, cfg: ArchConfig, gen: torch.Generator):
+        super().__init__()
+        self.selfs = nn.ModuleList(Block(cfg, gen) for _ in range(cfg.cross_attn_every - 1))
+        self.cross = Block(cfg, gen, cross=True)
 
 
 class MambaBlock(nn.Module):
@@ -230,7 +269,7 @@ class Model(nn.Module):
                  seed: int = 0):
         super().__init__()
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(f"the {cfg.family!r} family is not ported yet")
+            raise ValueError(f"unknown family {cfg.family!r}; known: {FAMILIES}")
         _moe_every(cfg)
         self.cfg = cfg
         self.cc = cc or CallConfig()
@@ -247,8 +286,10 @@ class Model(nn.Module):
         embeddings normal * 0.02, norm scales 1. Returns the model."""
         cfg = self.cfg
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        table = lambda: torch.randn((self.padded_vocab, cfg.d_model), generator=gen,  # noqa: E731
-                                    device=self.device) * 0.02
+        shape = (self.padded_vocab, cfg.d_model)
+        if cfg.num_codebooks:  # one table per codebook
+            shape = (cfg.num_codebooks,) + shape
+        table = lambda: torch.randn(shape, generator=gen, device=self.device) * 0.02  # noqa: E731
         self.embed = _params({"table": table()})
         self.ln_f = _params(norm_params(cfg.norm, cfg.d_model, self.device))
         if not cfg.tie_embeddings:
@@ -264,6 +305,9 @@ class Model(nn.Module):
             if rem:
                 self.tail = nn.ModuleList(MambaBlock(cfg, gen) for _ in range(rem))
             self.shared_attn = Block(cfg, gen)
+        elif fam == "vlm":
+            self.blocks = nn.ModuleList(
+                VLMGroup(cfg, gen) for _ in range(cfg.num_layers // cfg.cross_attn_every))
         elif _moe_every(cfg) == 2:
             self.blocks = nn.ModuleList(MoEGroup(cfg, gen) for _ in range(cfg.num_layers // 2))
         else:
@@ -272,10 +316,27 @@ class Model(nn.Module):
         return self
 
     # -------------------- embedding / logits --------------------
+    def _embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        """(B, S) tokens, or (B, S, K) for audio, -> (B, S, D) in the compute
+        dtype. Audio sums the K codebook lookups in the reference's order,
+        its Python ``sum``: ``((0 + e0) + e1) + ...``, rounded in the
+        compute dtype at each step."""
+        cfg, dt = self.cfg, self.cc.compute_dtype
+        if cfg.num_codebooks:
+            tabs = self.embed["table"].to(dt)  # (K, Vp, D)
+            return sum(tabs[i][tokens[..., i]] for i in range(cfg.num_codebooks))
+        return embed(self.embed, tokens, dt)
+
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, S, V) logits, or (B, S, K, V) for audio (one unembedding per
+        codebook), in ``x``'s dtype; padded vocab columns masked to -1e30."""
         cfg = self.cfg
         x = make_norm(cfg.norm)(self.ln_f, x)
-        logits = unembed(self.embed if cfg.tie_embeddings else self.unembed, x)
+        table = self.embed if cfg.tie_embeddings else self.unembed
+        if cfg.num_codebooks:
+            logits = torch.einsum("bsd,kvd->bskv", x, table["table"].to(x.dtype))
+        else:
+            logits = unembed(table, x)
         if self.padded_vocab != cfg.vocab_size:
             valid = torch.arange(self.padded_vocab, device=x.device) < cfg.vocab_size
             logits = logits.masked_fill(~valid, -1e30)
@@ -287,8 +348,10 @@ class Model(nn.Module):
         ``"meta"`` for shapes alone), in the layout of the module docstring:
         zero KV leaves in the cache dtype; the recurrent states as the
         reference initialises them, float32 whatever the cache dtype (ssm:
-        zeros, ``m = -1e30``; hybrid: zeros). ``max_seq`` sizes the KV
-        leaves only."""
+        zeros, ``m = -1e30``; hybrid: zeros). ``max_seq`` sizes the self-attention
+        KV leaves only; the vlm cross leaves hold ``num_image_tokens`` rows,
+        zeros until a prefill projects them (the reference's ``init_cache``
+        ignores ``image_embeds`` too)."""
         cfg = self.cfg
         dev = self.device if device is None else device
         if cfg.family == "ssm":
@@ -298,10 +361,14 @@ class Model(nn.Module):
             ng = cfg.num_layers // 2
             return tuple(t.expand(ng, *t.shape).contiguous() for t in pair)
 
-        def kv(n):
-            shape = (n, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+        def kv(*lead, rows=max_seq):
+            shape = (*lead, batch, rows, cfg.num_kv_heads, cfg.head_dim)
             return (torch.zeros(shape, dtype=self.cc.cache_dtype, device=dev),
                     torch.zeros(shape, dtype=self.cc.cache_dtype, device=dev))
+
+        if cfg.family == "vlm":
+            ng = cfg.num_layers // cfg.cross_attn_every
+            return kv(ng, rows=cfg.num_image_tokens) + kv(ng, cfg.cross_attn_every - 1)
 
         if cfg.family == "hybrid":
             ke = cfg.hybrid_attn_every
@@ -319,6 +386,37 @@ class Model(nn.Module):
 
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
+
+    def _image_ctx(self, image_embeds) -> torch.Tensor:
+        """The vlm prefill's image embeddings (B, T, D) on the model's
+        device, cast to the compute dtype as the reference casts them."""
+        if image_embeds is None:
+            raise ValueError("the vlm family's prefill needs image_embeds "
+                             "(B, num_image_tokens, d_model) for its cross-attention layers")
+        return torch.as_tensor(image_embeds, device=self.device).to(self.cc.compute_dtype)
+
+    def _vlm(self, x, positions, cache: Optional[Cache], *, ctx=None, pos=None):
+        """The vlm stack over ``x``, group by group: the self layers, then
+        the cross layer. The whole sequence (``pos`` None): each cross
+        layer projects its K/V from ``ctx``, attends with them uncast and,
+        with ``cache`` given, writes them into its cross leaves in the cache
+        dtype. One decode step at ``pos``: the cross layers attend to the
+        cached K/V cast to the compute dtype."""
+        cfg, cc = self.cfg, self.cc
+        for g, group in enumerate(self.blocks):
+            for i, blk in enumerate(group.selfs):
+                lc = None if cache is None else (cache[2][g, i], cache[3][g, i])
+                x = blk(x, positions, cfg, cc, lc, pos)
+            if pos is None:
+                k, v = attn_lib.cross_kv(group.cross.attn, ctx, cfg.num_heads,
+                                         cfg.num_kv_heads, cfg.d_model)
+                if cache is not None:
+                    cache[0][g].copy_(k)
+                    cache[1][g].copy_(v)
+            else:
+                k, v = cache[0][g], cache[1][g]
+            x = group.cross.forward_cross(x, k, v, cfg, cc)
+        return x
 
     def _attn_caches(self, cache: Optional[Cache]):
         """Each attention layer's ``(k, v)`` slices of ``cache`` (or None),
@@ -368,17 +466,19 @@ class Model(nn.Module):
 
     # -------------------- full-sequence forward (prefill) --------------------
     @torch.no_grad()
-    def forward(self, tokens, *, cache: Optional[Cache] = None,
+    def forward(self, tokens, *, image_embeds=None, cache: Optional[Cache] = None,
                 logits_last_only: bool = False):
-        """tokens: (B, S) -> ``(logits, cache)``. With ``cache`` given, every
-        attention layer's RoPE'd k/v are written into its rows ``[0, S)``,
-        and every recurrent state leaf is overwritten with the final state
-        of the prompt (the scans start from the zero state and never read
-        the cache, as the reference's do)."""
+        """tokens: (B, S), or (B, S, K) for audio -> ``(logits, cache)``.
+        ``image_embeds`` (B, T, D) is the vlm family's (required there,
+        ignored elsewhere). With ``cache`` given, every attention layer's
+        RoPE'd k/v are written into its rows ``[0, S)``, every vlm cross
+        layer's K/V into its cross leaves, and every recurrent state leaf is
+        overwritten with the final state of the prompt (the scans start from
+        the zero state and never read the cache, as the reference's do)."""
         cfg, cc = self.cfg, self.cc
         tokens = self._tokens(tokens)
-        x = embed(self.embed, tokens, cc.compute_dtype)
-        B, S = tokens.shape
+        x = self._embed_tokens(tokens)
+        B, S = tokens.shape[:2]
         if cfg.family == "ssm":
             for g, pair in enumerate(self.blocks):
                 x, st_m, st_s = pair(x, cfg, cc)
@@ -388,6 +488,8 @@ class Model(nn.Module):
             positions = torch.arange(S, device=self.device)[None, :].expand(B, S)
             if cfg.family == "hybrid":
                 x = self._hybrid(x, positions, cache)
+            elif cfg.family == "vlm":
+                x = self._vlm(x, positions, cache, ctx=self._image_ctx(image_embeds))
             else:
                 for blk, lc in zip(self._attn_layers(), self._attn_caches(cache)):
                     x = blk(x, positions, cfg, cc, lc)
@@ -395,22 +497,24 @@ class Model(nn.Module):
             x = x[:, -1:]  # prefill: unembed only the last position
         return self._logits(x), cache
 
-    def prefill(self, tokens, cache: Cache):
+    def prefill(self, tokens, cache: Cache, *, image_embeds=None):
         """Fill ``cache`` from a prompt, in place; returns (last-token
-        logits (B, 1, V), cache)."""
-        return self.forward(tokens, cache=cache, logits_last_only=True)
+        logits (B, 1, V) or (B, 1, K, V), cache)."""
+        return self.forward(tokens, image_embeds=image_embeds, cache=cache,
+                            logits_last_only=True)
 
     # -------------------- decode --------------------
     @torch.no_grad()
     def decode_step(self, token, cache: Cache, pos):
-        """One-token step. token: (B, 1).
+        """One-token step. token: (B, 1), or (B, 1, K) for audio.
 
         ``pos`` is a () scalar (every row decodes at the same position) or a
         (B,) vector of per-row positions (the continuous-batching serve
         engine: each cache slot at its own offset; a row parked at
         ``pos >= max_seq`` attends but writes no KV row). Writes this step's
         k/v and the new recurrent states into ``cache`` in place; returns
-        (logits (B, 1, V), cache).
+        (logits (B, 1, V) or (B, 1, K, V), cache). The vlm cross layers
+        attend to the cross K/V the prefill cached, whatever ``pos``.
 
         Recurrent states (ssm, the hybrid's Mamba2 blocks) ignore ``pos``, as
         the reference's do: every row's state advances in place, parked rows
@@ -419,7 +523,7 @@ class Model(nn.Module):
         """
         cfg, cc = self.cfg, self.cc
         token = self._tokens(token)
-        x = embed(self.embed, token, cc.compute_dtype)
+        x = self._embed_tokens(token)
         B = x.shape[0]
         if cfg.family == "ssm":
             for g, pair in enumerate(self.blocks):
@@ -431,6 +535,8 @@ class Model(nn.Module):
         positions = torch.as_tensor(pos, device=self.device).reshape(-1, 1).expand(B, 1)
         if cfg.family == "hybrid":
             x = self._hybrid(x, positions, cache, pos)
+        elif cfg.family == "vlm":
+            x = self._vlm(x, positions, cache, pos=pos)
         else:
             for blk, lc in zip(self._attn_layers(), self._attn_caches(cache)):
                 x = blk(x, positions, cfg, cc, lc, pos)

@@ -77,10 +77,12 @@ from decode steps: their low bits differ, and in bfloat16 a retried
 request's later tokens may differ from a fault-free run's. Requests whose
 slot never failed are unaffected.
 
-The dense, moe, hybrid and ssm families are ported, so they can be served.
-The guards of the reference stay: multi-codebook audio needs ``(B, 1, K)``
-token feedback, vlm prefill needs ``image_embeds``, and moe needs a
-drop-free expert capacity at the pool size, checked with
+Every family of the reference is ported; the dense, moe, hybrid and ssm
+families can be served. The guards of the reference stay: multi-codebook
+audio needs ``(B, 1, K)`` token feedback, vlm prefill needs
+``image_embeds`` (both run through ``Model.prefill`` / ``decode_step``
+instead, as the reference's tests run them), and moe needs a drop-free
+expert capacity at the pool size, checked with
 :func:`repro_torch.models.moe.expert_capacity`, the formula the dispatch
 itself uses.
 """

@@ -32,6 +32,7 @@ from repro_torch.kernels.com_matmul import plan as com_matmul_plan
 from repro_torch.kernels.conv2d_com import conv2d_com
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.slstm import slstm_fused
+from repro_torch.models.frontend import synth_image_embeds, synth_tokens
 from repro_torch.models.transformer import CallConfig, build_model
 from repro_torch.serve.engine import Engine, Request
 
@@ -277,6 +278,9 @@ FLASH_CASES = [
     (1, 128, 128, 48, 8, 128, True),    # dbrx-132b's prefill attention
     (1, 512, 512, 48, 8, 128, True),
     (1, 1024, 1024, 32, 32, 64, True),  # zamba2-1.2b's shared block
+    (2, 1, 1601, 64, 8, 128, False),    # llama-3.2-vision's cross layer, a decode step
+    (1, 40, 1601, 8, 1, 128, False),    # a cross-layer prefill, GQA 8:1
+    (1, 512, 512, 32, 32, 64, True),    # musicgen-large's prefill attention
 ]
 SPLIT_CASES = [c for c in FLASH_CASES if c[1] >= 700]
 
@@ -389,6 +393,50 @@ def test_moe_and_hybrid_greedy_batched_matches_sequential_on_the_card(cuda, arch
     oracle = [Request(prompt=r.prompt.copy(), max_new_tokens=r.max_new_tokens) for r in reqs]
     want = eng.generate_sequential(oracle, seed=0)
     assert [r.out_tokens for r in got] == [r.out_tokens for r in want]
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "musicgen-large"])
+def test_vlm_and_audio_prefill_and_decode_on_the_card(cuda, arch):
+    """Reduced llama-3.2-vision (4 layers: two groups of [self, cross], hd
+    32) and reduced musicgen on the card: a prefill and two decode steps
+    through the flash kernel against the same model with the plain attention
+    (kernel_backend="ref"), every step's logits within 2e-5 (float32) or
+    2e-2 (bfloat16) of max|plain|. flash_attention launches once for every
+    attention layer of a prefill and, at Sq = 1, for every vlm cross layer of
+    a decode step. The vlm also runs float32 on a bfloat16 cache: a decode
+    step's cross K/V are then a cast copy of the cache slice."""
+    cfg = get_config(arch).reduced()
+    vlm = cfg.family == "vlm"
+    if vlm:
+        cfg = dataclasses.replace(cfg, num_layers=4)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    toks = synth_tokens(gen, cfg, 2, 18)
+    kw = {"image_embeds": synth_image_embeds(gen, cfg, 2)} if vlm else {}
+    per_step = cfg.num_layers // cfg.cross_attn_every if vlm else 0
+    dtypes = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16)]
+    if vlm:
+        dtypes.append((torch.float32, torch.bfloat16))
+    for compute, cache_dtype in dtypes:
+        model = build_model(cfg, CallConfig(compute_dtype=compute, cache_dtype=cache_dtype),
+                            device=cuda, seed=0)
+        runs = {}
+        for backend in (None, "ref"):
+            model.cc = dataclasses.replace(model.cc, kernel_backend=backend)
+            flash_attention.launches = 0
+            lg, cache = model.prefill(toks[:, :16], model.init_cache(2, 24), **kw)
+            launches = [flash_attention.launches]
+            steps = [lg]
+            for t in (16, 17):
+                lg, cache = model.decode_step(toks[:, t:t + 1], cache, t)
+                steps.append(lg)
+                launches.append(flash_attention.launches)
+            runs[backend] = steps, launches
+        assert runs[None][1] == [cfg.num_layers, cfg.num_layers + per_step,
+                                 cfg.num_layers + 2 * per_step]
+        assert runs["ref"][1] == [0, 0, 0]
+        for got, want in zip(runs[None][0], runs["ref"][0]):
+            assert got.dtype == compute
+            _within(got, want, compute)
 
 
 def test_paged_zamba2_matches_contiguous_on_the_card(cuda):

@@ -40,7 +40,7 @@ def test_source_imports_no_jax_and_no_repro(path):
 def test_the_source_check_covers_every_model_family_module():
     """The ported families' modules are among the files checked above."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
-    for mod in ("attention", "layers", "moe", "ssm", "transformer", "xlstm"):
+    for mod in ("attention", "frontend", "layers", "moe", "ssm", "transformer", "xlstm"):
         assert f"src/repro_torch/models/{mod}.py" in names
 
 

@@ -13,7 +13,6 @@ package's.
   prefill overwrites whole.
 """
 import dataclasses
-from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -222,22 +221,27 @@ def test_validate_raises_as_the_reference(served):
     ("dbrx-132b", 2, "drop-free"),                 # moe capacity drops tokens
 ])
 def test_family_guards_raise_as_the_reference(arch, batch, match):
-    """The port builds only dense models, so the guards are held on a model
-    that carries just a config, next to the JAX engine's own."""
+    """Every family builds in both packages, so the guards are held on real
+    reduced models: a wave through each engine raises the same ValueError
+    before a slot is filled."""
     cfg = jax_get_config(arch).reduced()
     jm = jax_build_model(cfg, JaxCallConfig(remat="none"))
+    params = jm.init(jax.random.PRNGKey(0))
+    model = build_model(get_config(arch).reduced(), device="cpu", seed=0)
     with pytest.raises(ValueError, match=match):
-        JaxEngine(jm, None, batch=batch, max_seq=16)._family_guards()
-    stub = SimpleNamespace(cfg=get_config(arch).reduced(), cc=CallConfig())
+        JaxEngine(jm, params, batch=batch, max_seq=16).generate(
+            make_requests(cfg.vocab_size, n=1, max_new=2, cls=JaxRequest))
+    eng = Engine(model, batch=batch, max_seq=16)
     with pytest.raises(ValueError, match=match):
-        Engine(stub, batch=batch, max_seq=16)._family_guards()
+        eng.generate(make_requests(cfg.vocab_size, n=1, max_new=2))
+    assert eng._slots is None  # refused before the pool was allocated
     if arch == "dbrx-132b":  # a drop-free capacity passes, in both packages
         big = dataclasses.replace(cfg.moe, capacity_factor=float(cfg.moe.num_experts))
-        JaxEngine(jax_build_model(dataclasses.replace(cfg, moe=big), JaxCallConfig()), None,
+        JaxEngine(jax_build_model(dataclasses.replace(cfg, moe=big), JaxCallConfig()), params,
                   batch=batch, max_seq=16)._family_guards()
-        stub.cfg = dataclasses.replace(stub.cfg, moe=dataclasses.replace(
-            stub.cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
-        Engine(stub, batch=batch, max_seq=16)._family_guards()
+        model.cfg = dataclasses.replace(model.cfg, moe=dataclasses.replace(
+            model.cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+        Engine(model, batch=batch, max_seq=16)._family_guards()
 
 
 def test_admission_queue_is_the_reference():
