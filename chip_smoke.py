@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root; one CUDA card, nvcc
 
-Ten paths: the compiled VGG-16 executor (phases 3-5, and split over two
+Eleven paths: the compiled VGG-16 executor (phases 3-5, and split over two
 shards in phase 15), serving smollm-135m (phases 3, 6 and 7; streaming, paged
 and faulted in phases 16-17) and serving xlstm-350m (phases 3, 8 and 9), both
 at their full published widths, the paper's Tab. IV evaluation and
@@ -12,8 +12,8 @@ searched mapping (phases 13-14), serving dbrx-132b at full width with its
 depth cut to 4 layers (phases 18-19), serving zamba2-1.2b whole,
 contiguous and paged (phases 20-21), and the model's own prefill and decode
 of llama-3.2-vision-90b at full width cut to 2 of its 20 groups (phases
-22-23) and of musicgen-large whole (phases 24-25), which no engine serves.
-Phases, each printing JSON lines:
+22-23) and of musicgen-large whole (phases 24-25), which no engine serves,
+and training smollm-135m whole (phase 26). Phases, each printing JSON lines:
 
 1. card      — the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build     — the four CUDA kernels built from src/repro_torch/csrc/*.cu for
@@ -49,6 +49,16 @@ Phases, each printing JSON lines:
                from a CUDA graph: no host time between launches; for flash also
                SDPA's), and slstm lines the time a step; where a plan splits K
                or the KV range, a second call must return the same bits;
+               flash_attention_bwd (the backward kernels) against
+               flash_attention_bwd_ref on the same (q, k, v, out, lse, dout)
+               at the train phase's (8, 2048, 9, 3, 64), at S = 517 (B = 2),
+               hd 32 and 128 and one non-causal case, float32 (rtol 1e-3,
+               atol 1e-4 of max|plain|, tests/test_layers.py:121) and
+               bfloat16 (2e-2 of max|plain|; each element's error over one
+               rounding reported): a second call's bits, the forward's out
+               bitwise with and without lse, lse against the plain lse; ms,
+               graph_ms, the bound (5 products of 2 hd flop a kept pair),
+               plain and SDPA's backward (library_ms);
 4. e2e       — compile_program(vgg16_imagenet()), random_weights(seed=0), 8 images
                from numpy.random.default_rng(1): the executor's "cuda" backend
                held against its float64 "reference" backend on the card, events
@@ -226,7 +236,23 @@ Phases, each printing JSON lines:
                (B, 1, K) token: phase 22's numbers and gates, 48
                flash_attention launches a prefill and none a step;
 25. profile-serve — the same two windows for it;
-26. the seconds of each phase, the kernels line (each kernel's launches on
+26. train    — smollm-135m whole (phase 6's model), bfloat16 compute on float32
+               master weights, CallConfig(remat="block"), weights from seed 0,
+               OptConfig(lr=3e-3, schedule="wsd", warm-up 2, 20 steps) as
+               repro_torch.launch.train builds it, batches of 8 x 2048 tokens
+               from SyntheticTokens(seed=0): 2 warm-up steps, 10 timed ones
+               (median ms/step, steps/s, tokens/s, peak memory, flash_attention
+               launches a step: 60 forward under remat, 30 backward), one
+               profiled step (idle share, largest device items; no library
+               attention kernel), then the rest: the 20th step's loss below the
+               first's; then at 2 x 2048, 3 steps through the kernels against
+               the same steps with the plain attention forward and backward
+               (kernel_backend="ref"): float32 loss within 2e-5 and grad norm
+               within 1e-4 relative, bfloat16 both within 2e-2; and a bfloat16
+               run saved after step 5 (repro_torch.checkpoint, the reference's
+               layout), restored into a fresh model and state and taken 3 steps
+               further: losses and parameters bitwise the uninterrupted run's;
+27. the seconds of each phase, the kernels line (each kernel's launches on
                every path), the card line, the result line.
 
 Any failed check exits non-zero before the result line is printed. Finding no
@@ -248,6 +274,7 @@ import dataclasses
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -276,9 +303,11 @@ from repro_torch.kernels.com_matmul import plan as com_matmul_plan  # noqa: E402
 from repro_torch.kernels.conv2d_com import conv2d_com  # noqa: E402
 from repro_torch.kernels.conv2d_com import plan as conv2d_plan  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention_bwd  # noqa: E402
 from repro_torch.kernels.flash_attention import plan as flash_plan  # noqa: E402
+from repro_torch.kernels.flash_attention import plan_bwd as flash_plan_bwd  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
-    com_matmul_ref, conv2d_com_ref, flash_attention_ref, slstm_ref)
+    com_matmul_ref, conv2d_com_ref, flash_attention_bwd_ref, flash_attention_ref, slstm_ref)
 from repro_torch.kernels.slstm import plan as slstm_plan  # noqa: E402
 from repro_torch.kernels.slstm import slstm_fused  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
@@ -288,6 +317,11 @@ from repro_torch.launch import table_iv  # noqa: E402
 from repro_torch.launch.sweep import check_against_scalar, smoke_1e6_grid  # noqa: E402
 from repro_torch.search import PopulationEvaluator, greedy_candidate, search_mapping  # noqa: E402
 from repro_torch.runtime.fault_tolerance import RestartPolicy  # noqa: E402
+from repro_torch.checkpoint import checkpoint as ckpt_lib  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, SyntheticTokens  # noqa: E402
+from repro_torch.train.optimizer import OptConfig  # noqa: E402
+from repro_torch.train.train_step import (  # noqa: E402
+    load_state_tree, make_train_state, make_train_step, state_tree)
 from repro_torch.search.cost import timed  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
     AdmissionQueue, Engine, Request, TrafficProfile, generate_arrivals, simulate)
@@ -345,6 +379,15 @@ VLM_ARCH, VLM_LAYERS, VLM_PROMPT, VLM_NEW = "llama-3.2-vision-90b", 10, 512, 32
 AUDIO_ARCH, AUDIO_FRAMES, AUDIO_NEW = "musicgen-large", 512, 64
 ROWS, CHECK_ROWS = 8, 2
 DECODE_RTOL = 2e-2  # prefill + decode against forward (tests/test_models.py:86-98, rtol = atol)
+# the train phase: smollm-135m whole, batches of TRAIN_BATCH x TRAIN_SEQ tokens
+# (SmolLM's training context), TRAIN_WARMUP untimed steps, then TRAIN_TIMED
+# timed ones, TRAIN_STEPS in all; the held checks at CHECK_BATCH rows
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_TIMED, TRAIN_STEPS = 8, 2048, 2, 10, 20
+CHECK_BATCH, CHECK_STEPS, RESUME_AT, RESUME_MORE = 2, 3, 5, 3
+GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-4  # the reference's gradient tolerance (tests/test_layers.py:121)
+# float32 train steps through the kernels against the plain attention: loss
+# and grad norm, relative; bfloat16 both within 2e-2
+TRAIN_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
 FIRST_BURST = dict(PATIENT_TRAFFIC, name="chip-burst-8-patient", num_requests=8)
 # the virtual clock is a function of the profile, the pool and the fault draws
 # (eos_id=None): the JAX package's numbers on these profiles, which the CPU
@@ -595,6 +638,88 @@ def check_flash(gen, S, dtype=torch.bfloat16, causal=True, H=9, KVH=3, hd=64, B=
         got, want, cuda_ms(lambda: flash_attention(q, k, v, causal=causal)),
         cuda_ms(lambda: flash_attention_ref(q, k, v, causal=causal)),
         cuda_ms(lambda: sdpa(q, k, v, causal)), t_parts, by, one_rounding=True, extra=extra)
+
+
+def sdpa_bwd(q, k, v, dout, causal):
+    """The library yardstick of the backward: one backward pass of SDPA at
+    the same shape (its forward run once, outside the timing)."""
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    with torch.enable_grad():
+        out = sdpa(qs, ks, vs, causal)
+    return lambda: torch.autograd.grad(out, (qs, ks, vs), dout, retain_graph=True)
+
+
+def check_flash_bwd(gen, S, dtype=torch.bfloat16, causal=True, H=9, KVH=3, hd=64, B=1):
+    """flash_attention_bwd at (B, S, H, KVH, hd) against flash_attention_bwd_ref
+    on the same (q, k, v, out, lse, dout): float32 within rtol 1e-3 and atol
+    1e-4 max|plain| element by element (tests/test_layers.py:121), bfloat16
+    within 2e-2 max|plain| (the ratio of each element's error to one bfloat16
+    rounding of it reported, not gated); a second call's bits; the forward's
+    out equal with and without lse, and lse against the plain lse."""
+    q = randn((B, S, H, hd), gen, dtype)
+    k, v = randn((B, S, KVH, hd), gen, dtype), randn((B, S, KVH, hd), gen, dtype)
+    dout = randn((B, S, H, hd), gen, dtype)
+    plain_out = flash_attention(q, k, v, causal=causal)
+    out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    torch.cuda.synchronize()
+    if not torch.equal(out, plain_out):
+        fail(f"flash_attention {(B, S, H, KVH, hd)} {dtype}: out changes when lse is written")
+    _, want_lse = flash_attention_ref(q, k, v, causal=causal, return_lse=True)
+    lse_err = (lse.double() - want_lse.double()).abs().max().item()
+    if lse_err > 1e-5 * want_lse.abs().max().item() + 1e-5:
+        fail(f"flash_attention {(B, S, H, KVH, hd)} {dtype}: lse off by {lse_err}")
+
+    def run():
+        return flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+
+    got = run()
+    torch.cuda.synchronize()
+    want = flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal)
+    again = run()
+    torch.cuda.synchronize()
+    shape = (B, S, H, KVH, hd)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"flash_attention_bwd {shape} {dtype}: two calls differ")
+    errs, over, rounding = [], [], []
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        if not torch.isfinite(g).all().item():
+            fail(f"flash_attention_bwd {shape} {dtype}: non-finite {name}")
+        wd = w.double()
+        diff = (g.double() - wd).abs()
+        scale = wd.abs().max().item()
+        errs.append(diff.max().item())
+        if dtype == torch.float32:
+            over.append((diff / (GRAD_RTOL * wd.abs() + GRAD_ATOL * scale)).max().item())
+        else:
+            over.append(diff.max().item() / (TOL[dtype] * scale))
+            rounding.append((diff / (BF16_ULP * wd.abs() + 2e-5 * scale)).max().item())
+    pairs = sum(min(i + 1, S) for i in range(S)) if causal else S * S
+    es = q.element_size()
+    # q, k, v, out, dout read and dq, dk, dv written once; lse read once
+    n_bytes = es * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+    n_ops = 10.0 * hd * H * B * pairs  # s, dp, dv, dk, dq: 5 products of 2 hd flop a pair
+    t_parts, by = bound(n_bytes, n_ops, dtype)
+    lib = sdpa_bwd(q, k, v, dout, causal)
+    line = {
+        "kernel": "flash_attention_bwd" + ("" if causal else "(non-causal)"), "shape": list(shape),
+        "dtype": str(dtype).replace("torch.", ""), "max_abs_err": max(errs),
+        "max_abs_err_dq_dk_dv": errs, "err_over_limit": over,
+        "tol": "rtol 1e-3, atol 1e-4 max" if dtype == torch.float32 else TOL[dtype],
+        "lse_max_abs_err": lse_err, "out_bits_same_with_lse": True, "same_bits": True,
+        "kernel_ms": cuda_ms(run), "graph_ms": graph_ms(run),
+        "plain_ms": cuda_ms(lambda: flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                                            causal=causal), reps=3, warmup=1),
+        "library_ms": cuda_ms(lib), "bound_ms": max(t_parts), "bound_by": by,
+        "bound_3xtf32_ms": bound_3xtf32(n_bytes, n_ops, dtype),
+        "forward_graph_ms": graph_ms(lambda: flash_attention(q, k, v, causal=causal,
+                                                             return_lse=True)),
+        "plan": dataclasses.asdict(flash_plan_bwd(B, S, S, H, KVH, hd, dtype, causal))}
+    if rounding:
+        line["max_err_over_one_rounding"] = max(rounding)
+    emit(line)
+    if max(over) > 1.0:
+        fail(f"flash_attention_bwd {shape} {dtype}: errors {over} times the limit")
+    return line
 
 
 def check_slstm(gen, S, dtype=torch.bfloat16, B=1, H=4, hd=256):
@@ -2101,6 +2226,175 @@ def model_audio_phase() -> tuple:
     return launches, line
 
 
+def train_batches(batch: int, n: int, start: int = 0) -> list:
+    """``n`` batches of ``batch`` rows of TRAIN_SEQ tokens from
+    SyntheticTokens(seed=0), from step ``start`` (host numpy, made before any
+    timing)."""
+    data = SyntheticTokens(DataConfig(vocab_size=get_config(SERVE_ARCH).vocab_size,
+                                      seq_len=TRAIN_SEQ, global_batch=batch, seed=0))
+    return [data.batch_at(start + i) for i in range(n)]
+
+
+def train_setup(dtype=torch.bfloat16, kernel_backend=None, steps: int = TRAIN_STEPS):
+    """smollm-135m whole (weights from seed 0, f32 masters) with remat
+    "block", and its train state and step, the optimizer as the launcher
+    builds it: OptConfig(lr=3e-3, schedule="wsd"), warm-up a tenth of
+    ``steps``."""
+    cfg = get_config(SERVE_ARCH)
+    model = build_model(cfg, CallConfig(compute_dtype=dtype, remat="block",
+                                        kernel_backend=kernel_backend), device="cuda", seed=0)
+    ocfg = OptConfig(lr=3e-3, schedule="wsd", warmup_steps=max(steps // 10, 1),
+                     total_steps=steps)
+    return model, make_train_state(model, None, ocfg), make_train_step(model, ocfg)
+
+
+def train_steps(state, step, batches) -> tuple:
+    """Run ``step`` over ``batches``; returns the state, each step's (loss,
+    grad norm) and the flash forward and backward launches."""
+    f0, b0 = flash_attention.launches, flash_attention_bwd.launches
+    mets = []
+    for b in batches:
+        state, m = step(state, b)
+        mets.append((float(m["loss"]), float(m["grad_norm"])))
+    torch.cuda.synchronize()
+    return state, mets, (flash_attention.launches - f0, flash_attention_bwd.launches - b0)
+
+
+def train_held_checks() -> dict:
+    """The train path held on the card, at CHECK_BATCH rows of TRAIN_SEQ:
+    CHECK_STEPS steps through the kernels against the same steps with the
+    plain attention forward and backward (kernel_backend="ref"), float32
+    and bfloat16 (TRAIN_TOL); then a bfloat16 run saved after RESUME_AT
+    steps, restored into a fresh model and state and taken RESUME_MORE steps
+    further: losses and parameters bitwise the uninterrupted run's."""
+    out, failures = {}, []
+    batches = train_batches(CHECK_BATCH, RESUME_AT + RESUME_MORE)
+    for dtype in (torch.float32, torch.bfloat16):
+        runs = []
+        for backend in (None, "ref"):
+            model, state, step = train_setup(dtype, backend)
+            runs.append(train_steps(state, step, batches[:CHECK_STEPS]))
+            del model, state, step
+            torch.cuda.empty_cache()
+        (_, kern, kl), (_, plain, pl) = runs
+        lt, gt = TRAIN_TOL[dtype]
+        loss_rel = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(kern, plain))
+        gn_rel = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(kern, plain))
+        name = str(dtype).replace("torch.", "")
+        out[name] = {"kernel": kern, "plain": plain, "loss_rel_err": loss_rel,
+                     "grad_norm_rel_err": gn_rel, "tol": [lt, gt],
+                     "launches_kernel": kl, "launches_plain": pl}
+        if loss_rel > lt or gn_rel > gt:
+            failures.append(f"{name} kernel vs plain steps: loss {loss_rel}, grad norm {gn_rel} "
+                            f"(limits {lt}, {gt})")
+        if pl != (0, 0) or kl != (2 * CHECK_STEPS * get_config(SERVE_ARCH).num_layers,
+                                  CHECK_STEPS * get_config(SERVE_ARCH).num_layers):
+            failures.append(f"{name}: launches {kl} through the kernels, {pl} plain")
+
+    ckpt_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    model, state, step = train_setup()
+    losses, t_save = [], 0.0
+    for i, b in enumerate(batches):
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        if i + 1 == RESUME_AT:
+            t0 = time.perf_counter()
+            ckpt_lib.save(str(ckpt_dir), RESUME_AT, state_tree(state))
+            t_save = time.perf_counter() - t0
+    fresh_model, fresh, fstep = train_setup()
+    t0 = time.perf_counter()
+    tree, manifest = ckpt_lib.restore(str(ckpt_dir), state_tree(fresh))
+    load_state_tree(fresh, tree)
+    t_restore = time.perf_counter() - t0
+    resumed = []
+    for b in batches[RESUME_AT:]:
+        fresh, m = fstep(fresh, b)
+        resumed.append(float(m["loss"]))
+    same_params = all(torch.equal(a, b) for a, b in zip(fresh_model.parameters(),
+                                                        model.parameters()))
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    out["resume"] = {"saved_at": manifest["step"], "losses": losses,
+                     "resumed_losses": resumed, "losses_bitwise": resumed == losses[RESUME_AT:],
+                     "params_bitwise": same_params, "save_s": t_save, "restore_s": t_restore,
+                     "leaves": len(manifest["keys"])}
+    if resumed != losses[RESUME_AT:] or not same_params:
+        failures.append(f"resume: losses {resumed} against {losses[RESUME_AT:]}, parameters "
+                        f"bitwise {same_params}")
+    del model, state, fresh_model, fresh, tree
+    torch.cuda.empty_cache()
+    out["_failures"] = failures
+    return out
+
+
+def train_phase() -> tuple:
+    """smollm-135m whole, bf16 compute, f32 masters, remat "block", trained
+    on batches of TRAIN_BATCH x TRAIN_SEQ tokens: TRAIN_WARMUP steps, then
+    TRAIN_TIMED timed ones (steps/s, tokens/s, median ms/step, peak memory,
+    flash forward and backward launches a step: 60 and 30), a profiled step
+    (idle share, largest device items), then the rest to TRAIN_STEPS: the
+    last step's loss below the first's; then train_held_checks."""
+    cfg = get_config(SERVE_ARCH)
+    L = cfg.num_layers
+    batches = train_batches(TRAIN_BATCH, TRAIN_STEPS)
+    with torch.enable_grad():
+        model, state, step = train_setup()
+        state, first, _ = train_steps(state, step, batches[:TRAIN_WARMUP])
+        torch.cuda.reset_peak_memory_stats()
+        walls, mets = [], list(first)
+        f0, b0 = flash_attention.launches, flash_attention_bwd.launches
+        for b in batches[TRAIN_WARMUP:TRAIN_WARMUP + TRAIN_TIMED]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            mets.append((float(m["loss"]), float(m["grad_norm"])))
+        launches = (flash_attention.launches - f0, flash_attention_bwd.launches - b0)
+        peak = torch.cuda.max_memory_allocated()
+        at = TRAIN_WARMUP + TRAIN_TIMED
+        it = iter(batches[at:at + 2])
+
+        def one_step():
+            nonlocal state
+            state, m = step(state, next(it))
+            mets.append((float(m["loss"]), float(m["grad_norm"])))
+
+        prof = profile_window(one_step, "a train step", forbid=LIBRARY_ATTENTION)
+        state, rest, _ = train_steps(state, step, batches[at + 2:])
+        mets += rest
+        del model, state, step
+        torch.cuda.empty_cache()
+        held = train_held_checks()
+    failures = held.pop("_failures")
+    ms = statistics.median(walls) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    line = {"phase": "train", "arch": cfg.name, "layers": L, "d_model": cfg.d_model,
+            "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads, "d_ff": cfg.d_ff,
+            "vocab": cfg.vocab_size, "compute": "bfloat16", "masters": "float32",
+            "remat": "block", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "tokens_per_step": tokens,
+            "optimizer": "OptConfig(lr=3e-3, schedule='wsd', warmup 2, total 20)",
+            "median_ms_per_step": ms, "steps_s": 1e3 / ms, "tokens_s": tokens / ms * 1e3,
+            "ms_per_step": [w * 1e3 for w in walls], "peak_mem_gib": peak / 2**30,
+            "flash_launches_per_step": {"forward": launches[0] / TRAIN_TIMED,
+                                        "backward": launches[1] / TRAIN_TIMED},
+            "losses": [m[0] for m in mets], "grad_norms": [m[1] for m in mets],
+            "profile": prof, "held": held}
+    emit(line)
+    if launches != (2 * L * TRAIN_TIMED, L * TRAIN_TIMED):
+        failures.append(f"flash launches {launches} in {TRAIN_TIMED} steps, expected "
+                        f"{2 * L} forward and {L} backward a step")
+    if len(mets) != TRAIN_STEPS or not all(math.isfinite(l) and math.isfinite(g)
+                                           for l, g in mets):
+        failures.append(f"{len(mets)} steps, non-finite loss or grad norm: {mets}")
+    elif not mets[-1][0] < mets[0][0]:
+        failures.append(f"the loss after {TRAIN_STEPS} steps, {mets[-1][0]}, is not below the "
+                        f"first step's {mets[0][0]}")
+    if failures:
+        fail("train: " + "; ".join(failures))
+    return line, launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
@@ -2192,6 +2486,16 @@ def main() -> None:
         check_flash(gen, VLM_PROMPT, dtype, **vshape)
         check_flash(gen, AUDIO_FRAMES, dtype, H=acfg.num_heads, KVH=acfg.num_kv_heads,
                     hd=acfg.head_dim, B=ROWS)
+    # the attention backward: the train phase's shape (smollm, 8 x 2048), ragged
+    # S, hd 32 and 128, non-causal
+    bwd_lines = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        bwd_lines[dtype] = check_flash_bwd(gen, TRAIN_SEQ, dtype, B=TRAIN_BATCH)
+        check_flash_bwd(gen, 517, dtype, B=2)
+        check_flash_bwd(gen, 300, dtype, H=4, KVH=2, hd=32)
+        check_flash_bwd(gen, 1024, dtype, hd=128)
+        check_flash_bwd(gen, 517, dtype, causal=False)
+    torch.cuda.empty_cache()
     xcfg = get_config(XLSTM_ARCH)
     xlstm_shape = dict(H=xcfg.num_heads, hd=xcfg.head_dim)
     for S in (128, 517, 1024):  # xlstm-350m's batch-1 prefill recurrence
@@ -2344,7 +2648,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_done("model-audio")
 
-    # 26. the phases' seconds, the kernels line, the card, the result
+    # 26. training smollm-135m whole through the attention kernels, forward and backward
+    _, train_launches = train_phase()
+    torch.cuda.empty_cache()
+    phase_done("train")
+
+    # 27. the phases' seconds, the kernels line, the card, the result
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
     emit({"kernels": [
         {"name": "com_matmul", "route": "cuda", "source": "src/repro_torch/csrc/com_matmul.cu",
@@ -2367,8 +2676,14 @@ def main() -> None:
                               "serve-faults": fault_launches, "serve-moe": moe_launches,
                               "serve-hybrid": hybrid_launches,
                               "serve-hybrid-paged": hybrid_paged_launches,
-                              "model-vlm": vlm_launches, "model-audio": audio_launches},
+                              "model-vlm": vlm_launches, "model-audio": audio_launches,
+                              "train": train_launches[0]},
          **summary(flash_lines, serve_cfg.num_layers)},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/models/attention.py:159",
+         "launches": train_launches[1], "launches_by_path": {"train": train_launches[1]},
+         **summary([bwd_lines[torch.bfloat16]], serve_cfg.num_layers)},
         {"name": "slstm_fused", "route": "cuda", "source": "src/repro_torch/csrc/slstm.cu",
          "replaces": "src/repro/kernels/slstm.py:70",
          "launches": slstm_launches, "launches_by_path": {"serve-xlstm": slstm_launches},

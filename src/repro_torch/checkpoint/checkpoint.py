@@ -1,0 +1,170 @@
+"""Checkpoints with a manifest and an atomic commit marker.
+
+The port's copy of ``repro.checkpoint.checkpoint``, in the same layout, so
+that a checkpoint written by either package restores in the other::
+
+    ckpt_dir/step_00000100/
+        manifest.json          # keys, shapes, dtypes, treedef, step, extra
+        shard_00000.npz        # leaf_0, leaf_1, ... in the tree's leaf order
+        _COMMITTED             # written last: a partial checkpoint is never restored
+
+A tree is nested dicts (keys in sorted order, as ``jax.tree_util``
+flattens them), lists and tuples, with array leaves (numpy arrays, numbers
+or tensors, copied to the host). The manifest's ``keys`` are the strings
+``jax.tree_util.keystr`` gives for the same paths (``['opt']['m']...``);
+its ``treedef`` is the port's own rendering of the structure, which
+``restore`` never reads (nor does the reference's). Restoring onto another
+mesh (the reference's ``shardings``) waits for the port's scale-out.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+
+PyTree = Any
+
+
+def _is_node(x) -> bool:
+    return isinstance(x, (dict, list, tuple))
+
+
+def _children(x):
+    if isinstance(x, dict):
+        return [(f"[{k!r}]", x[k]) for k in sorted(x)]
+    return [(f"[{i}]", v) for i, v in enumerate(x)]
+
+
+def _flat_with_paths(tree: PyTree, prefix: str = "") -> List[Tuple[str, Any]]:
+    if not _is_node(tree):
+        return [(prefix, tree)]
+    out = []
+    for key, child in _children(tree):
+        out += _flat_with_paths(child, prefix + key)
+    return out
+
+
+def _treedef(tree: PyTree) -> str:
+    if isinstance(tree, dict):
+        return "{" + ", ".join(f"{k!r}: {_treedef(tree[k])}" for k in sorted(tree)) + "}"
+    if isinstance(tree, list):
+        return "[" + ", ".join(_treedef(v) for v in tree) + "]"
+    if isinstance(tree, tuple):
+        inner = ", ".join(_treedef(v) for v in tree)
+        return f"({inner},)" if len(tree) == 1 else f"({inner})"
+    return "*"
+
+
+def _unflatten(template: PyTree, leaves: List[Any]) -> PyTree:
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v) for v in node)
+        return next(it)
+
+    out = build(template)
+    if next(it, None) is not None:
+        raise ValueError("the checkpoint holds more leaves than the template")
+    return out
+
+
+def _host(leaf) -> np.ndarray:
+    """A leaf as a numpy array (a tensor is copied to the host; bfloat16
+    becomes ml_dtypes' bfloat16, as a JAX array's does)."""
+    if hasattr(leaf, "detach"):
+        import torch
+
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes
+
+            return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        return t.numpy()
+    return np.asarray(leaf)
+
+
+def save(ckpt_dir: str, step: int, tree: PyTree, *, extra: Optional[Dict] = None,
+         host_id: int = 0, keep: int = 3) -> str:
+    """Write one checkpoint; returns its path. Host 0 writes the manifest
+    and the commit marker, then the oldest committed checkpoints past
+    ``keep`` are removed."""
+    path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    os.makedirs(path, exist_ok=True)
+    flat = [(k, _host(v)) for k, v in _flat_with_paths(tree)]
+    arrays = {f"leaf_{i}": a for i, (_, a) in enumerate(flat)}
+    np.savez(os.path.join(path, f"shard_{host_id:05d}.npz"), **arrays)
+    if host_id == 0:
+        manifest = {
+            "step": step,
+            "keys": [k for k, _ in flat],
+            "shapes": [list(np.shape(a)) for _, a in flat],
+            "dtypes": [str(a.dtype) for _, a in flat],
+            "treedef": f"PyTreeDef({_treedef(tree)})",
+            "time": time.time(),
+            "extra": extra or {},
+        }
+        with open(os.path.join(path, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        with open(os.path.join(path, "_COMMITTED"), "w") as f:
+            f.write("ok")
+    _gc(ckpt_dir, keep)
+    return path
+
+
+def _committed(ckpt_dir: str) -> List[str]:
+    return [d for d in os.listdir(ckpt_dir)
+            if d.startswith("step_") and os.path.exists(os.path.join(ckpt_dir, d, "_COMMITTED"))]
+
+
+def _gc(ckpt_dir: str, keep: int):
+    for d in sorted(_committed(ckpt_dir))[:-keep]:
+        shutil.rmtree(os.path.join(ckpt_dir, d), ignore_errors=True)
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = [int(d.split("_")[1]) for d in _committed(ckpt_dir)]
+    return max(steps) if steps else None
+
+
+def restore(ckpt_dir: str, template: PyTree, *, step: Optional[int] = None
+            ) -> Tuple[PyTree, Dict]:
+    """The checkpoint at ``step`` (default: the latest committed one) in
+    ``template``'s structure (its leaves are not read), numpy leaves, and
+    its manifest."""
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no committed checkpoint under {ckpt_dir}")
+    path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    with np.load(os.path.join(path, "shard_00000.npz")) as data:
+        leaves = [data[f"leaf_{i}"] for i in range(len(manifest["keys"]))]
+    return _unflatten(template, leaves), manifest
+
+
+def save_async(ckpt_dir: str, step: int, tree: PyTree, **kw) -> threading.Thread:
+    """Save on a thread; the device -> host copy happens first, so that
+    training can go on changing the tensors at once."""
+    host_tree = _map(tree, lambda x: np.array(_host(x)))  # a copy, even of a CPU tensor
+    t = threading.Thread(target=save, args=(ckpt_dir, step, host_tree), kwargs=kw, daemon=True)
+    t.start()
+    return t
+
+
+def _map(tree: PyTree, fn) -> PyTree:
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(v, fn) for v in tree)
+    return fn(tree)

@@ -153,12 +153,103 @@ def _stacking(cfg, model) -> Dict[str, Tuple[Tuple[int, ...], ...]]:
     return {"blocks": (n,)}
 
 
+def _port_name(stacking, name: str) -> Tuple[str, Tuple[int, ...]]:
+    """A port parameter name -> the JAX tree's dotted name and the index of
+    the entry in its stacked axes (``blocks.1.selfs.2.attn.wq`` ->
+    ``("blocks.selfs.attn.wq", (1, 2))``; an unstacked name -> ``(name, ())``)."""
+    parts = name.split(".")
+    for prefix, levels in stacking.items():
+        comps, idx, at, ok = prefix.split("."), [], 0, True
+        for comp, lvl in zip(comps, levels):
+            if at >= len(parts) or parts[at] != comp:
+                ok = False
+                break
+            at += 1
+            for _ in lvl:
+                if at >= len(parts) or not parts[at].isdigit():
+                    ok = False
+                    break
+                idx.append(int(parts[at]))
+                at += 1
+            if not ok:
+                break
+        if ok and at < len(parts):
+            return ".".join(comps + parts[at:]), tuple(idx)
+    return name, ()
+
+
+def unstack_tree(cfg, model, tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The JAX package's nested tree shaped like ``Model.init``'s parameters
+    (the parameters, or an optimizer moment, whose leaves may be dicts of
+    int8 codes and scales) -> ``{port name: array}``, each stacked leaf cut
+    at its stacked axes; a leaf nested below a parameter keeps its key as a
+    suffix (``blocks.0.attn.wq.q``)."""
+    stacking = _stacking(cfg, model)
+    out = {}
+    for name, leaf in _leaves(tree):
+        a = np.asarray(leaf)
+        prefix = next((p for p in stacking if name.startswith(p + ".")), None)
+        if prefix is None:
+            out[name] = a
+            continue
+        levels = stacking[prefix]
+        axes = sum(levels, ())
+        if a.shape[:len(axes)] != axes:
+            got, want = a.shape[:len(axes)], axes
+            if len(axes) == 1:
+                got, want = got[0] if got else None, want[0]
+            raise ValueError(f"{name} stacks {got} blocks, the config has {want}")
+        rest = name[len(prefix) + 1:]
+        for idx in np.ndindex(*axes):
+            parts, it = [], iter(idx)
+            for comp, lvl in zip(prefix.split("."), levels):
+                parts += [comp, *(str(next(it)) for _ in lvl)]
+            out[".".join(parts + [rest])] = a[idx]
+    return out
+
+
+def stack_tree(cfg, model, flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`unstack_tree`: ``{port name: array}`` -> the
+    JAX package's nested tree, each stacked leaf stacked back in index
+    order."""
+    stacking = _stacking(cfg, model)
+    groups: Dict[str, Dict[Tuple[int, ...], np.ndarray]] = {}
+    for name, a in flat.items():
+        jname, idx = _port_name(stacking, name)
+        groups.setdefault(jname, {})[idx] = np.asarray(a)
+    tree: Dict[str, Any] = {}
+    for jname, entries in groups.items():
+        if list(entries) == [()]:
+            leaf = entries[()]
+        else:
+            order = sorted(entries)
+            shape = tuple(1 + max(i[d] for i in order) for d in range(len(order[0])))
+            if len(order) != int(np.prod(shape)):
+                raise ValueError(f"{jname}: {len(order)} entries do not fill {shape}")
+            leaf = np.stack([entries[i] for i in order]).reshape(shape + entries[order[0]].shape)
+        node = tree
+        *path, last = jname.split(".")
+        for comp in path:
+            node = node.setdefault(comp, {})
+        node[last] = leaf
+    return tree
+
+
+def model_params_from_port(model) -> Dict[str, Any]:
+    """The inverse of :func:`model_params_to_port`: a port ``Model``'s
+    parameters as the JAX package's ``Model.init`` tree (nested dicts of
+    float32 numpy arrays, the blocks stacked as ``_stacking`` says)."""
+    return stack_tree(model.cfg, model, {
+        name: t.detach().to("cpu", torch.float32).numpy()
+        for name, t in model.state_dict().items()})
+
+
 def model_params_to_port(cfg, params: Mapping[str, Any], *, cc=None, device=None):
     """A ``repro_torch.models.transformer.Model`` holding the JAX package's
     ``Model.init`` parameters.
 
     ``params`` is the JAX pytree (nested dicts) with numpy (or array-like)
-    leaves. The leaves under ``blocks`` are stacked on a leading axis, one
+    leaves (:func:`model_params_from_port` is the inverse). The leaves under ``blocks`` are stacked on a leading axis, one
     entry per block of the port's model (a layer for dense, audio and moe
     every layer, a ``{dense, moe_l}`` group for moe every other layer, an
     ``[mLSTM, sLSTM]`` pair for ssm), and go to ``blocks.<l>``; the hybrid
@@ -173,27 +264,8 @@ def model_params_to_port(cfg, params: Mapping[str, Any], *, cc=None, device=None
     from repro_torch.models.transformer import Model
 
     model = Model(cfg, cc, device=device)
-    stacking = _stacking(cfg, model)
-    state = {}
-    for name, leaf in _leaves(params):
-        a = np.asarray(leaf, dtype=np.float32)
-        prefix = next((p for p in stacking if name.startswith(p + ".")), None)
-        if prefix is None:
-            state[name] = torch.tensor(a)
-            continue
-        levels = stacking[prefix]
-        axes = sum(levels, ())
-        if a.shape[:len(axes)] != axes:
-            got, want = a.shape[:len(axes)], axes
-            if len(axes) == 1:
-                got, want = got[0] if got else None, want[0]
-            raise ValueError(f"{name} stacks {got} blocks, the config has {want}")
-        rest = name[len(prefix) + 1:]
-        for idx in np.ndindex(*axes):
-            parts, it = [], iter(idx)
-            for comp, lvl in zip(prefix.split("."), levels):
-                parts += [comp, *(str(next(it)) for _ in lvl)]
-            state[".".join(parts + [rest])] = torch.tensor(a[idx])
+    state = {name: torch.tensor(np.asarray(a, dtype=np.float32))
+             for name, a in unstack_tree(cfg, model, params).items()}
     own = model.state_dict()
     if set(state) != set(own):
         raise KeyError(f"parameters missing: {sorted(set(own) - set(state))}, "

@@ -1,6 +1,8 @@
 // flash_attention: online-softmax attention forward, GQA, causal (top-left)
 // or not, for q (B, Sq, H, hd) and k, v (B, Skv, KVH, hd) in float32 or
-// bfloat16, hd 32, 64 or 128; out (B, Sq, H, hd) in q's type.
+// bfloat16, hd 32, 64 or 128; out (B, Sq, H, hd) in q's type and, when
+// asked (training), each row's log-sum-exp (B, H, Sq) in float32. Its
+// backward (dq, dk, dv from that lse) is the second half of this file.
 //
 // Replaces the Pallas TPU kernel repro.kernels.flash_attention.flash_attention
 // (src/repro/kernels/flash_attention.py:64, pallas_call at :87, body :24-61)
@@ -87,6 +89,7 @@ struct Args {
   void* out;
   float* ws_acc;   // [splits][B][H][Sq][HD] unnormalised acc (splits > 1)
   float2* ws_ml;   // [splits][B][H][Sq] (m, l)
+  float* lse;      // [B][H][Sq] log-sum-exp of the scaled scores, or null
   int B, Sq, Skv, H, KVH, causal, splits;
   float scale;
 };
@@ -404,6 +407,9 @@ flash_attention_kernel(const Args args) {
 #pragma unroll
       for (int j = 0; j < HD / 8; ++j)
         store2(oh + row * q_row + 8 * j + 2 * t, o[j][2 * r] / lc, o[j][2 * r + 1] / lc);
+      // m is in the scaled-score domain already (x = s * scale, p = exp(x - m))
+      if (args.lse != nullptr && t == 0)
+        args.lse[((long long)b * H + h) * Sq + row] = fmaxf(m[r], NEG_INF) + logf(lc);
     }
     return;
   }
@@ -428,7 +434,8 @@ flash_attention_kernel(const Args args) {
 template <typename T, int HD>
 __global__ void __launch_bounds__(256)
 flash_combine_kernel(const float* __restrict__ ws_acc, const float2* __restrict__ ws_ml,
-                     T* __restrict__ out, int splits, int B, int H, int Sq) {
+                     T* __restrict__ out, float* __restrict__ lse, int splits, int B, int H,
+                     int Sq) {
   const long long rows = (long long)B * H * Sq;
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= rows * HD) return;
@@ -448,6 +455,7 @@ flash_combine_kernel(const float* __restrict__ ws_acc, const float2* __restrict_
   const int h = (int)(bh % H);
   const long long b = bh / H;
   out[((b * Sq + q) * H + h) * HD + d] = from_f32<T>(acc / fmaxf(l, 1e-30f));
+  if (lse != nullptr && d == 0) lse[row] = fmaxf(mx, NEG_INF) + logf(fmaxf(l, 1e-30f));
 }
 
 template <typename T, int HD>
@@ -461,7 +469,7 @@ int launch(const Args& a, cudaStream_t stream) {
   if (err != cudaSuccess || a.splits == 1) return static_cast<int>(err);
   const long long total = (long long)a.B * a.H * a.Sq * HD;
   flash_combine_kernel<T, HD><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-      a.ws_acc, a.ws_ml, static_cast<T*>(a.out), a.splits, a.B, a.H, a.Sq);
+      a.ws_acc, a.ws_ml, static_cast<T*>(a.out), a.lse, a.splits, a.B, a.H, a.Sq);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -480,19 +488,472 @@ int launch_hd(const Args& a, int hd, cudaStream_t stream) {
 // aligned. splits (kernels/flash_attention.py:plan): the KV range of each q
 // tile is cut into that many blocks; with splits > 1, ws_acc holds
 // splits*B*H*Sq*hd floats and ws_ml splits*B*H*Sq float pairs, and a second
-// kernel combines them. Returns cudaGetLastError() after the launches (or the
-// error that kept one from launching).
+// kernel combines them. lse: null (serving), or B*H*Sq floats that receive
+// each row's log-sum-exp of the scaled scores, max(m, -1e30) + log(l), the
+// backward's input; out is the same either way. Returns cudaGetLastError()
+// after the launches (or the error that kept one from launching).
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
-                                     void* ws_acc, void* ws_ml, int B, int Sq, int Skv, int H,
-                                     int KVH, int hd, int causal, float scale, int dtype,
-                                     int splits, void* stream) {
+                                     void* ws_acc, void* ws_ml, void* lse, int B, int Sq,
+                                     int Skv, int H, int KVH, int hd, int causal, float scale,
+                                     int dtype, int splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Sq <= 0 || Skv <= 0 || KVH <= 0 || H % KVH != 0 || H > 65535 || splits < 1 ||
       (long long)B * splits > 65535 || (splits > 1 && (ws_acc == nullptr || ws_ml == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, out, static_cast<float*>(ws_acc), static_cast<float2*>(ws_ml),
-               B, Sq, Skv, H, KVH, causal, splits, scale};
+               static_cast<float*>(lse), B, Sq, Skv, H, KVH, causal, splits, scale};
   if (dtype == 0) return launch_hd<float>(a, hd, s);
   if (dtype == 1) return launch_hd<__nv_bfloat16>(a, hd, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---- the backward ----------------------------------------------------------------
+// dq, dk, dv of out = softmax(scale * q k^T) v from (q, k, v, out, lse, dout):
+// the model's attention gradient, the custom_vjp backward _flash_vjp_bwd of
+// src/repro/models/attention.py:159 (the Pallas forward has no backward). As
+// there, the weights are recomputed from the saved lse, p = exp(scale * s -
+// lse), and never stored:
+//   delta = rowsum(dout * out), dv = p^T dout, ds = p * (dout v^T - delta),
+//   dq = scale * ds k, dk = scale * ds^T q (summed over the G query heads of
+//   each KV head).
+// Three launches: delta (one warp a row, a kernel of its own), then
+// * dK/dV: a block per (b, KV head, 64-key tile) walks the G query heads of
+//   its KV head and, for each, the q tiles that see its keys (causal: from
+//   the diagonal down), with (q, dout, lse, delta) tiles through a two-slot
+//   cp.async ring. Each warp owns 16 keys: s^T = k q^T and dp^T = v dout^T
+//   come out with the keys as rows, so p^T and ds^T are A fragments as they
+//   stand for dv += p^T dout and dk += ds^T q (the forward's QK^T and PV
+//   tiles). dk and dv stay in registers (f32) over the whole walk, each
+//   tile's product promoted into them from a fresh MMA accumulator: GQA is
+//   summed inside the block, with no atomics, so two calls give the same
+//   bits;
+// * dQ: a block per (b, head, 64-row q tile) walks the key tiles up to the
+//   diagonal: s = q k^T, dp = dout v^T, dq += ds k.
+// The products are the forward's: bfloat16 on m16n8k16 (p and ds split into
+// hi + mid + lo), float32 on 3xTF32; every tile row has stride hd + 8.
+//
+// What bounds it on an H100: 5 products of 2 * hd flop per unmasked (q, k)
+// pair and head (s, dp, dv, dk, dq), 2.5 times the forward's 2, against the
+// bytes of q, k, v, out, dout, lse read and dq, dk, dv written once: the
+// operations, at 989 TFLOP/s in bfloat16. What the design does about it:
+// every product runs on the tensor cores and the S x S weights never reach
+// device memory; the price of having no atomics is that s and dp are formed
+// twice (once in each kernel), 7 products where 5 would do, and the bfloat16
+// split of p and ds triples the three accumulating products (15 MMA passes
+// where the bound counts 5). No wgmma, no TMA: a later redesign.
+namespace {
+
+using namespace com;
+
+// shared-memory geometry of the backward: every tile [64][hd + 8]; the dK/dV
+// kernel holds its K and V tiles and two slots of (q, dout) tiles and of the
+// (lse, delta) rows; the dQ kernel its q and dout tiles and two slots of
+// (k, v) tiles
+template <typename T, int HD>
+struct BL {
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int LD = HD + 8;
+  static constexpr int TILE = 64 * LD;
+  static constexpr int SMEM_DKDV = 6 * TILE * (int)sizeof(T) + 2 * 2 * 64 * (int)sizeof(float);
+  static constexpr int SMEM_DQ = 6 * TILE * (int)sizeof(T);
+  static_assert(SMEM_DKDV <= SMEM_LIMIT, "the tiles exceed a block's shared memory");
+};
+
+struct BwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* lse;    // [B][H][Sq]
+  const float* delta;  // [B][H][Sq]
+  void* dq;
+  void* dk;
+  void* dv;
+  int B, Sq, Skv, H, KVH, causal;
+  float scale;
+};
+
+// delta[b][h][q] = sum_d dout * out (f32), one warp a (b, q, h) row
+template <typename T, int HD>
+__global__ void __launch_bounds__(256)
+flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
+                       float* __restrict__ delta, int B, int Sq, int H) {
+  const long long rows = (long long)B * Sq * H;
+  const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  float acc = 0.f;
+#pragma unroll
+  for (int e = lane; e < HD; e += 32) acc += to_f32(out[row * HD + e]) * to_f32(dout[row * HD + e]);
+#pragma unroll
+  for (int off = 16; off; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    const int h = (int)(row % H);
+    const long long bq = row / H;
+    const int qi = (int)(bq % Sq);
+    const long long b = bq / Sq;
+    delta[(b * H + h) * Sq + qi] = acc;
+  }
+}
+
+// s (16 x 64) = A (the warp's 16 rows) B^T (64 rows), both [rows][LD]
+template <typename T, int HD>
+__device__ __forceinline__ void bwd_qk(float (&s)[8][4], const T* Aw, const T* Bs, int lane) {
+  if constexpr (sizeof(T) == 4)
+    qk_tile_f32<HD>(s, Aw, Bs, lane);
+  else
+    qk_tile<HD>(s, Aw, Bs, lane);
+}
+
+// acc (16 x HD) += P (16 x 64, C fragments) V (64 rows x HD, [rows][LD]),
+// promoted as the forward's PV: for each group of d tiles, this tile's
+// product runs on a fresh MMA accumulator and is then added to acc in f32
+// (the tensor cores truncate what they add into their accumulator, and the
+// dK/dV walk adds up to G * Sq / 64 tiles). The A fragments are formed again
+// for every group, so that a group's temporary is all the registers it costs.
+// bf16: P split into hi + mid + lo, as the forward's pv_tile splits it.
+template <int HD, int LD>
+__device__ __forceinline__ void pv_acc(float (&acc)[HD / 8][4], const float (&p)[8][4],
+                                       const __nv_bfloat16* Vs, int lane) {
+  constexpr int JG = HD / 8 < 8 ? HD / 8 : 8;
+#pragma unroll
+  for (int j0 = 0; j0 < HD / 8; j0 += JG) {
+    float t[JG][4];
+#pragma unroll
+    for (int j = 0; j < JG; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) t[j][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t part[3][4];  // lo, mid, hi
+      split_bf16(p[2 * kk][0], p[2 * kk][1], part[2][0], part[1][0], part[0][0]);
+      split_bf16(p[2 * kk][2], p[2 * kk][3], part[2][1], part[1][1], part[0][1]);
+      split_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1], part[2][2], part[1][2], part[0][2]);
+      split_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3], part[2][3], part[1][3], part[0][3]);
+      uint32_t v[JG][2];
+#pragma unroll
+      for (int j = 0; j < JG; j += 2)
+        ldsm_x4_trans(&v[j][0], Vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                                    8 * (j0 + j + (lane >> 4)));
+#pragma unroll
+      for (int pass = 0; pass < 3; ++pass)
+#pragma unroll
+        for (int j = 0; j < JG; ++j) mma_bf16(t[j], part[pass], v[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < JG; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[j0 + j][c] += t[j][c];
+  }
+}
+
+// f32: the same by 3xTF32, as the forward's pv_tile_f32 (k slots t, t + 4
+// take rows 2t, 2t + 1 of each k8 step)
+template <int HD, int LD>
+__device__ __forceinline__ void pv_acc(float (&acc)[HD / 8][4], const float (&p)[8][4],
+                                       const float* Vs, int lane) {
+  constexpr int JG = HD / 8 < 4 ? HD / 8 : 4;
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int j0 = 0; j0 < HD / 8; j0 += JG) {
+    float t[JG][4];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      uint32_t a[4], as[4];
+      const float pa[4] = {p[kk][0], p[kk][2], p[kk][1], p[kk][3]};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        a[c] = tf32_big(pa[c]);
+        as[c] = tf32_small(pa[c], a[c]);
+      }
+      const float* v0 = Vs + (kk * 8 + 2 * t4) * LD + g;
+      uint32_t b[JG][2], bs[JG][2];
+#pragma unroll
+      for (int j = 0; j < JG; ++j) {
+        const float x0 = v0[8 * (j0 + j)], x1 = v0[LD + 8 * (j0 + j)];
+        b[j][0] = tf32_big(x0), b[j][1] = tf32_big(x1);
+        bs[j][0] = tf32_small(x0, b[j][0]), bs[j][1] = tf32_small(x1, b[j][1]);
+      }
+#pragma unroll
+      for (int j = 0; j < JG; ++j) {
+        if (kk == 0)
+          mma_tf32<true>(t[j], a, bs[j]);
+        else
+          mma_tf32(t[j], a, bs[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < JG; ++j) mma_tf32(t[j], as, b[j]);
+#pragma unroll
+      for (int j = 0; j < JG; ++j) mma_tf32(t[j], a, b[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < JG; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[j0 + j][c] += t[j][c];
+  }
+}
+
+template <typename T, int HD>
+__device__ __forceinline__ void bwd_pv(float (&acc)[HD / 8][4], const float (&p)[8][4],
+                                       const T* Vs, int lane) {
+  pv_acc<HD, BL<T, HD>::LD>(acc, p, Vs, lane);
+}
+
+// 64 f32 values from row r0 of a [rows] vector into dst, zero past `n`
+__device__ __forceinline__ void load_row64(float* dst, const float* src, int r0, int n, int c) {
+  const bool ok = r0 + c < n;
+  cp_async4(dst + c, ok ? src + r0 + c : src, ok);
+}
+
+// grid (KV tiles, KVH, B): the first key tiles (the longest causal walks) start first
+template <typename T, int HD>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkdv_kernel(const BwdArgs a) {
+  using L = BL<T, HD>;
+  constexpr int LD = L::LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Ks = reinterpret_cast<T*>(smem_raw);
+  T* Vs = Ks + L::TILE;
+  T* ring = Vs + L::TILE;                                   // [2][q tile, dout tile]
+  float* stats = reinterpret_cast<float*>(ring + 4 * L::TILE);  // [2][lse 64, delta 64]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int Sq = a.Sq, Skv = a.Skv, H = a.H, G = a.H / a.KVH;
+  const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int k0 = kt * BKV;
+  const long long q_row = (long long)H * HD, kv_row = (long long)a.KVH * HD;
+  const T* kh = static_cast<const T*>(a.k) + (long long)b * Skv * kv_row + (long long)kvh * HD;
+  const T* vh = static_cast<const T*>(a.v) + (long long)b * Skv * kv_row + (long long)kvh * HD;
+  const T* qb = static_cast<const T*>(a.q) + (long long)b * Sq * q_row;
+  const T* ob = static_cast<const T*>(a.dout) + (long long)b * Sq * q_row;
+  const int nq = (Sq + BQ - 1) / BQ;
+  // causal (top-left): q tile i has a row >= k0 from i = kt on
+  const int i0 = a.causal ? min(nq, kt) : 0;
+  const int per_head = nq - i0, n_it = G * per_head;
+
+  auto load_stage = [&](int it, int slot) {
+    const int h = kvh * G + it / per_head, q0 = (i0 + it % per_head) * BQ;
+    T* Qs = ring + slot * 2 * L::TILE;
+    load_tile<T, HD>(Qs, LD, qb + (long long)h * HD, q_row, q0, Sq);
+    load_tile<T, HD>(Qs + L::TILE, LD, ob + (long long)h * HD, q_row, q0, Sq);
+    const long long row0 = ((long long)b * H + h) * Sq;
+    const int c = threadIdx.x;  // 128 threads: 64 lse and 64 delta values
+    if (c < 64)
+      load_row64(stats + slot * 128, a.lse + row0, q0, Sq, c);
+    else
+      load_row64(stats + slot * 128 + 64, a.delta + row0, q0, Sq, c - 64);
+  };
+
+  float dk[HD / 8][4], dv[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dk[j][c] = dv[j][c] = 0.f;
+
+  if (n_it > 0) {
+    load_tile<T, HD>(Ks, LD, kh, kv_row, k0, Skv);
+    load_tile<T, HD>(Vs, LD, vh, kv_row, k0, Skv);
+    load_stage(0, 0);
+    cp_async_commit();
+  }
+  const int key_lo = k0 + warp * 16 + g;  // this thread's rows: key_lo, key_lo + 8
+  for (int it = 0; it < n_it; ++it) {
+    const int slot = it & 1;
+    cp_async_wait(0);  // this thread's copies of stage it landed
+    __syncthreads();   // everyone's; everyone is done with stage it - 1's slot
+    if (it + 1 < n_it) load_stage(it + 1, slot ^ 1);
+    cp_async_commit();
+    const T* Qs = ring + slot * 2 * L::TILE;
+    const T* dOs = Qs + L::TILE;
+    const float* lse_s = stats + slot * 128;
+    const float* del_s = lse_s + 64;
+    const int q0 = (i0 + it % per_head) * BQ;
+
+    // p^T = exp(scale * k q^T - lse): rows keys, columns q
+    float s[8][4];
+    bwd_qk<T, HD>(s, Ks + warp * 16 * LD, Qs, lane);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = 8 * j + 2 * t + (c & 1), qq = q0 + col, key = key_lo + 8 * (c >> 1);
+        const bool keep = qq < Sq && key < Skv && !(a.causal && key > qq);
+        s[j][c] = keep ? expf(s[j][c] * a.scale - lse_s[col]) : 0.f;
+      }
+    bwd_pv<T, HD>(dv, s, dOs, lane);  // dv += p^T dout
+
+    // ds^T = p^T * (v dout^T - delta)
+    float dp[8][4];
+    bwd_qk<T, HD>(dp, Vs + warp * 16 * LD, dOs, lane);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) dp[j][c] = s[j][c] * (dp[j][c] - del_s[8 * j + 2 * t + (c & 1)]);
+    bwd_pv<T, HD>(dk, dp, Qs, lane);  // dk += ds^T q
+  }
+  cp_async_wait(0);
+
+  T* dkh = static_cast<T*>(a.dk) + (long long)b * Skv * kv_row + (long long)kvh * HD;
+  T* dvh = static_cast<T*>(a.dv) + (long long)b * Skv * kv_row + (long long)kvh * HD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key_lo + 8 * r;
+    if (key >= Skv) continue;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      store2(dkh + key * kv_row + 8 * j + 2 * t, dk[j][2 * r] * a.scale,
+             dk[j][2 * r + 1] * a.scale);
+      store2(dvh + key * kv_row + 8 * j + 2 * t, dv[j][2 * r], dv[j][2 * r + 1]);
+    }
+  }
+}
+
+// grid (q tiles, H, B): the longest causal q tiles start first
+template <typename T, int HD>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_kernel(const BwdArgs a) {
+  using L = BL<T, HD>;
+  constexpr int LD = L::LD;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* dOs = Qs + L::TILE;
+  T* ring = dOs + L::TILE;  // [2][k tile, v tile]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int Sq = a.Sq, Skv = a.Skv, H = a.H;
+  const int qt = a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / a.KVH);
+  const int q0 = qt * BQ;
+  const long long q_row = (long long)H * HD, kv_row = (long long)a.KVH * HD;
+  const T* qh = static_cast<const T*>(a.q) + (long long)b * Sq * q_row + (long long)h * HD;
+  const T* oh = static_cast<const T*>(a.dout) + (long long)b * Sq * q_row + (long long)h * HD;
+  const T* kh = static_cast<const T*>(a.k) + (long long)b * Skv * kv_row + (long long)kvh * HD;
+  const T* vh = static_cast<const T*>(a.v) + (long long)b * Skv * kv_row + (long long)kvh * HD;
+
+  int n_tiles = (Skv + BKV - 1) / BKV;
+  if (a.causal) n_tiles = min(n_tiles, (q0 + BQ - 1) / BKV + 1);
+
+  // rows r_lo and r_lo + 8 of the warp's 16
+  const int r_lo = q0 + warp * 16 + g;
+  const long long row0 = ((long long)b * H + h) * Sq;
+  float lse[2], del[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r_lo + 8 * r;
+    lse[r] = row < Sq ? a.lse[row0 + row] : 0.f;
+    del[r] = row < Sq ? a.delta[row0 + row] : 0.f;
+  }
+  float dq[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dq[j][c] = 0.f;
+
+  load_tile<T, HD>(Qs, LD, qh, q_row, q0, Sq);
+  load_tile<T, HD>(dOs, LD, oh, q_row, q0, Sq);
+  if (n_tiles > 0) {
+    load_tile<T, HD>(ring, LD, kh, kv_row, 0, Skv);
+    load_tile<T, HD>(ring + L::TILE, LD, vh, kv_row, 0, Skv);
+  }
+  cp_async_commit();
+  for (int it = 0; it < n_tiles; ++it) {
+    const int slot = it & 1;
+    cp_async_wait(0);
+    __syncthreads();
+    if (it + 1 < n_tiles) {
+      T* nxt = ring + (slot ^ 1) * 2 * L::TILE;
+      load_tile<T, HD>(nxt, LD, kh, kv_row, (it + 1) * BKV, Skv);
+      load_tile<T, HD>(nxt + L::TILE, LD, vh, kv_row, (it + 1) * BKV, Skv);
+    }
+    cp_async_commit();
+    const T* Ks = ring + slot * 2 * L::TILE;
+    const T* Vt = Ks + L::TILE;
+    const int k0 = it * BKV;
+
+    // p = exp(scale * q k^T - lse): rows q, columns keys
+    float s[8][4];
+    bwd_qk<T, HD>(s, Qs + warp * 16 * LD, Ks, lane);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int key = k0 + 8 * j + 2 * t + (c & 1), row = r_lo + 8 * (c >> 1);
+        const bool keep = row < Sq && key < Skv && !(a.causal && key > row);
+        s[j][c] = keep ? expf(s[j][c] * a.scale - lse[c >> 1]) : 0.f;
+      }
+    // ds = p * (dout v^T - delta); dq += ds k
+    float dp[8][4];
+    bwd_qk<T, HD>(dp, dOs + warp * 16 * LD, Vt, lane);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) dp[j][c] = s[j][c] * (dp[j][c] - del[c >> 1]);
+    bwd_pv<T, HD>(dq, dp, Ks, lane);
+  }
+  cp_async_wait(0);
+
+  T* dqh = static_cast<T*>(a.dq) + (long long)b * Sq * q_row + (long long)h * HD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r_lo + 8 * r;
+    if (row >= Sq) continue;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      store2(dqh + row * q_row + 8 * j + 2 * t, dq[j][2 * r] * a.scale,
+             dq[j][2 * r + 1] * a.scale);
+  }
+}
+
+template <typename T, int HD>
+int launch_bwd(const BwdArgs& a, const void* out, float* delta, cudaStream_t stream) {
+  using L = BL<T, HD>;
+  const long long rows = (long long)a.B * a.Sq * a.H;
+  flash_bwd_delta_kernel<T, HD><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+      static_cast<const T*>(out), static_cast<const T*>(a.dout), delta, a.B, a.Sq, a.H);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = allow_smem(flash_bwd_dkdv_kernel<T, HD>, L::SMEM_DKDV);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid_kv((a.Skv + BKV - 1) / BKV, a.KVH, a.B);
+  flash_bwd_dkdv_kernel<T, HD><<<grid_kv, THREADS, L::SMEM_DKDV, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = allow_smem(flash_bwd_dq_kernel<T, HD>, L::SMEM_DQ);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid_q((a.Sq + BQ - 1) / BQ, a.H, a.B);
+  flash_bwd_dq_kernel<T, HD><<<grid_q, THREADS, L::SMEM_DQ, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd_hd(const BwdArgs& a, const void* out, float* delta, int hd, cudaStream_t stream) {
+  if (hd == 32) return launch_bwd<T, 32>(a, out, delta, stream);
+  if (hd == 64) return launch_bwd<T, 64>(a, out, delta, stream);
+  if (hd == 128) return launch_bwd<T, 128>(a, out, delta, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// The backward of repro_flash_attention. q, out, dout, dq: (B, Sq, H, hd);
+// k, v, dk, dv: (B, Skv, KVH, hd), all of one dtype (0 = float32, 1 =
+// bfloat16), contiguous and 16-byte aligned; lse: the forward's (B, H, Sq)
+// floats; delta: B*H*Sq floats of workspace (written here first). hd, causal
+// and scale as in the forward. Returns cudaGetLastError() after the three
+// launches (or the error that kept one from launching).
+extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
+                                         const void* out, const void* dout, const void* lse,
+                                         void* delta, void* dq, void* dk, void* dv, int B,
+                                         int Sq, int Skv, int H, int KVH, int hd, int causal,
+                                         float scale, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || KVH <= 0 || H % KVH != 0 || H > 65535 || B > 65535 ||
+      lse == nullptr || delta == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BwdArgs a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),
+                  dq, dk, dv, B, Sq, Skv, H, KVH, causal, scale};
+  float* d = static_cast<float*>(delta);
+  if (dtype == 0) return launch_bwd_hd<float>(a, out, d, hd, s);
+  if (dtype == 1) return launch_bwd_hd<__nv_bfloat16>(a, out, d, hd, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -10,14 +10,21 @@ Counterpart of ``repro.kernels.ops``. ``backend`` selects the path:
 
 Every Pallas kernel of the JAX package is ported: ``com_matmul``,
 ``conv2d_com``, ``flash_attention`` and ``slstm_fused`` (``slstm``).
+``flash_attention`` is differentiable: where grad is enabled and an input
+requires it, it runs through :class:`FlashAttention`, whose backward is the
+CUDA backward kernel for CUDA tensors and the plain backward for CPU tensors
+or ``backend="ref"``.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.com_matmul import com_matmul as _com_matmul
 from repro_torch.kernels.conv2d_com import conv2d_com as _conv2d_com
 from repro_torch.kernels.flash_attention import BLOCK_KV
 from repro_torch.kernels.flash_attention import flash_attention as _flash_attention
+from repro_torch.kernels.flash_attention import flash_attention_bwd as _flash_attention_bwd
 from repro_torch.kernels.slstm import slstm_fused as _slstm_fused
 
 BACKENDS = ("cuda", "ref")
@@ -46,10 +53,45 @@ def conv2d(x, w, *, stride=1, padding=1, activation=None, backend=None):
     return _conv2d_com(x, w, stride=stride, padding=padding, activation=activation)
 
 
+class FlashAttention(torch.autograd.Function):
+    """Attention whose gradient is the reference's blockwise backward
+    (``repro.models.attention._flash_vjp_bwd``): the forward saves ``(q, k,
+    v, out, lse)``, and the backward recomputes the weights from ``lse``.
+    ``path`` is ``"cuda"`` (the kernels, forward and backward) or ``"ref"``
+    (the plain versions, on the tensors' own device)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, path, block_kv):
+        if path == "ref":
+            out, lse = _ref.flash_attention_ref(q, k, v, causal=causal, return_lse=True)
+        else:
+            out, lse = _flash_attention(q, k, v, causal=causal, block_kv=block_kv,
+                                        return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.path, ctx.block_kv = causal, path, block_kv
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        if ctx.path == "ref":
+            dq, dk, dv = _ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=ctx.causal)
+        else:
+            dq, dk, dv = _flash_attention_bwd(q, k, v, out, lse, dout, causal=ctx.causal,
+                                              block_kv=ctx.block_kv)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, *, causal=True, backend=None, block_kv=BLOCK_KV):
     """q: (B, Sq, H, hd); k, v: (B, Skv, KVH, hd) -> (B, Sq, H, hd), GQA read
-    in place, causal mask top-left aligned."""
-    if _resolve(q, backend) == "ref":
+    in place, causal mask top-left aligned. Differentiable through
+    :class:`FlashAttention` where grad is enabled and an input requires it;
+    otherwise (serving) the forward alone, with no lse written."""
+    path = _resolve(q, backend)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, bool(causal), path, block_kv)
+    if path == "ref":
         return _ref.flash_attention_ref(q, k, v, causal=causal)
     return _flash_attention(q, k, v, causal=causal, block_kv=block_kv)
 

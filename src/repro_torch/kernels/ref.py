@@ -45,7 +45,7 @@ def com_matmul_ref(x: torch.Tensor, w: torch.Tensor, *, bias: Optional[torch.Ten
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True) -> torch.Tensor:
+                        causal: bool = True, return_lse: bool = False):
     """q: (B, Sq, H, hd); k, v: (B, Skv, KVH, hd) -> (B, Sq, H, hd) in
     ``q.dtype``: softmax attention in float32, query head ``h`` reading KV
     head ``h // (H / KVH)``.
@@ -55,7 +55,30 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     top-left aligned, ``k_pos <= q_pos``, as the Pallas kernel and the
     model's blockwise attention mask it; for ``Sq == Skv`` that is the usual
     causal mask.
+
+    With ``return_lse``, also each row's log-sum-exp of the scaled scores,
+    float32 ``(B, H, Sq)`` (the layout the CUDA kernel writes), natural log:
+    ``max(m, -1e30) + log(max(l, 1e-30))`` for the row max ``m`` and ``l =
+    sum(exp(s - m))``, as ``repro/models/attention.py:145`` defines it. The
+    output is the same either way.
     """
+    B, Sq, H, hd = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    s = _scores(q, k, causal)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
+    out = out.reshape(B, Sq, H, hd).to(q.dtype)
+    if not return_lse:
+        return out
+    m = s.amax(dim=-1)
+    l = torch.exp(s - m[..., None]).sum(dim=-1)
+    lse = m.clamp(min=-1e30) + torch.log(l.clamp(min=1e-30))
+    return out, lse.reshape(B, H, Sq)
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
+    """The float32 scaled scores ``(B, KVH, G, Sq, Skv)``, masked to -inf
+    above the top-left diagonal when ``causal``."""
     B, Sq, H, hd = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
     qg = q.float().reshape(B, Sq, KVH, H // KVH, hd) * (1.0 / math.sqrt(hd))
@@ -64,9 +87,38 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q_pos = torch.arange(Sq, device=q.device)[:, None]
         k_pos = torch.arange(Skv, device=q.device)[None, :]
         s = s.masked_fill(k_pos > q_pos, float("-inf"))
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
-    return out.reshape(B, Sq, H, hd).to(q.dtype)
+    return s
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, *,
+                            causal: bool = True) -> Tuple[torch.Tensor, ...]:
+    """The gradient of :func:`flash_attention_ref`: ``(dq, dk, dv)`` from the
+    forward's inputs, its output, its ``lse`` (float32 ``(B, H, Sq)``) and
+    the output's gradient ``dout``, each cast to its input's dtype.
+
+    The formula of the model attention's ``custom_vjp`` backward
+    (``repro/models/attention.py:159-200``) on the full float32 scores:
+    ``delta = sum(dout * out)``, ``p = exp(s - lse)``, ``dv = p^T dout``,
+    ``ds = p * (dout v^T - delta)``, ``dq = ds k * scale``, ``dk = ds^T q *
+    scale`` summed over the G query heads of each KV head.
+    """
+    B, Sq, H, hd = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.float().reshape(B, Sq, KVH, G, hd) * scale
+    do = dout.float().reshape(B, Sq, KVH, G, hd)
+    og = out.float().reshape(B, Sq, KVH, G, hd)
+    delta = (do * og).sum(dim=-1).permute(0, 2, 3, 1)  # (B, KVH, G, Sq)
+    p = torch.exp(_scores(q, k, causal) - lse.reshape(B, KVH, G, Sq)[..., None])
+    kf, vf = k.float(), v.float()
+    dv = torch.einsum("bkgqs,bqkgh->bskh", p, do)
+    dp = torch.einsum("bqkgh,bskh->bkgqs", do, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bkgqs,bskh->bqkgh", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bqkgh->bskh", ds, qg)
+    return dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def conv2d_com_ref(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1, padding: int = 1,

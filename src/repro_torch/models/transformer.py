@@ -60,6 +60,15 @@ Prefill and decode write into the cache they are given, in place, where
 JAX returns a new one. The moe load-balance loss is computed by
 :func:`repro_torch.models.moe.moe_forward` and not returned: serving has no
 use for it.
+
+Training (:meth:`Model.loss`, :meth:`Model.forward_train`) is ported for the
+dense family: the full-sequence forward with grad, each layer recomputed in
+the backward under ``CallConfig.remat == "block"`` (the reference's
+``jax.checkpoint`` per scanned layer), the attention differentiated through
+:class:`repro_torch.kernels.ops.FlashAttention`. ``model.requires_grad_()``
+makes the parameters trainable; the tied ``embed.table`` is one parameter.
+``forward``, ``prefill`` and ``decode_step`` run under ``no_grad`` whatever
+that flag says.
 """
 from __future__ import annotations
 
@@ -68,6 +77,7 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.convert import resolve_device
@@ -80,6 +90,15 @@ from repro_torch.models.layers import embed, make_norm, mlp, mlp_params, norm_pa
 
 Cache = Tuple[torch.Tensor, ...]  # the reference's cache leaves (see the module docstring)
 FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")  # the reference's layer layouts
+REMAT = ("none", "block")
+# what training each family still needs (ROADMAP Queue 1, item 4)
+UNTRAINED = {
+    "moe": "the moe load-balance loss out of the forward (moe_forward's aux)",
+    "ssm": "a backward of the slstm_fused kernel (the reference differentiates a scan)",
+    "hybrid": "the Mamba2 / SSD scan and the shared attention block under the train forward",
+    "vlm": "the cross-attention groups and image embeddings under the train forward",
+    "audio": "the codebook loss over (B, S, K, V) logits",
+}
 
 
 @dataclass(frozen=True)
@@ -94,6 +113,9 @@ class CallConfig:
     # tensors' device decide (the CUDA kernel on the card), "ref" runs the
     # plain version (repro_torch.kernels.ops)
     kernel_backend: Optional[str] = None
+    # training: "block" recomputes each layer in the backward (the
+    # reference's default), "none" keeps every activation
+    remat: str = "block"
 
 
 def _params(d: dict) -> nn.ParameterDict:
@@ -271,6 +293,8 @@ class Model(nn.Module):
         if cfg.family not in FAMILIES:
             raise ValueError(f"unknown family {cfg.family!r}; known: {FAMILIES}")
         _moe_every(cfg)
+        if (cc or CallConfig()).remat not in REMAT:
+            raise ValueError(f"remat={(cc or CallConfig()).remat!r}; expected one of {REMAT}")
         self.cfg = cfg
         self.cc = cc or CallConfig()
         self.device = resolve_device(device)
@@ -497,6 +521,45 @@ class Model(nn.Module):
             x = x[:, -1:]  # prefill: unembed only the last position
         return self._logits(x), cache
 
+    # -------------------- training --------------------
+    def forward_train(self, tokens, *, image_embeds=None):
+        """The full-sequence forward with grad (dense family): tokens (B, S)
+        -> ``(logits (B, S, V) in the compute dtype, aux)``, ``aux`` the
+        float32 auxiliary loss (0 for dense). Under ``remat == "block"`` and
+        grad, each layer runs in ``torch.utils.checkpoint`` (non-reentrant):
+        only its input is kept, and the backward runs it again."""
+        check_trainable(self.cfg)
+        cfg, cc = self.cfg, self.cc
+        tokens = self._tokens(tokens)
+        x = self._embed_tokens(tokens)
+        B, S = tokens.shape[:2]
+        positions = torch.arange(S, device=self.device)[None, :].expand(B, S)
+        remat = cc.remat == "block" and torch.is_grad_enabled()
+        for blk in self._attn_layers():
+            if remat:
+                x = checkpoint(blk, x, positions, cfg, cc, use_reentrant=False)
+            else:
+                x = blk(x, positions, cfg, cc)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        return self._logits(x), aux
+
+    def loss(self, batch):
+        """``(loss, {"nll", "aux"})`` of a batch ``{"tokens", "targets"}``
+        (B, S each), as ``repro.models.transformer.Model.loss``: the
+        cross-entropy in float32, ``logsumexp`` with its max held out of the
+        gradient, ``loss = nll + 0.01 * aux``. The target logit is taken by
+        ``gather``, where the reference contracts with a one-hot: the same
+        value (every other term of its sum is an exact zero)."""
+        logits, aux = self.forward_train(batch["tokens"],
+                                         image_embeds=batch.get("image_embeds"))
+        targets = torch.as_tensor(batch["targets"], device=self.device).long()
+        lf = logits.float()
+        m = lf.amax(dim=-1, keepdim=True).detach()
+        logz = torch.log(torch.exp(lf - m).sum(dim=-1)) + m[..., 0]
+        tgt = lf.gather(-1, targets[..., None])[..., 0]
+        nll = (logz - tgt).mean()
+        return nll + 0.01 * aux, {"nll": nll, "aux": aux}
+
     def prefill(self, tokens, cache: Cache, *, image_embeds=None):
         """Fill ``cache`` from a prompt, in place; returns (last-token
         logits (B, 1, V) or (B, 1, K, V), cache)."""
@@ -541,6 +604,15 @@ class Model(nn.Module):
             for blk, lc in zip(self._attn_layers(), self._attn_caches(cache)):
                 x = blk(x, positions, cfg, cc, lc, pos)
         return self._logits(x), cache
+
+
+def check_trainable(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` for a family whose training is not
+    ported yet, naming what it needs."""
+    if cfg.family in UNTRAINED:
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family} family is not ported yet (ROADMAP Queue 1, "
+            f"item 4): it needs {UNTRAINED[cfg.family]}; the dense family trains")
 
 
 def build_model(cfg: ArchConfig, cc: Optional[CallConfig] = None, *, device=None,

@@ -1,0 +1,191 @@
+"""Optimizer: AdamW with cosine / WSD schedules, global-norm clipping and
+optional bf16 or 8-bit (per-row quantized) moments.
+
+The port's copy of ``repro.train.optimizer``, on a flat mapping of
+parameter name -> tensor (``dict(model.named_parameters())``) where the
+reference maps a pytree. The arithmetic is the reference's, in float32 on
+the parameters' device. Where the reference returns new arrays, the port
+updates in place: each parameter, each moment (int8 codes and scales
+included) and the step counter are overwritten with their new values
+(``copy_`` under ``no_grad``), and :func:`adamw_update` returns the same
+objects.
+
+The reference updates stacked leaves of more than 2e9 elements slice by
+slice (``lax.map``), so that XLA's float32 temporaries stay one layer's
+size. The port's parameters are per layer already (``blocks.<l>.*``, no
+stacked leaf), and PyTorch frees each leaf's temporaries before the next:
+there is nothing to chunk.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Iterable, Mapping, Tuple, Union
+
+import torch
+
+Moment = Union[torch.Tensor, Dict[str, torch.Tensor]]
+
+
+@dataclass(frozen=True)
+class OptConfig:
+    lr: float = 3e-4
+    betas: Tuple[float, float] = (0.9, 0.95)
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    schedule: str = "cosine"      # "cosine" | "wsd" | "const"
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    decay_frac: float = 0.1       # WSD: final fraction of steps in decay
+    min_lr_ratio: float = 0.1
+    moment_dtype: str = "fp32"    # "fp32" | "bf16" | "int8"
+    param_dtype: str = "fp32"     # "fp32" | "bf16" master weights
+
+
+# ---------------------------------------------------------------------------
+# Schedules
+# ---------------------------------------------------------------------------
+
+
+def schedule_lr(cfg: OptConfig, step) -> torch.Tensor:
+    """The learning rate at ``step`` (an int or an integer tensor), a
+    float32 0-d tensor on the step's device: linear warm-up, then constant,
+    cosine to ``min_lr_ratio`` or WSD (flat, then a linear decay over the
+    last ``decay_frac`` of the steps)."""
+    step = torch.as_tensor(step).to(torch.float32)
+    warm = torch.clamp(step / max(cfg.warmup_steps, 1), max=1.0)
+    if cfg.schedule == "const":
+        mult = torch.ones((), device=step.device)
+    elif cfg.schedule == "cosine":
+        t = torch.clamp((step - cfg.warmup_steps) / max(cfg.total_steps - cfg.warmup_steps, 1),
+                        0.0, 1.0)
+        mult = cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * 0.5 * (1 + torch.cos(math.pi * t))
+    elif cfg.schedule == "wsd":
+        # Warmup-Stable-Decay (MiniCPM, arXiv:2404.06395)
+        decay_start = cfg.total_steps * (1 - cfg.decay_frac)
+        t = torch.clamp((step - decay_start) / max(cfg.total_steps - decay_start, 1), 0.0, 1.0)
+        mult = 1.0 - (1 - cfg.min_lr_ratio) * t
+    else:
+        raise ValueError(cfg.schedule)
+    return cfg.lr * warm * mult
+
+
+# ---------------------------------------------------------------------------
+# Quantized moment storage
+# ---------------------------------------------------------------------------
+
+
+def _quant(x: torch.Tensor, signed: bool) -> Dict[str, torch.Tensor]:
+    """Per-row (last-dim) linear quantization to int8 (signed) or uint8
+    codes and float32 scales; ``torch.round`` rounds half to even, as
+    ``jnp.round`` does."""
+    squeeze = x.dim() == 0
+    if squeeze:
+        x = x[None]
+    amax = x.abs().amax(dim=-1, keepdim=True) if signed else x.amax(dim=-1, keepdim=True)
+    qmax = 127.0 if signed else 255.0
+    scale = torch.clamp(amax, min=1e-20) / qmax
+    q = torch.clamp(torch.round(x / scale), -qmax if signed else 0.0, qmax)
+    out = {"q": q.to(torch.int8 if signed else torch.uint8), "scale": scale.float()}
+    if squeeze:
+        out["_scalar"] = torch.ones((), dtype=torch.int8, device=x.device)
+    return out
+
+
+def _dequant(d: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    x = d["q"].float() * d["scale"]
+    if "_scalar" in d:
+        x = x[0]
+    return x
+
+
+def _is_qleaf(t) -> bool:
+    return isinstance(t, Mapping) and "q" in t and "scale" in t
+
+
+# ---------------------------------------------------------------------------
+# AdamW
+# ---------------------------------------------------------------------------
+
+
+def init_opt_state(params: Mapping[str, torch.Tensor], cfg: OptConfig) -> Dict[str, Any]:
+    """``{"step", "m", "v"}``: the step a 0-d int32 tensor, each moment a
+    mapping of parameter name -> zeros of its shape (float32, bfloat16, or
+    int8 / uint8 codes with scales)."""
+    def zeros_like_moment(p, signed):
+        z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        if cfg.moment_dtype == "bf16":
+            return z.to(torch.bfloat16)
+        if cfg.moment_dtype == "int8":
+            return _quant(z, signed)
+        return z
+
+    device = next(iter(params.values())).device if params else None
+    with torch.no_grad():
+        return {
+            "step": torch.zeros((), dtype=torch.int32, device=device),
+            "m": {n: zeros_like_moment(p, True) for n, p in params.items()},
+            "v": {n: zeros_like_moment(p, False) for n, p in params.items()},
+        }
+
+
+def _tensors(tree) -> Iterable[torch.Tensor]:
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, Mapping):
+        for v in tree.values():
+            yield from _tensors(v)
+    else:
+        for v in tree:
+            yield from _tensors(v)
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of every leaf's float32 sum of squares (a mapping or
+    sequence of tensors, nested)."""
+    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in _tensors(tree)))
+
+
+def _store(dst: Moment, new: Moment) -> None:
+    """Overwrite a moment with its new value, in place."""
+    if _is_qleaf(dst):
+        for k in dst:
+            dst[k].copy_(new[k])
+    else:
+        dst.copy_(new)
+
+
+@torch.no_grad()
+def adamw_update(params: Mapping[str, torch.Tensor], grads: Mapping[str, torch.Tensor],
+                 opt_state: Dict[str, Any], cfg: OptConfig):
+    """One AdamW step, leaf by leaf, in place: returns ``(params, opt_state,
+    {"lr", "grad_norm"})`` with ``params`` and ``opt_state`` the objects
+    given, overwritten (see the module docstring)."""
+    step = opt_state["step"] + 1
+    lr = schedule_lr(cfg, step)
+    gnorm = global_norm([grads[n] for n in params])
+    clip = torch.clamp(torch.full_like(gnorm, cfg.clip_norm) / torch.clamp(gnorm, min=1e-12),
+                       max=1.0)
+    b1, b2 = cfg.betas
+    stepf = step.to(torch.float32)
+    bc1 = 1 - b1 ** stepf
+    bc2 = 1 - b2 ** stepf
+    for name, p in params.items():
+        g = grads[name].float() * clip
+        m, v = opt_state["m"][name], opt_state["v"][name]
+        m_f = _dequant(m) if _is_qleaf(m) else m.float()
+        v_f = _dequant(v) if _is_qleaf(v) else v.float()
+        m_f = b1 * m_f + (1 - b1) * g
+        v_f = b2 * v_f + (1 - b2) * torch.square(g)
+        update = (m_f / bc1) / (torch.sqrt(v_f / bc2) + cfg.eps)
+        pf = p.float()
+        p.copy_((pf - lr * (update + cfg.weight_decay * pf)).to(p.dtype))
+        if _is_qleaf(m):
+            m_f, v_f = _quant(m_f, True), _quant(v_f, False)
+        elif m.dtype == torch.bfloat16:
+            m_f, v_f = m_f.to(torch.bfloat16), v_f.to(torch.bfloat16)
+        _store(m, m_f)
+        _store(v, v_f)
+    opt_state["step"].copy_(step)
+    return params, opt_state, {"lr": lr, "grad_norm": gnorm}

@@ -1,0 +1,156 @@
+"""The training step: loss, gradients and AdamW, with microbatch gradient
+accumulation and an optional gradient transform.
+
+The port's copy of ``repro.train.train_step``. A train state is a dict
+``{"params": model, "opt": {"step", "m", "v"}, "rng"}``: the model itself
+(its parameters are the master weights, float32), the optimizer state of
+:func:`repro_torch.train.optimizer.init_opt_state` keyed by parameter name,
+and the reference's PRNG key as a uint32 array ``[0, seed]`` (the port draws
+nothing from it). ``train_step(state, batch)`` updates the state in place
+and returns it with the step's metrics. :func:`state_tree` and
+:func:`load_state_tree` carry a state to and from the reference's own
+train-state tree (stacked leaves), which is what checkpoints hold.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint.checkpoint import _host
+from repro_torch.convert import model_params_from_port, stack_tree, unstack_tree
+from repro_torch.train.optimizer import OptConfig, _is_qleaf, adamw_update, init_opt_state
+
+
+def prng_key(seed: int) -> np.ndarray:
+    """The reference's ``jax.random.PRNGKey(seed)`` as it is stored: uint32
+    ``[0, seed]`` (a seed below 2**32)."""
+    return np.array([0, seed], dtype=np.uint32)
+
+
+def make_train_state(model, seed: Optional[int], opt_cfg: OptConfig) -> Dict[str, Any]:
+    """A fresh train state: the parameters redrawn from ``seed`` (None keeps
+    the model's own, e.g. converted from the reference's), made trainable,
+    and zero moments."""
+    if seed is not None:
+        model.init(seed)
+    model.requires_grad_(True)
+    return {"params": model, "opt": init_opt_state(dict(model.named_parameters()), opt_cfg),
+            "rng": prng_key(0 if seed is None else seed)}
+
+
+def make_train_step(model, opt_cfg: OptConfig, *, accum_steps: int = 1,
+                    grad_transform: Optional[Callable] = None):
+    """``train_step(state, batch) -> (state, metrics)``. ``batch`` is
+    ``{"tokens", "targets"}`` (B, S) arrays; with ``accum_steps`` > 1 it is
+    cut along the batch into that many microbatches whose gradients are
+    summed in float32 (for float32 masters; bfloat16 otherwise) and divided
+    by ``accum_steps``: the loss is the mean of the microbatch losses, the
+    other metrics the last microbatch's. ``grad_transform(grads, carry) ->
+    (grads, carry)`` runs before the update (the reference's hook for
+    compressed cross-pod reduction), its carry kept in
+    ``state["grad_carry"]``."""
+    model.requires_grad_(True)
+
+    def value_and_grad(params, batch):
+        loss, metrics = model.loss(batch)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
+            dict(zip(params, grads))
+
+    def train_step(state: Dict[str, Any], batch: Dict[str, Any]):
+        params = dict(state["params"].named_parameters())
+        if accum_steps == 1:
+            loss, metrics, grads = value_and_grad(params, batch)
+        else:
+            def split(x, i):
+                b = x.shape[0]
+                if b % accum_steps:
+                    raise ValueError(f"batch {b} does not split into {accum_steps} microbatches")
+                n = b // accum_steps
+                return x[i * n:(i + 1) * n]
+
+            grads = {n: torch.zeros(p.shape, device=p.device,
+                                    dtype=torch.float32 if p.dtype == torch.float32
+                                    else torch.bfloat16)
+                     for n, p in params.items()}
+            loss = torch.zeros((), device=next(iter(params.values())).device)
+            for i in range(accum_steps):
+                l, metrics, g = value_and_grad(params, {k: split(v, i) for k, v in batch.items()})
+                grads = {n: grads[n] + g[n].to(grads[n].dtype) for n in grads}
+                loss = loss + l
+            grads = {n: g / accum_steps for n, g in grads.items()}
+            loss = loss / accum_steps
+
+        carry = state.get("grad_carry")
+        if grad_transform is not None:
+            grads, carry = grad_transform(grads, carry)
+        _, _, opt_metrics = adamw_update(params, grads, state["opt"], opt_cfg)
+        if carry is not None:
+            state["grad_carry"] = carry
+        return state, dict(metrics, loss=loss, **opt_metrics)
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# The reference's train-state tree (checkpoints)
+# ---------------------------------------------------------------------------
+
+
+def _flat_moments(moments: Dict[str, Any]) -> Dict[str, Any]:
+    flat = {}
+    for name, m in moments.items():
+        if _is_qleaf(m):
+            flat.update({f"{name}.{k}": _host(t) for k, t in m.items()})
+        else:
+            flat[name] = _host(m)
+    return flat
+
+
+def state_tree(state: Dict[str, Any]) -> Dict[str, Any]:
+    """The state as the reference's train-state tree: ``{"opt": {"m",
+    "step", "v"}, "params", "rng"}`` with the parameters and moments
+    stacked as ``repro.models.transformer.Model.init`` stacks them, numpy
+    leaves (bfloat16 moments as ml_dtypes' bfloat16, as JAX holds them)."""
+    model = state["params"]
+    stack = lambda d: stack_tree(model.cfg, model, _flat_moments(d))  # noqa: E731
+    opt = state["opt"]
+    return {"opt": {"m": stack(opt["m"]), "step": _host(opt["step"]), "v": stack(opt["v"])},
+            "params": model_params_from_port(model), "rng": np.asarray(state["rng"])}
+
+
+def _tensor(a) -> torch.Tensor:
+    """A restored leaf as a tensor. A bfloat16 leaf comes back from np.load
+    as 2-byte void (its bits), or as ml_dtypes' bfloat16 if never saved."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16" or a.dtype == np.dtype("V2"):
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))  # a copy, 0-d stays 0-d
+
+
+@torch.no_grad()
+def load_state_tree(state: Dict[str, Any], tree: Dict[str, Any]) -> Dict[str, Any]:
+    """Overwrite ``state`` in place with a reference-layout train-state tree
+    (:func:`state_tree`'s, or one the reference's checkpoint holds); returns
+    ``state``."""
+    model = state["params"]
+    params = dict(model.named_parameters())
+    flat = unstack_tree(model.cfg, model, tree["params"])
+    if set(flat) != set(params):
+        raise KeyError(f"parameters missing: {sorted(set(params) - set(flat))}, "
+                       f"unknown: {sorted(set(flat) - set(params))}")
+    for name, p in params.items():
+        p.copy_(_tensor(flat[name]).reshape(p.shape))
+    for which in ("m", "v"):
+        flat = unstack_tree(model.cfg, model, tree["opt"][which])
+        for name, m in state["opt"][which].items():
+            if _is_qleaf(m):
+                for k, t in m.items():
+                    t.copy_(_tensor(flat[f"{name}.{k}"]).reshape(t.shape))
+            else:
+                m.copy_(_tensor(flat[name]).reshape(m.shape))
+    state["opt"]["step"].copy_(_tensor(tree["opt"]["step"]))
+    state["rng"] = np.asarray(tree["rng"], dtype=np.uint32)
+    return state

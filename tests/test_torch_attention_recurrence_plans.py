@@ -14,17 +14,21 @@ for attention (tests/test_kernels.py:18-19) and 2e-4 for the recurrence
 """
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels.flash_attention import flash_attention_gqa as jax_flash_attention_gqa
+from repro.models.attention import flash_attention as jax_model_flash_attention
 from repro.kernels.slstm import slstm_fused as jax_slstm_fused
 from repro_torch.kernels.com_matmul import SMEM_LIMIT, SMS
 from repro_torch.kernels.flash_attention import (BLOCK_KV, BLOCK_Q, HEAD_DIMS, MAX_SPLITS,
-                                                 kv_tiles_of, occupancy, smem_bytes)
+                                                 bwd_smem_bytes, kv_tiles_of, occupancy,
+                                                 smem_bytes)
 from repro_torch.kernels.flash_attention import plan as flash_plan
+from repro_torch.kernels.flash_attention import plan_bwd as flash_plan_bwd
 from repro_torch.kernels.ref import flash_attention_ref, log_sigmoid
 from repro_torch.kernels.slstm import CLUSTER_THREADS, MAX_CLUSTER, REG_KPT, _cluster_plan
 from repro_torch.kernels.slstm import plan as slstm_plan
@@ -79,6 +83,85 @@ def test_causal_kv_tiles_are_those_at_or_before_the_last_row():
     assert [kv_tiles_of(i, 300, True) for i in range(5)] == [1, 2, 3, 4, 5]
     assert [kv_tiles_of(i, 100, True) for i in range(5)] == [1, 2, 2, 2, 2]  # Sq > Skv
     assert kv_tiles_of(0, 300, False) == 5
+
+
+# ---- flash_attention: the backward's plan and its tile walks -------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("S", [1, 77, 517, 2048])
+def test_flash_bwd_plan_covers_every_tile_and_fits(S, hd, dtype):
+    for B, H, KVH, causal in ((1, 9, 3, True), (2, 4, 1, False), (8, 9, 3, True)):
+        p = flash_plan_bwd(B, S, S, H, KVH, hd, dtype, causal)
+        assert (p.block_q, p.block_kv, p.threads) == (BLOCK_Q, BLOCK_KV, 128)
+        tiles = math.ceil(S / 64)
+        assert p.grid_dkdv == (tiles, KVH, B) and p.grid_dq == (tiles, H, B)
+        assert p.q_tiles_dkdv == H // KVH * tiles and p.kv_tiles_dq == tiles
+        assert p.delta_blocks * 8 >= B * S * H > (p.delta_blocks - 1) * 8
+        assert (p.smem_dkdv, p.smem_dq) == bwd_smem_bytes(hd, dtype)
+        assert p.smem_dq < p.smem_dkdv <= SMEM_LIMIT
+        assert p.workspace == 4 * B * H * S
+    with pytest.raises(ValueError, match="head_dim 48"):
+        flash_plan_bwd(1, 64, 64, 2, 2, 48, torch.bfloat16, True)
+
+
+def _bwd_by_tiles(q, k, v, dout, causal):
+    """csrc/flash_attention.cu's backward walks in plain float32 torch: a
+    dK/dV block per (KV head, 64-key tile) over the G query heads and the q
+    tiles from the causal diagonal on, a dQ block per (head, q tile) over
+    the key tiles up to the diagonal; p from the saved lse, masked to 0."""
+    B, Sq, H, hd = q.shape
+    Skv, KVH = k.shape[1], k.shape[2]
+    G, scale = H // KVH, 1.0 / math.sqrt(hd)
+    out, lse = flash_attention_ref(q, k, v, causal=causal, return_lse=True)
+    delta = (dout * out).sum(-1).permute(0, 2, 1)  # (B, H, Sq)
+    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    nq, nk = math.ceil(Sq / 64), math.ceil(Skv / 64)
+
+    def tile(qi, kt, h):
+        rows, cols = torch.arange(qi * 64, min(Sq, qi * 64 + 64)), \
+            torch.arange(kt * 64, min(Skv, kt * 64 + 64))
+        kvh = h // G
+        s = q[:, rows, h] @ k[:, cols, kvh].transpose(1, 2) * scale
+        keep = ~(cols[None, :] > rows[:, None]) if causal else torch.ones(len(rows), len(cols),
+                                                                          dtype=torch.bool)
+        p = torch.where(keep, torch.exp(s - lse[:, h, rows][..., None]), torch.zeros(()))
+        dp = dout[:, rows, h] @ v[:, cols, kvh].transpose(1, 2)
+        ds = p * (dp - delta[:, h, rows][..., None])
+        return rows, cols, kvh, p, ds
+
+    for kvh in range(KVH):
+        for kt in range(nk):
+            for h in range(kvh * G, kvh * G + G):
+                for qi in range(min(nq, kt) if causal else 0, nq):
+                    rows, cols, _, p, ds = tile(qi, kt, h)
+                    dv[:, cols, kvh] += p.transpose(1, 2) @ dout[:, rows, h]
+                    dk[:, cols, kvh] += ds.transpose(1, 2) @ q[:, rows, h] * scale
+    for h in range(H):
+        for qi in range(nq):
+            for kt in range(kv_tiles_of(qi, Skv, causal)):
+                rows, cols, kvh, _, ds = tile(qi, kt, h)
+                dq[:, rows, h] += ds @ k[:, cols, kvh] * scale
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("S,H,KVH,causal", [(1, 2, 2, True), (100, 6, 2, True),
+                                            (130, 3, 1, False), (193, 4, 4, True)])
+def test_flash_bwd_tile_walks_give_the_custom_vjp_gradient(S, H, KVH, causal):
+    """The kernels' walks (which tiles each block visits, the masks) give
+    the gradient of the model attention's custom_vjp (rtol 1e-3, atol 1e-4,
+    tests/test_layers.py:121)."""
+    rng = np.random.default_rng(S + H)
+    qn = rng.normal(size=(2, S, H, 32)).astype(np.float32)
+    kn, vn = (rng.normal(size=(2, S, KVH, 32)).astype(np.float32) for _ in range(2))
+    dn = rng.normal(size=(2, S, H, 32)).astype(np.float32)
+    _, vjp = jax.vjp(lambda q, k, v: jax_model_flash_attention(q, k, v, causal=causal),
+                     jnp.asarray(qn), jnp.asarray(kn), jnp.asarray(vn))
+    want = vjp(jnp.asarray(dn))
+    got = _bwd_by_tiles(*(torch.from_numpy(a) for a in (qn, kn, vn, dn)), causal)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-3, atol=1e-4)
 
 
 # ---- flash_attention: the split KV range and its ordered combine -------------

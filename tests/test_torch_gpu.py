@@ -673,3 +673,160 @@ def test_sharded_executor_on_the_card(cuda):
     count = torch.cuda.device_count()
     assert auto.n_shards == (count if count > 1 else 1)
     _within(auto.run(images).outputs, want.outputs, torch.float32)
+
+
+# ---- training: the attention backward kernel and train steps on the card -------------
+
+BWD_CASES = [
+    (2, 517, 9, 3, 64, True),    # smollm-135m's heads, ragged S
+    (1, 300, 4, 2, 32, True),    # the reduced configs' hd 32
+    (1, 200, 4, 1, 128, True),   # hd 128, GQA 4:1
+    (2, 130, 6, 3, 64, False),   # non-causal
+]
+
+
+def _grad_within(got, want, dtype):
+    """float32: rtol 1e-3, atol 1e-4 max|plain| (tests/test_layers.py:121);
+    bfloat16: 2e-2 max|plain|."""
+    w = want.double()
+    err = (got.double() - w).abs()
+    scale = w.abs().max().item()
+    if dtype == torch.float32:
+        limit = 1e-3 * w.abs() + 1e-4 * scale
+        assert (err <= limit).all(), (err / limit).max().item()
+    else:
+        assert err.max().item() <= 2e-2 * scale, (err.max().item(), scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kvh,hd,causal", BWD_CASES)
+def test_flash_attention_bwd_kernel_matches_plain_version(cuda, b, s, h, kvh, hd, causal, dtype):
+    """dq, dk, dv of the backward kernels against flash_attention_bwd_ref on
+    the same (q, k, v, out, lse, dout); a second call gives the same bits;
+    the forward's out is the same with and without lse, and lse within f32
+    rounding of the plain lse."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    gen = torch.Generator(device=cuda).manual_seed(s * h + hd)
+    q = torch.randn((b, s, h, hd), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, s, kvh, hd), generator=gen, device=cuda).to(dtype) for _ in range(2))
+    dout = torch.randn((b, s, h, hd), generator=gen, device=cuda).to(dtype)
+    plain_out = flash_attention(q, k, v, causal=causal)
+    out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain_out) and lse.dtype == torch.float32
+    _, want_lse = ref.flash_attention_ref(q, k, v, causal=causal, return_lse=True)
+    assert (lse - want_lse).abs().max().item() <= 1e-5 * want_lse.abs().max().item() + 1e-5
+    launches = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    again = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == launches + 2
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert torch.equal(g, a)
+        _grad_within(g, w, dtype)
+
+
+def test_flash_attention_bwd_rejects(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    q = torch.randn((1, 16, 4, 64), device=cuda)
+    k = torch.randn((1, 16, 2, 64), device=cuda)
+    out, lse = flash_attention(q, k, k, return_lse=True)
+    before = flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="head_dim 48"):
+        q48, k48 = q[..., :48].contiguous(), k[..., :48].contiguous()
+        flash_attention_bwd(q48, k48, k48, out[..., :48].contiguous(), lse, q48)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, k, k, out, lse.cpu(), q)
+    with pytest.raises(ValueError, match="dout"):
+        flash_attention_bwd(q.cpu(), k.cpu(), k.cpu(), out.cpu(), lse.cpu(), q)
+    with pytest.raises(TypeError):
+        flash_attention_bwd(q, k, k, out, lse.double(), q)
+    assert flash_attention_bwd.launches == before
+
+
+def test_attention_function_runs_the_kernels_both_ways(cuda):
+    """ops.flash_attention with grad: the forward kernel with lse and the
+    backward kernel; with backend="ref" neither."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    q = torch.randn((2, 100, 4, 32), device=cuda, requires_grad=True)
+    k = torch.randn((2, 100, 2, 32), device=cuda, requires_grad=True)
+    f0, b0 = flash_attention.launches, flash_attention_bwd.launches
+    g = torch.autograd.grad(ops.flash_attention(q, k, k).sum(), (q, k))
+    assert (flash_attention.launches - f0, flash_attention_bwd.launches - b0) == (1, 1)
+    w = torch.autograd.grad(ops.flash_attention(q, k, k, backend="ref").sum(), (q, k))
+    assert (flash_attention.launches - f0, flash_attention_bwd.launches - b0) == (1, 1)
+    for a, b in zip(g, w):
+        _grad_within(a, b, torch.float32)
+
+
+def _train_setup(cuda, kernel_backend=None, dtype=torch.float32):
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import make_train_state, make_train_step
+
+    cfg = get_config("smollm-135m").reduced()
+    model = build_model(cfg, CallConfig(compute_dtype=dtype, kernel_backend=kernel_backend),
+                        device=cuda, seed=0)
+    ocfg = OptConfig(lr=3e-3, schedule="wsd", warmup_steps=1, total_steps=8)
+    return model, make_train_state(model, None, ocfg), make_train_step(model, ocfg)
+
+
+def _train_batches(n):
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+
+    data = SyntheticTokens(DataConfig(vocab_size=512, seq_len=128, global_batch=4, seed=0))
+    return [data.batch_at(i) for i in range(n)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reduced_smollm_train_steps_through_the_kernels(cuda, dtype):
+    """Three steps of reduced smollm-135m (hd 32) through the attention
+    kernels against the same steps with the plain attention: losses and
+    grad norms within 2e-5 / 1e-4 relative in float32, 2e-2 in bfloat16;
+    under remat 2 forward and 1 backward launch a layer and step."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    runs = []
+    for backend in (None, "ref"):
+        model, state, step = _train_setup(cuda, backend, dtype)
+        f0, b0 = flash_attention.launches, flash_attention_bwd.launches
+        mets = []
+        for batch in _train_batches(3):
+            state, m = step(state, batch)
+            mets.append((float(m["loss"]), float(m["grad_norm"])))
+        torch.cuda.synchronize()
+        launches = (flash_attention.launches - f0, flash_attention_bwd.launches - b0)
+        runs.append((mets, launches))
+    L = get_config("smollm-135m").reduced().num_layers
+    assert runs[0][1] == (3 * 2 * L, 3 * L) and runs[1][1] == (0, 0)
+    tl, tg = (2e-5, 1e-4) if dtype == torch.float32 else (2e-2, 2e-2)
+    for (lk, gk), (lr_, gr) in zip(runs[0][0], runs[1][0]):
+        assert abs(lk - lr_) <= tl * abs(lr_) and abs(gk - gr) <= tg * abs(gr)
+
+
+def test_train_resume_is_bitwise_on_the_card(cuda, tmp_path):
+    """Save after 2 of 5 steps, restore into a fresh state, take the last 3:
+    losses and parameters bitwise the uninterrupted run's."""
+    from repro_torch.checkpoint import checkpoint as ck
+    from repro_torch.train.train_step import load_state_tree, state_tree
+
+    batches = _train_batches(5)
+    model, state, step = _train_setup(cuda)
+    losses = []
+    for i, batch in enumerate(batches):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        if i == 1:
+            ck.save(str(tmp_path), 2, state_tree(state))
+    fresh_model, fresh, fstep = _train_setup(cuda)
+    tree, _ = ck.restore(str(tmp_path), state_tree(fresh))
+    load_state_tree(fresh, tree)
+    for batch, want in zip(batches[2:], losses[2:]):
+        fresh, m = fstep(fresh, batch)
+        assert float(m["loss"]) == want
+    for (n, a), (_, b) in zip(fresh_model.named_parameters(), model.named_parameters()):
+        assert torch.equal(a, b), n

@@ -44,6 +44,14 @@ def test_the_source_check_covers_every_model_family_module():
         assert f"src/repro_torch/models/{mod}.py" in names
 
 
+def test_the_source_check_covers_the_training_modules():
+    """The training slice's modules are among the files checked above."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("train/optimizer", "train/train_step", "data/pipeline", "checkpoint/checkpoint",
+                "runtime/elastic", "launch/train"):
+        assert f"src/repro_torch/{mod}.py" in names
+
+
 def test_importing_the_port_loads_no_jax():
     mods = sorted(
         "repro_torch." + ".".join(p.relative_to(ROOT / "src" / "repro_torch").with_suffix("").parts)
