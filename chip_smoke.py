@@ -58,7 +58,13 @@ and training smollm-135m whole (phase 26). Phases, each printing JSON lines:
                rounding reported): a second call's bits, the forward's out
                bitwise with and without lse, lse against the plain lse; ms,
                graph_ms, the bound (5 products of 2 hd flop a kept pair),
-               plain and SDPA's backward (library_ms);
+               plain and SDPA's backward (library_ms, host included, and
+               library_graph_ms, its backward alone replayed from a CUDA
+               graph), the plan's path (bfloat16 "wgmma", float32
+               "mma_sync_3xtf32") and MMA passes a pair, and each backward
+               kernel's registers and spills (ptxas); the backward checks
+               run under a time limit of their own (BWD_CHECK_S), so that a
+               kernel stuck on an mbarrier fails the run loudly;
 4. e2e       — compile_program(vgg16_imagenet()), random_weights(seed=0), 8 images
                from numpy.random.default_rng(1): the executor's "cuda" backend
                held against its float64 "reference" backend on the card, events
@@ -270,14 +276,17 @@ and at every sLSTM layer of the compared xlstm prefills.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -388,6 +397,7 @@ GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-4  # the reference's gradient tolerance (tests/t
 # float32 train steps through the kernels against the plain attention: loss
 # and grad norm, relative; bfloat16 both within 2e-2
 TRAIN_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+BWD_CHECK_S = 300  # the backward checks' own time limit (they take well under a minute)
 FIRST_BURST = dict(PATIENT_TRAFFIC, name="chip-burst-8-patient", num_requests=8)
 # the virtual clock is a function of the profile, the pool and the fault draws
 # (eos_id=None): the JAX package's numbers on these profiles, which the CPU
@@ -426,15 +436,17 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def graph_ms(fn, reps: int = 10) -> float:
+def graph_ms(fn, reps: int = 10, stream=None) -> float:
     """Device time of one call: ``reps`` calls captured in one CUDA graph and
     replayed, timed by CUDA events, so that no host time sits between the
     launches (``cuda_ms`` of a call shorter than its host path times the
-    host)."""
-    fn()
+    host). ``stream``: where the call's work must run to be captured (an
+    autograd backward runs on its forward's stream)."""
+    with torch.cuda.stream(stream or torch.cuda.current_stream()):
+        fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+    with torch.cuda.graph(graph, stream=stream, capture_error_mode="relaxed"):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -465,6 +477,26 @@ def bound_3xtf32(n_bytes: float, n_ops: float, dtype):
     if dtype != torch.float32:
         return None
     return max(n_bytes / PEAK_BYTES, 3 * n_ops / PEAK_TF32) * 1e3
+
+
+@contextlib.contextmanager
+def time_limit(seconds: float, what: str):
+    """Fail loudly if the block runs longer than ``seconds``: a kernel stuck
+    on an mbarrier phase never returns, and the caller's clock would run out
+    first. A timer thread reports the failure and ends the process, whose
+    exit tears the CUDA context and the stuck kernel down."""
+    def expire():
+        print(f"chip_smoke: FAILED: {what} did not finish within {seconds} s", file=sys.stderr,
+              flush=True)
+        os._exit(1)
+
+    timer = threading.Timer(seconds, expire)
+    timer.daemon = True
+    timer.start()
+    try:
+        yield
+    finally:
+        timer.cancel()
 
 
 def same_bits(fn, got, name, shape) -> bool:
@@ -640,13 +672,24 @@ def check_flash(gen, S, dtype=torch.bfloat16, causal=True, H=9, KVH=3, hd=64, B=
         cuda_ms(lambda: sdpa(q, k, v, causal)), t_parts, by, one_rounding=True, extra=extra)
 
 
-def sdpa_bwd(q, k, v, dout, causal):
+def sdpa_bwd(q, k, v, dout, causal, stream=None):
     """The library yardstick of the backward: one backward pass of SDPA at
-    the same shape (its forward run once, outside the timing)."""
-    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
-    with torch.enable_grad():
-        out = sdpa(qs, ks, vs, causal)
+    the same shape (its forward run once, outside the timing, on ``stream``,
+    where autograd then runs the backward)."""
+    with torch.cuda.stream(stream or torch.cuda.current_stream()):
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        with torch.enable_grad():
+            out = sdpa(qs, ks, vs, causal)
     return lambda: torch.autograd.grad(out, (qs, ks, vs), dout, retain_graph=True)
+
+
+def sdpa_bwd_graph_ms(q, k, v, dout, causal) -> float:
+    """SDPA's backward alone, replayed from a CUDA graph: device time, like
+    the kernels' graph_ms. Its forward runs on a side stream so that the
+    backward lands where the graph captures it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    return graph_ms(sdpa_bwd(q, k, v, dout, causal, side), stream=side)
 
 
 def check_flash_bwd(gen, S, dtype=torch.bfloat16, causal=True, H=9, KVH=3, hd=64, B=1):
@@ -694,6 +737,7 @@ def check_flash_bwd(gen, S, dtype=torch.bfloat16, causal=True, H=9, KVH=3, hd=64
             over.append(diff.max().item() / (TOL[dtype] * scale))
             rounding.append((diff / (BF16_ULP * wd.abs() + 2e-5 * scale)).max().item())
     pairs = sum(min(i + 1, S) for i in range(S)) if causal else S * S
+    plan = flash_plan_bwd(B, S, S, H, KVH, hd, dtype, causal)
     es = q.element_size()
     # q, k, v, out, dout read and dq, dk, dv written once; lse read once
     n_bytes = es * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
@@ -709,11 +753,13 @@ def check_flash_bwd(gen, S, dtype=torch.bfloat16, causal=True, H=9, KVH=3, hd=64
         "kernel_ms": cuda_ms(run), "graph_ms": graph_ms(run),
         "plain_ms": cuda_ms(lambda: flash_attention_bwd_ref(q, k, v, out, lse, dout,
                                                             causal=causal), reps=3, warmup=1),
-        "library_ms": cuda_ms(lib), "bound_ms": max(t_parts), "bound_by": by,
+        "library_ms": cuda_ms(lib), "library_graph_ms": sdpa_bwd_graph_ms(q, k, v, dout, causal),
+        "bound_ms": max(t_parts), "bound_by": by,
         "bound_3xtf32_ms": bound_3xtf32(n_bytes, n_ops, dtype),
         "forward_graph_ms": graph_ms(lambda: flash_attention(q, k, v, causal=causal,
                                                              return_lse=True)),
-        "plan": dataclasses.asdict(flash_plan_bwd(B, S, S, H, KVH, hd, dtype, causal))}
+        "path": plan.path, "mma_passes_per_pair": plan.mma_passes_per_pair,
+        "plan": dataclasses.asdict(plan)}
     if rounding:
         line["max_err_over_one_rounding"] = max(rounding)
     emit(line)
@@ -804,9 +850,11 @@ def ptxas_summary(log: str) -> dict:
             end = mangled.find("_kernelI") + len("_kernel")
             base = next((mangled[end - n:end] for n in range(1, end)
                          if mangled[:end - n].endswith(str(n))), mangled)
-            dtype = "bfloat16" if "bfloat16" in mangled else "float"
+            # a type argument (bfloat16 or float) where the template has one
+            dtype = (["bfloat16"] if "bfloat16" in mangled
+                     else ["float"] if "_kernelIf" in mangled else [])
             args = re.findall(r"Li(\d+)E", mangled)
-            name = f"{base}<{','.join([dtype] + args)}>"
+            name = f"{base}<{','.join(dtype + args)}>"
             out[name] = []
         elif name and ("Used" in line or "spill" in line):
             out[name].append(line.replace("ptxas info    :", "").strip())
@@ -2424,9 +2472,9 @@ def main() -> None:
     t0 = time.perf_counter()
     names = _build.all_kernels()
     _build.build(names, force=True)  # from the sources, even if a build is cached
+    ptxas = {k: v for n in names for k, v in ptxas_summary(_build.ptxas_log[n]).items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "kernels": list(names),
-          "flags": list(_build.NVCC_FLAGS),
-          "ptxas": {k: v for n in names for k, v in ptxas_summary(_build.ptxas_log[n]).items()}})
+          "flags": list(_build.NVCC_FLAGS), "ptxas": ptxas})
     phase_done("card+build")
 
     # 3. each kernel against its plain version at the main path's shapes
@@ -2489,12 +2537,13 @@ def main() -> None:
     # the attention backward: the train phase's shape (smollm, 8 x 2048), ragged
     # S, hd 32 and 128, non-causal
     bwd_lines = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        bwd_lines[dtype] = check_flash_bwd(gen, TRAIN_SEQ, dtype, B=TRAIN_BATCH)
-        check_flash_bwd(gen, 517, dtype, B=2)
-        check_flash_bwd(gen, 300, dtype, H=4, KVH=2, hd=32)
-        check_flash_bwd(gen, 1024, dtype, hd=128)
-        check_flash_bwd(gen, 517, dtype, causal=False)
+    with time_limit(BWD_CHECK_S, "the flash_attention_bwd checks"):
+        for dtype in (torch.bfloat16, torch.float32):
+            bwd_lines[dtype] = check_flash_bwd(gen, TRAIN_SEQ, dtype, B=TRAIN_BATCH)
+            check_flash_bwd(gen, 517, dtype, B=2)
+            check_flash_bwd(gen, 300, dtype, H=4, KVH=2, hd=32)
+            check_flash_bwd(gen, 1024, dtype, hd=128)
+            check_flash_bwd(gen, 517, dtype, causal=False)
     torch.cuda.empty_cache()
     xcfg = get_config(XLSTM_ARCH)
     xlstm_shape = dict(H=xcfg.num_heads, hd=xcfg.head_dim)
@@ -2683,6 +2732,9 @@ def main() -> None:
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/models/attention.py:159",
          "launches": train_launches[1], "launches_by_path": {"train": train_launches[1]},
+         "path": bwd_lines[torch.bfloat16]["path"],
+         "mma_passes_per_pair": bwd_lines[torch.bfloat16]["mma_passes_per_pair"],
+         "ptxas": {k: v for k, v in ptxas.items() if "wgmma" in k and "<64" in k},
          **summary([bwd_lines[torch.bfloat16]], serve_cfg.num_layers)},
         {"name": "slstm_fused", "route": "cuda", "source": "src/repro_torch/csrc/slstm.cu",
          "replaces": "src/repro/kernels/slstm.py:70",

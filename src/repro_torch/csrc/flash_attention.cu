@@ -51,6 +51,7 @@
 // * The G query heads of a KV head are not packed into one block: each block
 //   reads its KV head's tiles, the G reads of a tile meet in L2, and the grid
 //   stays G times larger for short prompts.
+#include <cuda.h>
 #include <math.h>
 
 #include "com_mma.cuh"
@@ -517,41 +518,72 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
 //   dq = scale * ds k, dk = scale * ds^T q (summed over the G query heads of
 //   each KV head).
 // Three launches: delta (one warp a row, a kernel of its own), then
-// * dK/dV: a block per (b, KV head, 64-key tile) walks the G query heads of
-//   its KV head and, for each, the q tiles that see its keys (causal: from
-//   the diagonal down), with (q, dout, lse, delta) tiles through a two-slot
-//   cp.async ring. Each warp owns 16 keys: s^T = k q^T and dp^T = v dout^T
-//   come out with the keys as rows, so p^T and ds^T are A fragments as they
-//   stand for dv += p^T dout and dk += ds^T q (the forward's QK^T and PV
-//   tiles). dk and dv stay in registers (f32) over the whole walk, each
-//   tile's product promoted into them from a fresh MMA accumulator: GQA is
-//   summed inside the block, with no atomics, so two calls give the same
-//   bits;
-// * dQ: a block per (b, head, 64-row q tile) walks the key tiles up to the
+// * dK/dV: a block per (b, KV head, key tile) walks the G query heads of its
+//   KV head and, for each, the 64-row q tiles that see its keys (causal: from
+//   the diagonal down). s^T = k q^T and dp^T = v dout^T come out with the
+//   keys as rows, so p^T and ds^T are the A operands of dv += p^T dout and
+//   dk += ds^T q as they stand. dk and dv stay in registers (f32) over the
+//   whole walk: GQA is summed inside the block, with no atomics, so two
+//   calls give the same bits;
+// * dQ: a block per (b, head, q tile) walks the 64-key tiles up to the
 //   diagonal: s = q k^T, dp = dout v^T, dq += ds k.
-// The products are the forward's: bfloat16 on m16n8k16 (p and ds split into
-// hi + mid + lo), float32 on 3xTF32; every tile row has stride hd + 8.
 //
 // What bounds it on an H100: 5 products of 2 * hd flop per unmasked (q, k)
 // pair and head (s, dp, dv, dk, dq), 2.5 times the forward's 2, against the
 // bytes of q, k, v, out, dout, lse read and dq, dk, dv written once: the
-// operations, at 989 TFLOP/s in bfloat16. What the design does about it:
-// every product runs on the tensor cores and the S x S weights never reach
-// device memory; the price of having no atomics is that s and dp are formed
-// twice (once in each kernel), 7 products where 5 would do, and the bfloat16
-// split of p and ds triples the three accumulating products (15 MMA passes
-// where the bound counts 5). No wgmma, no TMA: a later redesign.
+// operations, at 989 TFLOP/s in bfloat16. Having no atomics costs s and dp
+// formed twice, once in each kernel: 7 products where the bound counts 5. A
+// fused kernel would add an f32 dq tile of atomics per (key tile, q tile)
+// pair (about 0.6 GB of L2 traffic at the train shape) and need ordered
+// semaphores to keep its bits.
+//
+// bfloat16, the train path (flash_bwd_*_wgmma_kernel): built for Hopper.
+// * All five products on wgmma, bf16 in and f32 accumulated, one warpgroup
+//   of 64 rows a block (two warpgroups of 64 rows sharing each walked tile
+//   measured slower, PERF.md). s^T, dp^T (dK/dV) and s, dp (dQ) read both operands K-major
+//   from shared memory; the accumulating products take p^T, ds^T or ds as A
+//   from registers (an f32 accumulator's fragments are, for a 16-bit A, the
+//   A fragments as they stand) and dout, q or k as an MN-major B (the
+//   descriptor's transpose bit).
+// * p and ds are rounded once to bf16 (dp - delta and the exp in f32):
+//   7 MMA passes a pair, as the published FlashAttention backwards and
+//   SDPA's round them. A split into three bf16 terms (hi + mid + lo, as the
+//   forward's P) would give f32-grade p and ds at 4 + 3 x 3 = 13 passes,
+//   which the backward's 2e-2 gate does not need.
+// * The walked tiles (q, dout and the lse / delta rows for dK/dV; k, v for
+//   dQ) come by TMA into a ring of WT<HD>::STAGES slots, completed on
+//   mbarriers and started by one thread; the block's own tiles load once.
+//   Tiles are 64 rows of 64-column panels with the 128-byte swizzle that
+//   TMA writes and wgmma reads (hd 128: two panels), hd 32 one
+//   64-byte-swizzled panel. The tensor maps are encoded on the host for
+//   each call and passed as __grid_constant__ parameters. TMA zero-fills
+//   rows past S; the masks on the ragged edge and the causal diagonal stay
+//   in the kernel. A prep kernel writes delta and lse * log2(e) on rows
+//   padded to 64, so that every 64-float box starts aligned.
+// * The dK/dV walk issues step it + 1's s^T and dp^T right behind step
+//   it's dv and dk products. ptxas serializes the walk's wgmma (C7515: p
+//   and ds are written into the accumulators' registers while a group is
+//   in flight), so the products do not overlap as issued; the walk still
+//   measured 0.311 against 0.413 ms unpipelined (PERF.md). Why it is
+//   faster was not checked. Writing p and ds to
+//   registers of their own lifts the warning but costs 45 registers and
+//   measured slower, as did the same order in dQ.
+// * The accumulators hold dk, dv and dq over the whole walk, unpromoted:
+//   an f32 sum every 8 steps changed no error (PERF.md).
+// float32 keeps the mma.sync kernels below: 3xTF32 on [64][hd + 8]
+// tiles through a two-slot cp.async ring, each tile's product promoted from a
+// fresh accumulator (wgmma's tf32 wants a K-major B, which dv, dk and dq do
+// not have): 7 products of three TF32 passes, 21 a pair.
 namespace {
 
 using namespace com;
 
-// shared-memory geometry of the backward: every tile [64][hd + 8]; the dK/dV
-// kernel holds its K and V tiles and two slots of (q, dout) tiles and of the
-// (lse, delta) rows; the dQ kernel its q and dout tiles and two slots of
-// (k, v) tiles
+// shared-memory geometry of the float32 backward: every tile [64][hd + 8];
+// the dK/dV kernel holds its K and V tiles and two slots of (q, dout) tiles
+// and of the (lse, delta) rows; the dQ kernel its q and dout tiles and two
+// slots of (k, v) tiles
 template <typename T, int HD>
 struct BL {
-  static constexpr bool F32 = sizeof(T) == 4;
   static constexpr int LD = HD + 8;
   static constexpr int TILE = 64 * LD;
   static constexpr int SMEM_DKDV = 6 * TILE * (int)sizeof(T) + 2 * 2 * 64 * (int)sizeof(float);
@@ -599,10 +631,8 @@ flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
 // s (16 x 64) = A (the warp's 16 rows) B^T (64 rows), both [rows][LD]
 template <typename T, int HD>
 __device__ __forceinline__ void bwd_qk(float (&s)[8][4], const T* Aw, const T* Bs, int lane) {
-  if constexpr (sizeof(T) == 4)
-    qk_tile_f32<HD>(s, Aw, Bs, lane);
-  else
-    qk_tile<HD>(s, Aw, Bs, lane);
+  static_assert(sizeof(T) == 4, "the bfloat16 backward runs on wgmma");
+  qk_tile_f32<HD>(s, Aw, Bs, lane);
 }
 
 // acc (16 x HD) += P (16 x 64, C fragments) V (64 rows x HD, [rows][LD]),
@@ -611,44 +641,8 @@ __device__ __forceinline__ void bwd_qk(float (&s)[8][4], const T* Aw, const T* B
 // (the tensor cores truncate what they add into their accumulator, and the
 // dK/dV walk adds up to G * Sq / 64 tiles). The A fragments are formed again
 // for every group, so that a group's temporary is all the registers it costs.
-// bf16: P split into hi + mid + lo, as the forward's pv_tile splits it.
-template <int HD, int LD>
-__device__ __forceinline__ void pv_acc(float (&acc)[HD / 8][4], const float (&p)[8][4],
-                                       const __nv_bfloat16* Vs, int lane) {
-  constexpr int JG = HD / 8 < 8 ? HD / 8 : 8;
-#pragma unroll
-  for (int j0 = 0; j0 < HD / 8; j0 += JG) {
-    float t[JG][4];
-#pragma unroll
-    for (int j = 0; j < JG; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) t[j][c] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t part[3][4];  // lo, mid, hi
-      split_bf16(p[2 * kk][0], p[2 * kk][1], part[2][0], part[1][0], part[0][0]);
-      split_bf16(p[2 * kk][2], p[2 * kk][3], part[2][1], part[1][1], part[0][1]);
-      split_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1], part[2][2], part[1][2], part[0][2]);
-      split_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3], part[2][3], part[1][3], part[0][3]);
-      uint32_t v[JG][2];
-#pragma unroll
-      for (int j = 0; j < JG; j += 2)
-        ldsm_x4_trans(&v[j][0], Vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                                    8 * (j0 + j + (lane >> 4)));
-#pragma unroll
-      for (int pass = 0; pass < 3; ++pass)
-#pragma unroll
-        for (int j = 0; j < JG; ++j) mma_bf16(t[j], part[pass], v[j]);
-    }
-#pragma unroll
-    for (int j = 0; j < JG; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[j0 + j][c] += t[j][c];
-  }
-}
-
-// f32: the same by 3xTF32, as the forward's pv_tile_f32 (k slots t, t + 4
-// take rows 2t, 2t + 1 of each k8 step)
+// By 3xTF32, as the forward's pv_tile_f32 (k slots t, t + 4 take rows 2t,
+// 2t + 1 of each k8 step)
 template <int HD, int LD>
 __device__ __forceinline__ void pv_acc(float (&acc)[HD / 8][4], const float (&p)[8][4],
                                        const float* Vs, int lane) {
@@ -933,14 +927,627 @@ int launch_bwd_hd(const BwdArgs& a, const void* out, float* delta, int hd, cudaS
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---- the bfloat16 backward: wgmma and TMA ------------------------------------
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// One 64-row bf16 tile of head dim HD in shared memory, as TMA writes it and
+// wgmma reads it: 64-column panels (hd 128: two) of 64 rows x 128 bytes in
+// the 128-byte swizzle; hd 32 one panel of 64 rows x 64 bytes in the 64-byte
+// swizzle. Every panel starts on a 1024-byte boundary.
+template <int HD>
+struct WT {
+  static constexpr int PANEL_COLS = HD < 64 ? HD : 64;
+  static constexpr int PANELS = HD / PANEL_COLS;
+  static constexpr int ROW_BYTES = 2 * PANEL_COLS;
+  static constexpr int PANEL_BYTES = 64 * ROW_BYTES;
+  static constexpr int BYTES = PANELS * PANEL_BYTES;
+  static constexpr uint64_t LAYOUT = HD < 64 ? 2 : 1;  // descriptor swizzle: 64 or 128 bytes
+  static constexpr int STAGES = HD <= 64 ? 3 : 2;      // ring slots
+};
+
+// Shared memory of the bf16 blocks, byte offsets from a 1024-aligned base:
+// * dK/dV: the block's K tiles, its V tiles, the ring of (q, dout) tile
+//   pairs, the ring's (lse2, delta) rows (64 floats each), the mbarriers;
+// * dQ: the block's q tiles, its dout tiles, the ring of (k, v) tile pairs,
+//   the mbarriers.
+// Mbarrier 0 completes the block's own tiles, mbarrier 1 + s ring slot s.
+// SMEM_* add the 1024 bytes that aligning the base may skip.
+template <int HD>
+struct BwdSmem {
+  using L = WT<HD>;
+  static constexpr int STAGES = L::STAGES;
+  static constexpr int RING = 2 * L::BYTES;
+  static constexpr int STATS = RING + STAGES * 2 * L::BYTES;
+  static constexpr int BARS_DKDV = STATS + STAGES * 512;
+  static constexpr int BARS_DQ = STATS;
+  static constexpr int SMEM_DKDV = BARS_DKDV + 8 * (1 + STAGES) + 1024;
+  static constexpr int SMEM_DQ = BARS_DQ + 8 * (1 + STAGES) + 1024;
+  static_assert(SMEM_DKDV <= SMEM_LIMIT, "the tiles exceed a block's shared memory");
+};
+
+// The tensor maps of one call: q, dout (B, Sq, H, hd) and k, v (B, Skv, KVH,
+// hd) in boxes of one panel x 64 rows of one head; the prep kernel's lse2
+// and delta rows (B * H, SqP) in boxes of 64.
+struct BwdMaps {
+  CUtensorMap q, dout, k, v, lse2, delta;
+};
+
+// The bf16 walk's row statistics, one warp a (b, q, h) row of the padded
+// length SqP = 64 * ceil(Sq / 64): delta = sum_d dout * out and lse2 = lse *
+// log2(e) (the exp is taken as exp2), both [B][H][SqP] in ws, delta first;
+// rows past Sq are 0. TMA reads them in boxes of 64 from row starts that are
+// 256-byte aligned (a box must start 16-byte aligned in device memory, which
+// rows of Sq floats are not for every Sq).
+template <int HD>
+__global__ void __launch_bounds__(256)
+flash_bwd_prep_kernel(const __nv_bfloat16* __restrict__ out,
+                      const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                      float* __restrict__ ws, int B, int Sq, int SqP, int H) {
+  const long long rows = (long long)B * SqP * H;
+  const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const int h = (int)(row % H);
+  const long long bq = row / H;
+  const int qi = (int)(bq % SqP);
+  const long long b = bq / SqP;
+  float acc = 0.f;
+  if (qi < Sq) {
+    const long long src = ((b * Sq + qi) * H + h) * HD;
+#pragma unroll
+    for (int e = lane; e < HD; e += 32) acc += to_f32(out[src + e]) * to_f32(dout[src + e]);
+#pragma unroll
+    for (int off = 16; off; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  }
+  if (lane == 0) {
+    const long long dst = (b * H + h) * SqP + qi;
+    ws[dst] = acc;
+    ws[rows + dst] = qi < Sq ? lse[(b * H + h) * Sq + qi] * LOG2E : 0.f;
+  }
+}
+
+// ---- PTX: mbarriers, TMA, wgmma -----------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// this thread's arrival, and `bytes` more to come by TMA, on `bar`
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// Wait for the phase of parity `phase` of `bar` to complete. A phase that
+// never completes (a byte count that TMA does not deliver) traps after
+// ~2^24 polls instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t phase) {
+  for (uint32_t n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(phase)
+        : "memory");
+    if (done) return;
+    if (n == (1u << 24)) __trap();
+  }
+}
+
+// A 64-row tile of head `head` from row `row` of batch row `b` of a (B, S,
+// heads, HD) tensor, panel by panel, completing on `bar`; rows past S read
+// as zeros
+template <int HD>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, int head, int row,
+                                         int b, uint32_t bar) {
+#pragma unroll
+  for (int p = 0; p < WT<HD>::PANELS; ++p)
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst + p * WT<HD>::PANEL_BYTES),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(p * WT<HD>::PANEL_COLS), "r"(head),
+        "r"(row), "r"(b)
+        : "memory");
+}
+// 64 floats from column x of row y of a (rows, SqP) map (lse2, delta)
+__device__ __forceinline__ void tma_row64(uint32_t dst, const CUtensorMap* map, int x, int y,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x), "r"(y)
+      : "memory");
+}
+
+// A wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets, swizzle
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                            uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(sbo >> 4) << 32 | layout << 62;
+}
+// K-major operand: the tile's rows are M (or N), its head dim K; k16 step kk
+// starts 32 bytes further into its panel's rows (the swizzle acts on the
+// address), 8-row groups 8 rows apart
+template <int HD>
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
+  using L = WT<HD>;
+  const int k = 16 * kk;
+  return wg_desc(tile + (k / L::PANEL_COLS) * L::PANEL_BYTES + (k % L::PANEL_COLS) * 2, 16,
+                 8 * L::ROW_BYTES, L::LAYOUT);
+}
+// MN-major operand (B of the accumulating products, transposed): the tile's
+// rows are K (16 a step), its head dim N; panels one swizzle atom apart
+// along N (LBO), 8-row groups along K (SBO)
+template <int HD>
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
+  using L = WT<HD>;
+  return wg_desc(tile + 16 * kk * L::ROW_BYTES, L::PANEL_BYTES, 8 * L::ROW_BYTES, L::LAYOUT);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// the compiler may neither read an accumulator before its wait nor move it
+// across one
+template <int N>
+__device__ __forceinline__ void keep(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WG_D4(i) "+f"(d[(i)]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3])
+#define WG_D16(i) WG_D4(i), WG_D4((i) + 4), WG_D4((i) + 8), WG_D4((i) + 12)
+#define WG_D32(i) WG_D16(i), WG_D16((i) + 16)
+#define WG_D64(i) WG_D32(i), WG_D32((i) + 32)
+
+// d (64 x 64, f32) = A B^T (acc = 0) or d + A B^T, both operands K-major in
+// shared memory. d's layout: warp w of the warpgroup holds rows 16 w + g and
+// 16 w + g + 8 (g = lane / 4); d[4 j + c] is column 8 j + 2 (lane % 4) +
+// (c & 1) of row 16 w + g + 8 (c >> 1).
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_D32(0)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d (64 x N, f32) += A B: A (64 x 16, bf16) from registers, B MN-major in
+// shared memory (the transpose bit)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : WG_D16(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : WG_D32(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else {
+    static_assert(N == 128, "wgmma_rs: N is a head dim, 32, 64 or 128");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : WG_D64(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+}
+
+// The A operand (k16 steps kk = 0..3) of a product from a 64 x 64 f32
+// accumulator, each value rounded once to bf16: for a 16-bit A, step kk's
+// fragment is the accumulator's column tiles 2 kk and 2 kk + 1 as they stand
+__device__ __forceinline__ void to_a(uint32_t (&a)[4][4], const float (&d)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
+}
+
+// s = A1 B1^T and dp = A2 B2^T (64 x 64 each, K-major tiles of head dim HD),
+// two commit groups, s first
+template <int HD>
+__device__ __forceinline__ void s_dp_products(float (&s)[32], float (&dp)[32], uint32_t a1,
+                                              uint32_t b1, uint32_t a2, uint32_t b2) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) wgmma_ss64(s, kmajor<HD>(a1, kk), kmajor<HD>(b1, kk), kk);
+  wgmma_commit();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) wgmma_ss64(dp, kmajor<HD>(a2, kk), kmajor<HD>(b2, kk), kk);
+  wgmma_commit();
+}
+
+// The shared-window address of the dynamic shared memory rounded up to 1024
+// bytes (the swizzled panels' alignment)
+__device__ __forceinline__ uint32_t smem_base(const unsigned char* raw) {
+  return (smem_u32(raw) + 1023) & ~1023u;
+}
+
+// grid (key blocks, KVH, B): the first key blocks (the longest causal walks) start first
+template <int HD>
+__global__ void __launch_bounds__(128, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ BwdMaps maps, const BwdArgs a) {
+  using L = WT<HD>;
+  using M = BwdSmem<HD>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = smem_base(smem_raw);
+  const float* stats =
+      reinterpret_cast<const float*>(smem_raw + (base - smem_u32(smem_raw)) + M::STATS);
+  const uint32_t bars = base + M::BARS_DKDV;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int Sq = a.Sq, Skv = a.Skv, H = a.H, G = a.H / a.KVH;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * 64;
+  const int nq = (Sq + 63) / 64;
+  // causal (top-left): q tile i has a row >= k0 from i = k0 / 64 on
+  const int i0 = a.causal ? min(nq, k0 / 64) : 0;
+  const int per_head = nq - i0, n_it = G * per_head;
+
+  // thread 0: the q and dout tiles and the lse and delta rows of step it
+  auto load_step = [&](int it, int slot) {
+    const int h = kvh * G + it / per_head, q0 = (i0 + it % per_head) * 64;
+    const uint32_t bar = bars + 8 * (1 + slot), dst = base + M::RING + slot * 2 * L::BYTES;
+    mbar_expect(bar, 2 * L::BYTES + 512);
+    tma_tile<HD>(dst, &maps.q, h, q0, b, bar);
+    tma_tile<HD>(dst + L::BYTES, &maps.dout, h, q0, b, bar);
+    tma_row64(base + M::STATS + slot * 512, &maps.lse2, q0, b * H + h, bar);
+    tma_row64(base + M::STATS + slot * 512 + 256, &maps.delta, q0, b * H + h, bar);
+  };
+  if (tid == 0) {
+    for (int i = 0; i <= M::STAGES; ++i) mbar_init(bars + 8 * i, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0 && n_it > 0) {
+    mbar_expect(bars, 2 * L::BYTES);
+    tma_tile<HD>(base, &maps.k, kvh, k0, b, bars);
+    tma_tile<HD>(base + L::BYTES, &maps.v, kvh, k0, b, bars);
+    for (int i = 0; i < M::STAGES && i < n_it; ++i) load_step(i, i);
+  }
+
+  float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+  const uint32_t Kt = base, Vt = base + L::BYTES;
+  const int key_lo = k0 + 16 * warp + g;  // this thread's keys: key_lo, key_lo + 8
+  const float sl2 = a.scale * LOG2E;
+  // s^T = k q^T and dp^T = v dout^T (rows keys, columns q) of step it, started
+  // at the end of step it - 1, behind its dv and dk products
+  float s[32], dp[32];
+  auto ring = [&](int it) { return base + M::RING + (it % M::STAGES) * 2 * L::BYTES; };
+  auto s_dp = [&](int it) {
+    mbar_wait(bars + 8 * (1 + it % M::STAGES), (it / M::STAGES) & 1);
+    s_dp_products<HD>(s, dp, Kt, ring(it), Vt, ring(it) + L::BYTES);
+  };
+  if (n_it > 0) {
+    mbar_wait(bars, 0);
+    s_dp(0);
+  }
+  for (int it = 0; it < n_it; ++it) {
+    const int slot = it % M::STAGES;
+    const uint32_t Qt = ring(it), dOt = Qt + L::BYTES;
+    const float* l2_s = stats + slot * 128;
+    const float* del_s = l2_s + 64;
+    const int q0 = (i0 + it % per_head) * 64;
+    wgmma_wait<1>();  // s^T
+    keep(s);
+
+    // p^T = exp(scale s^T - lse), 0 where masked; dv += p^T dout
+    const bool edge = q0 + 64 > Sq || k0 + 64 > Skv || (a.causal && k0 + 63 > q0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l = *reinterpret_cast<const float2*>(l2_s + 8 * j + 2 * t);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float p = exp2f(s[4 * j + c] * sl2 - ((c & 1) ? l.y : l.x));
+        if (edge) {
+          const int qq = q0 + 8 * j + 2 * t + (c & 1), key = key_lo + 8 * (c >> 1);
+          if (qq >= Sq || key >= Skv || (a.causal && key > qq)) p = 0.f;
+        }
+        s[4 * j + c] = p;
+      }
+    }
+    uint32_t pa[4][4];
+    to_a(pa, s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<HD>(dv, pa[kk], mnmajor<HD>(dOt, kk));
+    wgmma_commit();
+
+    // ds^T = p^T * (dp^T - delta); dk += ds^T q
+    wgmma_wait<1>();
+    keep(dp);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 d = *reinterpret_cast<const float2*>(del_s + 8 * j + 2 * t);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        dp[4 * j + c] = s[4 * j + c] * (dp[4 * j + c] - ((c & 1) ? d.y : d.x));
+    }
+    uint32_t da[4][4];
+    to_a(da, dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<HD>(dk, da[kk], mnmajor<HD>(Qt, kk));
+    wgmma_commit();
+    if (it + 1 < n_it) {
+      s_dp(it + 1);
+      wgmma_wait<2>();  // this step's dv and dk products, not the next step's s^T, dp^T
+    } else {
+      wgmma_wait<0>();
+    }
+    __syncthreads();  // every warp is done with the slot
+    if (tid == 0 && it + M::STAGES < n_it) load_step(it + M::STAGES, slot);
+  }
+  keep(dv);
+  keep(dk);
+
+  const long long kv_row = (long long)a.KVH * HD;
+  __nv_bfloat16* dkh =
+      static_cast<__nv_bfloat16*>(a.dk) + (long long)b * Skv * kv_row + (long long)kvh * HD;
+  __nv_bfloat16* dvh =
+      static_cast<__nv_bfloat16*>(a.dv) + (long long)b * Skv * kv_row + (long long)kvh * HD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key_lo + 8 * r;
+    if (key >= Skv) continue;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      store2(dkh + key * kv_row + 8 * j + 2 * t, dk[4 * j + 2 * r] * a.scale,
+             dk[4 * j + 2 * r + 1] * a.scale);
+      store2(dvh + key * kv_row + 8 * j + 2 * t, dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// grid (q blocks, H, B): the longest causal q blocks start first
+template <int HD>
+__global__ void __launch_bounds__(128, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ BwdMaps maps, const BwdArgs a) {
+  using L = WT<HD>;
+  using M = BwdSmem<HD>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = smem_base(smem_raw);
+  const uint32_t bars = base + M::BARS_DQ;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int Sq = a.Sq, Skv = a.Skv, H = a.H;
+  const int qt = a.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z, kvh = h / (H / a.KVH);
+  const int q0 = qt * 64;
+  int n_tiles = (Skv + 63) / 64;
+  if (a.causal) n_tiles = min(n_tiles, qt + 1);
+
+  // thread 0: the k and v tiles of step it
+  auto load_step = [&](int it, int slot) {
+    const uint32_t bar = bars + 8 * (1 + slot), dst = base + M::RING + slot * 2 * L::BYTES;
+    mbar_expect(bar, 2 * L::BYTES);
+    tma_tile<HD>(dst, &maps.k, kvh, 64 * it, b, bar);
+    tma_tile<HD>(dst + L::BYTES, &maps.v, kvh, 64 * it, b, bar);
+  };
+  if (tid == 0) {
+    for (int i = 0; i <= M::STAGES; ++i) mbar_init(bars + 8 * i, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect(bars, 2 * L::BYTES);
+    tma_tile<HD>(base, &maps.q, h, q0, b, bars);
+    tma_tile<HD>(base + L::BYTES, &maps.dout, h, q0, b, bars);
+    for (int i = 0; i < M::STAGES && i < n_tiles; ++i) load_step(i, i);
+  }
+
+  const int r_lo = q0 + 16 * warp + g;  // this thread's rows: r_lo, r_lo + 8
+  // the prep kernel's rows, zero past Sq: delta, then lse2 at rows further
+  const int SqP = (Sq + 63) / 64 * 64;
+  const long long rows = (long long)a.B * H * SqP, row0 = ((long long)b * H + h) * SqP;
+  float l2[2], del[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r_lo + 8 * r;
+    del[r] = row < Sq ? a.delta[row0 + row] : 0.f;
+    l2[r] = row < Sq ? a.delta[rows + row0 + row] : 0.f;
+  }
+  float dq[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+  const uint32_t Qt = base, dOt = base + L::BYTES;
+  const float sl2 = a.scale * LOG2E;
+  mbar_wait(bars, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int slot = it % M::STAGES;
+    mbar_wait(bars + 8 * (1 + slot), (it / M::STAGES) & 1);
+    const uint32_t Kt = base + M::RING + slot * 2 * L::BYTES, Vt = Kt + L::BYTES;
+    const int k0 = 64 * it;
+
+    // s = q k^T and dp = dout v^T: rows q, columns keys
+    float s[32], dp[32];
+    s_dp_products<HD>(s, dp, Qt, Kt, dOt, Vt);
+    wgmma_wait<1>();
+    keep(s);
+
+    // p = exp(scale s - lse), 0 where masked
+    const bool edge = k0 + 64 > Skv || q0 + 64 > Sq || (a.causal && k0 + 63 > q0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float p = exp2f(s[4 * j + c] * sl2 - l2[c >> 1]);
+        if (edge) {
+          const int key = k0 + 8 * j + 2 * t + (c & 1), row = r_lo + 8 * (c >> 1);
+          if (row >= Sq || key >= Skv || (a.causal && key > row)) p = 0.f;
+        }
+        s[4 * j + c] = p;
+      }
+
+    // ds = p * (dp - delta); dq += ds k
+    wgmma_wait<0>();
+    keep(dp);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) dp[4 * j + c] = s[4 * j + c] * (dp[4 * j + c] - del[c >> 1]);
+    uint32_t da[4][4];
+    to_a(da, dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<HD>(dq, da[kk], mnmajor<HD>(Kt, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    keep(dq);
+    __syncthreads();  // every warp is done with the slot
+    if (tid == 0 && it + M::STAGES < n_tiles) load_step(it + M::STAGES, slot);
+  }
+
+  const long long q_row = (long long)H * HD;
+  __nv_bfloat16* dqh =
+      static_cast<__nv_bfloat16*>(a.dq) + (long long)b * Sq * q_row + (long long)h * HD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r_lo + 8 * r;
+    if (row >= Sq) continue;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j)
+      store2(dqh + row * q_row + 8 * j + 2 * t, dq[4 * j + 2 * r] * a.scale,
+             dq[4 * j + 2 * r + 1] * a.scale);
+  }
+}
+
+// ---- the host side of the bf16 launch: tensor maps --------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, found through cudaGetDriverEntryPoint (so the
+// library needs no -lcuda); null where it is missing
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (B, S, heads, HD) bf16 tensor in boxes of one panel x 1 head x 64 rows x
+// 1 batch row, swizzled as WT<HD> lays a panel out
+template <int HD>
+bool map_rows(CUtensorMap* m, const void* base, int B, int S, int heads) {
+  const cuuint64_t dims[4] = {HD, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {2ull * HD, 2ull * HD * heads, 2ull * HD * heads * S};
+  const cuuint32_t box[4] = {WT<HD>::PANEL_COLS, 1, 64, 1}, step[4] = {1, 1, 1, 1};
+  return encode_tiled()(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                        strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        HD < 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// (rows, SqP) floats in boxes of 64 of one row
+bool map_stats(CUtensorMap* m, const void* base, long long rows, int SqP) {
+  const cuuint64_t dims[2] = {(cuuint64_t)SqP, (cuuint64_t)rows}, strides[1] = {4ull * SqP};
+  const cuuint32_t box[2] = {64, 1}, step[2] = {1, 1};
+  return encode_tiled()(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims,
+                        strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ws: the prep kernel's 2 * B * H * SqP floats (delta, then lse2)
+template <int HD>
+int launch_bwd_wgmma(BwdArgs a, const void* out, float* ws, cudaStream_t stream) {
+  using M = BwdSmem<HD>;
+  const int SqP = (a.Sq + 63) / 64 * 64;
+  const long long rows = (long long)a.B * a.H * SqP;
+  if (encode_tiled() == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  a.delta = ws;
+  BwdMaps m;
+  if (!map_rows<HD>(&m.q, a.q, a.B, a.Sq, a.H) || !map_rows<HD>(&m.dout, a.dout, a.B, a.Sq, a.H) ||
+      !map_rows<HD>(&m.k, a.k, a.B, a.Skv, a.KVH) || !map_rows<HD>(&m.v, a.v, a.B, a.Skv, a.KVH) ||
+      !map_stats(&m.delta, ws, (long long)a.B * a.H, SqP) ||
+      !map_stats(&m.lse2, ws + rows, (long long)a.B * a.H, SqP))
+    return static_cast<int>(cudaErrorInvalidValue);
+  flash_bwd_prep_kernel<HD><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(out), static_cast<const __nv_bfloat16*>(a.dout), a.lse, ws,
+      a.B, a.Sq, SqP, a.H);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = allow_smem(flash_bwd_dkdv_wgmma_kernel<HD>, M::SMEM_DKDV);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid_kv((a.Skv + 63) / 64, a.KVH, a.B);
+  flash_bwd_dkdv_wgmma_kernel<HD><<<grid_kv, 128, M::SMEM_DKDV, stream>>>(m, a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = allow_smem(flash_bwd_dq_wgmma_kernel<HD>, M::SMEM_DQ);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid_q((a.Sq + 63) / 64, a.H, a.B);
+  flash_bwd_dq_wgmma_kernel<HD><<<grid_q, 128, M::SMEM_DQ, stream>>>(m, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_bwd_wgmma_hd(const BwdArgs& a, const void* out, float* delta, int hd,
+                        cudaStream_t stream) {
+  if (hd == 32) return launch_bwd_wgmma<32>(a, out, delta, stream);
+  if (hd == 64) return launch_bwd_wgmma<64>(a, out, delta, stream);
+  if (hd == 128) return launch_bwd_wgmma<128>(a, out, delta, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // The backward of repro_flash_attention. q, out, dout, dq: (B, Sq, H, hd);
 // k, v, dk, dv: (B, Skv, KVH, hd), all of one dtype (0 = float32, 1 =
 // bfloat16), contiguous and 16-byte aligned; lse: the forward's (B, H, Sq)
-// floats; delta: B*H*Sq floats of workspace (written here first). hd, causal
-// and scale as in the forward. Returns cudaGetLastError() after the three
-// launches (or the error that kept one from launching).
+// floats; delta: workspace (written here first) of B*H*Sq floats for
+// float32, 2*B*H*SqP floats for bfloat16 (SqP = 64 * ceil(Sq / 64): delta
+// and lse * log2(e), rows padded). hd, causal and scale as in the forward.
+// Returns cudaGetLastError() after the three launches (or the error that
+// kept one from launching).
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* out, const void* dout, const void* lse,
                                          void* delta, void* dq, void* dk, void* dv, int B,
@@ -954,6 +1561,6 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
                   dq, dk, dv, B, Sq, Skv, H, KVH, causal, scale};
   float* d = static_cast<float*>(delta);
   if (dtype == 0) return launch_bwd_hd<float>(a, out, d, hd, s);
-  if (dtype == 1) return launch_bwd_hd<__nv_bfloat16>(a, out, d, hd, s);
+  if (dtype == 1) return launch_bwd_wgmma_hd(a, out, d, hd, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -12,6 +12,8 @@ training does), the forward also writes each row's log-sum-exp, from which
 the backward recomputes the weights: a block per (batch row, KV head, key
 tile) accumulates dK and dV over the G query heads of its KV head, and a
 block per (batch row, head, q tile) accumulates dQ, both without atomics.
+In bfloat16 the backward runs on wgmma with its tiles brought by TMA; in
+float32 on mma.sync 3xTF32 (:func:`plan_bwd` names the path).
 
 Counterpart of ``repro.kernels.flash_attention`` (``flash_attention`` and
 ``flash_attention_gqa``) and of the backward of the model's attention
@@ -207,17 +209,36 @@ flash_attention.launches = 0
 # ---------------------------------------------------------------------------
 
 
+# the bfloat16 backward (csrc/flash_attention.cu, flash_bwd_*_wgmma_kernel)
+BWD_STAGES = {32: 3, 64: 3, 128: 2}  # TMA ring slots by head dim (WT<HD>::STAGES)
+BWD_PATHS = {torch.bfloat16: "wgmma", torch.float32: "mma_sync_3xtf32"}
+# tensor-core passes over an unmasked (q, k) pair and head: 7 products (s and
+# dp in both kernels, dv, dk, dq), once each in bf16 (p and ds rounded once),
+# three TF32 passes each in f32
+BWD_PASSES = {torch.bfloat16: 7, torch.float32: 21}
+
+
 @dataclass(frozen=True)
 class BwdPlan:
-    """How one backward call is launched: a ``delta`` pass of ``delta_blocks``
-    blocks (a warp a row), the dK/dV kernel on ``grid_dkdv`` (KV tiles, KV
-    heads, batch rows), each block walking ``q_tiles_dkdv`` (q tile, head)
-    pairs at most, and the dQ kernel on ``grid_dq`` (q tiles, heads, batch
-    rows), each block walking ``kv_tiles_dq`` KV tiles at most; ``smem_*``
-    is shared memory a block, ``workspace`` the bytes of delta."""
+    """How one backward call is launched. ``path`` names the kernels:
+    ``"wgmma"`` (bfloat16: every product on wgmma, the walked tiles brought
+    by TMA into a ring of ``stages`` slots, p and ds rounded once to bf16)
+    or ``"mma_sync_3xtf32"`` (float32: mma.sync 3xTF32, a two-slot cp.async
+    ring). A ``delta`` pass of ``delta_blocks`` blocks (a warp a row) runs
+    first (for bfloat16 it also writes lse * log2(e), both on rows padded to
+    a multiple of 64). Then the dK/dV kernel on ``grid_dkdv`` (blocks of
+    ``block_kv`` keys, KV heads, batch rows), each block walking up to
+    ``q_tiles_dkdv`` (head, ``block_q``-row q tile) pairs, and the dQ kernel
+    on ``grid_dq`` (blocks of ``block_q`` q rows, heads, batch rows), each
+    walking up to ``kv_tiles_dq`` ``block_kv``-key tiles; ``threads`` a
+    block (bfloat16: one warpgroup). ``smem_*`` is shared memory a block,
+    ``workspace`` the bytes of those rows, and ``mma_passes_per_pair`` the
+    tensor-core passes over each unmasked (q, k) pair and head."""
+    path: str
     block_q: int
     block_kv: int
     threads: int
+    stages: int
     delta_blocks: int
     grid_dkdv: Tuple[int, int, int]
     grid_dq: Tuple[int, int, int]
@@ -226,35 +247,66 @@ class BwdPlan:
     smem_dkdv: int
     smem_dq: int
     workspace: int
+    mma_passes_per_pair: int
 
 
 def bwd_smem_bytes(hd: int, dtype: torch.dtype) -> Tuple[int, int]:
-    """Shared memory of a dK/dV block and of a dQ block: six [64][hd + 8]
-    tiles each (the dK/dV block's K and V and two slots of q and dout; the
-    dQ block's q and dout and two slots of K and V), plus two slots of 64
-    lse and 64 delta values for the dK/dV block."""
+    """Shared memory of a dK/dV block and of a dQ block.
+
+    bfloat16 (``BwdSmem`` in the source): the block's own two kinds of
+    tiles (K and V; q and dout), ``BWD_STAGES[hd]`` ring slots of two walked
+    tiles (q and dout; K and V), for dK/dV each slot's 64 lse and 64 delta
+    values, an mbarrier for the own tiles and one a slot, and 1024 bytes
+    that aligning the swizzled tiles may skip; a tile is 64 rows of hd bf16.
+    float32: six [64][hd + 8] tiles each (the dK/dV block's K and V and two
+    slots of q and dout; the dQ block's q and dout and two slots of K and V),
+    plus two slots of 64 lse and 64 delta values for the dK/dV block."""
+    if dtype == torch.bfloat16:
+        tile, stages = 2 * BLOCK_Q * hd, BWD_STAGES[hd]
+        walked = 2 * tile + stages * 2 * tile
+        bars = 8 * (1 + stages) + 1024
+        return walked + stages * 2 * BLOCK_Q * 4 + bars, walked + bars
     es = torch.empty((), dtype=dtype).element_size()
     tiles = 6 * es * BLOCK_Q * (hd + 8)
     return tiles + 2 * 2 * BLOCK_Q * 4, tiles
+
+
+def bwd_workspace(B: int, Sq: int, H: int, dtype: torch.dtype) -> int:
+    """Bytes of the backward's workspace: float32 delta (B, H, Sq); for
+    bfloat16 delta and lse * log2(e), each (B, H, SqP) with the rows padded
+    with zeros to SqP = 64 * ceil(Sq / 64), so that every 64-float TMA box
+    starts 256-byte aligned."""
+    if dtype == torch.bfloat16:
+        return 2 * 4 * B * H * BLOCK_Q * math.ceil(Sq / BLOCK_Q)
+    return 4 * B * H * Sq
 
 
 @functools.lru_cache(maxsize=4096)
 def plan_bwd(B: int, Sq: int, Skv: int, H: int, KVH: int, hd: int, dtype: torch.dtype,
              causal: bool) -> BwdPlan:
     """The launch of one backward call on an H100 (pure: no device is
-    asked). No split: the dK/dV grid has ``B * KVH * ceil(Skv / 64)`` blocks
-    and the dQ grid ``B * H * ceil(Sq / 64)``, each summing its tiles in a
-    fixed order."""
+    asked). No split: the dK/dV grid has ``B * KVH * ceil(Skv / 64)``
+    blocks and the dQ grid ``B * H * ceil(Sq / 64)``, each summing its
+    tiles in a fixed order, with no atomics."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd: head_dim {hd}; the kernel is built for "
                          f"{HEAD_DIMS}")
-    q_tiles, kv_tiles = math.ceil(Sq / BLOCK_Q), math.ceil(Skv / BLOCK_KV)
+    if dtype not in BWD_PATHS:
+        raise TypeError(f"flash_attention_bwd: no kernel for {dtype}")
+    wgmma = dtype == torch.bfloat16
+    q_blocks, kv_blocks = math.ceil(Sq / BLOCK_Q), math.ceil(Skv / BLOCK_KV)
     G = H // KVH
-    walk = G * q_tiles  # the first key tile's walk (causal: from the diagonal down)
+    # the longest walks: the first key block's (causal: from the diagonal
+    # down) and the last q block's (up to the diagonal of its last row)
+    walk_dq = math.ceil(Skv / BLOCK_KV)
+    if causal:
+        walk_dq = min(walk_dq, (q_blocks * BLOCK_Q - 1) // BLOCK_KV + 1)
     smem_dkdv, smem_dq = bwd_smem_bytes(hd, dtype)
-    return BwdPlan(BLOCK_Q, BLOCK_KV, THREADS, math.ceil(B * Sq * H / 8),
-                   (kv_tiles, KVH, B), (q_tiles, H, B), walk,
-                   kv_tiles_of(q_tiles - 1, Skv, causal), smem_dkdv, smem_dq, 4 * B * H * Sq)
+    stat_rows = bwd_workspace(B, Sq, H, dtype) // (8 if wgmma else 4)  # a warp a row
+    return BwdPlan(BWD_PATHS[dtype], BLOCK_Q, BLOCK_KV, THREADS,
+                   BWD_STAGES[hd] if wgmma else 2, math.ceil(stat_rows / 8),
+                   (kv_blocks, KVH, B), (q_blocks, H, B), G * math.ceil(Sq / BLOCK_Q), walk_dq,
+                   smem_dkdv, smem_dq, bwd_workspace(B, Sq, H, dtype), BWD_PASSES[dtype])
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,

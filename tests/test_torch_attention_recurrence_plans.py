@@ -24,9 +24,9 @@ from repro.kernels.flash_attention import flash_attention_gqa as jax_flash_atten
 from repro.models.attention import flash_attention as jax_model_flash_attention
 from repro.kernels.slstm import slstm_fused as jax_slstm_fused
 from repro_torch.kernels.com_matmul import SMEM_LIMIT, SMS
-from repro_torch.kernels.flash_attention import (BLOCK_KV, BLOCK_Q, HEAD_DIMS, MAX_SPLITS,
-                                                 bwd_smem_bytes, kv_tiles_of, occupancy,
-                                                 smem_bytes)
+from repro_torch.kernels.flash_attention import (BLOCK_KV, BLOCK_Q, BWD_STAGES, HEAD_DIMS,
+                                                 MAX_SPLITS, bwd_smem_bytes, bwd_workspace,
+                                                 kv_tiles_of, occupancy, smem_bytes)
 from repro_torch.kernels.flash_attention import plan as flash_plan
 from repro_torch.kernels.flash_attention import plan_bwd as flash_plan_bwd
 from repro_torch.kernels.ref import flash_attention_ref, log_sigmoid
@@ -92,32 +92,58 @@ def test_causal_kv_tiles_are_those_at_or_before_the_last_row():
 @pytest.mark.parametrize("hd", HEAD_DIMS)
 @pytest.mark.parametrize("S", [1, 77, 517, 2048])
 def test_flash_bwd_plan_covers_every_tile_and_fits(S, hd, dtype):
+    wgmma = dtype == torch.bfloat16
     for B, H, KVH, causal in ((1, 9, 3, True), (2, 4, 1, False), (8, 9, 3, True)):
         p = flash_plan_bwd(B, S, S, H, KVH, hd, dtype, causal)
-        assert (p.block_q, p.block_kv, p.threads) == (BLOCK_Q, BLOCK_KV, 128)
+        # bf16 on wgmma with TMA, p and ds rounded once: 7 passes a pair; f32
+        # on mma.sync 3xTF32: the same 7 products, three passes each
+        assert p.path == ("wgmma" if wgmma else "mma_sync_3xtf32")
+        assert p.mma_passes_per_pair == (7 if wgmma else 21)
+        assert (p.block_q, p.block_kv) == (BLOCK_Q, BLOCK_KV) == (64, 64)
+        assert p.threads == 128  # bf16: one warpgroup of 64 rows
+        assert p.stages == (BWD_STAGES[hd] if wgmma else 2) >= 2
+        # the grids cover every key and every q row, and no block lies past S
+        blocks = math.ceil(S / 64)
+        assert p.grid_dkdv == (blocks, KVH, B) and p.grid_dq == (blocks, H, B)
+        assert (blocks - 1) * 64 < S <= blocks * 64
+        # the longest walks: the first key block's over G heads of q tiles, the
+        # last q block's up to its last row's diagonal (or every key tile)
         tiles = math.ceil(S / 64)
-        assert p.grid_dkdv == (tiles, KVH, B) and p.grid_dq == (tiles, H, B)
         assert p.q_tiles_dkdv == H // KVH * tiles and p.kv_tiles_dq == tiles
-        assert p.delta_blocks * 8 >= B * S * H > (p.delta_blocks - 1) * 8
+        # the row statistics: a warp a row; bf16 rows padded to a multiple of 64
+        rows = B * H * (64 * tiles if wgmma else S)
+        assert p.delta_blocks == math.ceil(rows / 8)
+        assert p.workspace == bwd_workspace(B, S, H, dtype) == (8 if wgmma else 4) * rows
         assert (p.smem_dkdv, p.smem_dq) == bwd_smem_bytes(hd, dtype)
         assert p.smem_dq < p.smem_dkdv <= SMEM_LIMIT
-        assert p.workspace == 4 * B * H * S
+    if wgmma:  # the shared memory of csrc/flash_attention.cu's BwdSmem<hd>
+        tile, stages = 128 * hd, BWD_STAGES[hd]
+        walked = 2 * tile + stages * 2 * tile
+        assert bwd_smem_bytes(hd, dtype) == (walked + stages * 512 + 8 * (1 + stages) + 1024,
+                                             walked + 8 * (1 + stages) + 1024)
     with pytest.raises(ValueError, match="head_dim 48"):
         flash_plan_bwd(1, 64, 64, 2, 2, 48, torch.bfloat16, True)
 
 
-def _bwd_by_tiles(q, k, v, dout, causal):
+def _bwd_by_tiles(q, k, v, dout, causal, one_rounding=False):
     """csrc/flash_attention.cu's backward walks in plain float32 torch: a
-    dK/dV block per (KV head, 64-key tile) over the G query heads and the q
-    tiles from the causal diagonal on, a dQ block per (head, q tile) over
-    the key tiles up to the diagonal; p from the saved lse, masked to 0."""
+    dK/dV block of 64 keys per KV head over the G query heads and the
+    64-row q tiles from the causal diagonal of its first key on, a dQ block
+    of 64 q rows per head over the 64-key tiles up to the diagonal of its
+    last row; p from the saved lse, masked to 0. With ``one_rounding`` (the bfloat16
+    kernels, given bfloat16 inputs) p and ds are rounded once to bfloat16
+    before the accumulating products, and dq, dk, dv once at the end."""
     B, Sq, H, hd = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
     G, scale = H // KVH, 1.0 / math.sqrt(hd)
     out, lse = flash_attention_ref(q, k, v, causal=causal, return_lse=True)
+    q, k, v, dout, out = (t.float() for t in (q, k, v, dout, out))
     delta = (dout * out).sum(-1).permute(0, 2, 1)  # (B, H, Sq)
     dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     nq, nk = math.ceil(Sq / 64), math.ceil(Skv / 64)
+
+    def rnd(x):
+        return x.to(torch.bfloat16).float() if one_rounding else x
 
     def tile(qi, kt, h):
         rows, cols = torch.arange(qi * 64, min(Sq, qi * 64 + 64)), \
@@ -129,7 +155,7 @@ def _bwd_by_tiles(q, k, v, dout, causal):
         p = torch.where(keep, torch.exp(s - lse[:, h, rows][..., None]), torch.zeros(()))
         dp = dout[:, rows, h] @ v[:, cols, kvh].transpose(1, 2)
         ds = p * (dp - delta[:, h, rows][..., None])
-        return rows, cols, kvh, p, ds
+        return rows, cols, kvh, rnd(p), rnd(ds)
 
     for kvh in range(KVH):
         for kt in range(nk):
@@ -140,9 +166,11 @@ def _bwd_by_tiles(q, k, v, dout, causal):
                     dk[:, cols, kvh] += ds.transpose(1, 2) @ q[:, rows, h] * scale
     for h in range(H):
         for qi in range(nq):
-            for kt in range(kv_tiles_of(qi, Skv, causal)):
+            for kt in range(min(nk, qi + 1) if causal else nk):
                 rows, cols, kvh, _, ds = tile(qi, kt, h)
                 dq[:, rows, h] += ds @ k[:, cols, kvh] * scale
+    if one_rounding:
+        return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
     return dq, dk, dv
 
 
@@ -162,6 +190,29 @@ def test_flash_bwd_tile_walks_give_the_custom_vjp_gradient(S, H, KVH, causal):
     got = _bwd_by_tiles(*(torch.from_numpy(a) for a in (qn, kn, vn, dn)), causal)
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("S,H,KVH,causal", [(77, 9, 3, True), (200, 9, 3, True),
+                                            (130, 9, 3, False), (64, 9, 3, True),
+                                            (150, 4, 4, True), (100, 4, 1, False)])
+def test_flash_bwd_one_bf16_rounding_holds_the_custom_vjp_gradient(S, H, KVH, causal):
+    """The bfloat16 kernels' walks, p and ds rounded once to bf16: dq, dk,
+    dv within the card's bf16 gate, 2e-2 max|reference| (chip_smoke.py,
+    tests/test_torch_gpu.py), of jax.vjp of the model attention's custom_vjp
+    on the same bfloat16 inputs at hd 64; smollm's heads (G = 3) at a ragged
+    S and at one whole tile, then G = 1 and G = 4."""
+    rng = np.random.default_rng(S + H)
+    arrays = [rng.normal(size=(2, S, h, 64)).astype(np.float32) for h in (H, KVH, KVH, H)]
+    jq, jk, jv, jd = (jnp.asarray(a, dtype=jnp.bfloat16) for a in arrays)
+    _, vjp = jax.vjp(lambda q, k, v: jax_model_flash_attention(q, k, v, causal=causal), jq, jk, jv)
+    want = vjp(jd)
+    got = _bwd_by_tiles(*(torch.from_numpy(a).to(torch.bfloat16) for a in arrays), causal,
+                        one_rounding=True)
+    for a, b in zip(got, want):
+        w = np.asarray(b, dtype=np.float32)
+        assert a.dtype == torch.bfloat16 and a.shape == w.shape
+        err = np.abs(a.float().numpy() - w).max()
+        assert 0 < err <= 2e-2 * np.abs(w).max(), (err, np.abs(w).max())
 
 
 # ---- flash_attention: the split KV range and its ordered combine -------------

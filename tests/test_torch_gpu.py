@@ -682,6 +682,9 @@ BWD_CASES = [
     (1, 300, 4, 2, 32, True),    # the reduced configs' hd 32
     (1, 200, 4, 1, 128, True),   # hd 128, GQA 4:1
     (2, 130, 6, 3, 64, False),   # non-causal
+    (1, 2048, 9, 3, 64, True),   # the train shape at B = 1
+    (2, 333, 9, 3, 64, True),    # S neither a multiple of 64 nor of 128
+    (1, 256, 4, 4, 64, True),    # G = 1
 ]
 
 
