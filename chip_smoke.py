@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root; one CUDA card, nvcc
 
-Eleven paths: the compiled VGG-16 executor (phases 3-5, and split over two
+Twelve paths: the compiled VGG-16 executor (phases 3-5, and split over two
 shards in phase 15), serving smollm-135m (phases 3, 6 and 7; streaming, paged
 and faulted in phases 16-17) and serving xlstm-350m (phases 3, 8 and 9), both
 at their full published widths, the paper's Tab. IV evaluation and
@@ -13,7 +13,8 @@ depth cut to 4 layers (phases 18-19), serving zamba2-1.2b whole,
 contiguous and paged (phases 20-21), and the model's own prefill and decode
 of llama-3.2-vision-90b at full width cut to 2 of its 20 groups (phases
 22-23) and of musicgen-large whole (phases 24-25), which no engine serves,
-and training smollm-135m whole (phase 26). Phases, each printing JSON lines:
+and training smollm-135m whole (phase 26) and xlstm-350m whole (phase 27).
+Phases, each printing JSON lines:
 
 1. card      — the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2. build     — the four CUDA kernels built from src/repro_torch/csrc/*.cu for
@@ -258,7 +259,21 @@ and training smollm-135m whole (phase 26). Phases, each printing JSON lines:
                run saved after step 5 (repro_torch.checkpoint, the reference's
                layout), restored into a fresh model and state and taken 3 steps
                further: losses and parameters bitwise the uninterrupted run's;
-27. the seconds of each phase, the kernels line (each kernel's launches on
+27. train-xlstm — xlstm-350m whole (phase 8's model), the same recipe and
+               numbers as phase 26, slstm_fused 24 launches a step (12 pairs,
+               again under remat) and slstm_fused_bwd 12, a profiled step, the
+               20th loss below the first; the held checks at 2 x 256 tokens
+               (the plain recurrence is ~20 launches a step forward, ~40
+               backward): every sLSTM forward and backward call of the
+               kernel steps held against its plain version on its own inputs
+               (slstm_held, slstm_bwd_held), the steps' losses and grad norms
+               against the plain path's at XLSTM_HELD_TOL (float32 step 1 at
+               TRAIN_TOL; the rest at limits set from readings of correct
+               paths, since the model's gradient amplifies rounding: two
+               orders of the same sums part by up to 0.69 in bfloat16 grad
+               norm at step 1, and by more after one Adam step); the resume
+               at 2 x 2048 bitwise;
+28. the seconds of each phase, the kernels line (each kernel's launches on
                every path), the card line, the result line.
 
 Any failed check exits non-zero before the result line is printed. Finding no
@@ -316,9 +331,12 @@ from repro_torch.kernels.flash_attention import flash_attention_bwd  # noqa: E40
 from repro_torch.kernels.flash_attention import plan as flash_plan  # noqa: E402
 from repro_torch.kernels.flash_attention import plan_bwd as flash_plan_bwd  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
-    com_matmul_ref, conv2d_com_ref, flash_attention_bwd_ref, flash_attention_ref, slstm_ref)
+    com_matmul_ref, conv2d_com_ref, flash_attention_bwd_ref, flash_attention_ref, slstm_bwd_ref,
+    slstm_dr, slstm_ref)
+from repro_torch.kernels.slstm import active_clusters as slstm_active_clusters  # noqa: E402
 from repro_torch.kernels.slstm import plan as slstm_plan  # noqa: E402
-from repro_torch.kernels.slstm import slstm_fused  # noqa: E402
+from repro_torch.kernels.slstm import plan_bwd as slstm_plan_bwd  # noqa: E402
+from repro_torch.kernels.slstm import slstm_fused, slstm_fused_bwd  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models.frontend import synth_image_embeds  # noqa: E402
 from repro_torch.models.transformer import CallConfig, build_model  # noqa: E402
@@ -397,6 +415,22 @@ GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-4  # the reference's gradient tolerance (tests/t
 # float32 train steps through the kernels against the plain attention: loss
 # and grad norm, relative; bfloat16 both within 2e-2
 TRAIN_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+# the held steps' (loss, grad norm) limits, step by step: TRAIN_TOL at every step
+TRAIN_HELD_TOL = {dt: (tol,) * CHECK_STEPS for dt, tol in TRAIN_TOL.items()}
+# xlstm-350m's, set from readings of correct paths (scripts/slstm_grad_probe.py,
+# part 3, and the train-xlstm phase; PERF.md): the largest relative distance
+# from the plain path of the plain path with the units of each head in three
+# other orders, of the kernel path and of the kernel in those orders, times
+# at least 1.5. Step 1 in float32 is TRAIN_TOL, which sits between those
+# readings (<= 1.9e-5 in grad norm) and the lower-precision controls (R in
+# bf16: 2.4e-2; the saved state in bf16: 1.6e-4). Elsewhere no limit
+# separates them: the controls land inside the correct paths' spread, and
+# after one Adam step (lr 3e-3) the runs part by up to 0.83 (float32) and
+# 18.2 (bfloat16) in grad norm. Those limits only catch a gross fault; every
+# sLSTM call of the kernel steps is held on its own inputs besides.
+XLSTM_HELD_TOL = {torch.float32: ((2e-5, 1e-4), (1.5e-3, 0.5), (3e-2, 1.25)),
+                  torch.bfloat16: ((2e-2, 1.1), (2.5e-2, 2.0), (5e-2, 30.0))}
+XLSTM_CHECK_SEQ = 256  # train-xlstm's held checks: 2 x 256 tokens (the plain recurrence is slow)
 BWD_CHECK_S = 300  # the backward checks' own time limit (they take well under a minute)
 FIRST_BURST = dict(PATIENT_TRAFFIC, name="chip-burst-8-patient", num_requests=8)
 # the virtual clock is a function of the profile, the pool and the fault draws
@@ -808,6 +842,98 @@ def check_slstm(gen, S, dtype=torch.bfloat16, B=1, H=4, hd=256):
     return line
 
 
+def check_slstm_bwd(gen, S, dtype=torch.bfloat16, B=TRAIN_BATCH, H=4, hd=256):
+    """slstm_fused_bwd at (B, S, H, hd) against slstm_bwd_ref on the same
+    saved state and dh: dgx in float32 within rtol 1e-3, atol 1e-4 of
+    max|plain| element by element (tests/test_layers.py:121), bfloat16
+    within 2e-2 of max|plain|; dR (float32) at the float32 limit; a second
+    call's bits. Also the forward's h bitwise with and without save, its
+    saved state within SLSTM_TOL of the plain forward's, and the cost of
+    saving. Inputs of unit scale, R ~ N(0, 1/hd), as check_slstm."""
+    D = H * hd
+    gx = randn((B, S, 4, D), gen, dtype)
+    rg = randn((4, H, hd, hd), gen, torch.float32, hd ** -0.5)
+    dh = randn((B, S, D), gen, dtype)
+    shape = (B, S, H, hd)
+    plain_h, _ = slstm_fused(gx, rg, H)
+    h, _, saved = slstm_fused(gx, rg, H, save=True)
+    torch.cuda.synchronize()
+    if not torch.equal(h, plain_h):
+        fail(f"slstm_fused {shape} {dtype}: h changes when the state is saved")
+    _, _, want_saved = slstm_ref(gx, rg, H, save=True)
+    saved_err = {}
+    for row, name in enumerate(("i", "f", "z", "o", "c", "n", "m")):
+        w = want_saved[:, :, row].double()
+        saved_err[name] = ((saved[:, :, row].double() - w).abs().max()
+                           / w.abs().max().clamp(min=1e-30)).item()
+    del want_saved
+    if max(saved_err.values()) > SLSTM_TOL:
+        fail(f"slstm_fused {shape} {dtype}: saved state off by {saved_err} of max|plain|")
+
+    def run():
+        return slstm_fused_bwd(rg, saved, dh, H)
+
+    got = run()
+    again = run()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"slstm_fused_bwd {shape} {dtype}: two calls differ")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = slstm_bwd_ref(rg, saved, dh, H)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    errs, over = [], []
+    for name, g, w, dt in zip(("dgx", "dR"), got, want, (dtype, torch.float32)):
+        if not torch.isfinite(g).all().item():
+            fail(f"slstm_fused_bwd {shape} {dtype}: non-finite {name}")
+        wd = w.double()
+        diff = (g.double() - wd).abs()
+        scale = wd.abs().max().item()
+        errs.append(diff.max().item())
+        if dt == torch.float32:
+            over.append((diff / (GRAD_RTOL * wd.abs() + GRAD_ATOL * scale)).max().item())
+        else:
+            over.append(diff.max().item() / (TOL[dt] * scale))
+    p, pb = slstm_plan(B, S, H, hd, dtype), slstm_plan_bwd(B, S, H, hd, dtype)
+    fwd_clusters = slstm_active_clusters(p, dtype)
+    bwd_clusters = slstm_active_clusters(pb, dtype, backward=True)
+    es = gx.element_size()
+    # saved, dh and R read once, dgx and dR written once
+    n_bytes = 4 * saved.numel() + es * (dh.numel() + 4 * B * S * D) + 2 * 4 * rg.numel()
+    # the recurrence's R^T dg and the dR product: 8 hd^2 flop each a step and (row, head)
+    t_parts, by = bound(n_bytes, 2 * 8.0 * hd * hd * H * S * B, torch.float32)
+    dg32 = got[0].float()
+    kernel_ms = cuda_ms(run, reps=3, warmup=1)
+    line = {
+        "kernel": "slstm_fused_bwd", "shape": list(shape),
+        "dtype": str(dtype).replace("torch.", ""),
+        "max_abs_err": errs[0], "max_abs_err_dgx_dR": errs, "err_over_limit": over,
+        "tol": "rtol 1e-3, atol 1e-4 max" if dtype == torch.float32 else
+        {"dgx": TOL[dtype], "dR": "rtol 1e-3, atol 1e-4 max"},
+        "same_bits": True, "h_bits_same_with_save": True, "saved_max_rel_err": saved_err,
+        "kernel_ms": kernel_ms, "graph_ms": graph_ms(run, reps=3),
+        "dr_ms": cuda_ms(lambda: slstm_dr(saved, dg32, H), reps=3, warmup=1),
+        "plain_ms": plain_ms, "library_ms": None,
+        "library_note": "none: no single PyTorch call computes this recurrence's gradient",
+        "bound_ms": max(t_parts), "bound_by": by,
+        "bound_note": "the S sequential steps bound it, not bytes or operations",
+        "steps": S, "step_us": kernel_ms * 1e3 / S,
+        "forward_graph_ms": graph_ms(lambda: slstm_fused(gx, rg, H)[0], reps=3),
+        "forward_save_graph_ms": graph_ms(lambda: slstm_fused(gx, rg, H, save=True)[0], reps=3),
+        "saved_bytes": 4 * saved.numel(),
+        "active_clusters": {"forward": fwd_clusters, "backward": bwd_clusters},
+        "clusters": p.grid[1] * p.grid[2],
+        "waves": {"forward": math.ceil(p.grid[1] * p.grid[2] / fwd_clusters),
+                  "backward": math.ceil(pb.grid[1] * pb.grid[2] / bwd_clusters)},
+        "plan": dataclasses.asdict(pb), "forward_plan": dataclasses.asdict(p)}
+    emit(line)
+    if max(over) > 1.0:
+        fail(f"slstm_fused_bwd {shape} {dtype}: errors {over} times the limit")
+    return line
+
+
 def summary(lines, repeat: int = 1) -> dict:
     """A kernel's numbers over one run of its path: times summed over the
     path's shapes (``repeat`` runs of each), errors the worst; with the
@@ -998,7 +1124,8 @@ def slstm_held(kernel_path, worst: dict):
     def run(gx, rg, num_heads, *, backend=None):
         h, state = kernel_path(gx, rg, num_heads, backend=backend)
         if backend is None:
-            want, want_state = slstm_ref(gx, rg, num_heads)
+            with torch.no_grad():
+                want, want_state = slstm_ref(gx, rg, num_heads)
             diff, scale = (h.double() - want.double()).abs(), want.double().abs().max()
             limit = SLSTM_TOL * scale + (BF16_ULP * want.double().abs()
                                          if gx.dtype == torch.bfloat16 else 0.0)
@@ -1008,6 +1135,28 @@ def slstm_held(kernel_path, worst: dict):
             name = str(gx.dtype).replace("torch.", "")
             worst[name] = max([worst.get(name, 0.0)] + ratios)
         return h, state
+    return run
+
+
+def slstm_bwd_held(kernel_bwd, worst: dict):
+    """``slstm_fused_bwd`` that also holds each call against slstm_bwd_ref on
+    the same saved state and dh (real model activations and gradients):
+    dgx and dR within rtol 1e-3, atol 1e-4 of max|plain| in float32
+    (tests/test_layers.py:121), dgx within 2e-2 of max|plain| in bfloat16;
+    the worst ratio of error to limit goes to ``worst[dtype]``."""
+    def run(rg, saved, dh, num_heads):
+        got = kernel_bwd(rg, saved, dh, num_heads)
+        want = slstm_bwd_ref(rg, saved, dh, num_heads)
+        name = str(dh.dtype).replace("torch.", "")
+        for g, w in zip(got, want):
+            wd = w.double()
+            diff, scale = (g.double() - wd).abs(), wd.abs().max()
+            if g.dtype == torch.float32:
+                ratio = (diff / (GRAD_RTOL * wd.abs() + GRAD_ATOL * scale)).max().item()
+            else:
+                ratio = (diff.max() / (TOL[g.dtype] * scale)).item()
+            worst[name] = max(worst.get(name, 0.0), ratio)
+        return got
     return run
 
 
@@ -2274,21 +2423,22 @@ def model_audio_phase() -> tuple:
     return launches, line
 
 
-def train_batches(batch: int, n: int, start: int = 0) -> list:
-    """``n`` batches of ``batch`` rows of TRAIN_SEQ tokens from
-    SyntheticTokens(seed=0), from step ``start`` (host numpy, made before any
-    timing)."""
-    data = SyntheticTokens(DataConfig(vocab_size=get_config(SERVE_ARCH).vocab_size,
-                                      seq_len=TRAIN_SEQ, global_batch=batch, seed=0))
+def train_batches(batch: int, n: int, start: int = 0, arch: str = SERVE_ARCH,
+                  seq: int = TRAIN_SEQ) -> list:
+    """``n`` batches of ``batch`` rows of ``seq`` tokens from
+    SyntheticTokens(seed=0) at ``arch``'s vocabulary, from step ``start``
+    (host numpy, made before any timing)."""
+    data = SyntheticTokens(DataConfig(vocab_size=get_config(arch).vocab_size,
+                                      seq_len=seq, global_batch=batch, seed=0))
     return [data.batch_at(start + i) for i in range(n)]
 
 
-def train_setup(dtype=torch.bfloat16, kernel_backend=None, steps: int = TRAIN_STEPS):
-    """smollm-135m whole (weights from seed 0, f32 masters) with remat
-    "block", and its train state and step, the optimizer as the launcher
-    builds it: OptConfig(lr=3e-3, schedule="wsd"), warm-up a tenth of
-    ``steps``."""
-    cfg = get_config(SERVE_ARCH)
+def train_setup(dtype=torch.bfloat16, kernel_backend=None, steps: int = TRAIN_STEPS,
+                arch: str = SERVE_ARCH):
+    """``arch`` whole (weights from seed 0, f32 masters) with remat "block",
+    and its train state and step, the optimizer as the launcher builds it:
+    OptConfig(lr=3e-3, schedule="wsd"), warm-up a tenth of ``steps``."""
+    cfg = get_config(arch)
     model = build_model(cfg, CallConfig(compute_dtype=dtype, remat="block",
                                         kernel_backend=kernel_backend), device="cuda", seed=0)
     ocfg = OptConfig(lr=3e-3, schedule="wsd", warmup_steps=max(steps // 10, 1),
@@ -2296,52 +2446,91 @@ def train_setup(dtype=torch.bfloat16, kernel_backend=None, steps: int = TRAIN_ST
     return model, make_train_state(model, None, ocfg), make_train_step(model, ocfg)
 
 
-def train_steps(state, step, batches) -> tuple:
+def launches_of(kernels) -> tuple:
+    return tuple(k.launches for k in kernels)
+
+
+def train_steps(state, step, batches, kernels=(flash_attention, flash_attention_bwd)) -> tuple:
     """Run ``step`` over ``batches``; returns the state, each step's (loss,
-    grad norm) and the flash forward and backward launches."""
-    f0, b0 = flash_attention.launches, flash_attention_bwd.launches
+    grad norm) and the launches of ``kernels`` (forward, backward) in them."""
+    before = launches_of(kernels)
     mets = []
     for b in batches:
         state, m = step(state, b)
         mets.append((float(m["loss"]), float(m["grad_norm"])))
     torch.cuda.synchronize()
-    return state, mets, (flash_attention.launches - f0, flash_attention_bwd.launches - b0)
+    return state, mets, tuple(a - b for a, b in zip(launches_of(kernels), before))
 
 
-def train_held_checks() -> dict:
-    """The train path held on the card, at CHECK_BATCH rows of TRAIN_SEQ:
-    CHECK_STEPS steps through the kernels against the same steps with the
-    plain attention forward and backward (kernel_backend="ref"), float32
-    and bfloat16 (TRAIN_TOL); then a bfloat16 run saved after RESUME_AT
-    steps, restored into a fresh model and state and taken RESUME_MORE steps
-    further: losses and parameters bitwise the uninterrupted run's."""
+@dataclasses.dataclass(frozen=True)
+class TrainCell:
+    """A train phase: ``arch`` whole, its forward and backward kernels and
+    their launches a step under remat "block" (``per_step``), the held
+    checks' sequence length and their (loss, grad norm) limits step by step."""
+    phase: str
+    arch: str
+    kernels: tuple
+    per_step: tuple
+    check_seq: int = TRAIN_SEQ
+    forbid: object = None
+    held_tol: dict = dataclasses.field(default_factory=lambda: TRAIN_HELD_TOL)
+    # also hold each sLSTM call of the kernel steps against its plain version
+    held_calls: bool = False
+
+
+def train_held_checks(cell: TrainCell) -> dict:
+    """The train path held on the card: CHECK_STEPS steps of CHECK_BATCH x
+    ``cell.check_seq`` through the kernels against the same steps with the
+    plain versions forward and backward (kernel_backend="ref"), float32
+    and bfloat16: each step's loss and grad norm within ``cell.held_tol``;
+    with ``cell.held_calls`` also every sLSTM forward and backward call of
+    the kernel steps against its plain version on its own inputs
+    (slstm_held, slstm_bwd_held). Then, at CHECK_BATCH x TRAIN_SEQ, a
+    bfloat16 run saved after RESUME_AT steps, restored into a fresh model
+    and state and taken RESUME_MORE steps further: losses and parameters
+    bitwise the uninterrupted run's."""
     out, failures = {}, []
-    batches = train_batches(CHECK_BATCH, RESUME_AT + RESUME_MORE)
+    checks = train_batches(CHECK_BATCH, CHECK_STEPS, arch=cell.arch, seq=cell.check_seq)
+    fwd_path, bwd_path = ops.slstm, ops._slstm_fused_bwd
+    worst_fwd, worst_bwd = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         runs = []
         for backend in (None, "ref"):
-            model, state, step = train_setup(dtype, backend)
-            runs.append(train_steps(state, step, batches[:CHECK_STEPS]))
+            if cell.held_calls and backend is None:
+                ops.slstm, ops._slstm_fused_bwd = (slstm_held(fwd_path, worst_fwd),
+                                                   slstm_bwd_held(bwd_path, worst_bwd))
+            try:
+                model, state, step = train_setup(dtype, backend, arch=cell.arch)
+                runs.append(train_steps(state, step, checks, cell.kernels))
+            finally:
+                ops.slstm, ops._slstm_fused_bwd = fwd_path, bwd_path
             del model, state, step
             torch.cuda.empty_cache()
         (_, kern, kl), (_, plain, pl) = runs
-        lt, gt = TRAIN_TOL[dtype]
-        loss_rel = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(kern, plain))
-        gn_rel = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in zip(kern, plain))
+        loss_rel, gn_rel = ([abs(x[k] - y[k]) / abs(y[k]) for x, y in zip(kern, plain)]
+                            for k in (0, 1))
+        tol = cell.held_tol[dtype]
         name = str(dtype).replace("torch.", "")
-        out[name] = {"kernel": kern, "plain": plain, "loss_rel_err": loss_rel,
-                     "grad_norm_rel_err": gn_rel, "tol": [lt, gt],
+        out[name] = {"seq": cell.check_seq, "kernel": kern, "plain": plain,
+                     "loss_rel_err": loss_rel, "grad_norm_rel_err": gn_rel, "tol": tol,
                      "launches_kernel": kl, "launches_plain": pl}
-        if loss_rel > lt or gn_rel > gt:
+        if any(a > lt or g > gt for a, g, (lt, gt) in zip(loss_rel, gn_rel, tol)):
             failures.append(f"{name} kernel vs plain steps: loss {loss_rel}, grad norm {gn_rel} "
-                            f"(limits {lt}, {gt})")
-        if pl != (0, 0) or kl != (2 * CHECK_STEPS * get_config(SERVE_ARCH).num_layers,
-                                  CHECK_STEPS * get_config(SERVE_ARCH).num_layers):
+                            f"(limits {tol})")
+        if any(pl) or kl != tuple(CHECK_STEPS * n for n in cell.per_step):
             failures.append(f"{name}: launches {kl} through the kernels, {pl} plain")
+    if cell.held_calls:
+        out["slstm_calls_worst_err_over_limit"] = {"forward": worst_fwd, "backward": worst_bwd}
+        if not worst_fwd or not worst_bwd:
+            failures.append("the held sLSTM calls never ran: the train steps missed the kernels")
+        elif max(list(worst_fwd.values()) + list(worst_bwd.values())) > 1.0:
+            failures.append(f"an sLSTM call of the kernel train steps is off its plain version: "
+                            f"forward {worst_fwd}, backward {worst_bwd} x the limit")
 
+    batches = train_batches(CHECK_BATCH, RESUME_AT + RESUME_MORE, arch=cell.arch)
     ckpt_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    model, state, step = train_setup()
+    model, state, step = train_setup(arch=cell.arch)
     losses, t_save = [], 0.0
     for i, b in enumerate(batches):
         state, m = step(state, b)
@@ -2350,7 +2539,7 @@ def train_held_checks() -> dict:
             t0 = time.perf_counter()
             ckpt_lib.save(str(ckpt_dir), RESUME_AT, state_tree(state))
             t_save = time.perf_counter() - t0
-    fresh_model, fresh, fstep = train_setup()
+    fresh_model, fresh, fstep = train_setup(arch=cell.arch)
     t0 = time.perf_counter()
     tree, manifest = ckpt_lib.restore(str(ckpt_dir), state_tree(fresh))
     load_state_tree(fresh, tree)
@@ -2375,22 +2564,22 @@ def train_held_checks() -> dict:
     return out
 
 
-def train_phase() -> tuple:
-    """smollm-135m whole, bf16 compute, f32 masters, remat "block", trained
+def train_phase(cell: TrainCell) -> tuple:
+    """``cell.arch`` whole, bf16 compute, f32 masters, remat "block", trained
     on batches of TRAIN_BATCH x TRAIN_SEQ tokens: TRAIN_WARMUP steps, then
     TRAIN_TIMED timed ones (steps/s, tokens/s, median ms/step, peak memory,
-    flash forward and backward launches a step: 60 and 30), a profiled step
-    (idle share, largest device items), then the rest to TRAIN_STEPS: the
-    last step's loss below the first's; then train_held_checks."""
-    cfg = get_config(SERVE_ARCH)
-    L = cfg.num_layers
-    batches = train_batches(TRAIN_BATCH, TRAIN_STEPS)
+    the kernels' forward and backward launches a step, ``cell.per_step``),
+    a profiled step (idle share, largest device items), then the rest to
+    TRAIN_STEPS: the last step's loss below the first's; then
+    train_held_checks."""
+    cfg = get_config(cell.arch)
+    batches = train_batches(TRAIN_BATCH, TRAIN_STEPS, arch=cell.arch)
     with torch.enable_grad():
-        model, state, step = train_setup()
-        state, first, _ = train_steps(state, step, batches[:TRAIN_WARMUP])
+        model, state, step = train_setup(arch=cell.arch)
+        state, first, _ = train_steps(state, step, batches[:TRAIN_WARMUP], cell.kernels)
         torch.cuda.reset_peak_memory_stats()
         walls, mets = [], list(first)
-        f0, b0 = flash_attention.launches, flash_attention_bwd.launches
+        before = launches_of(cell.kernels)
         for b in batches[TRAIN_WARMUP:TRAIN_WARMUP + TRAIN_TIMED]:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2398,7 +2587,7 @@ def train_phase() -> tuple:
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             mets.append((float(m["loss"]), float(m["grad_norm"])))
-        launches = (flash_attention.launches - f0, flash_attention_bwd.launches - b0)
+        launches = tuple(a - b for a, b in zip(launches_of(cell.kernels), before))
         peak = torch.cuda.max_memory_allocated()
         at = TRAIN_WARMUP + TRAIN_TIMED
         it = iter(batches[at:at + 2])
@@ -2408,30 +2597,31 @@ def train_phase() -> tuple:
             state, m = step(state, next(it))
             mets.append((float(m["loss"]), float(m["grad_norm"])))
 
-        prof = profile_window(one_step, "a train step", forbid=LIBRARY_ATTENTION)
-        state, rest, _ = train_steps(state, step, batches[at + 2:])
+        prof = profile_window(one_step, "a train step", forbid=cell.forbid)
+        state, rest, _ = train_steps(state, step, batches[at + 2:], cell.kernels)
         mets += rest
         del model, state, step
         torch.cuda.empty_cache()
-        held = train_held_checks()
+        held = train_held_checks(cell)
     failures = held.pop("_failures")
     ms = statistics.median(walls) * 1e3
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    line = {"phase": "train", "arch": cfg.name, "layers": L, "d_model": cfg.d_model,
-            "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads, "d_ff": cfg.d_ff,
-            "vocab": cfg.vocab_size, "compute": "bfloat16", "masters": "float32",
-            "remat": "block", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "tokens_per_step": tokens,
+    names = [k.__name__ for k in cell.kernels]
+    line = {"phase": cell.phase, "arch": cfg.name, "layers": cfg.num_layers,
+            "d_model": cfg.d_model, "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+            "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "compute": "bfloat16",
+            "masters": "float32", "remat": "block", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "tokens_per_step": tokens,
             "optimizer": "OptConfig(lr=3e-3, schedule='wsd', warmup 2, total 20)",
             "median_ms_per_step": ms, "steps_s": 1e3 / ms, "tokens_s": tokens / ms * 1e3,
             "ms_per_step": [w * 1e3 for w in walls], "peak_mem_gib": peak / 2**30,
-            "flash_launches_per_step": {"forward": launches[0] / TRAIN_TIMED,
-                                        "backward": launches[1] / TRAIN_TIMED},
+            "launches_per_step": {n: c / TRAIN_TIMED for n, c in zip(names, launches)},
             "losses": [m[0] for m in mets], "grad_norms": [m[1] for m in mets],
             "profile": prof, "held": held}
     emit(line)
-    if launches != (2 * L * TRAIN_TIMED, L * TRAIN_TIMED):
-        failures.append(f"flash launches {launches} in {TRAIN_TIMED} steps, expected "
-                        f"{2 * L} forward and {L} backward a step")
+    if launches != tuple(TRAIN_TIMED * n for n in cell.per_step):
+        failures.append(f"launches {dict(zip(names, launches))} in {TRAIN_TIMED} steps, "
+                        f"expected {dict(zip(names, cell.per_step))} a step")
     if len(mets) != TRAIN_STEPS or not all(math.isfinite(l) and math.isfinite(g)
                                            for l, g in mets):
         failures.append(f"{len(mets)} steps, non-finite loss or grad norm: {mets}")
@@ -2439,8 +2629,22 @@ def train_phase() -> tuple:
         failures.append(f"the loss after {TRAIN_STEPS} steps, {mets[-1][0]}, is not below the "
                         f"first step's {mets[0][0]}")
     if failures:
-        fail("train: " + "; ".join(failures))
+        fail(f"{cell.phase}: " + "; ".join(failures))
     return line, launches
+
+
+def train_cells() -> tuple:
+    """The two train phases: smollm-135m through the attention kernels (its
+    30 layers: 60 forward launches a step under remat, 30 backward),
+    xlstm-350m through the sLSTM kernels (12 pairs: 24 and 12; the held
+    checks at XLSTM_CHECK_SEQ, where the plain recurrence is ~20 launches a
+    step forward and ~40 backward)."""
+    L = get_config(SERVE_ARCH).num_layers
+    P = get_config(XLSTM_ARCH).num_layers // 2
+    return (TrainCell("train", SERVE_ARCH, (flash_attention, flash_attention_bwd), (2 * L, L),
+                      forbid=LIBRARY_ATTENTION),
+            TrainCell("train-xlstm", XLSTM_ARCH, (slstm_fused, slstm_fused_bwd), (2 * P, P),
+                      check_seq=XLSTM_CHECK_SEQ, held_tol=XLSTM_HELD_TOL, held_calls=True))
 
 
 def main() -> None:
@@ -2556,6 +2760,15 @@ def main() -> None:
     check_slstm(gen, 200, H=1, hd=512)  # the stream path
     slstm_lines = [check_slstm(gen, len(r.prompt), **xlstm_shape)
                    for r in serve_wave(xcfg.vocab_size)]
+    # the recurrence's backward: the train-xlstm phase's shape (8 x 2048),
+    # ragged S at B = 2, the reduced configs' hd 32 (a cluster of one)
+    slstm_bwd_lines = {}
+    with time_limit(BWD_CHECK_S, "the slstm_fused_bwd checks"):
+        for dtype in (torch.bfloat16, torch.float32):
+            slstm_bwd_lines[dtype] = check_slstm_bwd(gen, TRAIN_SEQ, dtype, **xlstm_shape)
+            check_slstm_bwd(gen, 517, dtype, B=2, **xlstm_shape)
+            check_slstm_bwd(gen, 300, dtype, B=2, H=4, hd=32)
+    torch.cuda.empty_cache()
     phase_done("kernels")
 
     # 4. end to end: the executor's kernel path against its float64 reference
@@ -2698,11 +2911,17 @@ def main() -> None:
     phase_done("model-audio")
 
     # 26. training smollm-135m whole through the attention kernels, forward and backward
-    _, train_launches = train_phase()
+    smollm_cell, xlstm_cell = train_cells()
+    _, train_launches = train_phase(smollm_cell)
     torch.cuda.empty_cache()
     phase_done("train")
 
-    # 27. the phases' seconds, the kernels line, the card, the result
+    # 27. training xlstm-350m whole through the sLSTM kernels, forward and backward
+    _, xtrain_launches = train_phase(xlstm_cell)
+    torch.cuda.empty_cache()
+    phase_done("train-xlstm")
+
+    # 28. the phases' seconds, the kernels line, the card, the result
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
     emit({"kernels": [
         {"name": "com_matmul", "route": "cuda", "source": "src/repro_torch/csrc/com_matmul.cu",
@@ -2738,8 +2957,17 @@ def main() -> None:
          **summary([bwd_lines[torch.bfloat16]], serve_cfg.num_layers)},
         {"name": "slstm_fused", "route": "cuda", "source": "src/repro_torch/csrc/slstm.cu",
          "replaces": "src/repro/kernels/slstm.py:70",
-         "launches": slstm_launches, "launches_by_path": {"serve-xlstm": slstm_launches},
+         "launches": slstm_launches, "launches_by_path": {"serve-xlstm": slstm_launches,
+                                                          "train-xlstm": xtrain_launches[0]},
          **summary(slstm_lines, xcfg.num_layers // 2)},
+        {"name": "slstm_fused_bwd", "route": "cuda", "source": "src/repro_torch/csrc/slstm.cu",
+         "replaces": "src/repro/models/xlstm.py:240",
+         "replaces_note": "no Pallas kernel: jax.grad of the lax.scan over _slstm_cell",
+         "launches": xtrain_launches[1], "launches_by_path": {"train-xlstm": xtrain_launches[1]},
+         "active_clusters": slstm_bwd_lines[torch.bfloat16]["active_clusters"],
+         "waves": slstm_bwd_lines[torch.bfloat16]["waves"],
+         "ptxas": {k: v for k, v in ptxas.items() if "slstm_bwd" in k},
+         **summary([slstm_bwd_lines[torch.bfloat16]], xcfg.num_layers // 2)},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

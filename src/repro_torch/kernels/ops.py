@@ -10,10 +10,10 @@ Counterpart of ``repro.kernels.ops``. ``backend`` selects the path:
 
 Every Pallas kernel of the JAX package is ported: ``com_matmul``,
 ``conv2d_com``, ``flash_attention`` and ``slstm_fused`` (``slstm``).
-``flash_attention`` is differentiable: where grad is enabled and an input
-requires it, it runs through :class:`FlashAttention`, whose backward is the
-CUDA backward kernel for CUDA tensors and the plain backward for CPU tensors
-or ``backend="ref"``.
+``flash_attention`` and ``slstm`` are differentiable: where grad is enabled
+and an input requires it, they run through :class:`FlashAttention` and
+:class:`SLSTMFused`, whose backwards are the CUDA backward kernels for CUDA
+tensors and the plain backwards for CPU tensors or ``backend="ref"``.
 """
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ from repro_torch.kernels.flash_attention import BLOCK_KV
 from repro_torch.kernels.flash_attention import flash_attention as _flash_attention
 from repro_torch.kernels.flash_attention import flash_attention_bwd as _flash_attention_bwd
 from repro_torch.kernels.slstm import slstm_fused as _slstm_fused
+from repro_torch.kernels.slstm import slstm_fused_bwd as _slstm_fused_bwd
 
 BACKENDS = ("cuda", "ref")
 
@@ -96,10 +97,42 @@ def flash_attention(q, k, v, *, causal=True, backend=None, block_kv=BLOCK_KV):
     return _flash_attention(q, k, v, causal=causal, block_kv=block_kv)
 
 
+class SLSTMFused(torch.autograd.Function):
+    """The sLSTM recurrence whose gradient is the reverse recurrence
+    (:func:`repro_torch.kernels.ref.slstm_bwd_ref`; the reference
+    differentiates its ``lax.scan``): the forward saves its per-step state
+    and ``rg``, the backward returns ``(dgx, dR)``. Returns ``h`` and the
+    final ``(c, n, h, m)``, the state marked non-differentiable (training
+    does not read it). ``path`` is ``"cuda"`` (the kernels, forward and
+    backward) or ``"ref"`` (the plain versions, on the tensors' own device)."""
+
+    @staticmethod
+    def forward(ctx, gx, rg, num_heads, path):
+        fwd = _ref.slstm_ref if path == "ref" else _slstm_fused
+        h, state, saved = fwd(gx, rg, num_heads, save=True)
+        ctx.save_for_backward(rg, saved)
+        ctx.num_heads, ctx.path = num_heads, path
+        ctx.mark_non_differentiable(*state)
+        return (h, *state)
+
+    @staticmethod
+    def backward(ctx, dh, *_):
+        rg, saved = ctx.saved_tensors
+        bwd = _ref.slstm_bwd_ref if ctx.path == "ref" else _slstm_fused_bwd
+        dgx, dr = bwd(rg, saved, dh.contiguous(), ctx.num_heads)
+        return dgx, dr, None, None
+
+
 def slstm(gx, rg, num_heads, *, backend=None):
     """gx: (B, S, 4, D) gate pre-activations; rg: (4, H, hd, hd) -> h (B, S, D)
     in ``gx.dtype`` and the final float32 state ``(c, n, h, m)``, each
-    (B, H, hd)."""
-    if _resolve(gx, backend) == "ref":
+    (B, H, hd). Differentiable through :class:`SLSTMFused` where grad is
+    enabled and ``gx`` or ``rg`` requires it; otherwise (serving) the forward
+    alone, with no per-step state written."""
+    path = _resolve(gx, backend)
+    if torch.is_grad_enabled() and (gx.requires_grad or rg.requires_grad):
+        h, *state = SLSTMFused.apply(gx, rg, num_heads, path)
+        return h, tuple(state)
+    if path == "ref":
         return _ref.slstm_ref(gx, rg, num_heads)
     return _slstm_fused(gx, rg, num_heads)

@@ -147,8 +147,10 @@ def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
     return torch.minimum(x, torch.zeros_like(x)) - torch.log1p(torch.exp(-x.abs()))
 
 
-def slstm_ref(gx: torch.Tensor, rg: torch.Tensor, num_heads: int
-              ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+SAVED_ROWS = 7  # the per-step state of slstm_ref(save=True): i, f, z, o, c, n, m
+
+
+def slstm_ref(gx: torch.Tensor, rg: torch.Tensor, num_heads: int, *, save: bool = False):
     """The sLSTM recurrence over gate pre-activations, one step at a time.
 
     gx: ``(B, S, 4, D)`` pre-activations of the gates ``[i, f, z, o]`` (the
@@ -160,6 +162,12 @@ def slstm_ref(gx: torch.Tensor, rg: torch.Tensor, num_heads: int
     (which starts at ``-1e30``; ``c``, ``n`` and ``h`` start at zero) and
     ``n`` clamped at ``1e-6``; ``h`` is rounded to ``gx.dtype`` only where
     it is written out.
+
+    With ``save``, also the per-step state the backward reads
+    (:func:`slstm_bwd_ref`), float32 ``(B, S, 7, D)``: at step t the four
+    gate pre-activations after ``+ R h_{t-1}`` (rows 0-3) and ``c_t``,
+    ``n_t``, ``m_t`` (rows 4-6), the layout the CUDA kernel writes. ``h`` is
+    the same either way.
     """
     B, S, four, D = gx.shape
     hd = D // num_heads
@@ -168,6 +176,8 @@ def slstm_ref(gx: torch.Tensor, rg: torch.Tensor, num_heads: int
     n, h = torch.zeros_like(c), torch.zeros_like(c)
     m = torch.full_like(c, -1e30)
     out = torch.empty((B, S, D), dtype=gx.dtype, device=gx.device)
+    saved = (torch.empty((B, S, SAVED_ROWS, D), dtype=torch.float32, device=gx.device)
+             if save else None)
     for t in range(S):
         g = gx[:, t].float().reshape(B, 4, num_heads, hd)
         g = g + torch.einsum("bhn,ghnm->bghm", h, r)
@@ -181,4 +191,85 @@ def slstm_ref(gx: torch.Tensor, rg: torch.Tensor, num_heads: int
         h = torch.sigmoid(ot) * c / torch.clamp(n, min=1e-6)
         m = m_new
         out[:, t] = h.reshape(B, D).to(gx.dtype)
+        if save:
+            saved[:, t, :4] = g.reshape(B, 4, D)
+            saved[:, t, 4:] = torch.stack((c, n, m), 1).reshape(B, 3, D)
+    if save:
+        return out, (c, n, h, m), saved
     return out, (c, n, h, m)
+
+
+def slstm_bwd_ref(rg: torch.Tensor, saved: torch.Tensor, dh: torch.Tensor, num_heads: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`slstm_ref`'s ``h``: ``(dgx, dR)`` from the
+    recurrent weights, the forward's per-step state ``saved`` (float32
+    ``(B, S, 7, D)``, ``slstm_ref(save=True)``) and ``dh`` ``(B, S, D)``, the
+    gradient of ``h``. ``dgx`` ``(B, S, 4, D)`` is in ``dh.dtype`` (that is
+    ``gx.dtype``), ``dR`` float32 ``(4, H, hd, hd)``. The reverse
+    recurrence in float32, one step at a time, from ``t = S - 1`` down.
+
+    The running max ``m`` is held constant. That is exact: because of the
+    stabilizer, ``n_t >= 1`` at every step (``n_1 = i = 1``; afterwards
+    either ``f = 1`` and ``n_t = n_{t-1} + i``, or ``i = 1`` and ``n_t =
+    f n_{t-1} + 1``), so the ``1e-6`` clamp never acts, ``c`` and ``n``
+    carry the same factor ``exp(-m)`` and ``h`` does not depend on ``m``:
+    the gradient through ``m`` cancels. ``jax.grad`` of the reference's scan,
+    which does differentiate through ``m`` (splitting a tie of ``max``
+    0.5 / 0.5, as ``torch.maximum`` does), agrees to rounding. With ``m``
+    fixed, ``i = exp(it - m_t)``, ``f = exp(logsigmoid(ft) + m_{t-1} - m_t)``
+    and, with ``dh_t = dh[t] + R dg_{t+1}`` (R applied to the next step's
+    gate gradients, ``R[q]`` contracted over its output unit):
+
+        dc_t = dh_t σ(o) / n_t + f_{t+1} dc_{t+1}
+        dn_t = -dh_t σ(o) c_t / n_t² + f_{t+1} dn_{t+1}
+        dg_t = [(dc_t tanh z + dn_t) i, (dc_t c_{t-1} + dn_t n_{t-1}) f σ(-ft),
+                dc_t i (1 - tanh² z), dh_t (c_t / n_t) σ(o) (1 - σ(o))]
+
+    ``dR`` is :func:`slstm_dr` of the gate gradients.
+    """
+    B, S, _, D = saved.shape
+    hd = D // num_heads
+    r = rg.float()
+    sv = saved.reshape(B, S, SAVED_ROWS, num_heads, hd)
+    it, ft, zt, ot, c, n, m = sv.unbind(2)
+    # the factors that do not depend on the reverse recurrence, for every step
+    zero = torch.zeros((B, 1, num_heads, hd), dtype=torch.float32, device=saved.device)
+    c_prev, n_prev = torch.cat((zero, c[:, :-1]), 1), torch.cat((zero, n[:, :-1]), 1)
+    m_prev = torch.cat((torch.full_like(zero, -1e30), m[:, :-1]), 1)
+    i = torch.exp(it - m)
+    f = torch.exp(log_sigmoid(ft) + m_prev - m)
+    tz, so = torch.tanh(zt), torch.sigmoid(ot)
+    dc_dh, dn_dh = so / n, -so * c / (n * n)         # dh_t's share of dc_t and dn_t
+    f_ft = f * torch.sigmoid(-ft)                     # df / dft
+    z_dc, o_dh = i * (1 - tz * tz), (c / n) * so * (1 - so)
+    dhf = dh.float().reshape(B, S, num_heads, hd)
+    dg = torch.empty((B, S, 4, num_heads, hd), dtype=torch.float32, device=saved.device)
+    dc, dn, f_next = zero[:, 0], zero[:, 0], zero[:, 0]
+    dg_next = torch.zeros((B, 4, num_heads, hd), dtype=torch.float32, device=saved.device)
+    for t in reversed(range(S)):
+        dht = dhf[:, t] + torch.einsum("bghm,ghnm->bhn", dg_next, r)
+        dc = dht * dc_dh[:, t] + dc * f_next
+        dn = dht * dn_dh[:, t] + dn * f_next
+        dg_next = torch.stack(((dc * tz[:, t] + dn) * i[:, t],
+                               (dc * c_prev[:, t] + dn * n_prev[:, t]) * f_ft[:, t],
+                               dc * z_dc[:, t], dht * o_dh[:, t]), 1)
+        dg[:, t] = dg_next
+        f_next = f[:, t]
+    dg = dg.reshape(B, S, 4, D)
+    return dg.to(dh.dtype), slstm_dr(saved, dg, num_heads)
+
+
+def slstm_dr(saved: torch.Tensor, dg: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The recurrent weights' gradient, float32 ``(4, H, hd, hd)``: ``dR[q,
+    h] = sum over (b, t) of h_{t-1}[b, h]^T dg_t[b, q, h]``, one product
+    over the ``B * S`` rows, as the reference's scan transposes ``einsum("bhn,
+    ghnm->bghm")``. ``h_{t-1}`` is the float32 carry ``σ(o) c / n`` of the
+    previous step, recomputed from ``saved`` (zero at ``t = 0``); ``dg``
+    float32 ``(B, S, 4, D)``."""
+    B, S, _, D = saved.shape
+    hd = D // num_heads
+    h = torch.sigmoid(saved[:, :, 3]) * saved[:, :, 4] / torch.clamp(saved[:, :, 5], min=1e-6)
+    h_prev = F.pad(h[:, :-1], (0, 0, 1, 0))  # (B, S, D), zero at t = 0
+    hp = h_prev.reshape(B * S, num_heads, hd).permute(1, 2, 0)        # (H, hd, BS)
+    dgr = dg.reshape(B * S, 4, num_heads, hd).permute(1, 2, 0, 3)     # (4, H, BS, hd)
+    return torch.matmul(hp, dgr)

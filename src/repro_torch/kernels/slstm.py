@@ -15,9 +15,13 @@ Counterpart of ``repro.kernels.slstm`` (``slstm_fused`` and
 ``hbm_traffic_model``); the kernel is ``src/repro_torch/csrc/slstm.cu``.
 Unlike the Pallas kernel it also returns the final ``(c, n, h, m)`` state,
 which a prefill writes into the model's cache, and it takes any ``S >= 1``.
-For a tensor on the CPU the wrapper runs the plain version
-(:func:`repro_torch.kernels.ref.slstm_ref`); for a CUDA tensor it launches
-the kernel or raises.
+With ``save=True`` (training) the cluster path also writes the per-step
+state its backward reads, and :func:`slstm_fused_bwd` is that backward: a
+second kernel of ``csrc/slstm.cu`` walks the sequence in reverse on the same
+cluster (its launch is :func:`plan_bwd`), where the reference differentiates
+its ``lax.scan``. For a tensor on the CPU the wrappers run the plain versions
+(:func:`repro_torch.kernels.ref.slstm_ref`, ``slstm_bwd_ref``); for a CUDA
+tensor they launch the kernels or raise.
 """
 from __future__ import annotations
 
@@ -25,20 +29,26 @@ import ctypes
 import functools
 import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import slstm_ref
+from repro_torch.kernels.ref import SAVED_ROWS, slstm_bwd_ref, slstm_dr, slstm_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 1024  # the stream path: one thread a hidden unit
 MAX_CLUSTER = 8      # CTAs a cluster (the portable limit)
 CLUSTER_THREADS = 512  # threads of a cluster CTA at most (128 registers each)
 REG_KPT = (8, 16, 32, 64)  # k a thread is built for (R in at most 64 registers)
-# gx, R, h_out, c, n, h, m, B, S, H, hd, dtype, path, C, KS, kpt, stream
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+# gx, R, h_out, c, n, h, m, saved, B, S, H, hd, dtype, path, C, KS, kpt, stream
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+# saved, R, dh, dg, B, S, H, hd, dtype, C, P, kpt, stream
+_BWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+# backward, B, H, hd, dtype, C, slices, kpt, clusters (out)
+_CLUSTERS_ARGTYPES = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+NO_BACKWARD = ("slstm_fused: the stream path (head_dim {hd}: R does not fit the registers of "
+               "eight CTAs) has no backward yet (ROADMAP Queue 2); it serves, it does not train")
 
 
 @dataclass(frozen=True)
@@ -49,7 +59,9 @@ class Plan:
     ``k_slices`` slices of a gate meeting by warp shuffles; R lives in
     registers, ``r_bytes`` a CTA) or ``"stream"`` (one block per (row,
     head) streams R from L2 every step). ``smem`` is dynamic shared memory
-    a CTA (the stream path sizes its own)."""
+    a CTA (the stream path sizes its own). A backward plan (:func:`plan_bwd`)
+    is a cluster plan whose ``k_slices`` are the P lanes summing one unit's
+    ``4 * hd`` terms ``R[q, j, m] dg[q, m]``, ``kpt`` of them a lane."""
     path: str
     cluster: int
     units: int
@@ -104,44 +116,91 @@ def plan(B: int, S: int, H: int, hd: int, dtype: torch.dtype) -> Plan:
                 4 * (4 * math.ceil(hd / 4) + ks * 4 * hd), 16 * hd * hd)
 
 
-def slstm_fused(gx: torch.Tensor, rg: torch.Tensor, num_heads: int
-                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+def _bwd_cluster_plan(B: int, H: int, hd: int, C: int):
+    """The backward's cluster launch with ``C`` CTAs a head: the most lanes
+    a unit (a power of two <= 32) whose CTA fits CLUSTER_THREADS, or None
+    where a CTA's rows of R do not fit its threads' registers."""
+    if hd % C:
+        return None
+    units = hd // C
+    lanes = next((p for p in (32, 16, 8, 4, 2, 1) if units * p <= CLUSTER_THREADS), None)
+    if lanes is None or (units * lanes) % 32:
+        return None
+    kpt = next((k for k in REG_KPT if k * lanes >= 4 * hd), None)
+    if kpt is None:
+        return None
+    return Plan("cluster", C, units, lanes, kpt, units * lanes, (C, H, B), 4 * 2 * lanes * kpt,
+                16 * hd * units)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_bwd(B: int, S: int, H: int, hd: int, dtype: torch.dtype) -> Optional[Plan]:
+    """The backward's launch (pure, like :func:`plan`): the cluster with C
+    the smallest power of two <= 8 whose CTA holds its units' rows of R in
+    registers (8 at hd 256, as the forward); None where no cluster does (hd
+    above 256: the forward's stream path, whose backward is not written)."""
+    C = 1
+    while C <= MAX_CLUSTER:
+        p = _bwd_cluster_plan(B, H, hd, C)
+        if p is not None:
+            return p
+        C *= 2
+    return None
+
+
+def _check(name: str, B: int, S: int, D: int, rg: torch.Tensor, num_heads: int) -> int:
+    """Check a (B, S, ., D) recurrence against its recurrent weights; returns hd."""
+    if num_heads < 1 or D % num_heads:
+        raise ValueError(f"{name}: D={D} does not split into {num_heads} heads")
+    hd = D // num_heads
+    if tuple(rg.shape) != (4, num_heads, hd, hd):
+        raise ValueError(f"{name}: rg {tuple(rg.shape)} is not {(4, num_heads, hd, hd)} "
+                         f"for D={D}")
+    if B < 1 or S < 1:
+        raise ValueError(f"{name}: empty batch or sequence (B={B}, S={S})")
+    return hd
+
+
+def _check_card(name: str, x: torch.Tensor, rg: torch.Tensor, num_heads: int, hd: int) -> None:
+    """What the kernels take on the card, beyond the shapes."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head_dim {hd} > {MAX_HEAD_DIM}")
+    if x.dtype not in _DTYPES or rg.dtype != torch.float32:
+        raise TypeError(f"{name}: the input is {x.dtype} and rg {rg.dtype}; the kernel takes "
+                        f"the input in one of {list(_DTYPES)} and rg in torch.float32")
+    if rg.device != x.device:
+        raise ValueError(f"{name}: the input is on {x.device}, rg on {rg.device}")
+    if not (x.is_contiguous() and rg.is_contiguous()):
+        raise ValueError(f"{name}: the input and rg must be contiguous")
+    if x.shape[0] > 65535:
+        raise ValueError(f"{name}: B={x.shape[0]} exceeds the grid's 65535")
+    if num_heads > 65535:
+        raise ValueError(f"{name}: H={num_heads} exceeds the grid's 65535")
+
+
+def slstm_fused(gx: torch.Tensor, rg: torch.Tensor, num_heads: int, *, save: bool = False):
     """gx: ``(B, S, 4, D)`` gate pre-activations (float32 or bfloat16 on
     the card); rg: ``(4, H, hd, hd)`` float32 recurrent weights. Returns
     ``h`` ``(B, S, D)`` in ``gx.dtype`` and the final state ``(c, n, h, m)``,
-    each float32 ``(B, H, hd)``."""
+    each float32 ``(B, H, hd)``; with ``save``, also the per-step state
+    float32 ``(B, S, 7, D)`` that :func:`slstm_fused_bwd` reads (``h`` is
+    bitwise the same). ``save`` raises on the stream path (hd above 256)."""
     if gx.dim() != 4 or gx.shape[2] != 4:
         raise ValueError(f"slstm_fused: gx {tuple(gx.shape)} is not (B, S, 4, D)")
     B, S, _, D = gx.shape
-    if num_heads < 1 or D % num_heads:
-        raise ValueError(f"slstm_fused: D={D} does not split into {num_heads} heads")
-    hd = D // num_heads
-    if tuple(rg.shape) != (4, num_heads, hd, hd):
-        raise ValueError(f"slstm_fused: rg {tuple(rg.shape)} is not "
-                         f"{(4, num_heads, hd, hd)} for gx {tuple(gx.shape)}")
-    if B < 1 or S < 1:
-        raise ValueError(f"slstm_fused: empty batch or sequence (B={B}, S={S})")
+    hd = _check("slstm_fused", B, S, D, rg, num_heads)
     if gx.device.type == "cpu":
-        return slstm_ref(gx, rg, num_heads)
-    if gx.device.type != "cuda":
-        raise ValueError(f"slstm_fused: no kernel for device {gx.device}")
-    if hd > MAX_HEAD_DIM:
-        raise ValueError(f"slstm_fused: head_dim {hd} > {MAX_HEAD_DIM}")
-    if gx.dtype not in _DTYPES or rg.dtype != torch.float32:
-        raise TypeError(f"slstm_fused: gx is {gx.dtype} and rg {rg.dtype}; the kernel takes "
-                        f"gx in one of {list(_DTYPES)} and rg in torch.float32")
-    if rg.device != gx.device:
-        raise ValueError(f"slstm_fused: gx is on {gx.device}, rg on {rg.device}")
-    if not (gx.is_contiguous() and rg.is_contiguous()):
-        raise ValueError("slstm_fused: gx and rg must be contiguous")
-    if B > 65535:
-        raise ValueError(f"slstm_fused: B={B} exceeds the grid's 65535")
-    if num_heads > 65535:
-        raise ValueError(f"slstm_fused: H={num_heads} exceeds the grid's 65535")
-    return _launch(gx, rg, plan(B, S, num_heads, hd, gx.dtype))
+        return slstm_ref(gx, rg, num_heads, save=save)
+    _check_card("slstm_fused", gx, rg, num_heads, hd)
+    p = plan(B, S, num_heads, hd, gx.dtype)
+    if save and p.path != "cluster":
+        raise ValueError(NO_BACKWARD.format(hd=hd))
+    return _launch(gx, rg, p, save)
 
 
-def _launch(gx: torch.Tensor, rg: torch.Tensor, p: Plan):
+def _launch(gx: torch.Tensor, rg: torch.Tensor, p: Plan, save: bool):
     """Launch the kernel as ``p`` says on checked inputs."""
     B, S, _, D = gx.shape
     H = rg.shape[1]
@@ -149,18 +208,73 @@ def _launch(gx: torch.Tensor, rg: torch.Tensor, p: Plan):
     h_out = torch.empty((B, S, D), dtype=gx.dtype, device=gx.device)
     state = tuple(torch.empty((B, H, hd), dtype=torch.float32, device=gx.device)
                   for _ in range(4))
+    saved = (torch.empty((B, S, SAVED_ROWS, D), dtype=torch.float32, device=gx.device)
+             if save else None)
     kernel = _build.function("slstm", "repro_slstm", _ARGTYPES)
     err = _build.call(kernel, gx.device, gx.data_ptr(), rg.data_ptr(), h_out.data_ptr(),
-                      *(t.data_ptr() for t in state), B, S, H, hd, _DTYPES[gx.dtype],
-                      int(p.path == "stream"), p.cluster, p.k_slices, p.kpt)
+                      *(t.data_ptr() for t in state), None if saved is None else saved.data_ptr(),
+                      B, S, H, hd, _DTYPES[gx.dtype], int(p.path == "stream"), p.cluster,
+                      p.k_slices, p.kpt)
     if err != 0:
         raise RuntimeError(f"slstm_fused kernel launch failed: CUDA error {err}")
     slstm_fused.launches += 1
-    return h_out, state
+    return (h_out, state, saved) if save else (h_out, state)
 
 
 # kernel launches since the last reset (plain integer; set it to 0 to reset)
 slstm_fused.launches = 0
+
+
+def slstm_fused_bwd(rg: torch.Tensor, saved: torch.Tensor, dh: torch.Tensor, num_heads: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gradient of :func:`slstm_fused`'s ``h``: ``(dgx, dR)`` from rg,
+    the forward's per-step state ``saved`` (``save=True``) and ``dh`` ``(B,
+    S, D)`` in ``gx.dtype``. ``dgx`` ``(B, S, 4, D)`` is in ``dh.dtype``,
+    ``dR`` float32 ``(4, H, hd, hd)``. The kernel writes the float32 gate
+    gradients; ``dR`` is one product over the ``B * S`` rows outside it
+    (:func:`repro_torch.kernels.ref.slstm_dr`)."""
+    if dh.dim() != 3:
+        raise ValueError(f"slstm_fused_bwd: dh {tuple(dh.shape)} is not (B, S, D)")
+    B, S, D = dh.shape
+    if tuple(saved.shape) != (B, S, SAVED_ROWS, D) or saved.dtype != torch.float32:
+        raise ValueError(f"slstm_fused_bwd: saved {tuple(saved.shape)} {saved.dtype} is not "
+                         f"float32 {(B, S, SAVED_ROWS, D)} for dh {tuple(dh.shape)}")
+    hd = _check("slstm_fused_bwd", B, S, D, rg, num_heads)
+    if dh.device.type == "cpu":
+        return slstm_bwd_ref(rg, saved, dh, num_heads)
+    _check_card("slstm_fused_bwd", dh, rg, num_heads, hd)
+    if saved.device != dh.device or not saved.is_contiguous():
+        raise ValueError("slstm_fused_bwd: saved must be contiguous, on dh's device")
+    p = plan_bwd(B, S, num_heads, hd, dh.dtype)
+    if p is None:
+        raise ValueError(NO_BACKWARD.format(hd=hd))
+    dg = torch.empty((B, S, 4, D), dtype=torch.float32, device=dh.device)
+    kernel = _build.function("slstm", "repro_slstm_bwd", _BWD_ARGTYPES)
+    err = _build.call(kernel, dh.device, saved.data_ptr(), rg.data_ptr(), dh.data_ptr(),
+                      dg.data_ptr(), B, S, num_heads, hd, _DTYPES[dh.dtype], p.cluster,
+                      p.k_slices, p.kpt)
+    if err != 0:
+        raise RuntimeError(f"slstm_fused_bwd kernel launch failed: CUDA error {err}")
+    slstm_fused_bwd.launches += 1
+    return dg.to(dh.dtype), slstm_dr(saved, dg, num_heads)
+
+
+# kernel launches since the last reset (plain integer; set it to 0 to reset)
+slstm_fused_bwd.launches = 0
+
+
+def active_clusters(p: Plan, dtype: torch.dtype, *, backward: bool = False) -> int:
+    """How many of ``p``'s clusters (a cluster plan of the forward, or with
+    ``backward`` of :func:`plan_bwd`) the current device runs at once
+    (``cudaOccupancyMaxActiveClusters``; no launch): a grid of more clusters
+    runs in waves."""
+    out = ctypes.c_int(0)
+    fn = _build.function("slstm", "repro_slstm_clusters", _CLUSTERS_ARGTYPES)
+    err = fn(int(backward), p.grid[2], p.grid[1], p.units * p.cluster, _DTYPES[dtype], p.cluster,
+             p.k_slices, p.kpt, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: CUDA error {err}")
+    return out.value
 
 
 def hbm_traffic_model(B, S, D, num_heads, dtype_bytes=2):

@@ -62,10 +62,12 @@ JAX returns a new one. The moe load-balance loss is computed by
 use for it.
 
 Training (:meth:`Model.loss`, :meth:`Model.forward_train`) is ported for the
-dense family: the full-sequence forward with grad, each layer recomputed in
-the backward under ``CallConfig.remat == "block"`` (the reference's
-``jax.checkpoint`` per scanned layer), the attention differentiated through
-:class:`repro_torch.kernels.ops.FlashAttention`. ``model.requires_grad_()``
+dense and ssm families: the full-sequence forward with grad, each layer
+(ssm: each ``[mLSTM, sLSTM]`` pair) recomputed in the backward under
+``CallConfig.remat == "block"`` (the reference's ``jax.checkpoint`` per
+scanned layer or pair), the attention differentiated through
+:class:`repro_torch.kernels.ops.FlashAttention`, the sLSTM recurrence through
+:class:`repro_torch.kernels.ops.SLSTMFused`. ``model.requires_grad_()``
 makes the parameters trainable; the tied ``embed.table`` is one parameter.
 ``forward``, ``prefill`` and ``decode_step`` run under ``no_grad`` whatever
 that flag says.
@@ -94,7 +96,6 @@ REMAT = ("none", "block")
 # what training each family still needs (ROADMAP Queue 1, item 4)
 UNTRAINED = {
     "moe": "the moe load-balance loss out of the forward (moe_forward's aux)",
-    "ssm": "a backward of the slstm_fused kernel (the reference differentiates a scan)",
     "hybrid": "the Mamba2 / SSD scan and the shared attention block under the train forward",
     "vlm": "the cross-attention groups and image embeddings under the train forward",
     "audio": "the codebook loss over (B, S, K, V) logits",
@@ -256,6 +257,13 @@ class XLSTMPair(nn.Module):
         ys, st_s = xlstm_lib.slstm_forward(self.slstm, norm(self.ln_s, x), cfg.num_heads,
                                            return_state=True, backend=cc.kernel_backend)
         return x + ys, st_m, st_s
+
+    def forward_train(self, x, cfg: ArchConfig, cc: CallConfig):
+        """The whole sequence from the zero state, states dropped (training)."""
+        norm = make_norm(cfg.norm)
+        x = x + xlstm_lib.mlstm_forward(self.mlstm, norm(self.ln_m, x), cfg.num_heads)
+        return x + xlstm_lib.slstm_forward(self.slstm, norm(self.ln_s, x), cfg.num_heads,
+                                           backend=cc.kernel_backend)
 
     def step(self, x, cfg: ArchConfig, st_m, st_s):
         """One token from the pair's states; returns ``x`` and the new states."""
@@ -523,23 +531,28 @@ class Model(nn.Module):
 
     # -------------------- training --------------------
     def forward_train(self, tokens, *, image_embeds=None):
-        """The full-sequence forward with grad (dense family): tokens (B, S)
-        -> ``(logits (B, S, V) in the compute dtype, aux)``, ``aux`` the
-        float32 auxiliary loss (0 for dense). Under ``remat == "block"`` and
-        grad, each layer runs in ``torch.utils.checkpoint`` (non-reentrant):
-        only its input is kept, and the backward runs it again."""
+        """The full-sequence forward with grad (dense and ssm families):
+        tokens (B, S) -> ``(logits (B, S, V) in the compute dtype, aux)``,
+        ``aux`` the float32 auxiliary loss (0 for both). Under ``remat ==
+        "block"`` and grad, each layer (ssm: each pair) runs in
+        ``torch.utils.checkpoint`` (non-reentrant): only its input is kept,
+        and the backward runs it again."""
         check_trainable(self.cfg)
         cfg, cc = self.cfg, self.cc
         tokens = self._tokens(tokens)
         x = self._embed_tokens(tokens)
         B, S = tokens.shape[:2]
-        positions = torch.arange(S, device=self.device)[None, :].expand(B, S)
         remat = cc.remat == "block" and torch.is_grad_enabled()
-        for blk in self._attn_layers():
+        if cfg.family == "ssm":
+            calls = [(pair.forward_train, (cfg, cc)) for pair in self.blocks]
+        else:
+            positions = torch.arange(S, device=self.device)[None, :].expand(B, S)
+            calls = [(blk, (positions, cfg, cc)) for blk in self._attn_layers()]
+        for fn, args in calls:
             if remat:
-                x = checkpoint(blk, x, positions, cfg, cc, use_reentrant=False)
+                x = checkpoint(fn, x, *args, use_reentrant=False)
             else:
-                x = blk(x, positions, cfg, cc)
+                x = fn(x, *args)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         return self._logits(x), aux
 
@@ -612,7 +625,7 @@ def check_trainable(cfg: ArchConfig) -> None:
     if cfg.family in UNTRAINED:
         raise NotImplementedError(
             f"{cfg.name}: training the {cfg.family} family is not ported yet (ROADMAP Queue 1, "
-            f"item 4): it needs {UNTRAINED[cfg.family]}; the dense family trains")
+            f"item 4): it needs {UNTRAINED[cfg.family]}; the dense and ssm families train")
 
 
 def build_model(cfg: ArchConfig, cc: Optional[CallConfig] = None, *, device=None,

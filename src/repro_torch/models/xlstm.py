@@ -15,6 +15,11 @@ head), strictly sequential. The reference runs it as a ``lax.scan`` over
 :func:`repro_torch.kernels.ops.slstm` (the CUDA ``slstm_fused`` kernel on
 the card), which computes what that scan computes, and a decode step stays
 one :func:`_slstm_cell` of plain PyTorch.
+
+Training: both blocks run under autograd. The mLSTM's gradient is autograd
+through the chunked scan, as the reference's is ``jax.grad`` of its scan;
+the sLSTM's is :class:`repro_torch.kernels.ops.SLSTMFused`, whose backward
+is the hand-written reverse recurrence (``slstm_fused_bwd`` on the card).
 """
 from __future__ import annotations
 

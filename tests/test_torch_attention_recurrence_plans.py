@@ -6,7 +6,8 @@ their pure-Python launch plans (``kernels/flash_attention.py:plan``,
 ``kernels/slstm.py:plan``), and plain PyTorch models of the arithmetic the
 CUDA sources do in another order than the plain versions: flash_attention's
 split KV range with its ordered combine, its three-way bfloat16 split of the
-probabilities P, and slstm_fused's cluster-path sums over k slices. The
+probabilities P, slstm_fused's cluster-path sums over k slices, and its
+backward's sums over a unit's 4 hd terms (``kernels/slstm.py:plan_bwd``). The
 models are held against the JAX package's kernels in interpret mode (the
 same numpy inputs) within the JAX package's float32 tolerances, rtol 2e-5
 for attention (tests/test_kernels.py:18-19) and 2e-4 for the recurrence
@@ -29,8 +30,9 @@ from repro_torch.kernels.flash_attention import (BLOCK_KV, BLOCK_Q, BWD_STAGES, 
                                                  kv_tiles_of, occupancy, smem_bytes)
 from repro_torch.kernels.flash_attention import plan as flash_plan
 from repro_torch.kernels.flash_attention import plan_bwd as flash_plan_bwd
-from repro_torch.kernels.ref import flash_attention_ref, log_sigmoid
-from repro_torch.kernels.slstm import CLUSTER_THREADS, MAX_CLUSTER, REG_KPT, _cluster_plan
+from repro_torch.kernels.ref import flash_attention_ref, log_sigmoid, slstm_bwd_ref, slstm_ref
+from repro_torch.kernels.slstm import (CLUSTER_THREADS, MAX_CLUSTER, REG_KPT, _bwd_cluster_plan,
+                                       _cluster_plan, plan_bwd)
 from repro_torch.kernels.slstm import plan as slstm_plan
 
 NEG_INF = -1e30
@@ -444,3 +446,97 @@ def test_cluster_sum_order_matches_the_jax_kernel(b, s, h, hd):
     got, _ = _cluster_model(torch.from_numpy(gx), torch.from_numpy(rg), h, p.k_slices, p.kpt)
     scale = np.abs(want).max()
     assert np.abs(got.numpy() - want).max() <= 2e-4 * scale
+
+
+# ---- slstm_fused_bwd: the plan and its sums --------------------------------------
+
+@pytest.mark.parametrize("hd", [1, 8, 16, 32, 40, 64, 96, 128, 200, 256, 320, 512])
+def test_slstm_bwd_plan_fits_and_follows_the_forward(hd):
+    """Every shape the forward runs on a cluster has a backward cluster that
+    fits its budgets (lanes of a unit in one warp, R's rows in at most 64
+    registers a thread); the stream path's shapes have none."""
+    fwd = slstm_plan(2, 100, 4, hd, torch.bfloat16)
+    p = plan_bwd(2, 100, 4, hd, torch.bfloat16)
+    if fwd.path == "stream":
+        assert p is None
+        return
+    C, U, P = p.cluster, p.units, p.k_slices
+    assert p.path == "cluster" and C in (1, 2, 4, 8) and C * U == hd
+    assert p.threads == U * P <= CLUSTER_THREADS and p.threads % 32 == 0 and 32 % P == 0
+    assert P * p.kpt >= 4 * hd and p.kpt in REG_KPT
+    assert p.grid == (C, 4, 2) and p.r_bytes == fwd.r_bytes == 16 * hd * U
+    assert p.smem == 4 * 2 * P * p.kpt <= SMEM_LIMIT
+    if C > 1:  # the smallest cluster that fits
+        assert _bwd_cluster_plan(2, 4, hd, C // 2) is None
+
+
+def test_slstm_bwd_plan_at_the_model_shapes():
+    p256 = plan_bwd(8, 2048, 4, 256, torch.bfloat16)  # xlstm-350m's train shape
+    assert (p256.cluster, p256.units, p256.k_slices, p256.kpt, p256.threads) == (8, 32, 16, 64, 512)
+    assert p256.grid == (8, 4, 8) and p256.ctas == 256
+    p32 = plan_bwd(2, 24, 4, 32, torch.float32)  # the reduced config's: a cluster of one
+    assert (p32.cluster, p32.k_slices, p32.kpt) == (1, 16, 8)
+    assert {plan_bwd(b, s, 4, 256, dt) for b in (8,) for s in (1, 999)
+            for dt in (torch.float32, torch.bfloat16)} == {p256}
+
+
+def _bwd_cluster_model(rg, saved, dh, num_heads, lanes, kpt):
+    """The backward kernel's arithmetic in plain float32 torch: lane (unit j,
+    slice s) sums R[q, j, m] dg_{t+1}[q, m] over e = q hd + m = 4 (lanes mm +
+    s) + u into four accumulators (u), zero past 4 hd; the accumulators are
+    added pairwise, the slices by an xor butterfly; then the cell's backward
+    of slstm_bwd_ref. Returns dg (B, S, 4, D)."""
+    B, S, _, D = saved.shape
+    H, hd = num_heads, D // num_heads
+    E = lanes * kpt
+    eidx = torch.tensor([[[4 * (lanes * mm + s) + u for mm in range(kpt // 4)] for u in range(4)]
+                         for s in range(lanes)])  # (lanes, 4, kpt / 4)
+    assert sorted(eidx.flatten().tolist()) == list(range(E))  # every term once
+    rows = torch.zeros((H, hd, E))  # rows[head, j, q hd + m] = R[q, head, j, m]
+    rows[..., :4 * hd] = rg.permute(1, 2, 0, 3).reshape(H, hd, 4 * hd)
+    sv = saved.reshape(B, S, 7, H, hd)
+    dg = torch.empty((B, S, 4, D))
+    zero = torch.zeros((B, H, hd))
+    dc, dn, f_next = zero, zero, zero
+    dg_next = torch.zeros((B, H, E))
+    for t in reversed(range(S)):
+        prod = dg_next[:, :, None, eidx] * rows[None][:, :, :, eidx]  # b H j s u mm
+        acc = prod.sum(-1)
+        part = (acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3])  # b H j s
+        off = 1
+        while off < lanes:
+            part = part + part[..., [s ^ off for s in range(lanes)]]
+            off *= 2
+        dht = dh[:, t].reshape(B, H, hd) + part[..., 0]
+        it, ft, zt, ot, c, n, m = sv[:, t].unbind(1)
+        c_prev, n_prev, m_prev = (sv[:, t - 1, 4:].unbind(1) if t > 0
+                                  else (zero, zero, torch.full_like(zero, -1e30)))
+        i, f = torch.exp(it - m), torch.exp(log_sigmoid(ft) + m_prev - m)
+        tz, so = torch.tanh(zt), torch.sigmoid(ot)
+        dc = dht * so / n + dc * f_next
+        dn = -dht * so * c / (n * n) + dn * f_next
+        g = torch.stack(((dc * tz + dn) * i, (dc * c_prev + dn * n_prev) * f * torch.sigmoid(-ft),
+                         dc * i * (1 - tz * tz), dht * (c / n) * so * (1 - so)), 1)  # b q H j
+        dg[:, t] = g.reshape(B, 4, D)
+        dg_next = torch.zeros((B, H, E))
+        dg_next[..., :4 * hd] = g.permute(0, 2, 1, 3).reshape(B, H, 4 * hd)
+        f_next = f
+    return dg
+
+
+@pytest.mark.parametrize("b,s,h,hd", [(1, 37, 2, 32), (2, 16, 1, 64), (1, 20, 2, 16)])
+def test_bwd_cluster_sum_order_matches_the_plain_backward(b, s, h, hd):
+    """The backward plan's lanes and terms a lane at the shape (hd 16 pads
+    past 4 hd), against slstm_bwd_ref on the same saved state, within the
+    reference's gradient tolerance (rtol 1e-3, atol 1e-4 max,
+    tests/test_layers.py:121)."""
+    p = plan_bwd(b, s, h, hd, torch.float32)
+    rng = np.random.default_rng(hd + s + 1)
+    gx = torch.from_numpy(rng.normal(size=(b, s, 4, h * hd)).astype(np.float32))
+    rg = torch.from_numpy((rng.normal(size=(4, h, hd, hd)) / np.sqrt(hd)).astype(np.float32))
+    dh = torch.from_numpy(rng.normal(size=(b, s, h * hd)).astype(np.float32))
+    _, _, saved = slstm_ref(gx, rg, h, save=True)
+    want, _ = slstm_bwd_ref(rg, saved, dh, h)
+    got = _bwd_cluster_model(rg, saved, dh, h, p.k_slices, p.kpt)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-3,
+                               atol=1e-4 * want.abs().max().item())

@@ -767,11 +767,72 @@ def test_attention_function_runs_the_kernels_both_ways(cuda):
         _grad_within(a, b, torch.float32)
 
 
-def _train_setup(cuda, kernel_backend=None, dtype=torch.float32):
+# (B, S, H, hd) of the sLSTM backward: hd 32 (a cluster of 1), 16 (lanes
+# past 4 hd padded), 128 (a cluster of 2), 256 (xlstm-350m's, a cluster of
+# 8), 40 (no power of two), ragged S, S = 1
+SLSTM_BWD_CASES = [(2, 37, 4, 32), (1, 20, 2, 16), (2, 45, 2, 128), (2, 130, 4, 256),
+                   (1, 1, 4, 256), (2, 19, 3, 40)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,hd", SLSTM_BWD_CASES)
+def test_slstm_fused_bwd_kernel_matches_plain_version(cuda, b, s, h, hd, dtype):
+    """The forward's h bitwise with and without save, its saved state
+    within 2e-4 of the plain one's; dgx and dR of the backward kernel
+    against slstm_bwd_ref on the same saved state and dh (float32 rtol 1e-3,
+    atol 1e-4 max; bfloat16 2e-2 max); a second call gives the same bits."""
+    from repro_torch.kernels.slstm import slstm_fused_bwd
+
+    gen = torch.Generator(device=cuda).manual_seed(s * hd + b + 7)
+    gx = torch.randn((b, s, 4, h * hd), generator=gen, device=cuda).to(dtype)
+    rg = torch.randn((4, h, hd, hd), generator=gen, device=cuda) / hd ** 0.5
+    dh = torch.randn((b, s, h * hd), generator=gen, device=cuda).to(dtype)
+    h0, _ = slstm_fused(gx, rg, h)
+    h1, _, saved = slstm_fused(gx, rg, h, save=True)
+    torch.cuda.synchronize()
+    assert torch.equal(h0, h1)
+    _, _, want_saved = ref.slstm_ref(gx, rg, h, save=True)
+    for row in range(7):
+        w = want_saved[:, :, row].double()
+        assert (saved[:, :, row].double() - w).abs().max() <= 2e-4 * w.abs().max(), row
+    launches = slstm_fused_bwd.launches
+    got = slstm_fused_bwd(rg, saved, dh, h)
+    again = slstm_fused_bwd(rg, saved, dh, h)
+    torch.cuda.synchronize()
+    assert slstm_fused_bwd.launches == launches + 2
+    want = ref.slstm_bwd_ref(rg, saved, dh, h)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, a)
+        _grad_within(g, w, dtype if g.dtype == dtype else torch.float32)
+
+
+def test_slstm_bwd_routes_and_rejects(cuda):
+    """ops.slstm under grad: one forward (saving) and one backward launch,
+    none with backend="ref"; the stream path (hd 512) refuses to save."""
+    from repro_torch.kernels.slstm import slstm_fused_bwd
+
+    gx = torch.randn((2, 30, 4, 64), device=cuda, requires_grad=True)
+    rg = (torch.randn((4, 2, 32, 32), device=cuda) / 32 ** 0.5).requires_grad_()
+    f0, b0 = slstm_fused.launches, slstm_fused_bwd.launches
+    g = torch.autograd.grad(ops.slstm(gx, rg, 2)[0].sum(), (gx, rg))
+    assert (slstm_fused.launches - f0, slstm_fused_bwd.launches - b0) == (1, 1)
+    w = torch.autograd.grad(ops.slstm(gx, rg, 2, backend="ref")[0].sum(), (gx, rg))
+    assert (slstm_fused.launches - f0, slstm_fused_bwd.launches - b0) == (1, 1)
+    for a, b in zip(g, w):
+        _grad_within(a, b, torch.float32)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        slstm_fused(torch.randn((1, 4, 4, 512), device=cuda),
+                    torch.randn((4, 1, 512, 512), device=cuda), 1, save=True)
+    with pytest.raises(ValueError, match="saved"):
+        slstm_fused_bwd(rg.detach(), torch.zeros((2, 30, 6, 64), device=cuda),
+                        torch.zeros((2, 30, 64), device=cuda), 2)
+
+
+def _train_setup(cuda, kernel_backend=None, dtype=torch.float32, arch="smollm-135m"):
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.train_step import make_train_state, make_train_step
 
-    cfg = get_config("smollm-135m").reduced()
+    cfg = get_config(arch).reduced()
     model = build_model(cfg, CallConfig(compute_dtype=dtype, kernel_backend=kernel_backend),
                         device=cuda, seed=0)
     ocfg = OptConfig(lr=3e-3, schedule="wsd", warmup_steps=1, total_steps=8)
@@ -806,6 +867,31 @@ def test_reduced_smollm_train_steps_through_the_kernels(cuda, dtype):
         runs.append((mets, launches))
     L = get_config("smollm-135m").reduced().num_layers
     assert runs[0][1] == (3 * 2 * L, 3 * L) and runs[1][1] == (0, 0)
+    tl, tg = (2e-5, 1e-4) if dtype == torch.float32 else (2e-2, 2e-2)
+    for (lk, gk), (lr_, gr) in zip(runs[0][0], runs[1][0]):
+        assert abs(lk - lr_) <= tl * abs(lr_) and abs(gk - gr) <= tg * abs(gr)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reduced_xlstm_train_steps_through_the_kernels(cuda, dtype):
+    """Three steps of reduced xlstm-350m (1 pair, hd 32) through the sLSTM
+    kernels against the same steps with the plain recurrence: losses and
+    grad norms within 2e-5 / 1e-4 relative in float32, 2e-2 in bfloat16;
+    under remat 2 forward and 1 backward launch a pair and step."""
+    from repro_torch.kernels.slstm import slstm_fused_bwd
+
+    runs = []
+    for backend in (None, "ref"):
+        model, state, step = _train_setup(cuda, backend, dtype, arch="xlstm-350m")
+        f0, b0 = slstm_fused.launches, slstm_fused_bwd.launches
+        mets = []
+        for batch in _train_batches(3):
+            state, m = step(state, batch)
+            mets.append((float(m["loss"]), float(m["grad_norm"])))
+        torch.cuda.synchronize()
+        runs.append((mets, (slstm_fused.launches - f0, slstm_fused_bwd.launches - b0)))
+    P = get_config("xlstm-350m").reduced().num_layers // 2
+    assert runs[0][1] == (3 * 2 * P, 3 * P) and runs[1][1] == (0, 0)
     tl, tg = (2e-5, 1e-4) if dtype == torch.float32 else (2e-2, 2e-2)
     for (lk, gk), (lr_, gr) in zip(runs[0][0], runs[1][0]):
         assert abs(lk - lr_) <= tl * abs(lr_) and abs(gk - gr) <= tg * abs(gr)
