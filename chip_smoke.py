@@ -335,6 +335,7 @@ from repro_torch.kernels.ref import (  # noqa: E402
     slstm_dr, slstm_ref)
 from repro_torch.kernels.slstm import active_clusters as slstm_active_clusters  # noqa: E402
 from repro_torch.kernels.slstm import plan as slstm_plan  # noqa: E402
+from repro_torch.kernels.slstm import bwd_step_floor as slstm_bwd_step_floor  # noqa: E402
 from repro_torch.kernels.slstm import plan_bwd as slstm_plan_bwd  # noqa: E402
 from repro_torch.kernels.slstm import slstm_fused, slstm_fused_bwd  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
@@ -842,14 +843,17 @@ def check_slstm(gen, S, dtype=torch.bfloat16, B=1, H=4, hd=256):
     return line
 
 
-def check_slstm_bwd(gen, S, dtype=torch.bfloat16, B=TRAIN_BATCH, H=4, hd=256):
+def check_slstm_bwd(gen, S, dtype=torch.bfloat16, B=TRAIN_BATCH, H=4, hd=256, one_wave=False):
     """slstm_fused_bwd at (B, S, H, hd) against slstm_bwd_ref on the same
     saved state and dh: dgx in float32 within rtol 1e-3, atol 1e-4 of
     max|plain| element by element (tests/test_layers.py:121), bfloat16
     within 2e-2 of max|plain|; dR (float32) at the float32 limit; a second
     call's bits. Also the forward's h bitwise with and without save, its
     saved state within SLSTM_TOL of the plain forward's, and the cost of
-    saving. Inputs of unit scale, R ~ N(0, 1/hd), as check_slstm."""
+    saving. Inputs of unit scale, R ~ N(0, 1/hd), as check_slstm. The
+    plan's step floor (its exchange alone, S steps) times the sequential
+    part of the bound; with ``one_wave`` the check fails unless the card
+    holds every cluster of the backward at once."""
     D = H * hd
     gx = randn((B, S, 4, D), gen, dtype)
     rg = randn((4, H, hd, hd), gen, torch.float32, hd ** -0.5)
@@ -898,12 +902,15 @@ def check_slstm_bwd(gen, S, dtype=torch.bfloat16, B=TRAIN_BATCH, H=4, hd=256):
             over.append(diff.max().item() / (TOL[dt] * scale))
     p, pb = slstm_plan(B, S, H, hd, dtype), slstm_plan_bwd(B, S, H, hd, dtype)
     fwd_clusters = slstm_active_clusters(p, dtype)
-    bwd_clusters = slstm_active_clusters(pb, dtype, backward=True)
+    bwd_clusters = slstm_active_clusters(pb, dtype)
+    xbuf = torch.empty(pb.xbuf_floats, device=dh.device)
+    floor_ms = graph_ms(lambda: slstm_bwd_step_floor(pb, S, xbuf), reps=3)
     es = gx.element_size()
     # saved, dh and R read once, dgx and dR written once
     n_bytes = 4 * saved.numel() + es * (dh.numel() + 4 * B * S * D) + 2 * 4 * rg.numel()
     # the recurrence's R^T dg and the dR product: 8 hd^2 flop each a step and (row, head)
-    t_parts, by = bound(n_bytes, 2 * 8.0 * hd * hd * H * S * B, torch.float32)
+    n_ops = 2 * 8.0 * hd * hd * H * S * B
+    t_parts, by = bound(n_bytes, n_ops, torch.float32)
     dg32 = got[0].float()
     kernel_ms = cuda_ms(run, reps=3, warmup=1)
     line = {
@@ -918,17 +925,24 @@ def check_slstm_bwd(gen, S, dtype=torch.bfloat16, B=TRAIN_BATCH, H=4, hd=256):
         "plain_ms": plain_ms, "library_ms": None,
         "library_note": "none: no single PyTorch call computes this recurrence's gradient",
         "bound_ms": max(t_parts), "bound_by": by,
-        "bound_note": "the S sequential steps bound it, not bytes or operations",
+        "bound_3xtf32_ms": bound_3xtf32(n_bytes, n_ops, torch.float32),
+        "step_floor_us": floor_ms * 1e3 / S, "floor_bound_ms": floor_ms,
+        "bound_note": f"operations bound {max(t_parts):.3f} ms; the S sequential steps at the "
+                      f"measured step floor (the exchange alone) {floor_ms:.3f} ms",
         "steps": S, "step_us": kernel_ms * 1e3 / S,
         "forward_graph_ms": graph_ms(lambda: slstm_fused(gx, rg, H)[0], reps=3),
         "forward_save_graph_ms": graph_ms(lambda: slstm_fused(gx, rg, H, save=True)[0], reps=3),
         "saved_bytes": 4 * saved.numel(),
         "active_clusters": {"forward": fwd_clusters, "backward": bwd_clusters},
-        "clusters": p.grid[1] * p.grid[2],
+        "clusters": {"forward": p.grid[1] * p.grid[2], "backward": pb.clusters},
         "waves": {"forward": math.ceil(p.grid[1] * p.grid[2] / fwd_clusters),
-                  "backward": math.ceil(pb.grid[1] * pb.grid[2] / bwd_clusters)},
+                  "backward": math.ceil(pb.clusters / bwd_clusters)},
+        "rows_per_cluster": pb.rows, "cluster": pb.cluster, "product": pb.product,
         "plan": dataclasses.asdict(pb), "forward_plan": dataclasses.asdict(p)}
     emit(line)
+    if one_wave and line["waves"]["backward"] != 1:
+        fail(f"slstm_fused_bwd {shape} {dtype}: {pb.clusters} clusters in "
+             f"{line['waves']['backward']} waves ({bwd_clusters} resident), not one")
     if max(over) > 1.0:
         fail(f"slstm_fused_bwd {shape} {dtype}: errors {over} times the limit")
     return line
@@ -973,7 +987,8 @@ def ptxas_summary(log: str) -> dict:
         if entry:
             mangled = entry.group(1)
             # Itanium mangling: the kernel's name is preceded by its length
-            end = mangled.find("_kernelI") + len("_kernel")
+            end = mangled.find("_kernelI")
+            end = (end if end >= 0 else mangled.find("_kernelE")) + len("_kernel")
             base = next((mangled[end - n:end] for n in range(1, end)
                          if mangled[:end - n].endswith(str(n))), mangled)
             # a type argument (bfloat16 or float) where the template has one
@@ -2765,7 +2780,8 @@ def main() -> None:
     slstm_bwd_lines = {}
     with time_limit(BWD_CHECK_S, "the slstm_fused_bwd checks"):
         for dtype in (torch.bfloat16, torch.float32):
-            slstm_bwd_lines[dtype] = check_slstm_bwd(gen, TRAIN_SEQ, dtype, **xlstm_shape)
+            slstm_bwd_lines[dtype] = check_slstm_bwd(gen, TRAIN_SEQ, dtype, one_wave=True,
+                                                     **xlstm_shape)
             check_slstm_bwd(gen, 517, dtype, B=2, **xlstm_shape)
             check_slstm_bwd(gen, 300, dtype, B=2, H=4, hd=32)
     torch.cuda.empty_cache()
@@ -2966,6 +2982,8 @@ def main() -> None:
          "launches": xtrain_launches[1], "launches_by_path": {"train-xlstm": xtrain_launches[1]},
          "active_clusters": slstm_bwd_lines[torch.bfloat16]["active_clusters"],
          "waves": slstm_bwd_lines[torch.bfloat16]["waves"],
+         **{k: slstm_bwd_lines[torch.bfloat16][k] for k in (
+             "rows_per_cluster", "cluster", "product", "step_floor_us", "floor_bound_ms")},
          "ptxas": {k: v for k, v in ptxas.items() if "slstm_bwd" in k},
          **summary([slstm_bwd_lines[torch.bfloat16]], xcfg.num_layers // 2)},
     ]})

@@ -55,6 +55,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "com_mma.cuh"  // the 3xTF32 split and mma.sync of the backward
+
 namespace {
 
 constexpr int MAX_HD = 1024;    // one gating thread a hidden unit
@@ -358,14 +360,6 @@ int launch_cluster(const void* gx, const float* R, void* h_out, float* c, float*
                    saved, S, H, hd, KS);
 }
 
-// step t's saved state of one unit (t < 0: the zero initial state, m = -1e30)
-__device__ __forceinline__ void load_saved(const float* sv, size_t row, int D, int t,
-                                           float (&v)[SAVED_ROWS]) {
-#pragma unroll
-  for (int k = 0; k < SAVED_ROWS; ++k)
-    v[k] = t >= 0 ? sv[(size_t)t * row + (size_t)k * D] : (k == SAVED_ROWS - 1 ? -1e30f : 0.f);
-}
-
 // ---- the backward ------------------------------------------------------------------
 //
 // The gradient of h with respect to the gate pre-activations, dg (B, S, 4,
@@ -377,155 +371,417 @@ __device__ __forceinline__ void load_saved(const float* sv, size_t row, int D, i
 // (src/repro/models/xlstm.py:200-245). dR = sum over (b, t) of h_{t-1}^T dg_t
 // is one plain product outside the kernel (kernels/ref.py:slstm_dr).
 //
-// What bounds it: like the forward, the S sequential steps, each
-// dh_t = dh[t] + sum_{q, m} R[q, j, m] dg_{t+1}[q, m], a 4 hd-term sum per
-// unit. The same cluster as the forward's (C CTAs a (row, head), CTA r owning
-// units [r U, (r + 1) U)), with R's ROWS of its units in registers:
-// thread (unit j, slice s) of P slices holds R[q, jg, m] for its KPT terms
-// e = q hd + m = 4 (P mm + s) + u (mm < KPT / 4, u < 4; zero past 4 hd), the P
-// slices of a unit in one warp meeting by shuffles, every lane of the unit
-// then forming the cell's backward. Each step the CTA sends its 4 U gate
-// gradients to every CTA of the cluster (distributed shared memory,
-// double-buffered, four times the forward's exchange) and one barrier.cluster
-// ends the step. The saved state is loaded two steps ahead. No atomics: the
-// result does not depend on the schedule.
-template <typename T, int KPT>
-__global__ void __launch_bounds__(512, 1) slstm_bwd_cluster_kernel(
-    const float* __restrict__ saved, const float* __restrict__ R, const T* __restrict__ dh,
-    float* __restrict__ dg, int S, int H, int hd, int P) {
-  extern __shared__ __align__(16) float smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int C = gridDim.x, rank = blockIdx.x, head = blockIdx.y, b = blockIdx.z;
-  const int U = hd / C, E = P * KPT, NT = blockDim.x;
-  const int tid = threadIdx.x, s = tid % P, j = tid / P;
-  const int jg = rank * U + j, D = H * hd;
-  float* dgs = smem;  // [2][E]: dg_{t+1} by e = q hd + m, zero past 4 hd
+// What bounds it: the S sequential steps, each
+// dh_t[j, n] = dh[t][j, n] + sum_{q, m} R[q, j, m] dg_{t+1}[q, m, n],
+// a 4 hd-term sum for every unit j and batch row n. The rows of a batch
+// share each head's R, so one cluster of C CTAs walks a head for a GROUP of
+// up to 8 rows (grid (C, H, ceil(B / 8)); at xlstm-350m's train shape 4
+// clusters, one wave) and the step's product is a matrix product on the
+// tensor cores: A = R's rows of the CTA's U = 16 MT units (M), B = the
+// group's dg_{t+1} (N = 8 rows, zero columns past B), K = 4 hd terms.
+// * mma.sync.m16n8k8 in 3xTF32 (csrc/com_mma.cuh's saturating split, small
+//   terms first), each k-tile on a fresh accumulator added to an f32 sum in
+//   registers: float32 sums over 2048 dependent steps hold the f32 gate,
+//   plain TF32 would not. wgmma is not used: its tiles are 64 rows tall and
+//   a CTA owns 16 units.
+// * A in registers for the whole sequence, big and small halves: 8 MT KT
+//   registers a thread. Warp w of 16 sums k-tiles [w KT, (w + 1) KT). At hd
+//   256, C = 16 CTAs of U = 16 units, KT = 8: 64 registers of R a thread
+//   (16-CTA clusters are non-portable and asked for before the launch and
+//   the occupancy query; 7 are resident, so the 4 of the train shape run in
+//   one wave). Measured with scripts/slstm_bwd_probe.py (H100, 700 W; the
+//   step's product alone): 0.64 us a step with 16 units a CTA; with 32 (an
+//   8-CTA cluster) 1.27 with the small halves in shared memory, 1.42 with
+//   both halves in registers (spilling), 1.80 splitting R every step.
+// * K order: k-tile kt holds the 4 gates of units 2 kt and 2 kt + 1, k slot
+//   kk of the MMA standing for position p = 2 (kk % 4) + kk / 4 = 4 u + q. In
+//   the B fragment layout dgs[kt][n][p] a (unit, row)'s four gate gradients
+//   are then one aligned float4, and a thread's two B elements of a k-tile
+//   one float2 (2 lane): conflict-free.
+// * The warps' partial tiles meet in shared memory in a fixed order: thread
+//   quarter qq of a (unit, row) cell adds warps [qq 16 / TPC, ...) in order,
+//   then the TPC = 4 / MT threads of the cell by an xor butterfly. No
+//   atomics: two calls give the same bits.
+// * The exchange: each (unit, row) cell writes its float4 into its CTA's
+//   slice of a global buffer (L2); after a __syncthreads one thread copies
+//   the slice into the same place of every CTA's double buffer by one
+//   cp.async.bulk .multicast::cluster, completing on each CTA's mbarrier of
+//   that buffer, which expects C slices a phase (32 KB a CTA a step at hd
+//   256). No barrier.cluster: a CTA overwrites a buffer only after it has
+//   every CTA's next slice, which each CTA sends after reading that buffer.
+//   Step floors (the exchange alone, 16-CTA clusters of 8 rows, H100 700 W,
+//   scripts/slstm_bwd_probe.py): 0.98 us this way; 1.76 reading the owners'
+//   buffers (DSMEM loads) after a barrier.cluster, 1.82 with an mbarrier flag
+//   an owner in place of the barrier, 2.89 writing every CTA's buffer, 1.78
+//   sending each slice by cp.async.bulk to each CTA; the barrier.cluster
+//   alone 0.77. This way the floor is the same (0.97-1.01 us) for 16- and
+//   8-CTA clusters and for groups of 4 rows in twice the clusters, so the
+//   product decides: 16 units a CTA, 16-CTA clusters.
+// * The saved state streams into a ring of 4 steps in shared memory by
+//   cp.async, 3 steps ahead; dh in registers 2 steps ahead; the cell's
+//   factors that do not depend on the recurrence are computed a step ahead,
+//   off the step's critical path.
+constexpr int BWD_ROWS = 8;      // batch rows a cluster: the MMA's N
+constexpr int BWD_WARPS = 16;    // warps a CTA, each summing KT k-tiles of 8 terms
+constexpr int BWD_THREADS = 32 * BWD_WARPS;
+constexpr int RING = 4;          // steps of saved state in shared memory
+constexpr int AHEAD = RING - 1;  // ... loaded this many steps ahead
+constexpr int MAX_BWD_CLUSTER = 16;
 
-  // this thread's R, once: R[q, head, jg, m] for its e
-  float r[KPT];
+// Shared memory of a backward CTA with MT m-tiles and KT k-tiles a warp, in
+// floats: dg twice ([k-tile][row][8]), the warps' partial tiles
+// ([warp][row][unit], rows padded for conflict-free stores), the ring of
+// saved state ([step][field][row][unit]).
+__host__ __device__ constexpr int bwd_dg_floats(int KT) { return BWD_WARPS * KT * 64; }
+__host__ __device__ constexpr int bwd_part_floats(int MT) {
+  return BWD_ROWS * (16 * MT + 4) + 2;
+}
+__host__ __device__ constexpr int bwd_ring_floats(int MT) {
+  return SAVED_ROWS * BWD_ROWS * 16 * MT;
+}
+__host__ __device__ constexpr int bwd_smem_floats(int MT, int KT) {
+  return 2 * bwd_dg_floats(KT) + BWD_WARPS * bwd_part_floats(MT) + RING * bwd_ring_floats(MT);
+}
+
+// The exchange's mbarriers and copies.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(com::smem_u32(bar)));
+}
+// one arrival on bar, whose phase then also waits for `bytes` of copies
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   com::smem_u32(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = com::smem_u32(bar);
+  uint32_t done = 0;
+  while (!done)
+    asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n" : "=r"(done) : "r"(a), "r"(parity) : "memory");
+}
+// `bytes` from global src to dst's offset in the shared memory of every CTA
+// of the cluster, each completing them on its mbarrier at bar's offset
+__device__ __forceinline__ void multicast(float* dst, const float* src, uint32_t bytes,
+                                          uint64_t* bar, int C) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+      "[%0], [%1], %2, [%3], %4;\n" ::"r"(com::smem_u32(dst)), "l"(src), "r"(bytes),
+      "r"(com::smem_u32(bar)), "h"(static_cast<uint16_t>((1u << C) - 1)) : "memory");
+}
+
+// xbuf: the exchange in global memory, [cluster][2][DG] floats
+template <typename T, int MT, int KT>
+__global__ void __launch_bounds__(BWD_THREADS, 1) slstm_bwd_mma_kernel(
+    const float* __restrict__ saved, const float* __restrict__ R, const T* __restrict__ dh,
+    float* __restrict__ dg, float* __restrict__ xbuf, int B, int S, int H, int hd) {
+  constexpr int U = 16 * MT, TPC = 4 / MT, UP = U + 4, F = BWD_ROWS * U;
+  constexpr int DG = bwd_dg_floats(KT), PS = bwd_part_floats(MT), RS = bwd_ring_floats(MT);
+  extern __shared__ __align__(16) float smem[];
+  float* dgs = smem;                      // [2][DG]
+  float* part = smem + 2 * DG;            // [BWD_WARPS][PS]
+  float* ring = part + BWD_WARPS * PS;    // [RING][RS]
+  __shared__ __align__(8) uint64_t full[2];  // dg buffer b has landed
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = gridDim.x, rank = blockIdx.x, head = blockIdx.y, grp = blockIdx.z;
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31, g = lane >> 2, tq = lane & 3;
+  const int D = H * hd;
+  // this CTA's slice of a dg buffer: the k-tiles of its units, [kt0, kt0 +
+  // nkt) (none past the buffer's 16 KT); every CTA receives all of them
+  constexpr int KTILES = BWD_WARPS * KT;
+  const int kt0 = rank * U / 2, nkt = max(0, min(U / 2, KTILES - kt0));
+  const uint32_t phase_bytes = 256u * min(C * U / 2, KTILES);
+  float* xg = xbuf + ((size_t)grp * H + head) * 2 * DG;
+
+  // A, once: this warp's fragments of R's rows, R[q, head, jg, m] (0 past hd)
+  uint32_t ab[MT][KT][4], as[MT][KT][4];
 #pragma unroll
-  for (int i = 0; i < KPT; ++i) {
-    const int e = 4 * (P * (i / 4) + s) + i % 4;
-    const int q = e / hd, mo = e % hd;
-    r[i] = e < 4 * hd ? __ldg(R + (((size_t)q * H + head) * hd + jg) * hd + mo) : 0.f;
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < KT; ++j) {
+      const int m = 2 * (w * KT + j) + (tq >> 1);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // (row g or g + 8, gate 2 (tq % 2) or + 1)
+        const int jg = rank * U + 16 * mt + g + 8 * (e & 1), q = 2 * (tq & 1) + (e >> 1);
+        const float x =
+            jg < hd && m < hd ? __ldg(R + (((size_t)q * H + head) * hd + jg) * hd + m) : 0.f;
+        ab[mt][j][e] = com::tf32_big(x);
+        as[mt][j][e] = com::tf32_small(x, ab[mt][j][e]);
+      }
+    }
+  for (int i = tid; i < 2 * DG; i += BWD_THREADS) dgs[i] = 0.f;  // dg_S = 0, and past C U units
+  if (tid == 0) {
+    mbar_init(&full[0]);
+    mbar_init(&full[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect(&full[1], phase_bytes);  // the buffer read at step 1
   }
-  for (int i = tid; i < 2 * E; i += NT) dgs[i] = 0.f;
-  // every CTA's buffers are zero (dg_S = 0) before any CTA writes into them
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the zeros before any copy
+  // every CTA's buffers and mbarriers are ready before any CTA copies into them
   cluster.sync();
 
+  // this thread's cell: unit i of the CTA, row n of the group
+  const int cell = tid / TPC, qq = tid % TPC, i = cell % U, n = cell / U;
+  const int jg = rank * U + i, b = grp * BWD_ROWS + n;
+  const bool valid = jg < hd && b < B;
   const size_t row = (size_t)SAVED_ROWS * D;  // saved's step stride
   const float* sv = saved + (size_t)b * S * row + (size_t)head * hd + jg;
   const T* dhp = dh + (size_t)b * S * D + (size_t)head * hd + jg;
   float* dgp = dg + (size_t)b * S * 4 * D + (size_t)head * hd + jg;
-  float cur[SAVED_ROWS], prv[SAVED_ROWS];
-  load_saved(sv, row, D, S - 1, cur);
-  load_saved(sv, row, D, S - 2, prv);
-  float dh_cur = to_f32(dhp[(size_t)(S - 1) * D]);
+  // step x's state of this cell into its ring slot (the cell's TPC threads
+  // share the 7 fields); one cp.async group a step, empty or not
+  auto load_state = [&](int x) {
+    if (valid && x >= 0) {
+      float* dst = ring + (x & (RING - 1)) * RS + n * U + i;
+      for (int k = qq; k < SAVED_ROWS; k += TPC)
+        com::cp_async4(dst + k * F, sv + (size_t)x * row + (size_t)k * D, true);
+    }
+    com::cp_async_commit();
+  };
+  // dh in its own type, converted where it is used: a bfloat16 conversion
+  // right after the load would wait for it
+  auto load_dh = [&](int x) { return valid && x >= 0 ? dhp[(size_t)x * D] : from_f32<T>(0.f); };
+  // step x's factors of the cell's backward, which do not depend on the
+  // reverse recurrence (kernels/ref.py:slstm_bwd_ref; m held constant), from
+  // the ring slots of steps x and x - 1: computed a step ahead, off the
+  // step's critical path
+  struct Factors { float dc_dh, dn_dh, tz, ig, c_prev, n_prev, f_ft, z_dc, o_dh, fg; };
+  auto factors = [&](int x) {
+    const float* cs = ring + (x & (RING - 1)) * RS + n * U + i;
+    const float it = cs[0], ft = cs[F], zt = cs[2 * F], ot = cs[3 * F];
+    const float c = cs[4 * F], nt = cs[5 * F], m = cs[6 * F];
+    Factors f;
+    f.c_prev = 0.f, f.n_prev = 0.f;
+    float m_prev = -1e30f;
+    if (x > 0) {
+      const float* ps = ring + ((x - 1) & (RING - 1)) * RS + n * U + i;
+      f.c_prev = ps[4 * F], f.n_prev = ps[5 * F], m_prev = ps[6 * F];
+    }
+    f.ig = expf(it - m);
+    f.fg = expf(log_sigmoid(ft) + m_prev - m);
+    f.tz = tanhf(zt);
+    const float so = 1.0f / (1.0f + expf(-ot));
+    f.dc_dh = so / nt;
+    f.dn_dh = -so * c / (nt * nt);
+    f.f_ft = f.fg * (1.0f / (1.0f + expf(ft)));
+    f.z_dc = f.ig * (1.0f - f.tz * f.tz);
+    f.o_dh = (c / nt) * so * (1.0f - so);
+    return f;
+  };
+  for (int a = 0; a < AHEAD; ++a) load_state(S - 1 - a);
+  com::cp_async_wait(AHEAD - 2);  // steps S - 1 and S - 2 have landed
+  __syncthreads();
+  Factors fa = factors(S - 1);
+  T dh0 = load_dh(S - 1), dh1 = load_dh(S - 2);
   float dc = 0.f, dn = 0.f, f_next = 0.f;  // dc_{t+1}, dn_{t+1}, f_{t+1}
 
   for (int t = S - 1, u = 0; t >= 0; --t, ++u) {
-    float nxt[SAVED_ROWS];
-    load_saved(sv, row, D, t - 2, nxt);
-    const float dh_nxt = t >= 1 ? to_f32(dhp[(size_t)(t - 1) * D]) : 0.f;
-    // R dg_{t+1}: this slice's terms, then the unit's P slices by shuffles
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    const float4* d4 = reinterpret_cast<const float4*>(dgs + (u & 1) * E);
+    load_state(t - AHEAD);
+    const T dh2 = load_dh(t - 2);
+    // dg_{t+1} has landed: buffer u % 2, its ((u - 1) / 2)-th phase
+    if (u > 0) mbar_wait(&full[u & 1], ((u - 1) >> 1) & 1);
+    // R dg_{t+1} over this warp's k-tiles
+    const float* bsrc = dgs + (u & 1) * DG + w * KT * 64 + 2 * lane;
+    float sum[MT][4];
 #pragma unroll
-    for (int mm = 0; mm < KPT / 4; ++mm) {
-      const float4 v = d4[P * mm + s];
-      acc[0] = fmaf(v.x, r[4 * mm], acc[0]);
-      acc[1] = fmaf(v.y, r[4 * mm + 1], acc[1]);
-      acc[2] = fmaf(v.z, r[4 * mm + 2], acc[2]);
-      acc[3] = fmaf(v.w, r[4 * mm + 3], acc[3]);
-    }
-    float sum = (acc[0] + acc[1]) + (acc[2] + acc[3]);
-    for (int off = 1; off < P; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    const float dht = dh_cur + sum;
-    // the cell's backward, m held constant (kernels/ref.py:slstm_bwd_ref)
-    const float it = cur[0], ft = cur[1], zt = cur[2], ot = cur[3];
-    const float c = cur[4], n = cur[5], m = cur[6];
-    const float ig = expf(it - m);
-    const float fg = expf(log_sigmoid(ft) + prv[6] - m);
-    const float tz = tanhf(zt);
-    const float so = 1.0f / (1.0f + expf(-ot));
-    dc = dht * so / n + dc * f_next;
-    dn = -dht * so * c / (n * n) + dn * f_next;
-    const float d_i = (dc * tz + dn) * ig;
-    const float d_f = (dc * prv[4] + dn * prv[5]) * fg * (1.0f / (1.0f + expf(ft)));
-    const float d_z = dc * ig * (1.0f - tz * tz);
-    const float d_o = dht * (c / n) * so * (1.0f - so);
-    f_next = fg;
-    // dg_t into every CTA's other buffer, and out
-    float* nb = dgs + ((u + 1) & 1) * E + jg;
-    for (int w = s; w < 4 * C; w += P) {
-      const int q = w & 3;
-      *cluster.map_shared_rank(nb + q * hd, w >> 2) = q == 0 ? d_i : q == 1 ? d_f
-                                                      : q == 2 ? d_z : d_o;
-    }
-    for (int q = s; q < 4; q += P)
-      dgp[(size_t)t * 4 * D + (size_t)q * D] = q == 0 ? d_i : q == 1 ? d_f : q == 2 ? d_z : d_o;
+    for (int j = 0; j < KT; ++j) {
+      const float2 v = *reinterpret_cast<const float2*>(bsrc + j * 64);
+      uint32_t bb[2] = {com::tf32_big(v.x), com::tf32_big(v.y)};
+      const uint32_t bs[2] = {com::tf32_small(v.x, bb[0]), com::tf32_small(v.y, bb[1])};
 #pragma unroll
-    for (int k = 0; k < SAVED_ROWS; ++k) {
-      cur[k] = prv[k];
-      prv[k] = nxt[k];
+      for (int mt = 0; mt < MT; ++mt) {
+        float d[4];
+        com::mma_tf32<true>(d, ab[mt][j], bs);
+        com::mma_tf32(d, as[mt][j], bb);
+        com::mma_tf32(d, ab[mt][j], bb);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sum[mt][e] = j == 0 ? d[e] : sum[mt][e] + d[e];
+      }
     }
-    dh_cur = dh_nxt;
-    // dg_t is whole in every CTA, and every CTA is done reading dg_{t+1}
-    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+    // the warp's partial tile: C element (unit 16 mt + g + 8 (e / 2), row 2 tq + e % 2)
+    float* pw = part + w * PS;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        pw[(2 * tq + (e & 1)) * UP + 16 * mt + g + 8 * (e >> 1)] = sum[mt][e];
+    com::cp_async_wait(AHEAD - 2);  // this thread's copies down to step t - 2 have landed
+    __syncthreads();                // every partial tile and every copy
+
+    // the cell's R dg_{t+1}: its quarter's warps in order, then the quarters
+    const float* pc = part + qq * (BWD_WARPS / TPC) * PS + n * UP + i;
+    float acc = pc[0];
+#pragma unroll
+    for (int v = 1; v < BWD_WARPS / TPC; ++v) acc += pc[v * PS];
+#pragma unroll
+    for (int off = 1; off < TPC; off <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    const float dht = to_f32(dh0) + acc;
+    // the cell's backward on this step's factors
+    dc = dht * fa.dc_dh + dc * f_next;
+    dn = dht * fa.dn_dh + dn * f_next;
+    const float4 d4 = make_float4((dc * fa.tz + dn) * fa.ig,
+                                  (dc * fa.c_prev + dn * fa.n_prev) * fa.f_ft, dc * fa.z_dc,
+                                  dht * fa.o_dh);
+    f_next = fa.fg;
+    // dg_t: this CTA's slice of the global buffer (zero for padding cells),
+    // then one copy of the slice into every CTA's other buffer
+    const int nb = (u + 1) & 1;
+    if (qq == 0 && (jg >> 1) < KTILES) {
+      *reinterpret_cast<float4*>(xg + nb * DG + (jg >> 1) * 64 + n * 8 + (jg & 1) * 4) =
+          valid ? d4 : make_float4(0.f, 0.f, 0.f, 0.f);
+      asm volatile("fence.proxy.async.global;\n" ::: "memory");  // visible to the copy
+    }
+    // the slice is whole; the reads of dg_{t+1}, the partial tiles and the
+    // ring slot that the next step's copies overwrite are done
+    __syncthreads();
+    if (tid == 0 && u + 1 < S) {
+      if (u + 2 < S) mbar_expect(&full[u & 1], phase_bytes);  // its next phase
+      if (nkt > 0)
+        multicast(dgs + nb * DG + kt0 * 64, xg + nb * DG + kt0 * 64, 256u * nkt, &full[nb], C);
+    }
+    if (valid)  // out, after the copy is on its way
+      for (int q = qq; q < 4; q += TPC)
+        dgp[((size_t)t * 4 + q) * D] = q == 0 ? d4.x : q == 1 ? d4.y : q == 2 ? d4.z : d4.w;
+    if (t > 0) fa = factors(t - 1);
+    dh0 = dh1;
+    dh1 = dh2;
   }
+  // a CTA leaves after every CTA has received its last copies
+  cluster.sync();
 }
 
-// The backward's threads a CTA, or 0 where (C, P, kpt) is not a plan the
-// kernel takes; its kernel for kpt, or null; its shared memory (dg twice,
-// <= 16 KB).
-inline int bwd_threads(int hd, int C, int P, int kpt) {
-  if (C < 1 || C > 8 || hd % C || P < 1 || P > 32 || 32 % P || (long long)P * kpt < 4LL * hd)
-    return 0;
-  const int threads = (hd / C) * P;
-  return threads > 512 || threads % 32 ? 0 : threads;
+// The step floor of a backward launch: the same grid, clusters, threads and
+// shared memory, each step only the exchange: every (unit, row) cell of
+// `rows` rows writes its float4 into the CTA's slice of the global buffer,
+// one copy multicasts the slice into every CTA, the warps wait for their
+// buffer and read their k-tiles' fragments. Times what a step costs before
+// any arithmetic.
+__global__ void __launch_bounds__(BWD_THREADS, 1) slstm_bwd_floor_kernel(int S, int hd, int MT,
+                                                                         int KT, int rows,
+                                                                         float* xbuf,
+                                                                         float* sink) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ __align__(8) uint64_t full[2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = gridDim.x, U = 16 * MT, DG = BWD_WARPS * KT * 64, rank = blockIdx.x;
+  const int tpc = 4 / MT, cell = threadIdx.x / tpc, qq = threadIdx.x % tpc;
+  const int i = cell % U, n = cell / U, jg = rank * U + i;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31, KTILES = BWD_WARPS * KT;
+  const int kt0 = rank * U / 2, nkt = max(0, min(U / 2, KTILES - kt0));
+  const uint32_t phase_bytes = 256u * min(C * U / 2, KTILES);
+  const float4 d4 = jg < hd && n < rows ? make_float4(jg, n, 1.f, 2.f) : make_float4(0, 0, 0, 0);
+  float* xg = xbuf + ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * 2 * DG;
+  for (int k = threadIdx.x; k < 2 * DG; k += BWD_THREADS) smem[k] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(&full[0]);
+    mbar_init(&full[1]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect(&full[1], phase_bytes);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  cluster.sync();
+  float acc = 0.f;
+  for (int u = 0; u < S; ++u) {
+    if (u > 0) mbar_wait(&full[u & 1], ((u - 1) >> 1) & 1);
+    for (int j = 0; j < KT; ++j) {
+      const float2 v =
+          *reinterpret_cast<const float2*>(smem + (u & 1) * DG + (w * KT + j) * 64 + 2 * lane);
+      acc += v.x + v.y;
+    }
+    const int nb = (u + 1) & 1;
+    if (qq == 0 && (jg >> 1) < KTILES) {
+      *reinterpret_cast<float4*>(xg + nb * DG + (jg >> 1) * 64 + n * 8 + (jg & 1) * 4) = d4;
+      asm volatile("fence.proxy.async.global;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (threadIdx.x == 0 && u + 1 < S) {
+      if (u + 2 < S) mbar_expect(&full[u & 1], phase_bytes);
+      if (nkt > 0)
+        multicast(smem + nb * DG + kt0 * 64, xg + nb * DG + kt0 * 64, 256u * nkt, &full[nb], C);
+    }
+  }
+  cluster.sync();
+  if (acc < 0.f) sink[0] = acc;  // never (every value is >= 0): keeps the loads
 }
+
+// The backward kernel for (MT, KT), or null: the tilings it is built for.
+template <typename T>
+auto bwd_kernel(int mt, int kt) {
+  using K = decltype(&slstm_bwd_mma_kernel<T, 1, 8>);
+  if (mt == 1 && kt == 8) return K(&slstm_bwd_mma_kernel<T, 1, 8>);
+  if (mt == 2 && kt == 4) return K(&slstm_bwd_mma_kernel<T, 2, 4>);
+  if (mt == 4 && kt == 2) return K(&slstm_bwd_mma_kernel<T, 4, 2>);
+  if (mt == 4 && kt == 1) return K(&slstm_bwd_mma_kernel<T, 4, 1>);
+  return K(nullptr);
+}
+
+// Whether (C, MT, KT) covers hd: C CTAs of 16 MT units, 16 KT k-tiles of
+// two units each.
+inline bool bwd_plan_ok(int hd, int C, int mt, int kt) {
+  return (C == 1 || C == 2 || C == 4 || C == 8 || C == MAX_BWD_CLUSTER) && 16 * mt * C >= hd &&
+         32 * kt >= hd;
+}
+
+inline size_t bwd_smem(int mt, int kt) { return sizeof(float) * bwd_smem_floats(mt, kt); }
+
+// A backward kernel's (or its floor's) attributes, set before its launch or
+// occupancy query: its shared memory above 48 KB and, past 8 CTAs, the
+// non-portable cluster size.
+template <typename Kernel>
+int bwd_attributes(Kernel kernel, int C, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err == cudaSuccess && C > 8)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return static_cast<int>(err);
+}
+
+inline int bwd_groups(int B) { return (B + BWD_ROWS - 1) / BWD_ROWS; }
 
 template <typename T>
-auto bwd_kernel(int kpt) {
-  using K = decltype(&slstm_bwd_cluster_kernel<T, 8>);
-  switch (kpt) {
-    case 8: return K(&slstm_bwd_cluster_kernel<T, 8>);
-    case 16: return K(&slstm_bwd_cluster_kernel<T, 16>);
-    case 32: return K(&slstm_bwd_cluster_kernel<T, 32>);
-    case 64: return K(&slstm_bwd_cluster_kernel<T, 64>);
-    default: return K(nullptr);
-  }
-}
-
-inline size_t bwd_smem(int P, int kpt) { return sizeof(float) * 2 * (size_t)P * kpt; }
-
-template <typename T>
-int launch_bwd(const float* saved, const float* R, const void* dh, float* dg, int B, int S,
-               int H, int hd, int C, int P, int kpt, cudaStream_t stream) {
-  const int threads = bwd_threads(hd, C, P, kpt);
-  const auto kernel = bwd_kernel<T>(kpt);
-  if (threads == 0 || kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const ClusterLaunch l(C, H, B, threads, bwd_smem(P, kpt), stream);
-  return launch_ex(l, kernel, saved, R, static_cast<const T*>(dh), dg, S, H, hd, P);
+int launch_bwd(const float* saved, const float* R, const void* dh, float* dg, float* xbuf, int B,
+               int S, int H, int hd, int C, int mt, int kt, cudaStream_t stream) {
+  const auto kernel = bwd_kernel<T>(mt, kt);
+  if (!bwd_plan_ok(hd, C, mt, kt) || kernel == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = bwd_smem(mt, kt);
+  const int err = bwd_attributes(kernel, C, smem);
+  if (err != 0) return err;
+  const ClusterLaunch l(C, H, bwd_groups(B), BWD_THREADS, smem, stream);
+  return launch_ex(l, kernel, saved, R, static_cast<const T*>(dh), dg, xbuf, B, S, H, hd);
 }
 
 // How many clusters of a forward (backward = 0) or backward cluster launch
 // the card runs at once.
 template <typename T>
-int max_clusters(int backward, int B, int H, int hd, int C, int slices, int kpt, int* clusters) {
+int max_clusters(int backward, int B, int H, int hd, int C, int a, int b, int* clusters) {
   if (backward) {
-    const int threads = bwd_threads(hd, C, slices, kpt);
-    const auto kernel = bwd_kernel<T>(kpt);
-    if (threads == 0 || kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    const ClusterLaunch l(C, H, B, threads, bwd_smem(slices, kpt), nullptr);
+    const auto kernel = bwd_kernel<T>(a, b);
+    if (!bwd_plan_ok(hd, C, a, b) || kernel == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = bwd_smem(a, b);
+    const int err = bwd_attributes(kernel, C, smem);
+    if (err != 0) return err;
+    const ClusterLaunch l(C, H, bwd_groups(B), BWD_THREADS, smem, nullptr);
     return static_cast<int>(cudaOccupancyMaxActiveClusters(clusters, kernel, &l.cfg));
   }
-  const int threads = cluster_threads(hd, C, slices, kpt);
-  const auto kernel = cluster_kernel<T>(kpt);
+  const int threads = cluster_threads(hd, C, a, b);
+  const auto kernel = cluster_kernel<T>(b);
   if (threads == 0 || kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const ClusterLaunch l(C, H, B, threads, cluster_smem(slices, kpt), nullptr);
+  const ClusterLaunch l(C, H, B, threads, cluster_smem(a, b), nullptr);
   return static_cast<int>(cudaOccupancyMaxActiveClusters(clusters, kernel, &l.cfg));
+}
+
+inline int launch_bwd_floor(float* xbuf, int B, int S, int H, int hd, int C, int mt, int kt,
+                            int rows, cudaStream_t stream) {
+  if (!bwd_plan_ok(hd, C, mt, kt) || (mt != 1 && mt != 2 && mt != 4) || rows < 1 ||
+      rows > BWD_ROWS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = bwd_smem(mt, kt);
+  const int err = bwd_attributes(slstm_bwd_floor_kernel, C, smem);
+  if (err != 0) return err;
+  const ClusterLaunch l(C, H, bwd_groups(B), BWD_THREADS, smem, stream);
+  return launch_ex(l, slstm_bwd_floor_kernel, S, hd, mt, kt, rows, xbuf,
+                   static_cast<float*>(nullptr));
 }
 
 }  // namespace
@@ -558,27 +814,39 @@ extern "C" int repro_slstm(const void* gx, const float* R, void* h_out, float* c
 
 // The backward (kernels/slstm.py:plan_bwd): saved (B, S, 7, D) and R float32,
 // dh (B, S, D) in dtype (0 = float32, 1 = bfloat16), dg (B, S, 4, D) float32
-// written; a cluster of C CTAs a (row, head), P slices a unit (a power of two
-// <= 32), kpt terms a thread.
+// written, xbuf the exchange's scratch (H ceil(B / 8) 2 (16 kt 64) floats,
+// no initial value); a cluster of C CTAs (1, 2, 4, 8 or 16) a (head, group
+// of 8 rows), mt m-tiles of 16 units a CTA and kt k-tiles of 8 terms a warp
+// (the (mt, kt) of bwd_kernel).
 extern "C" int repro_slstm_bwd(const float* saved, const float* R, const void* dh, float* dg,
-                               int B, int S, int H, int hd, int dtype, int C, int P, int kpt,
-                               void* stream) {
+                               float* xbuf, int B, int S, int H, int hd, int dtype, int C, int mt,
+                               int kt, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || S <= 0 || H <= 0 || hd <= 0 || hd > MAX_HD || B > 65535 || H > 65535 ||
-      dtype < 0 || dtype > 1)
+  if (B <= 0 || S <= 0 || H <= 0 || hd <= 0 || hd > MAX_HD || bwd_groups(B) > 65535 ||
+      H > 65535 || dtype < 0 || dtype > 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0) return launch_bwd<float>(saved, R, dh, dg, B, S, H, hd, C, P, kpt, st);
-  return launch_bwd<__nv_bfloat16>(saved, R, dh, dg, B, S, H, hd, C, P, kpt, st);
+  if (dtype == 0) return launch_bwd<float>(saved, R, dh, dg, xbuf, B, S, H, hd, C, mt, kt, st);
+  return launch_bwd<__nv_bfloat16>(saved, R, dh, dg, xbuf, B, S, H, hd, C, mt, kt, st);
+}
+
+// The step floor of that launch: S steps of its exchange for `rows` rows a
+// group (1 to 8), no arithmetic (kernels/slstm.py:bwd_step_floor); xbuf as
+// repro_slstm_bwd's.
+extern "C" int repro_slstm_bwd_floor(float* xbuf, int B, int S, int H, int hd, int C, int mt,
+                                     int kt, int rows, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || hd <= 0 || bwd_groups(B) > 65535 || H > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bwd_floor(xbuf, B, S, H, hd, C, mt, kt, rows, static_cast<cudaStream_t>(stream));
 }
 
 // Writes to clusters how many clusters of the cluster path's forward
-// (backward = 0; slices = KS) or backward (1; slices = P) launch of this plan
-// the card runs at once on the current device (cudaOccupancyMaxActiveClusters;
-// no launch). Returns the CUDA error code.
-extern "C" int repro_slstm_clusters(int backward, int B, int H, int hd, int dtype, int C,
-                                    int slices, int kpt, int* clusters) {
+// (backward = 0; a, b = KS, kpt) or backward (1; a, b = mt, kt) launch of
+// this plan the card runs at once on the current device
+// (cudaOccupancyMaxActiveClusters; no launch). Returns the CUDA error code.
+extern "C" int repro_slstm_clusters(int backward, int B, int H, int hd, int dtype, int C, int a,
+                                    int b, int* clusters) {
   if (B <= 0 || H <= 0 || hd <= 0 || hd > MAX_HD || dtype < 0 || dtype > 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0) return max_clusters<float>(backward, B, H, hd, C, slices, kpt, clusters);
-  return max_clusters<__nv_bfloat16>(backward, B, H, hd, C, slices, kpt, clusters);
+  if (dtype == 0) return max_clusters<float>(backward, B, H, hd, C, a, b, clusters);
+  return max_clusters<__nv_bfloat16>(backward, B, H, hd, C, a, b, clusters);
 }

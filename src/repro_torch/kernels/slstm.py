@@ -17,11 +17,12 @@ Unlike the Pallas kernel it also returns the final ``(c, n, h, m)`` state,
 which a prefill writes into the model's cache, and it takes any ``S >= 1``.
 With ``save=True`` (training) the cluster path also writes the per-step
 state its backward reads, and :func:`slstm_fused_bwd` is that backward: a
-second kernel of ``csrc/slstm.cu`` walks the sequence in reverse on the same
-cluster (its launch is :func:`plan_bwd`), where the reference differentiates
-its ``lax.scan``. For a tensor on the CPU the wrappers run the plain versions
-(:func:`repro_torch.kernels.ref.slstm_ref`, ``slstm_bwd_ref``); for a CUDA
-tensor they launch the kernels or raise.
+second kernel of ``csrc/slstm.cu`` walks the sequence in reverse, one
+cluster per (head, group of 8 batch rows) sharing the head's R, the step's
+product on the tensor cores (its launch is :func:`plan_bwd`), where the
+reference differentiates its ``lax.scan``. For a tensor on the CPU the
+wrappers run the plain versions (:func:`repro_torch.kernels.ref.slstm_ref`,
+``slstm_bwd_ref``); for a CUDA tensor they launch the kernels or raise.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ import ctypes
 import functools
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -41,11 +42,20 @@ MAX_HEAD_DIM = 1024  # the stream path: one thread a hidden unit
 MAX_CLUSTER = 8      # CTAs a cluster (the portable limit)
 CLUSTER_THREADS = 512  # threads of a cluster CTA at most (128 registers each)
 REG_KPT = (8, 16, 32, 64)  # k a thread is built for (R in at most 64 registers)
+# the backward (csrc/slstm.cu, "the backward")
+BWD_ROWS = 8            # batch rows a cluster: the MMA's N
+BWD_WARPS = 16          # warps a CTA
+BWD_RING = 4            # steps of saved state a CTA holds in shared memory
+BWD_R_REGS = 64         # registers a thread for R's big and small halves, at most
+BWD_TILES_K = (1, 2, 4, 8)  # k-tiles a warp the kernel is built for, m-tiles min(4, 8 / kt)
+MAX_BWD_CLUSTER = 16    # a non-portable cluster size, asked for at launch
 # gx, R, h_out, c, n, h, m, saved, B, S, H, hd, dtype, path, C, KS, kpt, stream
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-# saved, R, dh, dg, B, S, H, hd, dtype, C, P, kpt, stream
-_BWD_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-# backward, B, H, hd, dtype, C, slices, kpt, clusters (out)
+# saved, R, dh, dg, xbuf, B, S, H, hd, dtype, C, mt, kt, stream
+_BWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+# xbuf, B, S, H, hd, C, mt, kt, rows, stream
+_FLOOR_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+# backward, B, H, hd, dtype, C, a, b (KS, kpt or mt, kt), clusters (out)
 _CLUSTERS_ARGTYPES = [ctypes.c_int] * 8 + [ctypes.c_void_p]
 NO_BACKWARD = ("slstm_fused: the stream path (head_dim {hd}: R does not fit the registers of "
                "eight CTAs) has no backward yet (ROADMAP Queue 2); it serves, it does not train")
@@ -59,9 +69,7 @@ class Plan:
     ``k_slices`` slices of a gate meeting by warp shuffles; R lives in
     registers, ``r_bytes`` a CTA) or ``"stream"`` (one block per (row,
     head) streams R from L2 every step). ``smem`` is dynamic shared memory
-    a CTA (the stream path sizes its own). A backward plan (:func:`plan_bwd`)
-    is a cluster plan whose ``k_slices`` are the P lanes summing one unit's
-    ``4 * hd`` terms ``R[q, j, m] dg[q, m]``, ``kpt`` of them a lane."""
+    a CTA (the stream path sizes its own)."""
     path: str
     cluster: int
     units: int
@@ -116,36 +124,76 @@ def plan(B: int, S: int, H: int, hd: int, dtype: torch.dtype) -> Plan:
                 4 * (4 * math.ceil(hd / 4) + ks * 4 * hd), 16 * hd * hd)
 
 
-def _bwd_cluster_plan(B: int, H: int, hd: int, C: int):
-    """The backward's cluster launch with ``C`` CTAs a head: the most lanes
-    a unit (a power of two <= 32) whose CTA fits CLUSTER_THREADS, or None
-    where a CTA's rows of R do not fit its threads' registers."""
-    if hd % C:
-        return None
-    units = hd // C
-    lanes = next((p for p in (32, 16, 8, 4, 2, 1) if units * p <= CLUSTER_THREADS), None)
-    if lanes is None or (units * lanes) % 32:
-        return None
-    kpt = next((k for k in REG_KPT if k * lanes >= 4 * hd), None)
-    if kpt is None:
-        return None
-    return Plan("cluster", C, units, lanes, kpt, units * lanes, (C, H, B), 4 * 2 * lanes * kpt,
-                16 * hd * units)
+@dataclass(frozen=True)
+class BwdPlan:
+    """How one backward is launched (:func:`plan_bwd`): a cluster of
+    ``cluster`` CTAs walks one head for a group of ``rows`` batch rows
+    (grid ``(cluster, H, ceil(B / rows))``); CTA r owns ``units`` = 16
+    ``m_tiles`` hidden units (zero rows of R past ``head_dim``) and its
+    ``warps`` warps each sum ``k_tiles`` k-tiles of 8 of the 4 hd terms
+    (zero past 4 hd) with ``mma.sync`` in 3xTF32 (``product``), R's rows
+    held as big and small halves in registers (``r_bytes`` a CTA, 8
+    ``m_tiles k_tiles`` registers a thread). The product of a step is
+    ``(m, n, k)``: ``units x rows x 4 hd`` padded to the tiles. ``smem``
+    is dynamic shared memory a CTA: dg twice, the warps' partial tiles and
+    a ring of ``BWD_RING`` steps of saved state. Each step's gate gradients
+    cross the cluster through a global buffer of ``xbuf_floats`` (each
+    CTA's slice written there, then multicast into every CTA)."""
+    head_dim: int
+    cluster: int
+    rows: int
+    units: int
+    m_tiles: int
+    k_tiles: int
+    warps: int
+    threads: int
+    grid: Tuple[int, int, int]
+    smem: int
+    r_bytes: int
+    mnk: Tuple[int, int, int]
+    product: str = "mma_sync_3xtf32"
+
+    @property
+    def ctas(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+    @property
+    def clusters(self) -> int:
+        return self.grid[1] * self.grid[2]
+
+    @property
+    def xbuf_floats(self) -> int:
+        return self.clusters * 2 * self.mnk[2] * self.rows
+
+
+def bwd_smem(m_tiles: int, k_tiles: int) -> int:
+    """A backward CTA's shared memory in bytes (``bwd_smem_floats`` of
+    csrc/slstm.cu): dg twice ``[k-tile][row][8]``, the warps' partial
+    tiles ``[warp][row][unit + 4]`` (+ 2 a warp), the saved-state ring
+    ``[step][field][row][unit]``."""
+    units = 16 * m_tiles
+    return 4 * (2 * BWD_WARPS * k_tiles * 64 + BWD_WARPS * (BWD_ROWS * (units + 4) + 2)
+                + BWD_RING * SAVED_ROWS * BWD_ROWS * units)
 
 
 @functools.lru_cache(maxsize=1024)
-def plan_bwd(B: int, S: int, H: int, hd: int, dtype: torch.dtype) -> Optional[Plan]:
-    """The backward's launch (pure, like :func:`plan`): the cluster with C
-    the smallest power of two <= 8 whose CTA holds its units' rows of R in
-    registers (8 at hd 256, as the forward); None where no cluster does (hd
-    above 256: the forward's stream path, whose backward is not written)."""
-    C = 1
-    while C <= MAX_CLUSTER:
-        p = _bwd_cluster_plan(B, H, hd, C)
-        if p is not None:
-            return p
-        C *= 2
-    return None
+def plan_bwd(B: int, S: int, H: int, hd: int, dtype: torch.dtype) -> Optional[BwdPlan]:
+    """The backward's launch (pure, like :func:`plan`; ``S`` and ``dtype``
+    do not change it), or None where the forward takes the stream path (hd
+    above 256), whose backward is not written. ``k_tiles`` the fewest (a
+    power of two) whose 16 warps cover the 4 hd terms; ``m_tiles`` the most
+    whose R halves fit 64 registers a thread (at most 4); ``cluster`` the
+    smallest power of two whose CTAs cover hd units: 16 at hd 256."""
+    if plan(B, S, H, hd, dtype).path != "cluster":
+        return None
+    kt = next(k for k in BWD_TILES_K if BWD_WARPS * k * 8 >= 4 * hd)
+    mt = min(4, BWD_R_REGS // (8 * kt))
+    C = next(c for c in (1, 2, 4, 8, MAX_BWD_CLUSTER) if 16 * mt * c >= hd)
+    units = 16 * mt
+    return BwdPlan(hd, C, BWD_ROWS, units, mt, kt, BWD_WARPS, 32 * BWD_WARPS,
+                   (C, H, -(-B // BWD_ROWS)), bwd_smem(mt, kt),
+                   2 * 4 * units * BWD_WARPS * kt * 8,
+                   (units, BWD_ROWS, BWD_WARPS * kt * 8))
 
 
 def _check(name: str, B: int, S: int, D: int, rg: torch.Tensor, num_heads: int) -> int:
@@ -249,10 +297,11 @@ def slstm_fused_bwd(rg: torch.Tensor, saved: torch.Tensor, dh: torch.Tensor, num
     if p is None:
         raise ValueError(NO_BACKWARD.format(hd=hd))
     dg = torch.empty((B, S, 4, D), dtype=torch.float32, device=dh.device)
+    xbuf = torch.empty(p.xbuf_floats, dtype=torch.float32, device=dh.device)
     kernel = _build.function("slstm", "repro_slstm_bwd", _BWD_ARGTYPES)
     err = _build.call(kernel, dh.device, saved.data_ptr(), rg.data_ptr(), dh.data_ptr(),
-                      dg.data_ptr(), B, S, num_heads, hd, _DTYPES[dh.dtype], p.cluster,
-                      p.k_slices, p.kpt)
+                      dg.data_ptr(), xbuf.data_ptr(), B, S, num_heads, hd, _DTYPES[dh.dtype],
+                      p.cluster, p.m_tiles, p.k_tiles)
     if err != 0:
         raise RuntimeError(f"slstm_fused_bwd kernel launch failed: CUDA error {err}")
     slstm_fused_bwd.launches += 1
@@ -263,18 +312,36 @@ def slstm_fused_bwd(rg: torch.Tensor, saved: torch.Tensor, dh: torch.Tensor, num
 slstm_fused_bwd.launches = 0
 
 
-def active_clusters(p: Plan, dtype: torch.dtype, *, backward: bool = False) -> int:
-    """How many of ``p``'s clusters (a cluster plan of the forward, or with
-    ``backward`` of :func:`plan_bwd`) the current device runs at once
+def active_clusters(p: Union[Plan, BwdPlan], dtype: torch.dtype) -> int:
+    """How many of ``p``'s clusters (a cluster :class:`Plan` of the forward,
+    or a :class:`BwdPlan`) the current device runs at once
     (``cudaOccupancyMaxActiveClusters``; no launch): a grid of more clusters
     runs in waves."""
     out = ctypes.c_int(0)
     fn = _build.function("slstm", "repro_slstm_clusters", _CLUSTERS_ARGTYPES)
-    err = fn(int(backward), p.grid[2], p.grid[1], p.units * p.cluster, _DTYPES[dtype], p.cluster,
-             p.k_slices, p.kpt, ctypes.addressof(out))
+    if isinstance(p, BwdPlan):
+        args = (1, p.grid[2] * p.rows, p.grid[1], p.head_dim, _DTYPES[dtype], p.cluster,
+                p.m_tiles, p.k_tiles)
+    else:
+        args = (0, p.grid[2], p.grid[1], p.units * p.cluster, _DTYPES[dtype], p.cluster,
+                p.k_slices, p.kpt)
+    err = fn(*args, ctypes.addressof(out))
     if err != 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: CUDA error {err}")
     return out.value
+
+
+def bwd_step_floor(p: BwdPlan, S: int, xbuf: torch.Tensor, rows: int = BWD_ROWS) -> None:
+    """Launch the step floor of ``p`` on ``xbuf``'s device and current
+    stream: the backward's grid, clusters and shared memory running S steps
+    of its exchange for ``rows`` rows a group, no arithmetic (csrc/slstm.cu,
+    ``slstm_bwd_floor_kernel``); ``xbuf`` float32, ``p.xbuf_floats`` long.
+    For timing; it counts no launch and computes nothing."""
+    fn = _build.function("slstm", "repro_slstm_bwd_floor", _FLOOR_ARGTYPES)
+    err = _build.call(fn, xbuf.device, xbuf.data_ptr(), p.grid[2] * p.rows, S, p.grid[1],
+                      p.head_dim, p.cluster, p.m_tiles, p.k_tiles, rows)
+    if err != 0:
+        raise RuntimeError(f"slstm backward step floor launch failed: CUDA error {err}")
 
 
 def hbm_traffic_model(B, S, D, num_heads, dtype_bytes=2):

@@ -7,7 +7,8 @@ their pure-Python launch plans (``kernels/flash_attention.py:plan``,
 CUDA sources do in another order than the plain versions: flash_attention's
 split KV range with its ordered combine, its three-way bfloat16 split of the
 probabilities P, slstm_fused's cluster-path sums over k slices, and its
-backward's sums over a unit's 4 hd terms (``kernels/slstm.py:plan_bwd``). The
+backward's 3xTF32 tensor-core sums over 4 hd terms for a group of rows
+(``kernels/slstm.py:plan_bwd``). The
 models are held against the JAX package's kernels in interpret mode (the
 same numpy inputs) within the JAX package's float32 tolerances, rtol 2e-5
 for attention (tests/test_kernels.py:18-19) and 2e-4 for the recurrence
@@ -31,8 +32,9 @@ from repro_torch.kernels.flash_attention import (BLOCK_KV, BLOCK_Q, BWD_STAGES, 
 from repro_torch.kernels.flash_attention import plan as flash_plan
 from repro_torch.kernels.flash_attention import plan_bwd as flash_plan_bwd
 from repro_torch.kernels.ref import flash_attention_ref, log_sigmoid, slstm_bwd_ref, slstm_ref
-from repro_torch.kernels.slstm import (CLUSTER_THREADS, MAX_CLUSTER, REG_KPT, _bwd_cluster_plan,
-                                       _cluster_plan, plan_bwd)
+from repro_torch.kernels.slstm import (BWD_R_REGS, BWD_ROWS, BWD_TILES_K, BWD_WARPS,
+                                       CLUSTER_THREADS, MAX_BWD_CLUSTER, MAX_CLUSTER, REG_KPT,
+                                       _cluster_plan, bwd_smem, plan_bwd)
 from repro_torch.kernels.slstm import plan as slstm_plan
 
 NEG_INF = -1e30
@@ -453,81 +455,155 @@ def test_cluster_sum_order_matches_the_jax_kernel(b, s, h, hd):
 @pytest.mark.parametrize("hd", [1, 8, 16, 32, 40, 64, 96, 128, 200, 256, 320, 512])
 def test_slstm_bwd_plan_fits_and_follows_the_forward(hd):
     """Every shape the forward runs on a cluster has a backward cluster that
-    fits its budgets (lanes of a unit in one warp, R's rows in at most 64
-    registers a thread); the stream path's shapes have none."""
+    fits its budgets: a group of 8 rows (the MMA's N), 16 m-tile rows of
+    units a CTA and k-tiles of 8 terms covering hd and 4 hd with zero
+    padding, R's halves in at most 64 registers a thread, a tiling the
+    kernel is built for, one (unit, row) cell for every 4 / m_tiles
+    threads, shared memory within 227 KB; the stream path's shapes have
+    none."""
     fwd = slstm_plan(2, 100, 4, hd, torch.bfloat16)
     p = plan_bwd(2, 100, 4, hd, torch.bfloat16)
     if fwd.path == "stream":
         assert p is None
         return
-    C, U, P = p.cluster, p.units, p.k_slices
-    assert p.path == "cluster" and C in (1, 2, 4, 8) and C * U == hd
-    assert p.threads == U * P <= CLUSTER_THREADS and p.threads % 32 == 0 and 32 % P == 0
-    assert P * p.kpt >= 4 * hd and p.kpt in REG_KPT
-    assert p.grid == (C, 4, 2) and p.r_bytes == fwd.r_bytes == 16 * hd * U
-    assert p.smem == 4 * 2 * P * p.kpt <= SMEM_LIMIT
-    if C > 1:  # the smallest cluster that fits
-        assert _bwd_cluster_plan(2, 4, hd, C // 2) is None
+    C, U, mt, kt = p.cluster, p.units, p.m_tiles, p.k_tiles
+    assert C in (1, 2, 4, 8, MAX_BWD_CLUSTER) and p.rows == BWD_ROWS == 8
+    assert U == 16 * mt and C * U >= hd and (C == 1 or C // 2 * U < hd)  # the smallest C
+    assert kt in BWD_TILES_K and mt == min(4, BWD_R_REGS // (8 * kt))
+    assert p.mnk == (U, 8, BWD_WARPS * kt * 8)
+    assert p.mnk[2] >= 4 * hd and (kt == 1 or p.mnk[2] // 2 < 4 * hd)  # the fewest k-tiles
+    assert 8 * mt * kt <= BWD_R_REGS  # A's big and small fragments a thread
+    assert p.r_bytes == 4 * 8 * mt * kt * p.threads == 8 * U * p.mnk[2]
+    assert p.threads == 32 * p.warps == 512 and U * p.rows * (4 // mt) == p.threads
+    assert p.grid == (C, 4, 1) and p.smem == bwd_smem(mt, kt) <= SMEM_LIMIT
 
 
 def test_slstm_bwd_plan_at_the_model_shapes():
-    p256 = plan_bwd(8, 2048, 4, 256, torch.bfloat16)  # xlstm-350m's train shape
-    assert (p256.cluster, p256.units, p256.k_slices, p256.kpt, p256.threads) == (8, 32, 16, 64, 512)
-    assert p256.grid == (8, 4, 8) and p256.ctas == 256
-    p32 = plan_bwd(2, 24, 4, 32, torch.float32)  # the reduced config's: a cluster of one
-    assert (p32.cluster, p32.k_slices, p32.kpt) == (1, 16, 8)
-    assert {plan_bwd(b, s, 4, 256, dt) for b in (8,) for s in (1, 999)
-            for dt in (torch.float32, torch.bfloat16)} == {p256}
+    """xlstm-350m's train shape (8, 2048, 4, 256): 16-CTA clusters of 16
+    units, 8 k-tiles a warp, 4 clusters of 64 CTAs in all, one CTA an SM
+    (512 threads of up to 128 registers fill its register file), so one
+    wave where the card holds 4 such clusters (asserted on the card,
+    tests/test_torch_gpu.py); the rows of a batch share a cluster, B past 8
+    takes more; the reduced configs' hd 32, a cluster of one."""
+    p256 = plan_bwd(8, 2048, 4, 256, torch.bfloat16)
+    assert (p256.cluster, p256.rows, p256.units, p256.m_tiles, p256.k_tiles, p256.threads) == (
+        16, 8, 16, 1, 8, 512)
+    assert p256.grid == (16, 4, 1) and p256.clusters == 4 and p256.ctas == 64 <= SMS
+    assert p256.smem == 90240 and p256.r_bytes == 128 * 1024  # 64 KB of R a CTA, two halves
+    assert p256.mnk == (16, 8, 1024) and p256.product == "mma_sync_3xtf32"
+    assert {plan_bwd(b, s, 4, 256, dt).grid for b in (1, 3, 8) for s in (1, 999)
+            for dt in (torch.float32, torch.bfloat16)} == {(16, 4, 1)}
+    assert plan_bwd(12, 5, 4, 256, torch.float32).grid == (16, 4, 2)
+    assert plan_bwd(17, 5, 4, 256, torch.float32).clusters == 12
+    p32 = plan_bwd(2, 24, 4, 32, torch.float32)
+    assert (p32.cluster, p32.m_tiles, p32.k_tiles, p32.grid) == (1, 4, 1, (1, 4, 1))
 
 
-def _bwd_cluster_model(rg, saved, dh, num_heads, lanes, kpt):
-    """The backward kernel's arithmetic in plain float32 torch: lane (unit j,
-    slice s) sums R[q, j, m] dg_{t+1}[q, m] over e = q hd + m = 4 (lanes mm +
-    s) + u into four accumulators (u), zero past 4 hd; the accumulators are
-    added pairwise, the slices by an xor butterfly; then the cell's backward
-    of slstm_bwd_ref. Returns dg (B, S, 4, D)."""
+BF_MASK = -8192  # 0xFFFFE000: the 19 bits of a TF32 number
+BF_TF32_MAX = 3.40116213e38  # 0x7F7FE000, the largest finite TF32
+
+
+def _tf32_split(t):
+    """csrc/com_mma.cuh's saturating split, as tests/test_torch_plan.py
+    models it: big = t rounded to TF32 and saturated at TF32_MAX, small =
+    t - big, read by the MMA truncated to TF32."""
+    bits = t.clamp(-BF_TF32_MAX, BF_TF32_MAX).nan_to_num(-BF_TF32_MAX).contiguous().view(torch.int32)
+    big = ((bits + 0x1000) & BF_MASK).view(torch.float32)
+    small = ((t - big).contiguous().view(torch.int32) & BF_MASK).view(torch.float32)
+    return big, small
+
+
+def _add_toward_zero(acc, s):
+    """acc + s (s exact in float64) rounded toward zero to float32: the
+    tensor cores' accumulation (tests/test_torch_plan.py)."""
+    f = (acc.double() + s).float()
+    over = f.double().abs() > (acc.double() + s).abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _bwd_mma_model(rg, saved, dh, num_heads, p):
+    """The backward kernel's arithmetic in plain float32 torch at plan
+    ``p``: per head a (C U) x K matrix of R's rows (zero past hd units and
+    4 hd terms, k-tile kt holding the 4 gates of units 2 kt and 2 kt + 1)
+    times the group's (K, 8) dg_{t+1} (zero columns past B); each k-tile's
+    three 3xTF32 passes (big x small', small x big', big x big') on a fresh
+    accumulator that truncates, added in order over the warp's k-tiles; the
+    16 warps' tiles summed by quarter (warps in order) and the 4 / m_tiles
+    quarters by an xor butterfly; then the cell's backward of
+    slstm_bwd_ref on its factors (so / n, f sigmoid(-ft), ...). Returns dg
+    (B, S, 4, D)."""
     B, S, _, D = saved.shape
     H, hd = num_heads, D // num_heads
-    E = lanes * kpt
-    eidx = torch.tensor([[[4 * (lanes * mm + s) + u for mm in range(kpt // 4)] for u in range(4)]
-                         for s in range(lanes)])  # (lanes, 4, kpt / 4)
-    assert sorted(eidx.flatten().tolist()) == list(range(E))  # every term once
-    rows = torch.zeros((H, hd, E))  # rows[head, j, q hd + m] = R[q, head, j, m]
-    rows[..., :4 * hd] = rg.permute(1, 2, 0, 3).reshape(H, hd, 4 * hd)
-    sv = saved.reshape(B, S, 7, H, hd)
-    dg = torch.empty((B, S, 4, D))
-    zero = torch.zeros((B, H, hd))
+    C, U, kt_w, warps = p.cluster, p.units, p.k_tiles, p.warps
+    M, N, K = C * U, p.rows, p.mnk[2]
+    G = p.grid[2]
+    Bp = G * N  # rows padded to whole groups: zero columns
+    kt = torch.arange(K) // 8
+    u, q = (torch.arange(K) % 8) // 4, torch.arange(K) % 4
+    m = 2 * kt + u  # the unit and gate of term k
+    ok = m < hd
+    a = torch.zeros((H, M, K))  # a[head, j, k] = R[q, head, j, m]
+    a[:, :hd, ok] = rg.permute(1, 2, 0, 3)[:, :, q[ok], m[ok]]
+    ab, asm = _tf32_split(a)
+    ab, asm = (x.double().reshape(H, M, K // 8, 8) for x in (ab, asm))
+    sv = torch.zeros((Bp, S, 7, H, hd))
+    sv[:B] = saved.reshape(B, S, 7, H, hd)
+    dhp = torch.zeros((Bp, S, H, hd))
+    dhp[:B] = dh.float().reshape(B, S, H, hd)
+    tpc = 4 // p.m_tiles
+    wpq = warps // tpc
+    dg = torch.zeros((Bp, S, 4, H, hd))
+    zero = torch.zeros((Bp, H, hd))
     dc, dn, f_next = zero, zero, zero
-    dg_next = torch.zeros((B, H, E))
+    bmat = torch.zeros((Bp, H, K))  # dg_{t+1} by term: zero at S and past hd
     for t in reversed(range(S)):
-        prod = dg_next[:, :, None, eidx] * rows[None][:, :, :, eidx]  # b H j s u mm
-        acc = prod.sum(-1)
-        part = (acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3])  # b H j s
-        off = 1
-        while off < lanes:
-            part = part + part[..., [s ^ off for s in range(lanes)]]
-            off *= 2
-        dht = dh[:, t].reshape(B, H, hd) + part[..., 0]
-        it, ft, zt, ot, c, n, m = sv[:, t].unbind(1)
+        bb, bs = (x.double().reshape(Bp, H, K // 8, 8) for x in _tf32_split(bmat))
+        d = None
+        for x, y in ((ab, bs), (asm, bb), (ab, bb)):  # (b, head, j, k-tile)
+            prod = torch.einsum("hjtk,bhtk->bhjt", x, y)
+            d = _add_toward_zero(torch.zeros_like(prod, dtype=torch.float32) if d is None else d,
+                                 prod)
+        d = d.reshape(Bp, H, M, warps, kt_w)
+        warp = d[..., 0]
+        for j in range(1, kt_w):
+            warp = warp + d[..., j]
+        quarters = []
+        for r in range(tpc):
+            s_ = warp[..., r * wpq]
+            for v in range(1, wpq):
+                s_ = s_ + warp[..., r * wpq + v]
+            quarters.append(s_)
+        if tpc == 4:
+            tot = (quarters[0] + quarters[1]) + (quarters[2] + quarters[3])
+        elif tpc == 2:
+            tot = quarters[0] + quarters[1]
+        else:
+            tot = quarters[0]
+        dht = dhp[:, t] + tot[..., :hd]
+        it, ft, zt, ot, c, n, m_t = sv[:, t].unbind(1)
         c_prev, n_prev, m_prev = (sv[:, t - 1, 4:].unbind(1) if t > 0
                                   else (zero, zero, torch.full_like(zero, -1e30)))
-        i, f = torch.exp(it - m), torch.exp(log_sigmoid(ft) + m_prev - m)
+        i, f = torch.exp(it - m_t), torch.exp(log_sigmoid(ft) + m_prev - m_t)
         tz, so = torch.tanh(zt), torch.sigmoid(ot)
-        dc = dht * so / n + dc * f_next
-        dn = -dht * so * c / (n * n) + dn * f_next
-        g = torch.stack(((dc * tz + dn) * i, (dc * c_prev + dn * n_prev) * f * torch.sigmoid(-ft),
-                         dc * i * (1 - tz * tz), dht * (c / n) * so * (1 - so)), 1)  # b q H j
-        dg[:, t] = g.reshape(B, 4, D)
-        dg_next = torch.zeros((B, H, E))
-        dg_next[..., :4 * hd] = g.permute(0, 2, 1, 3).reshape(B, H, 4 * hd)
+        dc = dht * (so / n) + dc * f_next
+        dn = dht * (-so * c / (n * n)) + dn * f_next
+        g = torch.stack(((dc * tz + dn) * i, (dc * c_prev + dn * n_prev) * (f * torch.sigmoid(-ft)),
+                         dc * (i * (1 - tz * tz)), dht * ((c / n) * so * (1 - so))), 1)  # b q H j
+        g = torch.where(torch.arange(Bp)[:, None, None, None] < B, g, 0.0)  # zero columns
+        dg[:, t] = g
+        bmat = torch.zeros((Bp, H, K))
+        bmat[..., ok] = g[:, q[ok], :, m[ok]].permute(1, 2, 0)
         f_next = f
-    return dg
+    return dg[:B].reshape(B, S, 4, D)
 
 
-@pytest.mark.parametrize("b,s,h,hd", [(1, 37, 2, 32), (2, 16, 1, 64), (1, 20, 2, 16)])
+@pytest.mark.parametrize("b,s,h,hd", [(1, 37, 2, 32), (3, 16, 1, 64), (8, 20, 2, 16),
+                                      (12, 9, 1, 40), (2, 11, 1, 128), (8, 6, 1, 256)])
 def test_bwd_cluster_sum_order_matches_the_plain_backward(b, s, h, hd):
-    """The backward plan's lanes and terms a lane at the shape (hd 16 pads
-    past 4 hd), against slstm_bwd_ref on the same saved state, within the
+    """The backward plan's tiling at the shape (B 3 and 12: zero columns;
+    hd 16 and 40: terms past 4 hd and units past hd padded; hd 128 and 256:
+    clusters of 4 and 16), the kernel's 3xTF32 products and fixed sum
+    order, against slstm_bwd_ref on the same saved state, within the
     reference's gradient tolerance (rtol 1e-3, atol 1e-4 max,
     tests/test_layers.py:121)."""
     p = plan_bwd(b, s, h, hd, torch.float32)
@@ -537,6 +613,6 @@ def test_bwd_cluster_sum_order_matches_the_plain_backward(b, s, h, hd):
     dh = torch.from_numpy(rng.normal(size=(b, s, h * hd)).astype(np.float32))
     _, _, saved = slstm_ref(gx, rg, h, save=True)
     want, _ = slstm_bwd_ref(rg, saved, dh, h)
-    got = _bwd_cluster_model(rg, saved, dh, h, p.k_slices, p.kpt)
+    got = _bwd_mma_model(rg, saved, dh, h, p)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-3,
                                atol=1e-4 * want.abs().max().item())

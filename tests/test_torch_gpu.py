@@ -767,11 +767,12 @@ def test_attention_function_runs_the_kernels_both_ways(cuda):
         _grad_within(a, b, torch.float32)
 
 
-# (B, S, H, hd) of the sLSTM backward: hd 32 (a cluster of 1), 16 (lanes
-# past 4 hd padded), 128 (a cluster of 2), 256 (xlstm-350m's, a cluster of
-# 8), 40 (no power of two), ragged S, S = 1
+# (B, S, H, hd) of the sLSTM backward: hd 32 (a cluster of 1), 16 (units
+# and terms padded), 128 (a cluster of 4), 256 (xlstm-350m's, a cluster of
+# 16), 40 (no power of two), ragged S, S = 1; B = 3 (zero columns of the
+# group) and B = 12 (two groups of rows, the second half empty)
 SLSTM_BWD_CASES = [(2, 37, 4, 32), (1, 20, 2, 16), (2, 45, 2, 128), (2, 130, 4, 256),
-                   (1, 1, 4, 256), (2, 19, 3, 40)]
+                   (1, 1, 4, 256), (2, 19, 3, 40), (3, 70, 4, 256), (12, 33, 2, 256)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -804,6 +805,17 @@ def test_slstm_fused_bwd_kernel_matches_plain_version(cuda, b, s, h, hd, dtype):
     for g, a, w in zip(got, again, want):
         assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, a)
         _grad_within(g, w, dtype if g.dtype == dtype else torch.float32)
+
+
+def test_slstm_bwd_train_shape_runs_in_one_wave(cuda):
+    """xlstm-350m's train shape (8, 2048, 4, 256): the card holds all of the
+    backward's clusters at once (cudaOccupancyMaxActiveClusters), in both
+    types."""
+    from repro_torch.kernels.slstm import active_clusters, plan_bwd
+
+    for dtype in (torch.float32, torch.bfloat16):
+        p = plan_bwd(8, 2048, 4, 256, dtype)
+        assert p.clusters == 4 and active_clusters(p, dtype) >= p.clusters
 
 
 def test_slstm_bwd_routes_and_rejects(cuda):
