@@ -13,7 +13,8 @@ depth cut to 4 layers (phases 18-19), serving zamba2-1.2b whole,
 contiguous and paged (phases 20-21), and the model's own prefill and decode
 of llama-3.2-vision-90b at full width cut to 2 of its 20 groups (phases
 22-23) and of musicgen-large whole (phases 24-25), which no engine serves,
-and training smollm-135m whole (phase 26) and xlstm-350m whole (phase 27).
+and training smollm-135m whole (phase 26), xlstm-350m whole (phase 27) and
+zamba2-1.2b whole (phase 28).
 Phases, each printing JSON lines:
 
 1. card      — the card's name and power limit (nvidia-smi), torch and CUDA versions;
@@ -48,16 +49,18 @@ Phases, each printing JSON lines:
                495 TFLOP/s against the bytes at 3.35 TB/s, float32); flash and
                slstm lines give graph_ms, the device time alone (calls replayed
                from a CUDA graph: no host time between launches; for flash also
-               SDPA's), and slstm lines the time a step; where a plan splits K
-               or the KV range, a second call must return the same bits;
+               SDPA's), and slstm lines the time a step; a second flash call,
+               and one where a plan splits K, must return the same bits;
                flash_attention_bwd (the backward kernels) against
                flash_attention_bwd_ref on the same (q, k, v, out, lse, dout)
                at the train phase's (8, 2048, 9, 3, 64), at S = 517 (B = 2),
                hd 32 and 128 and one non-causal case, float32 (rtol 1e-3,
                atol 1e-4 of max|plain|, tests/test_layers.py:121) and
                bfloat16 (2e-2 of max|plain|; each element's error over one
-               rounding reported): a second call's bits, the forward's out
-               bitwise with and without lse, lse against the plain lse; ms,
+               rounding reported), and both kernels at the train-hybrid
+               phase's (8, 2048, 32, 32, 64): a second call's bits, the
+               forward's out bitwise with and without lse, lse against the
+               plain lse; ms,
                graph_ms, the bound (5 products of 2 hd flop a kept pair),
                plain and SDPA's backward (library_ms, host included, and
                library_graph_ms, its backward alone replayed from a CUDA
@@ -273,7 +276,23 @@ Phases, each printing JSON lines:
                orders of the same sums part by up to 0.69 in bfloat16 grad
                norm at step 1, and by more after one Adam step); the resume
                at 2 x 2048 bitwise;
-28. the seconds of each phase, the kernels line (each kernel's launches on
+28. train-hybrid — zamba2-1.2b whole (phase 20's model), phase 26's recipe and
+               numbers: flash_attention 12 launches a step (the shared
+               block's 6 uses, again under remat) and flash_attention_bwd 6,
+               every Mamba2 block and every use of the shared block its own
+               checkpoint, the SSD chunk loop under autograd, a profiled step
+               with no library attention kernel, the 20th loss below the
+               first; the held checks at 2 x 2048: every flash forward and
+               backward call of the kernel steps held against its plain
+               version on its own inputs (flash_train_held, flash_bwd_held),
+               the same steps with a float64 attention and both paths'
+               distances from them reported, the steps' losses and grad norms
+               against the plain path's at HYBRID_HELD_TOL (float32 step 1 at
+               TRAIN_TOL; the rest at limits from readings of the three
+               paths: the plain path stands as far from the float64
+               attention's steps as the kernel path does); the resume
+               bitwise;
+29. the seconds of each phase, the kernels line (each kernel's launches on
                every path), the card line, the result line.
 
 Any failed check exits non-zero before the result line is printed. Finding no
@@ -432,6 +451,19 @@ TRAIN_HELD_TOL = {dt: (tol,) * CHECK_STEPS for dt, tol in TRAIN_TOL.items()}
 XLSTM_HELD_TOL = {torch.float32: ((2e-5, 1e-4), (1.5e-3, 0.5), (3e-2, 1.25)),
                   torch.bfloat16: ((2e-2, 1.1), (2.5e-2, 2.0), (5e-2, 30.0))}
 XLSTM_CHECK_SEQ = 256  # train-xlstm's held checks: 2 x 256 tokens (the plain recurrence is slow)
+# zamba2-1.2b's, set from readings of three correct paths (the train-hybrid
+# phase: the kernels, the plain attention and a float64 attention; PERF.md):
+# at each step the larger of TRAIN_TOL and 1.5 times the largest relative
+# distance between any two of them. The plain path itself stands 1.49e-2
+# (float32, step 2) and 2.06e-2 (bfloat16, step 1) in grad norm from the
+# float64 attention's steps, the kernel path 1.53e-3 and 2.97e-2: after one
+# Adam step at lr 3e-3 (the loss jumps from 10.8 to 16.2) the model
+# amplifies any rounding, as xlstm's does. Float32 step 1, where the three
+# paths stand within 4.4e-6, is TRAIN_TOL; the rest only catch a gross
+# fault, and every flash forward and backward call of the kernel steps is
+# held against its plain version on its own inputs besides.
+HYBRID_HELD_TOL = {torch.float32: ((2e-5, 1e-4), (3.5e-5, 2.25e-2), (2.5e-3, 5.25e-2)),
+                   torch.bfloat16: ((2e-2, 7.7e-2), (2e-2, 0.28), (2e-2, 0.575))}
 BWD_CHECK_S = 300  # the backward checks' own time limit (they take well under a minute)
 FIRST_BURST = dict(PATIENT_TRAFFIC, name="chip-burst-8-patient", num_requests=8)
 # the virtual clock is a function of the profile, the pool and the fault draws
@@ -560,6 +592,7 @@ def compare(name, shape, dtype, got, want, kernel_ms, plain_ms, library_ms, t_pa
     line = {
         "kernel": name, "shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
         "max_abs_err": err, "max_rel_err": err / max(scale, 1e-30), "tol": tol,
+        "err_over_limit": err / max(tol * scale, 1e-30),
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": max(t_parts), "bound_by": by, **(extra or {}),
     }
@@ -680,7 +713,8 @@ def sdpa(q, k, v, causal):
 
 def check_flash(gen, S, dtype=torch.bfloat16, causal=True, H=9, KVH=3, hd=64, B=1, Skv=None):
     """flash_attention at (B, Sq = S, Skv (default S), H, KVH, hd) against
-    its plain version and SDPA; the causal mask is top-left."""
+    its plain version and SDPA, and a second call's bits; the causal mask is
+    top-left."""
     Skv = S if Skv is None else Skv
     q = randn((B, S, H, hd), gen, dtype)
     k, v = randn((B, Skv, KVH, hd), gen, dtype), randn((B, Skv, KVH, hd), gen, dtype)
@@ -696,10 +730,9 @@ def check_flash(gen, S, dtype=torch.bfloat16, causal=True, H=9, KVH=3, hd=64, B=
     shape = (B, S, H, KVH, hd) if Skv == S else (B, S, Skv, H, KVH, hd)
     extra = {"plan": dataclasses.asdict(p), "bound_3xtf32_ms": bound_3xtf32(n_bytes, n_ops, dtype),
              "graph_ms": graph_ms(lambda: flash_attention(q, k, v, causal=causal)),
-             "library_graph_ms": graph_ms(lambda: sdpa(q, k, v, causal))}
-    if p.splits > 1:
-        extra["split_kv_same_bits"] = same_bits(lambda: flash_attention(q, k, v, causal=causal),
-                                                got, "flash_attention", shape)
+             "library_graph_ms": graph_ms(lambda: sdpa(q, k, v, causal)),
+             "same_bits": same_bits(lambda: flash_attention(q, k, v, causal=causal), got,
+                                    "flash_attention", shape)}
     return compare(
         "flash_attention" + ("" if causal else "(non-causal)"), shape, dtype,
         got, want, cuda_ms(lambda: flash_attention(q, k, v, causal=causal)),
@@ -1163,6 +1196,54 @@ def slstm_bwd_held(kernel_bwd, worst: dict):
         got = kernel_bwd(rg, saved, dh, num_heads)
         want = slstm_bwd_ref(rg, saved, dh, num_heads)
         name = str(dh.dtype).replace("torch.", "")
+        for g, w in zip(got, want):
+            wd = w.double()
+            diff, scale = (g.double() - wd).abs(), wd.abs().max()
+            if g.dtype == torch.float32:
+                ratio = (diff / (GRAD_RTOL * wd.abs() + GRAD_ATOL * scale)).max().item()
+            else:
+                ratio = (diff.max() / (TOL[g.dtype] * scale)).item()
+            worst[name] = max(worst.get(name, 0.0), ratio)
+        return got
+    return run
+
+
+def flash_train_held(kernel_fwd, worst: dict):
+    """The attention Function's forward kernel (``ops._flash_attention``,
+    writing lse) that also holds each call against the plain attention on
+    the same inputs (the model's own activations under training): out as
+    flash_held holds it, lse within 1e-5 of max|plain lse| + 1e-5 (as
+    check_flash_bwd); the worst ratio of error to limit goes to
+    ``worst[dtype]``."""
+    def run(q, k, v, *, causal=True, block_kv=None, return_lse=False):
+        got = kernel_fwd(q, k, v, causal=causal, block_kv=block_kv, return_lse=return_lse)
+        out, lse = got if return_lse else (got, None)
+        with torch.no_grad():
+            want, want_lse = flash_attention_ref(q, k, v, causal=causal, return_lse=True)
+        want = want.double()
+        limit = TOL[q.dtype] * want.abs().max() + (
+            BF16_ULP * want.abs() if q.dtype == torch.bfloat16 else 0.0)
+        ratios = [((out.double() - want).abs() / limit).max().item()]
+        if lse is not None:
+            ratios.append((lse - want_lse).abs().max().item()
+                          / (1e-5 * want_lse.abs().max().item() + 1e-5))
+        name = str(q.dtype).replace("torch.", "")
+        worst[name] = max([worst.get(name, 0.0)] + ratios)
+        return got
+    return run
+
+
+def flash_bwd_held(kernel_bwd, worst: dict):
+    """``ops._flash_attention_bwd`` that also holds each call against
+    flash_attention_bwd_ref on the same (q, k, v, out, lse, dout) (real model
+    activations and gradients): dq, dk, dv within rtol 1e-3, atol 1e-4 of
+    max|plain| in float32 (tests/test_layers.py:121), within 2e-2 of
+    max|plain| in bfloat16, as check_flash_bwd; the worst ratio of error to
+    limit goes to ``worst[dtype]``."""
+    def run(q, k, v, out, lse, dout, *, causal=True, block_kv=None):
+        got = kernel_bwd(q, k, v, out, lse, dout, causal=causal, block_kv=block_kv)
+        want = flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal)
+        name = str(q.dtype).replace("torch.", "")
         for g, w in zip(got, want):
             wd = w.double()
             diff, scale = (g.double() - wd).abs(), wd.abs().max()
@@ -2489,8 +2570,17 @@ class TrainCell:
     check_seq: int = TRAIN_SEQ
     forbid: object = None
     held_tol: dict = dataclasses.field(default_factory=lambda: TRAIN_HELD_TOL)
-    # also hold each sLSTM call of the kernel steps against its plain version
-    held_calls: bool = False
+    # also hold each kernel call of the kernel steps against its plain version
+    # on its own inputs: (ops attribute, wrapper) for the forward and the backward
+    held_calls: tuple = ()
+    # also run the held steps with a float64 attention (attention_f64), the
+    # yardstick both attention paths are measured against
+    f64_attention: bool = False
+
+
+def step_rel_errs(got, want) -> tuple:
+    """Step by step, |got - want| / |want| of the loss and of the grad norm."""
+    return tuple([abs(x[k] - y[k]) / abs(y[k]) for x, y in zip(got, want)] for k in (0, 1))
 
 
 def train_held_checks(cell: TrainCell) -> dict:
@@ -2498,49 +2588,63 @@ def train_held_checks(cell: TrainCell) -> dict:
     ``cell.check_seq`` through the kernels against the same steps with the
     plain versions forward and backward (kernel_backend="ref"), float32
     and bfloat16: each step's loss and grad norm within ``cell.held_tol``;
-    with ``cell.held_calls`` also every sLSTM forward and backward call of
-    the kernel steps against its plain version on its own inputs
-    (slstm_held, slstm_bwd_held). Then, at CHECK_BATCH x TRAIN_SEQ, a
-    bfloat16 run saved after RESUME_AT steps, restored into a fresh model
-    and state and taken RESUME_MORE steps further: losses and parameters
-    bitwise the uninterrupted run's."""
-    out, failures = {}, []
+    with ``cell.held_calls`` also every kernel call of the kernel steps,
+    forward and backward, against its plain version on its own inputs
+    (slstm_held and slstm_bwd_held, flash_train_held and flash_bwd_held);
+    with ``cell.f64_attention`` the same steps with a float64 attention,
+    both paths' distances from them reported. Then, at CHECK_BATCH x
+    TRAIN_SEQ, a bfloat16 run saved after RESUME_AT steps, restored into a
+    fresh model and state and taken RESUME_MORE steps further: losses and
+    parameters bitwise the uninterrupted run's."""
+    out, failures, t_held = {}, [], time.perf_counter()
     checks = train_batches(CHECK_BATCH, CHECK_STEPS, arch=cell.arch, seq=cell.check_seq)
-    fwd_path, bwd_path = ops.slstm, ops._slstm_fused_bwd
-    worst_fwd, worst_bwd = {}, {}
+    originals = {attr: getattr(ops, attr) for attr, _ in cell.held_calls}
+    worst = {attr: {} for attr, _ in cell.held_calls}
+    attention = ops.flash_attention
     for dtype in (torch.float32, torch.bfloat16):
-        runs = []
-        for backend in (None, "ref"):
-            if cell.held_calls and backend is None:
-                ops.slstm, ops._slstm_fused_bwd = (slstm_held(fwd_path, worst_fwd),
-                                                   slstm_bwd_held(bwd_path, worst_bwd))
+        runs = {}
+        for path in ("kernel", "plain") + (("f64_attention",) if cell.f64_attention else ()):
+            if path == "kernel":
+                for attr, wrap in cell.held_calls:
+                    setattr(ops, attr, wrap(originals[attr], worst[attr]))
+            elif path == "f64_attention":
+                ops.flash_attention = attention_f64
             try:
-                model, state, step = train_setup(dtype, backend, arch=cell.arch)
-                runs.append(train_steps(state, step, checks, cell.kernels))
+                model, state, step = train_setup(dtype, "ref" if path == "plain" else None,
+                                                 arch=cell.arch)
+                runs[path] = train_steps(state, step, checks, cell.kernels)
             finally:
-                ops.slstm, ops._slstm_fused_bwd = fwd_path, bwd_path
+                for attr, fn in originals.items():
+                    setattr(ops, attr, fn)
+                ops.flash_attention = attention
             del model, state, step
             torch.cuda.empty_cache()
-        (_, kern, kl), (_, plain, pl) = runs
-        loss_rel, gn_rel = ([abs(x[k] - y[k]) / abs(y[k]) for x, y in zip(kern, plain)]
-                            for k in (0, 1))
+        (_, kern, kl), (_, plain, pl) = runs["kernel"], runs["plain"]
+        loss_rel, gn_rel = step_rel_errs(kern, plain)
         tol = cell.held_tol[dtype]
         name = str(dtype).replace("torch.", "")
         out[name] = {"seq": cell.check_seq, "kernel": kern, "plain": plain,
                      "loss_rel_err": loss_rel, "grad_norm_rel_err": gn_rel, "tol": tol,
                      "launches_kernel": kl, "launches_plain": pl}
+        if cell.f64_attention:
+            exact = runs["f64_attention"][1]
+            out[name]["f64_attention"] = exact
+            out[name]["vs_f64_attention"] = {
+                p: dict(zip(("loss_rel_err", "grad_norm_rel_err"), step_rel_errs(runs[p][1], exact)))
+                for p in ("kernel", "plain")}
         if any(a > lt or g > gt for a, g, (lt, gt) in zip(loss_rel, gn_rel, tol)):
             failures.append(f"{name} kernel vs plain steps: loss {loss_rel}, grad norm {gn_rel} "
                             f"(limits {tol})")
         if any(pl) or kl != tuple(CHECK_STEPS * n for n in cell.per_step):
             failures.append(f"{name}: launches {kl} through the kernels, {pl} plain")
     if cell.held_calls:
-        out["slstm_calls_worst_err_over_limit"] = {"forward": worst_fwd, "backward": worst_bwd}
-        if not worst_fwd or not worst_bwd:
-            failures.append("the held sLSTM calls never ran: the train steps missed the kernels")
-        elif max(list(worst_fwd.values()) + list(worst_bwd.values())) > 1.0:
-            failures.append(f"an sLSTM call of the kernel train steps is off its plain version: "
-                            f"forward {worst_fwd}, backward {worst_bwd} x the limit")
+        out["held_calls_worst_err_over_limit"] = worst
+        if not all(worst.values()):
+            failures.append(f"the held calls never ran: the train steps missed the kernels {worst}")
+        elif max(r for w in worst.values() for r in w.values()) > 1.0:
+            failures.append(f"a kernel call of the kernel train steps is off its plain version: "
+                            f"{worst} x the limit")
+    out["held_s"] = time.perf_counter() - t_held
 
     batches = train_batches(CHECK_BATCH, RESUME_AT + RESUME_MORE, arch=cell.arch)
     ckpt_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
@@ -2575,6 +2679,7 @@ def train_held_checks(cell: TrainCell) -> dict:
                         f"bitwise {same_params}")
     del model, state, fresh_model, fresh, tree
     torch.cuda.empty_cache()
+    out["resume"]["resume_s"] = time.perf_counter() - t_held - out["held_s"]
     out["_failures"] = failures
     return out
 
@@ -2649,17 +2754,27 @@ def train_phase(cell: TrainCell) -> tuple:
 
 
 def train_cells() -> tuple:
-    """The two train phases: smollm-135m through the attention kernels (its
+    """The three train phases: smollm-135m through the attention kernels (its
     30 layers: 60 forward launches a step under remat, 30 backward),
     xlstm-350m through the sLSTM kernels (12 pairs: 24 and 12; the held
     checks at XLSTM_CHECK_SEQ, where the plain recurrence is ~20 launches a
-    step forward and ~40 backward)."""
+    step forward and ~40 backward), zamba2-1.2b through the attention
+    kernels (the shared block after each of its 38 // 6 = 6 groups: 12 and
+    6)."""
     L = get_config(SERVE_ARCH).num_layers
     P = get_config(XLSTM_ARCH).num_layers // 2
-    return (TrainCell("train", SERVE_ARCH, (flash_attention, flash_attention_bwd), (2 * L, L),
-                      forbid=LIBRARY_ATTENTION),
+    hcfg = get_config(HYBRID_ARCH)
+    NG = hcfg.num_layers // hcfg.hybrid_attn_every
+    attention = (flash_attention, flash_attention_bwd)
+    return (TrainCell("train", SERVE_ARCH, attention, (2 * L, L), forbid=LIBRARY_ATTENTION),
             TrainCell("train-xlstm", XLSTM_ARCH, (slstm_fused, slstm_fused_bwd), (2 * P, P),
-                      check_seq=XLSTM_CHECK_SEQ, held_tol=XLSTM_HELD_TOL, held_calls=True))
+                      check_seq=XLSTM_CHECK_SEQ, held_tol=XLSTM_HELD_TOL,
+                      held_calls=(("slstm", slstm_held), ("_slstm_fused_bwd", slstm_bwd_held))),
+            TrainCell("train-hybrid", HYBRID_ARCH, attention, (2 * NG, NG),
+                      forbid=LIBRARY_ATTENTION, held_tol=HYBRID_HELD_TOL,
+                      held_calls=(("_flash_attention", flash_train_held),
+                                  ("_flash_attention_bwd", flash_bwd_held)),
+                      f64_attention=True))
 
 
 def main() -> None:
@@ -2743,6 +2858,11 @@ def main() -> None:
         for S in lengths:
             for dtype in (torch.bfloat16, torch.float32):
                 check_flash(gen, S, dtype, H=c.num_heads, KVH=c.num_kv_heads, hd=c.head_dim)
+    # zamba2's shared block in the train-hybrid phase: 8 x 2048, 32 heads, G = 1
+    hcfg = get_config(HYBRID_ARCH)
+    hshape = dict(H=hcfg.num_heads, KVH=hcfg.num_kv_heads, hd=hcfg.head_dim, B=TRAIN_BATCH)
+    hybrid_lines = {dtype: check_flash(gen, TRAIN_SEQ, dtype, **hshape)
+                    for dtype in (torch.bfloat16, torch.float32)}
     vcfg, acfg = get_config(VLM_ARCH), get_config(AUDIO_ARCH)
     vshape = dict(H=vcfg.num_heads, KVH=vcfg.num_kv_heads, hd=vcfg.head_dim, B=ROWS)
     for dtype in (torch.bfloat16, torch.float32):
@@ -2753,12 +2873,13 @@ def main() -> None:
         check_flash(gen, VLM_PROMPT, dtype, **vshape)
         check_flash(gen, AUDIO_FRAMES, dtype, H=acfg.num_heads, KVH=acfg.num_kv_heads,
                     hd=acfg.head_dim, B=ROWS)
-    # the attention backward: the train phase's shape (smollm, 8 x 2048), ragged
-    # S, hd 32 and 128, non-causal
-    bwd_lines = {}
+    # the attention backward: the train phases' shapes (smollm and zamba2, 8 x
+    # 2048), ragged S, hd 32 and 128, non-causal
+    bwd_lines, hybrid_bwd_lines = {}, {}
     with time_limit(BWD_CHECK_S, "the flash_attention_bwd checks"):
         for dtype in (torch.bfloat16, torch.float32):
             bwd_lines[dtype] = check_flash_bwd(gen, TRAIN_SEQ, dtype, B=TRAIN_BATCH)
+            hybrid_bwd_lines[dtype] = check_flash_bwd(gen, TRAIN_SEQ, dtype, **hshape)
             check_flash_bwd(gen, 517, dtype, B=2)
             check_flash_bwd(gen, 300, dtype, H=4, KVH=2, hd=32)
             check_flash_bwd(gen, 1024, dtype, hd=128)
@@ -2927,7 +3048,7 @@ def main() -> None:
     phase_done("model-audio")
 
     # 26. training smollm-135m whole through the attention kernels, forward and backward
-    smollm_cell, xlstm_cell = train_cells()
+    smollm_cell, xlstm_cell, hybrid_cell = train_cells()
     _, train_launches = train_phase(smollm_cell)
     torch.cuda.empty_cache()
     phase_done("train")
@@ -2937,7 +3058,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_done("train-xlstm")
 
-    # 28. the phases' seconds, the kernels line, the card, the result
+    # 28. training zamba2-1.2b whole through the attention kernels, the SSD under autograd
+    _, htrain_launches = train_phase(hybrid_cell)
+    torch.cuda.empty_cache()
+    phase_done("train-hybrid")
+
+    # 29. the phases' seconds, the kernels line, the card, the result
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
     emit({"kernels": [
         {"name": "com_matmul", "route": "cuda", "source": "src/repro_torch/csrc/com_matmul.cu",
@@ -2961,12 +3087,17 @@ def main() -> None:
                               "serve-hybrid": hybrid_launches,
                               "serve-hybrid-paged": hybrid_paged_launches,
                               "model-vlm": vlm_launches, "model-audio": audio_launches,
-                              "train": train_launches[0]},
+                              "train": train_launches[0], "train-hybrid": htrain_launches[0]},
+         # a train-hybrid step's forward launches at zamba2's (8, 2048, 32, 32, 64)
+         "train_hybrid_step": summary([hybrid_lines[torch.bfloat16]], hybrid_cell.per_step[0]),
          **summary(flash_lines, serve_cfg.num_layers)},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/models/attention.py:159",
-         "launches": train_launches[1], "launches_by_path": {"train": train_launches[1]},
+         "launches": train_launches[1],
+         "launches_by_path": {"train": train_launches[1], "train-hybrid": htrain_launches[1]},
+         "train_hybrid_step": summary([hybrid_bwd_lines[torch.bfloat16]],
+                                      hybrid_cell.per_step[1]),
          "path": bwd_lines[torch.bfloat16]["path"],
          "mma_passes_per_pair": bwd_lines[torch.bfloat16]["mma_passes_per_pair"],
          "ptxas": {k: v for k, v in ptxas.items() if "wgmma" in k and "<64" in k},

@@ -4,6 +4,7 @@
     PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu \
         --steps 50 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt [--resume]
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b --reduced --device cpu
 
 The port's copy of ``repro.launch.train``: the same flags, plus
 ``--device``, in one process. The model is built with
@@ -13,8 +14,8 @@ from ``SyntheticTokens`` (seed ``--seed``), the optimizer is AdamW with
 ``--ckpt-dir`` every ``--ckpt-every`` steps in the reference's layout, and
 ``--resume`` continues from the latest one; the loop runs under the port's
 ``Supervisor``, which saves and, when a step raises, restores and retries.
-Trains the dense and ssm families; any
-other raises ``NotImplementedError`` (ROADMAP Queue 1, item 4). Prints
+Trains the dense, ssm and hybrid families;
+moe, vlm and audio raise ``NotImplementedError`` (ROADMAP Queue 1, item 4). Prints
 ``step … loss … lr … gnorm … ms/step`` every ``--log-every`` steps and
 returns the logged losses.
 """

@@ -1,3 +1,3 @@
 """The port's language models (``repro.models`` counterparts): layers,
-attention, the xLSTM blocks and the model stack of the dense and ssm
+attention, the xLSTM, moe and Mamba2 blocks and the model stack of all six
 families."""

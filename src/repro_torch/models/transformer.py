@@ -62,12 +62,14 @@ JAX returns a new one. The moe load-balance loss is computed by
 use for it.
 
 Training (:meth:`Model.loss`, :meth:`Model.forward_train`) is ported for the
-dense and ssm families: the full-sequence forward with grad, each layer
-(ssm: each ``[mLSTM, sLSTM]`` pair) recomputed in the backward under
-``CallConfig.remat == "block"`` (the reference's ``jax.checkpoint`` per
-scanned layer or pair), the attention differentiated through
+dense, ssm and hybrid families: the full-sequence forward with grad, each
+layer (ssm: each ``[mLSTM, sLSTM]`` pair; hybrid: each Mamba2 block and each
+use of the shared block) recomputed in the backward under ``CallConfig.remat
+== "block"`` (the reference's ``jax.checkpoint`` per scanned layer, pair or
+hybrid group), the attention differentiated through
 :class:`repro_torch.kernels.ops.FlashAttention`, the sLSTM recurrence through
-:class:`repro_torch.kernels.ops.SLSTMFused`. ``model.requires_grad_()``
+:class:`repro_torch.kernels.ops.SLSTMFused`, the Mamba2 / SSD chunk loop by
+autograd. ``model.requires_grad_()``
 makes the parameters trainable; the tied ``embed.table`` is one parameter.
 ``forward``, ``prefill`` and ``decode_step`` run under ``no_grad`` whatever
 that flag says.
@@ -93,10 +95,10 @@ from repro_torch.models.layers import embed, make_norm, mlp, mlp_params, norm_pa
 Cache = Tuple[torch.Tensor, ...]  # the reference's cache leaves (see the module docstring)
 FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")  # the reference's layer layouts
 REMAT = ("none", "block")
-# what training each family still needs (ROADMAP Queue 1, item 4)
+# what training each family still needs (ROADMAP Queue 1, item 4); dense,
+# ssm and hybrid train
 UNTRAINED = {
     "moe": "the moe load-balance loss out of the forward (moe_forward's aux)",
-    "hybrid": "the Mamba2 / SSD scan and the shared attention block under the train forward",
     "vlm": "the cross-attention groups and image embeddings under the train forward",
     "audio": "the codebook loss over (B, S, K, V) logits",
 }
@@ -228,6 +230,10 @@ class MambaBlock(nn.Module):
             y, st = ssm_lib.mamba2_forward(self.mamba, h, cfg, return_state=True)
             return x + y, st
         return x + ssm_lib.mamba2_forward(self.mamba, h, cfg), None
+
+    def forward_train(self, x, cfg: ArchConfig):
+        """The whole sequence from the zero state, the state dropped (training)."""
+        return self(x, cfg, return_state=False)[0]
 
     def step(self, x, cfg: ArchConfig, state):
         """One token from the block's state; returns ``x`` and the new state."""
@@ -531,12 +537,15 @@ class Model(nn.Module):
 
     # -------------------- training --------------------
     def forward_train(self, tokens, *, image_embeds=None):
-        """The full-sequence forward with grad (dense and ssm families):
-        tokens (B, S) -> ``(logits (B, S, V) in the compute dtype, aux)``,
-        ``aux`` the float32 auxiliary loss (0 for both). Under ``remat ==
-        "block"`` and grad, each layer (ssm: each pair) runs in
-        ``torch.utils.checkpoint`` (non-reentrant): only its input is kept,
-        and the backward runs it again."""
+        """The full-sequence forward with grad (dense, ssm and hybrid
+        families): tokens (B, S) -> ``(logits (B, S, V) in the compute dtype,
+        aux)``, ``aux`` the float32 auxiliary loss (0 for all three: no
+        block of theirs has a load-balance loss). Under ``remat == "block"``
+        and grad, each layer (ssm: each pair; hybrid: each Mamba2 block and
+        each use of the shared block) runs in ``torch.utils.checkpoint``
+        (non-reentrant): only its input is kept, and the backward runs it
+        again. The hybrid stack walks its groups as :meth:`_hybrid` does;
+        the shared block's gradient is autograd's sum over its uses."""
         check_trainable(self.cfg)
         cfg, cc = self.cfg, self.cc
         tokens = self._tokens(tokens)
@@ -547,7 +556,14 @@ class Model(nn.Module):
             calls = [(pair.forward_train, (cfg, cc)) for pair in self.blocks]
         else:
             positions = torch.arange(S, device=self.device)[None, :].expand(B, S)
-            calls = [(blk, (positions, cfg, cc)) for blk in self._attn_layers()]
+            if cfg.family == "hybrid":
+                calls = []
+                for group in self.blocks:
+                    calls += [(blk.forward_train, (cfg,)) for blk in group]
+                    calls.append((self.shared_attn, (positions, cfg, cc)))
+                calls += [(blk.forward_train, (cfg,)) for blk in getattr(self, "tail", ())]
+            else:
+                calls = [(blk, (positions, cfg, cc)) for blk in self._attn_layers()]
         for fn, args in calls:
             if remat:
                 x = checkpoint(fn, x, *args, use_reentrant=False)
@@ -625,7 +641,8 @@ def check_trainable(cfg: ArchConfig) -> None:
     if cfg.family in UNTRAINED:
         raise NotImplementedError(
             f"{cfg.name}: training the {cfg.family} family is not ported yet (ROADMAP Queue 1, "
-            f"item 4): it needs {UNTRAINED[cfg.family]}; the dense and ssm families train")
+            f"item 4): it needs {UNTRAINED[cfg.family]}; the dense, ssm and hybrid families "
+            f"train")
 
 
 def build_model(cfg: ArchConfig, cc: Optional[CallConfig] = None, *, device=None,

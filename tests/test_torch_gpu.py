@@ -16,6 +16,7 @@ bfloat16 element of h within one bfloat16 rounding plus that. TF32 is off in
 the plain versions.
 """
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -685,6 +686,7 @@ BWD_CASES = [
     (1, 2048, 9, 3, 64, True),   # the train shape at B = 1
     (2, 333, 9, 3, 64, True),    # S neither a multiple of 64 nor of 128
     (1, 256, 4, 4, 64, True),    # G = 1
+    (2, 517, 32, 32, 64, True),  # zamba2-1.2b's shared block: 32 heads, G = 1
 ]
 
 
@@ -840,11 +842,11 @@ def test_slstm_bwd_routes_and_rejects(cuda):
                         torch.zeros((2, 30, 64), device=cuda), 2)
 
 
-def _train_setup(cuda, kernel_backend=None, dtype=torch.float32, arch="smollm-135m"):
+def _train_setup(cuda, kernel_backend=None, dtype=torch.float32, arch="smollm-135m", **changes):
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.train_step import make_train_state, make_train_step
 
-    cfg = get_config(arch).reduced()
+    cfg = dataclasses.replace(get_config(arch).reduced(), **changes)
     model = build_model(cfg, CallConfig(compute_dtype=dtype, kernel_backend=kernel_backend),
                         device=cuda, seed=0)
     ocfg = OptConfig(lr=3e-3, schedule="wsd", warmup_steps=1, total_steps=8)
@@ -858,55 +860,62 @@ def _train_batches(n):
     return [data.batch_at(i) for i in range(n)]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_reduced_smollm_train_steps_through_the_kernels(cuda, dtype):
-    """Three steps of reduced smollm-135m (hd 32) through the attention
-    kernels against the same steps with the plain attention: losses and
+def _kernel_steps_match_plain(cuda, dtype, arch, kernels, per_step, **changes):
+    """Three steps of reduced ``arch`` through ``kernels`` (forward,
+    backward) against the same steps with their plain versions: losses and
     grad norms within 2e-5 / 1e-4 relative in float32, 2e-2 in bfloat16;
-    under remat 2 forward and 1 backward launch a layer and step."""
-    from repro_torch.kernels.flash_attention import flash_attention_bwd
-
+    ``per_step`` (forward, backward) launches a step, none plain."""
     runs = []
     for backend in (None, "ref"):
-        model, state, step = _train_setup(cuda, backend, dtype)
-        f0, b0 = flash_attention.launches, flash_attention_bwd.launches
+        model, state, step = _train_setup(cuda, backend, dtype, arch, **changes)
+        before = [k.launches for k in kernels]
         mets = []
         for batch in _train_batches(3):
             state, m = step(state, batch)
             mets.append((float(m["loss"]), float(m["grad_norm"])))
         torch.cuda.synchronize()
-        launches = (flash_attention.launches - f0, flash_attention_bwd.launches - b0)
-        runs.append((mets, launches))
-    L = get_config("smollm-135m").reduced().num_layers
-    assert runs[0][1] == (3 * 2 * L, 3 * L) and runs[1][1] == (0, 0)
+        runs.append((mets, tuple(k.launches - b for k, b in zip(kernels, before))))
+    assert runs[0][1] == tuple(3 * n for n in per_step) and runs[1][1] == (0, 0)
     tl, tg = (2e-5, 1e-4) if dtype == torch.float32 else (2e-2, 2e-2)
     for (lk, gk), (lr_, gr) in zip(runs[0][0], runs[1][0]):
+        assert math.isfinite(lk) and math.isfinite(gk)
         assert abs(lk - lr_) <= tl * abs(lr_) and abs(gk - gr) <= tg * abs(gr)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reduced_smollm_train_steps_through_the_kernels(cuda, dtype):
+    """Reduced smollm-135m (hd 32) through the attention kernels against the
+    plain attention; under remat 2 forward and 1 backward launch a layer and
+    step."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    L = get_config("smollm-135m").reduced().num_layers
+    _kernel_steps_match_plain(cuda, dtype, "smollm-135m", (flash_attention, flash_attention_bwd),
+                              (2 * L, L))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_reduced_xlstm_train_steps_through_the_kernels(cuda, dtype):
-    """Three steps of reduced xlstm-350m (1 pair, hd 32) through the sLSTM
-    kernels against the same steps with the plain recurrence: losses and
-    grad norms within 2e-5 / 1e-4 relative in float32, 2e-2 in bfloat16;
-    under remat 2 forward and 1 backward launch a pair and step."""
+    """Reduced xlstm-350m (1 pair, hd 32) through the sLSTM kernels against
+    the plain recurrence; under remat 2 forward and 1 backward launch a pair
+    and step."""
     from repro_torch.kernels.slstm import slstm_fused_bwd
 
-    runs = []
-    for backend in (None, "ref"):
-        model, state, step = _train_setup(cuda, backend, dtype, arch="xlstm-350m")
-        f0, b0 = slstm_fused.launches, slstm_fused_bwd.launches
-        mets = []
-        for batch in _train_batches(3):
-            state, m = step(state, batch)
-            mets.append((float(m["loss"]), float(m["grad_norm"])))
-        torch.cuda.synchronize()
-        runs.append((mets, (slstm_fused.launches - f0, slstm_fused_bwd.launches - b0)))
     P = get_config("xlstm-350m").reduced().num_layers // 2
-    assert runs[0][1] == (3 * 2 * P, 3 * P) and runs[1][1] == (0, 0)
-    tl, tg = (2e-5, 1e-4) if dtype == torch.float32 else (2e-2, 2e-2)
-    for (lk, gk), (lr_, gr) in zip(runs[0][0], runs[1][0]):
-        assert abs(lk - lr_) <= tl * abs(lr_) and abs(gk - gr) <= tg * abs(gr)
+    _kernel_steps_match_plain(cuda, dtype, "xlstm-350m", (slstm_fused, slstm_fused_bwd),
+                              (2 * P, P))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reduced_zamba2_train_steps_through_the_kernels(cuda, dtype):
+    """Reduced zamba2-1.2b at 5 layers (two groups of two Mamba2 blocks, each
+    followed by the shared attention block, and a tail block) through the
+    attention kernels against the plain attention; under remat 2 forward and
+    1 backward launch a use of the shared block and step."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    _kernel_steps_match_plain(cuda, dtype, "zamba2-1.2b", (flash_attention, flash_attention_bwd),
+                              (2 * 2, 2), num_layers=5)
 
 
 def test_train_resume_is_bitwise_on_the_card(cuda, tmp_path):
