@@ -3,18 +3,23 @@
 
     python3 chip_smoke.py        # from the repository root; one CUDA card, nvcc
 
-Twelve paths: the compiled VGG-16 executor (phases 3-5, and split over two
+Thirteen paths: the compiled VGG-16 executor (phases 3-5, and split over two
 shards in phase 15), serving smollm-135m (phases 3, 6 and 7; streaming, paged
-and faulted in phases 16-17) and serving xlstm-350m (phases 3, 8 and 9), both
-at their full published widths, the paper's Tab. IV evaluation and
-design-space sweep (phases 10-12), VGG-16 compiled around faults and from a
-searched mapping (phases 13-14), serving dbrx-132b at full width with its
-depth cut to 4 layers (phases 18-19), serving zamba2-1.2b whole,
+and faulted in phases 16-17) at 10 of its 30 layers and serving xlstm-350m
+(phases 3, 8 and 9) at 8 of its 24, both at their full published widths, the
+paper's Tab. IV evaluation and design-space sweep (phases 10-12), VGG-16
+compiled around faults and from a searched mapping (phases 13-14), serving
+dbrx-132b at full width with its depth cut to 4 layers (phases 18-19),
+serving zamba2-1.2b at full width with its depth cut to 14 layers,
 contiguous and paged (phases 20-21), and the model's own prefill and decode
 of llama-3.2-vision-90b at full width cut to 2 of its 20 groups (phases
-22-23) and of musicgen-large whole (phases 24-25), which no engine serves,
-and training smollm-135m whole (phase 26), xlstm-350m whole (phase 27) and
-zamba2-1.2b whole (phase 28).
+22-23) and of musicgen-large at 12 of its 48 layers (phases 24-25), which no
+engine serves, and training smollm-135m whole (phase 26), xlstm-350m at 8 of
+its 24 layers (phase 27), zamba2-1.2b at 14 of its 38 (phase 28) and
+dbrx-132b at full width with its depth cut to 1 layer (phase 29). Every cut
+depth (SERVE_CUT, XLSTM_CUT, HYBRID_CUT, AUDIO_CUT, MOE_LAYERS,
+MOE_TRAIN_LAYERS, VLM_LAYERS) is in its phase lines' "reduced"; it keeps the
+script near half its time limit.
 Phases, each printing JSON lines:
 
 1. card      — the card's name and power limit (nvidia-smi), torch and CUDA versions;
@@ -58,7 +63,8 @@ Phases, each printing JSON lines:
                atol 1e-4 of max|plain|, tests/test_layers.py:121) and
                bfloat16 (2e-2 of max|plain|; each element's error over one
                rounding reported), and both kernels at the train-hybrid
-               phase's (8, 2048, 32, 32, 64): a second call's bits, the
+               phase's (8, 2048, 32, 32, 64) and the train-moe phase's
+               (8, 2048, 48, 8, 128): a second call's bits, the
                forward's out bitwise with and without lse, lse against the
                plain lse; ms,
                graph_ms, the bound (5 products of 2 hd flop a kept pair),
@@ -79,22 +85,24 @@ Phases, each printing JSON lines:
 5. profile   — a torch.profiler window over one forward: device busy time, idle
                share and the kernels by time; fails if a cuBLAS, cuDNN or
                CUTLASS kernel ran in it (every product is the port's own);
-6. serve     — smollm-135m (30 layers, d_model 576, 9 heads, 3 KV heads, vocab
-               49152, tied), bf16, weights drawn from seed 0: 16 greedy
+6. serve     — smollm-135m (d_model 576, 9 heads, 3 KV heads, vocab 49152,
+               tied) with its 30 layers cut to 10 (SERVE_CUT, the line's
+               "reduced"), bf16, weights drawn from seed 0: 16 greedy
                requests with prompt lengths from numpy.random.default_rng(2)
                uniform in 128-1024, 64 new tokens each, 8 slots, max_seq 2048,
                through Engine.generate: wall time, tokens/s, median TTFT and
-               decode step, peak memory, flash_attention launches (30 per
+               decode step, peak memory, flash_attention launches (10 per
                prefill); the tokens against Engine.generate_sequential; the
                last-token logits of every request's prefill against the same
                model with the plain attention, in float32 and in bfloat16;
 7. profile-serve — a torch.profiler window over one prefill and one decode step;
                fails if a library attention kernel (flash_fwd, fmha,
                efficient_attention, cuDNN) runs in the prefill;
-8. serve-xlstm — xlstm-350m (24 layers as 12 [mLSTM, sLSTM] pairs, d_model
-               1024, 4 heads of 256, vocab 50304, untied), bf16, weights drawn
+8. serve-xlstm — xlstm-350m (d_model 1024, 4 heads of 256, vocab 50304,
+               untied) with its 24 layers (12 [mLSTM, sLSTM] pairs) cut to 8
+               (XLSTM_CUT, the line's "reduced"), bf16, weights drawn
                from seed 0, the same 16-request wave as phase 6: the same
-               numbers, slstm_fused launches (12 per prefill, each a cluster of
+               numbers, slstm_fused launches (4 per prefill, each a cluster of
                8 CTAs per head), the tokens
                against generate_sequential; then, on four of the prompts (the
                shortest, the longest, two between: the plain recurrence is a
@@ -156,21 +164,21 @@ Phases, each printing JSON lines:
                2e-5 · max|ref| of the float64 reference and bit for bit phase
                4's unless a layer's com_matmul plan (split-K) changes at the
                shard's rows; the layers whose plans change, images/s;
-16. serve-traffic — smollm-135m at full width, bf16, weights from seed 0,
+16. serve-traffic — phase 6's smollm-135m (10 layers), bf16, weights from seed 0,
                through simulate(check=True) on Engine(batch=8, max_seq=544,
                page_size=16, pool_pages=96) (35 % of the 272 pages a contiguous
                pool needs) with the profile chip-burst-24 (24 greedy requests in
                bursts of 8, prompts of 128/256/512 and budgets of 8/16/32
                tokens weighted 1:2:1, admission deadline 40 ticks):
                matches_sequential, the virtual-clock payload equal to the JAX
-               package's numbers (TRAFFIC_CLOCK), flash_attention launches (30 a
+               package's numbers (TRAFFIC_CLOCK), flash_attention launches (10 a
                prefill), wall time, tokens/s, decode step, page gather and
                scatter times, peak memory;
 17. serve-faults — chip-burst-24-patient (no deadline) through Engine.serve on
                that engine, fault-free and with TransientFaults(slot_rate=0.05,
                page_rate=0.002, seed=0) under RestartPolicy(max_restarts=10000,
                backoff_s=1, backoff_mult=1): counters and makespans equal to the
-               JAX package's (FAULTS_CLOCK), 30 flash launches a prefill and a
+               JAX package's (FAULTS_CLOCK), 10 flash launches a prefill and a
                re-prefill; in bf16 the tokens of every request whose slot never
                failed, and of each retried request up to its first retry, equal
                the fault-free run's (a re-prefill's KV rows round otherwise
@@ -194,15 +202,18 @@ Phases, each printing JSON lines:
                pinned to the plain run's, and unpinned reported beside the
                (layer, token) pairs whose experts differ;
 19. profile-serve — the same two windows for dbrx-132b (its first prompt);
-20. serve-hybrid — zamba2-1.2b whole (38 Mamba2 blocks of 64 SSD heads of 64,
-               state 64, chunk 256, in 6 groups of 6 each followed by the
-               shared attention + MLP block, then 2 tail blocks; d_model 2048,
-               vocab 32000), bf16, weights from seed 0, on phase 6's wave:
-               phase 6's numbers, 6 flash_attention launches a prefill, the
+20. serve-hybrid — zamba2-1.2b at full width (Mamba2 blocks of 64 SSD heads
+               of 64, state 64, chunk 256, in groups of 6 each followed by
+               the shared attention + MLP block, then tail blocks; d_model
+               2048, vocab 32000) with its 38 layers cut to 14 (2 of its 6
+               groups and the 2 tail blocks: HYBRID_CUT, the lines'
+               "reduced"), bf16, weights from
+               seed 0, on phase 6's wave:
+               phase 6's numbers, 2 flash_attention launches a prefill, the
                tokens against generate_sequential; every prefill's float32
                last-token logits with the kernel within 1e-4 of max|plain|
                (the state-space families' tolerance, tests/test_layers.py:95:
-               the attention's float32 rounding carries through 38 blocks,
+               the attention's float32 rounding carries through the blocks,
                and both paths stand as far from a float64 attention, which
                the line reports), every flash_attention call of those
                prefills within one rounding of the plain attention on its
@@ -212,7 +223,7 @@ Phases, each printing JSON lines:
                simulate(check=True) on Engine(batch=8, max_seq=544,
                page_size=16, pool_pages=96), the KV rows paged and the Mamba2
                states dense per slot: matches_sequential, the virtual clock
-               equal to the JAX package's (FAULTS_CLOCK), 6 flash launches a
+               equal to the JAX package's (FAULTS_CLOCK), 2 flash launches a
                prefill, decode step, gather and scatter times;
 21. profile-serve — the same two windows for zamba2-1.2b;
 22. model-vlm — llama-3.2-vision-90b at its published widths (d_model 8192,
@@ -238,15 +249,16 @@ Phases, each printing JSON lines:
                forward(t) in float32 within rtol = atol = 2e-2
                (tests/test_models.py:86-98), the distance reported;
 23. profile-serve — the 8-row prefill's and decode step's windows for it;
-24. model-audio — musicgen-large whole (48 layers, d_model 2048, 32 heads,
-               d_ff 8192, layernorm, gelu, 4 codebooks of 2048), bf16, weights
+24. model-audio — musicgen-large (d_model 2048, 32 heads, d_ff 8192,
+               layernorm, gelu, 4 codebooks of 2048) with its 48 layers cut to
+               12 (AUDIO_CUT, the line's "reduced"), bf16, weights
                from seed 0: 8 rows of 512 frames x 4 codebooks
                (numpy.random.default_rng(3)), one prefill and 64 greedy decode
                steps, each feeding back every codebook's argmax as the
-               (B, 1, K) token: phase 22's numbers and gates, 48
+               (B, 1, K) token: phase 22's numbers and gates, 12
                flash_attention launches a prefill and none a step;
 25. profile-serve — the same two windows for it;
-26. train    — smollm-135m whole (phase 6's model), bfloat16 compute on float32
+26. train    — smollm-135m whole (phase 6's widths), bfloat16 compute on float32
                master weights, CallConfig(remat="block"), weights from seed 0,
                OptConfig(lr=3e-3, schedule="wsd", warm-up 2, 20 steps) as
                repro_torch.launch.train builds it, batches of 8 x 2048 tokens
@@ -262,9 +274,10 @@ Phases, each printing JSON lines:
                run saved after step 5 (repro_torch.checkpoint, the reference's
                layout), restored into a fresh model and state and taken 3 steps
                further: losses and parameters bitwise the uninterrupted run's;
-27. train-xlstm — xlstm-350m whole (phase 8's model), the same recipe and
-               numbers as phase 26, slstm_fused 24 launches a step (12 pairs,
-               again under remat) and slstm_fused_bwd 12, a profiled step, the
+27. train-xlstm — xlstm-350m at 8 of its 24 layers (phase 8's model,
+               XLSTM_CUT), the same recipe and
+               numbers as phase 26, slstm_fused 8 launches a step (4 pairs,
+               again under remat) and slstm_fused_bwd 4, a profiled step, the
                20th loss below the first; the held checks at 2 x 256 tokens
                (the plain recurrence is ~20 launches a step forward, ~40
                backward): every sLSTM forward and backward call of the
@@ -275,10 +288,12 @@ Phases, each printing JSON lines:
                paths, since the model's gradient amplifies rounding: two
                orders of the same sums part by up to 0.69 in bfloat16 grad
                norm at step 1, and by more after one Adam step); the resume
-               at 2 x 2048 bitwise;
-28. train-hybrid — zamba2-1.2b whole (phase 20's model), phase 26's recipe and
-               numbers: flash_attention 12 launches a step (the shared
-               block's 6 uses, again under remat) and flash_attention_bwd 6,
+               at 2 x 2048 bitwise, at 2 of the 12 pairs (XLSTM_RESUME, the
+               line's "reduced");
+28. train-hybrid — zamba2-1.2b at 14 of its 38 layers (phase 20's model,
+               HYBRID_CUT), phase 26's recipe and
+               numbers: flash_attention 4 launches a step (the shared
+               block's 2 uses, again under remat) and flash_attention_bwd 2,
                every Mamba2 block and every use of the shared block its own
                checkpoint, the SSD chunk loop under autograd, a profiled step
                with no library attention kernel, the 20th loss below the
@@ -291,8 +306,25 @@ Phases, each printing JSON lines:
                TRAIN_TOL; the rest at limits from readings of the three
                paths: the plain path stands as far from the float64
                attention's steps as the kernel path does); the resume
-               bitwise;
-29. the seconds of each phase, the kernels line (each kernel's launches on
+               bitwise, at one group of 6 Mamba2 blocks and the shared block
+               (HYBRID_RESUME, the line's "reduced");
+29. train-moe — dbrx-132b at its published widths with its 40 layers cut to
+               1 (MOE_TRAIN_LAYERS, the line's "reduced"; 4,492 M
+               parameters), its published capacity_factor 1.25 (the
+               dispatch drops overflowed choices, reported each step),
+               phase 26's recipe with bf16 moments and lr 3e-4 (MOE_OPT):
+               2 flash_attention and 1 flash_attention_bwd launches a step,
+               each step's aux and dropped choices, a profiled step with no
+               library attention kernel, the 20th loss below the first;
+               the held checks at 2 x 2048 at TRAIN_HELD_TOL with every
+               flash call held on its own inputs, the bfloat16 kernel
+               steps with the expert choices pinned to the plain steps'
+               (each layer's recompute under remat takes its forward's
+               pin; the unpinned kernel steps and the tokens whose experts
+               differ reported); build/ checked for room, then the resume
+               at full width bitwise (a ~36 GB checkpoint: the bf16
+               moments' round trip);
+30. the seconds of each phase, the kernels line (each kernel's launches on
                every path), the card line, the result line.
 
 Any failed check exits non-zero before the result line is printed. Finding no
@@ -412,14 +444,14 @@ CHIP_FAULTS = dict(slot_rate=0.05, page_rate=0.002, seed=0)
 PATIENT = dict(max_restarts=10_000, backoff_s=1.0, backoff_mult=1.0)  # tests/test_serve_faults.py:56
 # the moe and hybrid serve phases: dbrx-132b at full width with its depth cut
 # to MOE_LAYERS (f32 weights: ~13.0 GB a layer and 4.9 GB of embed and
-# unembed), 8 requests of 128-512 prompt tokens; zamba2-1.2b whole, on the
-# serve phase's wave, then its first burst through a paged pool
+# unembed), 8 requests of 128-512 prompt tokens; zamba2-1.2b (HYBRID_CUT)
+# on the serve phase's wave, then its first burst through a paged pool
 MOE_ARCH, MOE_LAYERS, MOE_REQUESTS, MOE_PROMPTS, MOE_NEW, MOE_MAX_SEQ = (
     "dbrx-132b", 4, 8, (128, 512), 32, 1024)
 HYBRID_ARCH = "zamba2-1.2b"
 # the vlm and audio phases: llama-3.2-vision-90b at full width with its 100
 # layers cut to VLM_LAYERS (2 of its 20 groups of 5: 8 self and 2 cross
-# layers; f32 weights ~42.6 GB), musicgen-large whole (~9.8 GB); ROWS rows in
+# layers; f32 weights ~42.6 GB), musicgen-large (AUDIO_CUT); ROWS rows in
 # lockstep: one prefill, then greedy decode steps at a shared position. The
 # float32 checks run on CHECK_ROWS of them
 VLM_ARCH, VLM_LAYERS, VLM_PROMPT, VLM_NEW = "llama-3.2-vision-90b", 10, 512, 32
@@ -464,6 +496,39 @@ XLSTM_CHECK_SEQ = 256  # train-xlstm's held checks: 2 x 256 tokens (the plain re
 # held against its plain version on its own inputs besides.
 HYBRID_HELD_TOL = {torch.float32: ((2e-5, 1e-4), (3.5e-5, 2.25e-2), (2.5e-3, 5.25e-2)),
                    torch.bfloat16: ((2e-2, 7.7e-2), (2e-2, 0.28), (2e-2, 0.575))}
+# the train-moe phase: dbrx-132b at its published widths with its 40 layers
+# cut to MOE_TRAIN_LAYERS (4,492 M parameters: 3,259 M in the layer, 1,233 M
+# in embed and unembed), its published capacity_factor 1.25 (training drops
+# the overflowed choices, as the reference's does), on MOE_OPT: bf16
+# moments (f32 masters and gradients and bf16 moments: ~50.2 GiB of state)
+# and lr 3e-4, OptConfig's default. f32 moments (36 GB more) do not fit
+# beside f32 weights and gradients; the repo's int8 moments (its recipe past
+# 50 B parameters, src/repro/launch/dryrun.py:45) diverge within a few
+# steps, in the reference as in the port (tests/test_torch_moe_train.py;
+# at full width NaN from step 4, scripts/train_moe_probe.py); at the
+# launcher's lr 3e-3 the first Adam steps throw the loss from 12.6 to 53
+# and the 20th step's (26.1) stays above the first (the probe)
+MOE_TRAIN_LAYERS = 1
+MOE_OPT = dict(lr=3e-4, moment_dtype="bf16")
+# earlier paths at a cut depth, widths whole, so that the script ends near
+# half its 1,200 s limit (with every path at the depths it had before the
+# train-moe phase it ran 1,095 s of phases on one machine and past 1,200 s on
+# another; host-paced phases move by up to 70 % between machines). Each cut
+# is in its phase lines' "reduced", and no gate changes with it:
+# smollm-135m serves at 10 of its 30 layers (serve, serve-traffic,
+# serve-faults; the train phase keeps all 30); xlstm-350m serves and trains
+# at 4 of its 12 [mLSTM, sLSTM] pairs; zamba2-1.2b serves and trains at 2 of
+# its 6 groups of 6 Mamba2 blocks (each followed by the shared block) and
+# its 2 tail blocks (14 of 38 layers); musicgen-large runs 12 of its 48
+SERVE_CUT = dict(num_layers=10)
+XLSTM_CUT = dict(num_layers=8)
+HYBRID_CUT = dict(num_layers=14)
+AUDIO_CUT = dict(num_layers=12)
+# the resume checks of train-xlstm and train-hybrid at a smaller depth still:
+# 2 of xlstm's 12 pairs; one of zamba2's groups and the shared block. A
+# bitwise round trip does not change in kind with depth
+XLSTM_RESUME = dict(num_layers=4)
+HYBRID_RESUME = dict(num_layers=6)
 BWD_CHECK_S = 300  # the backward checks' own time limit (they take well under a minute)
 FIRST_BURST = dict(PATIENT_TRAFFIC, name="chip-burst-8-patient", num_requests=8)
 # the virtual clock is a function of the profile, the pool and the fault draws
@@ -1114,6 +1179,21 @@ def prefill_logits(model, prompt, dtype, **changes):
     return lockstep_logits(model, prompt[None, :], {}, dtype, **changes)
 
 
+def cut(arch: str, changes: dict):
+    """``arch``'s config with ``changes`` (a cut depth)."""
+    return dataclasses.replace(get_config(arch), **changes)
+
+
+def reduced_of(cfg) -> dict:
+    """A cut config's "reduced": each scalar field that differs from the
+    published config's, as [published, run]."""
+    full = get_config(cfg.name)
+    return {f.name: [getattr(full, f.name), getattr(cfg, f.name)]
+            for f in dataclasses.fields(cfg)
+            if isinstance(getattr(cfg, f.name), (int, float, str))
+            and getattr(cfg, f.name) != getattr(full, f.name)}
+
+
 def rel_err(got, want) -> float:
     """max|got - want| / max|want|, after a finiteness check of ``got``."""
     scale = want.double().abs().max().item()
@@ -1372,7 +1452,7 @@ def serve(model, cfg, kernel, per_prefill: int, logits_check, phase: str, reqs=N
     line = {"phase": phase, "arch": cfg.name, "layers": cfg.num_layers,
             "d_model": cfg.d_model, "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
             "vocab": cfg.vocab_size, "dtype": str(model.cc.compute_dtype).replace("torch.", ""),
-            "requests": len(reqs), "slots": SLOTS, "max_seq": max_seq,
+            "reduced": reduced_of(cfg), "requests": len(reqs), "slots": SLOTS, "max_seq": max_seq,
             "prompt_tokens": n_prompt, "generated_tokens": gen_tokens, "wall_s": wall,
             "generated_tokens_s": gen_tokens / wall, "prefill_tokens_s": n_prompt / prefill_s,
             "prefill_s": prefill_s, "median_ttft_ms": statistics.median(ttft) * 1e3,
@@ -1812,7 +1892,7 @@ def check_clock(what: str, got: dict, want: dict) -> None:
 def serve_traffic_phase(model, cfg) -> tuple:
     """chip-burst-24 through simulate(check=True) on a paged engine: the
     payload, matches_sequential, the virtual clock equal to TRAFFIC_CLOCK,
-    30 flash_attention launches a prefill of the served run (the oracle
+    one flash_attention launch a layer and a prefill of the served run (the oracle
     replay's own prefills follow it), and the host times of the decode
     step and of the page gather and scatter. Returns the served run's
     flash launches, the engine and the line."""
@@ -1840,7 +1920,7 @@ def serve_traffic_phase(model, cfg) -> tuple:
     del eng.generate_sequential
     steps = timers.ms("decode_step", served["t"])
     line = {"phase": "serve-traffic", "arch": cfg.name, "layers": cfg.num_layers,
-            "d_model": cfg.d_model, "dtype": "bfloat16", **payload,
+            "reduced": reduced_of(cfg), "d_model": cfg.d_model, "dtype": "bfloat16", **payload,
             "max_seq": eng.max_seq, "slots": eng.batch,
             "contiguous_pages": eng.batch * eng.slots.pages_per_slot,
             "median_decode_step_ms": statistics.median(steps), "decode_step_calls": len(steps),
@@ -1904,7 +1984,7 @@ def serve_pair(eng, vocab, profile_dict) -> tuple:
 
 def check_pair(what, cfg, clean, faulty, first, n) -> dict:
     """The counters and makespans of a fault-free and a faulted run against
-    FAULTS_CLOCK, flash launches (30 per prefill and per re-prefill), and
+    FAULTS_CLOCK, flash launches (one a layer per prefill and per re-prefill), and
     token identity: every request whose slot never failed, and every
     retried request up to its first retry. Returns the line's numbers."""
     (creqs, cstats, claunch, cwall, _), (freqs, fstats, flaunch, fwall, _) = clean, faulty
@@ -1943,7 +2023,8 @@ def serve_faults_phase(model, cfg, eng) -> tuple:
     loop with the reference's RuntimeError. Returns the bf16 runs' flash
     launches and the lines."""
     clean, faulty, first = serve_pair(eng, cfg.vocab_size, PATIENT_TRAFFIC)
-    bf16 = {"phase": "serve-faults", "dtype": "bfloat16", "profile": PATIENT_TRAFFIC["name"],
+    bf16 = {"phase": "serve-faults", "dtype": "bfloat16", "layers": cfg.num_layers,
+            "reduced": reduced_of(cfg), "profile": PATIENT_TRAFFIC["name"],
             "faults": CHIP_FAULTS, "restart_policy": PATIENT,
             **check_pair("serve-faults bf16", cfg, clean, faulty, first, 24)}
     emit(bf16)
@@ -1957,7 +2038,8 @@ def serve_faults_phase(model, cfg, eng) -> tuple:
     clean, faulty, first = serve_pair(eng32, cfg.vocab_size, burst)
     model.cc = cc
     del eng32
-    f32 = {"phase": "serve-faults", "dtype": "float32", "profile": burst["name"],
+    f32 = {"phase": "serve-faults", "dtype": "float32", "layers": cfg.num_layers,
+           "reduced": reduced_of(cfg), "profile": burst["name"],
            **check_pair("serve-faults f32", cfg, clean, faulty, first, 8)}
     f32["all_identical"] = [r.out_tokens for r in clean[0]] == [r.out_tokens for r in faulty[0]]
     emit(f32)
@@ -1998,26 +2080,47 @@ def pinned_dispatch(x, logits, top_k: int, capacity: int, num_experts: int, expe
     return buf, slot.reshape(T, top_k), gates.to(x.dtype), gates_full
 
 
+def in_backward() -> bool:
+    """Whether autograd's engine is running a backward on this thread: a
+    checkpointed layer's recompute runs there."""
+    return torch._C._current_graph_task_id() != -1
+
+
 class Routing:
-    """While open, keeps the experts every moe dispatch chooses, one (T, k)
-    tensor a call (slot // C: a dropped choice reads E); with ``pin``
-    (another run's ``choices``, drop-free) every call takes the pinned
-    experts instead (pinned_dispatch)."""
+    """While open, keeps the experts every moe dispatch of a forward
+    chooses, one (T, k) tensor a call (the top k of the gates, a choice the
+    capacity then drops included), and how many choices it dropped; with
+    ``pin`` (another run's ``choices``) every call takes the pinned experts
+    instead (pinned_dispatch, which drops by the same ranks). A call inside
+    a backward is a checkpointed layer's recompute: it repeats the latest
+    forward call with grad whose recompute has not come yet (the backward
+    walks the layers in reverse) and takes that call's pin; what it chose is
+    kept apart (``recomputed``, beside the forward call's index) for
+    :meth:`recompute_same`."""
 
     def __init__(self, pin=None):
         self.pin = pin
-        self.choices = []
+        self.choices, self.drops, self.recomputed, self.pending = [], [], [], []
 
     def __enter__(self):
         self.orig = moe_lib._dispatch_group
 
         def run(x, logits, top_k, capacity, num_experts):
+            recompute = in_backward()
+            i = self.pending.pop() if recompute else len(self.choices)
             if self.pin is None:
                 out = self.orig(x, logits, top_k, capacity, num_experts)
+                experts = torch.sort(out[3], dim=-1, descending=True, stable=True)[1][:, :top_k]
             else:
-                out = pinned_dispatch(x, logits, top_k, capacity, num_experts,
-                                      self.pin[len(self.choices)])
-            self.choices.append(out[1] // capacity)
+                experts = self.pin[i]
+                out = pinned_dispatch(x, logits, top_k, capacity, num_experts, experts)
+            if recompute:
+                self.recomputed.append((i, experts))
+            else:
+                self.choices.append(experts)
+                self.drops.append((out[1] == num_experts * capacity).sum())
+                if torch.is_grad_enabled():
+                    self.pending.append(i)
             return out
         moe_lib._dispatch_group = run
         return self
@@ -2025,9 +2128,14 @@ class Routing:
     def __exit__(self, *exc):
         moe_lib._dispatch_group = self.orig
 
-    def dropped(self, num_experts: int) -> int:
-        """The choices the dispatch dropped (slot E·C) while open."""
-        return sum(int((c == num_experts).sum()) for c in self.choices)
+    def dropped(self, calls=slice(None)) -> int:
+        """The choices the forward dispatches dropped while open, or those of
+        the forward calls ``calls`` (a slice)."""
+        return int(sum(int(d) for d in self.drops[calls]))
+
+    def recompute_same(self) -> bool:
+        """Every recompute chose what its forward call chose."""
+        return all(torch.equal(c, self.choices[i]) for i, c in self.recomputed)
 
 
 def routing_differences(a: list, b: list) -> dict:
@@ -2154,7 +2262,7 @@ def with_fields(check, fields: dict, route=None):
         if route is not None:
             route.__exit__()
             out.update(dispatch_choices=sum(c.numel() for c in route.choices),
-                       dropped_choices=route.dropped(model.cfg.moe.num_experts))
+                       dropped_choices=route.dropped())
         out.update(check(model, reqs))
         if out.get("dropped_choices"):
             out["_failures"] = out.get("_failures", []) + [
@@ -2190,21 +2298,22 @@ def serve_moe_phase() -> tuple:
 
 
 def serve_hybrid_phase() -> tuple:
-    """zamba2-1.2b whole (38 layers: 6 groups of 6 Mamba2 blocks and the
-    shared attention block, 2 tail blocks; bf16, seed 0) on the serve
-    phase's wave: serve()'s numbers and gates with 6 flash_attention
-    launches a prefill (the float32 prefill logits within SSM_TOL of the
-    plain attention's, the state-space families' tolerance: the attention's
-    rounding carries through 38 blocks, reported against a float64
+    """zamba2-1.2b at full width cut to HYBRID_CUT (14 of 38 layers: 2
+    groups of 6 Mamba2 blocks, each followed by the shared attention block,
+    and the 2 tail blocks; bf16, seed 0) on the serve phase's wave:
+    serve()'s numbers and gates with 2 flash_attention launches a prefill
+    (the float32 prefill logits within SSM_TOL of the plain attention's,
+    the state-space families' tolerance, reported against a float64
     attention); its profile windows; then the first burst of
     chip-burst-24-patient through simulate(check=True) on a paged pool
     (KV rows paged, the Mamba2 states dense per slot): matches_sequential,
-    the virtual clock equal to the JAX package's (FAULTS_CLOCK), 6 launches
+    the virtual clock equal to the JAX package's (FAULTS_CLOCK), 2 launches
     a prefill. Returns the two runs' flash launches and the lines."""
-    cfg = get_config(HYBRID_ARCH)
+    cfg = cut(HYBRID_ARCH, HYBRID_CUT)
     per_prefill = cfg.num_layers // cfg.hybrid_attn_every
     model = build_model(cfg, CallConfig(), device="cuda", seed=0)
-    fields = {"groups": per_prefill, "mamba_blocks": cfg.num_layers,
+    reduced = reduced_of(cfg)
+    fields = {"reduced": reduced, "groups": per_prefill, "mamba_blocks": cfg.num_layers,
               "ssd_heads": cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim,
               "ssd_head_dim": cfg.ssm.head_dim, "ssd_state": cfg.ssm.state_dim,
               "ssd_chunk": cfg.ssm.chunk}
@@ -2227,7 +2336,7 @@ def serve_hybrid_phase() -> tuple:
     wall = time.perf_counter() - t0
     timers.close()
     paged = {"phase": "serve-hybrid-paged", "arch": cfg.name, "layers": cfg.num_layers,
-             "dtype": "bfloat16", "profile": profile.name, **payload,
+             "reduced": reduced, "dtype": "bfloat16", "profile": profile.name, **payload,
              "max_seq": peng.max_seq, "slots": peng.batch, "pool_pages": peng.slots.pool_pages,
              "contiguous_pages": peng.batch * peng.slots.pages_per_slot,
              "wall_s_with_oracle": wall,
@@ -2497,20 +2606,21 @@ def model_vlm_phase() -> tuple:
 
 
 def model_audio_phase() -> tuple:
-    """musicgen-large whole (bf16, weights from seed 0): ROWS rows of
+    """musicgen-large at AUDIO_CUT (bf16, weights from seed 0): ROWS rows of
     AUDIO_FRAMES frames x 4 codebooks (default_rng(3)), one prefill and
     AUDIO_NEW lockstep decode steps, each feeding back every codebook's
-    argmax as the (B, 1, K) token (model_phase: 48 flash_attention launches
-    a prefill, none a decode step); its profile windows. Returns the kernel
+    argmax as the (B, 1, K) token (model_phase: one flash_attention launch a
+    layer and a prefill, none a decode step); its profile windows. Returns the kernel
     path's flash launches and the line."""
-    cfg = get_config(AUDIO_ARCH)
+    cfg = cut(AUDIO_ARCH, AUDIO_CUT)
     t0 = time.perf_counter()
     model = build_model(cfg, CallConfig(), device="cuda", seed=0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     tokens = torch.as_tensor(np.random.default_rng(3).integers(
         0, cfg.vocab_size, size=(ROWS, AUDIO_FRAMES, cfg.num_codebooks)), device="cuda")
-    fields = {"codebooks": cfg.num_codebooks, "norm": cfg.norm, "activation": cfg.activation,
+    fields = {"reduced": reduced_of(cfg), "codebooks": cfg.num_codebooks, "norm": cfg.norm,
+              "activation": cfg.activation,
               "weights_gib": sum(p.numel() * p.element_size()
                                  for p in model.parameters()) / 2**30, "init_s": init_s}
     line, launches = model_phase("model-audio", model, cfg, tokens, {}, AUDIO_NEW,
@@ -2529,16 +2639,27 @@ def train_batches(batch: int, n: int, start: int = 0, arch: str = SERVE_ARCH,
     return [data.batch_at(start + i) for i in range(n)]
 
 
-def train_setup(dtype=torch.bfloat16, kernel_backend=None, steps: int = TRAIN_STEPS,
-                arch: str = SERVE_ARCH):
-    """``arch`` whole (weights from seed 0, f32 masters) with remat "block",
-    and its train state and step, the optimizer as the launcher builds it:
-    OptConfig(lr=3e-3, schedule="wsd"), warm-up a tenth of ``steps``."""
-    cfg = get_config(arch)
-    model = build_model(cfg, CallConfig(compute_dtype=dtype, remat="block",
-                                        kernel_backend=kernel_backend), device="cuda", seed=0)
-    ocfg = OptConfig(lr=3e-3, schedule="wsd", warmup_steps=max(steps // 10, 1),
-                     total_steps=steps)
+def train_opt(cell) -> OptConfig:
+    """The optimizer as the launcher builds it, OptConfig(lr=3e-3,
+    schedule="wsd"), warm-up a tenth of TRAIN_STEPS, with ``cell.opt``'s
+    changes (train-moe's lr among them)."""
+    return OptConfig(**{"lr": 3e-3, "schedule": "wsd", "warmup_steps": max(TRAIN_STEPS // 10, 1),
+                        "total_steps": TRAIN_STEPS, **cell.opt})
+
+
+def train_config(cell, config=None):
+    """``cell.arch``'s config with ``cell.config``'s changes (or ``config``'s)."""
+    return dataclasses.replace(get_config(cell.arch),
+                               **(cell.config if config is None else config))
+
+
+def train_setup(cell, dtype=torch.bfloat16, kernel_backend=None, config=None):
+    """The model of train_config (weights from seed 0, f32 masters) with
+    remat "block", and its train state and step under train_opt."""
+    model = build_model(train_config(cell, config),
+                        CallConfig(compute_dtype=dtype, remat="block",
+                                   kernel_backend=kernel_backend), device="cuda", seed=0)
+    ocfg = train_opt(cell)
     return model, make_train_state(model, None, ocfg), make_train_step(model, ocfg)
 
 
@@ -2546,23 +2667,38 @@ def launches_of(kernels) -> tuple:
     return tuple(k.launches for k in kernels)
 
 
+def step_metrics(m) -> tuple:
+    return float(m["loss"]), float(m["grad_norm"]), float(m["aux"])
+
+
 def train_steps(state, step, batches, kernels=(flash_attention, flash_attention_bwd)) -> tuple:
     """Run ``step`` over ``batches``; returns the state, each step's (loss,
-    grad norm) and the launches of ``kernels`` (forward, backward) in them."""
+    grad norm, aux) and the launches of ``kernels`` (forward, backward) in
+    them."""
     before = launches_of(kernels)
     mets = []
     for b in batches:
         state, m = step(state, b)
-        mets.append((float(m["loss"]), float(m["grad_norm"])))
+        mets.append(step_metrics(m))
     torch.cuda.synchronize()
     return state, mets, tuple(a - b for a, b in zip(launches_of(kernels), before))
 
 
+def state_bytes(state) -> int:
+    """The bytes of a train state's parameters and moments on the card."""
+    tensors = list(state["params"].parameters())
+    for which in ("m", "v"):
+        for mom in state["opt"][which].values():
+            tensors += list(mom.values()) if isinstance(mom, dict) else [mom]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainCell:
-    """A train phase: ``arch`` whole, its forward and backward kernels and
-    their launches a step under remat "block" (``per_step``), the held
-    checks' sequence length and their (loss, grad norm) limits step by step."""
+    """A train phase: ``arch`` with ``config``'s changes (a cut depth), its
+    forward and backward kernels and their launches a step under remat
+    "block" (``per_step``), the held checks' sequence length and their
+    (loss, grad norm) limits step by step."""
     phase: str
     arch: str
     kernels: tuple
@@ -2576,11 +2712,44 @@ class TrainCell:
     # also run the held steps with a float64 attention (attention_f64), the
     # yardstick both attention paths are measured against
     f64_attention: bool = False
+    # changes to the arch's config and to the launcher's OptConfig
+    config: dict = dataclasses.field(default_factory=dict)
+    opt: dict = dataclasses.field(default_factory=dict)
+    # the resume check's config changes, where they differ from ``config``
+    resume_config: dict = None
+    # moe: the bfloat16 held steps of every other path take the plain
+    # steps' expert choices (Routing), the unpinned kernel steps reported
+    pin_routing: bool = False
 
 
 def step_rel_errs(got, want) -> tuple:
     """Step by step, |got - want| / |want| of the loss and of the grad norm."""
     return tuple([abs(x[k] - y[k]) / abs(y[k]) for x, y in zip(got, want)] for k in (0, 1))
+
+
+def held_run(cell: TrainCell, dtype, path: str, checks, worst: dict, pin=None) -> tuple:
+    """CHECK_STEPS held steps of one path: "kernel" (with ``cell.held_calls``
+    holding each kernel call), "plain" (kernel_backend="ref") or
+    "f64_attention"; with ``pin`` the moe dispatches take those experts.
+    Returns the steps' metrics, the kernels' launches and the Routing."""
+    originals = {attr: getattr(ops, attr) for attr, _ in cell.held_calls}
+    attention = ops.flash_attention
+    if path == "kernel":
+        for attr, wrap in cell.held_calls:
+            setattr(ops, attr, wrap(originals[attr], worst[attr]))
+    elif path == "f64_attention":
+        ops.flash_attention = attention_f64
+    try:
+        model, state, step = train_setup(cell, dtype, "ref" if path == "plain" else None)
+        with Routing(pin) as route:
+            _, mets, launches = train_steps(state, step, checks, cell.kernels)
+    finally:
+        for attr, fn in originals.items():
+            setattr(ops, attr, fn)
+        ops.flash_attention = attention
+    del model, state, step
+    torch.cuda.empty_cache()
+    return mets, launches, route
 
 
 def train_held_checks(cell: TrainCell) -> dict:
@@ -2592,46 +2761,52 @@ def train_held_checks(cell: TrainCell) -> dict:
     forward and backward, against its plain version on its own inputs
     (slstm_held and slstm_bwd_held, flash_train_held and flash_bwd_held);
     with ``cell.f64_attention`` the same steps with a float64 attention,
-    both paths' distances from them reported. Then, at CHECK_BATCH x
-    TRAIN_SEQ, a bfloat16 run saved after RESUME_AT steps, restored into a
-    fresh model and state and taken RESUME_MORE steps further: losses and
-    parameters bitwise the uninterrupted run's."""
+    both paths' distances from them reported; with ``cell.pin_routing`` the
+    bfloat16 steps of the kernel and float64 paths with the plain steps'
+    expert choices, the unpinned kernel steps and the (layer, token) pairs
+    whose experts differ reported, and every recomputed dispatch (remat)
+    choosing what its forward chose. Then resume_check."""
     out, failures, t_held = {}, [], time.perf_counter()
     checks = train_batches(CHECK_BATCH, CHECK_STEPS, arch=cell.arch, seq=cell.check_seq)
-    originals = {attr: getattr(ops, attr) for attr, _ in cell.held_calls}
     worst = {attr: {} for attr, _ in cell.held_calls}
-    attention = ops.flash_attention
     for dtype in (torch.float32, torch.bfloat16):
-        runs = {}
-        for path in ("kernel", "plain") + (("f64_attention",) if cell.f64_attention else ()):
-            if path == "kernel":
-                for attr, wrap in cell.held_calls:
-                    setattr(ops, attr, wrap(originals[attr], worst[attr]))
-            elif path == "f64_attention":
-                ops.flash_attention = attention_f64
-            try:
-                model, state, step = train_setup(dtype, "ref" if path == "plain" else None,
-                                                 arch=cell.arch)
-                runs[path] = train_steps(state, step, checks, cell.kernels)
-            finally:
-                for attr, fn in originals.items():
-                    setattr(ops, attr, fn)
-                ops.flash_attention = attention
-            del model, state, step
-            torch.cuda.empty_cache()
-        (_, kern, kl), (_, plain, pl) = runs["kernel"], runs["plain"]
+        name = str(dtype).replace("torch.", "")
+        pinned = cell.pin_routing and dtype == torch.bfloat16
+        runs = {"plain": held_run(cell, dtype, "plain", checks, worst)}
+        pin = runs["plain"][2].choices if pinned else None
+        runs["kernel"] = held_run(cell, dtype, "kernel", checks, worst, pin)
+        if cell.f64_attention:
+            runs["f64_attention"] = held_run(cell, dtype, "f64_attention", checks, worst, pin)
+        if pinned:
+            runs["kernel_unpinned"] = held_run(cell, dtype, "kernel", checks, worst)
+        (kern, kl, _), (plain, pl, _) = runs["kernel"], runs["plain"]
         loss_rel, gn_rel = step_rel_errs(kern, plain)
         tol = cell.held_tol[dtype]
-        name = str(dtype).replace("torch.", "")
         out[name] = {"seq": cell.check_seq, "kernel": kern, "plain": plain,
                      "loss_rel_err": loss_rel, "grad_norm_rel_err": gn_rel, "tol": tol,
                      "launches_kernel": kl, "launches_plain": pl}
         if cell.f64_attention:
-            exact = runs["f64_attention"][1]
+            exact = runs["f64_attention"][0]
             out[name]["f64_attention"] = exact
             out[name]["vs_f64_attention"] = {
-                p: dict(zip(("loss_rel_err", "grad_norm_rel_err"), step_rel_errs(runs[p][1], exact)))
+                p: dict(zip(("loss_rel_err", "grad_norm_rel_err"), step_rel_errs(runs[p][0], exact)))
                 for p in ("kernel", "plain")}
+        if cell.pin_routing:
+            free = runs["kernel_unpinned" if pinned else "kernel"]
+            out[name].update(
+                routing_pinned=pinned,
+                dropped_choices={p: r[2].dropped() for p, r in runs.items()},
+                routing_differences=routing_differences(free[2].choices, runs["plain"][2].choices))
+            if pinned:
+                out[name]["unpinned"] = {
+                    "kernel": free[0], **dict(zip(("loss_rel_err", "grad_norm_rel_err"),
+                                                  step_rel_errs(free[0], plain)))}
+                if free[1] != kl:
+                    failures.append(f"{name}: launches {free[1]} unpinned, {kl} pinned")
+            same = {p: r[2].recompute_same() for p, r in runs.items()}
+            if not all(same.values()):
+                failures.append(f"{name}: a recomputed moe dispatch chose other experts than "
+                                f"its forward {same}")
         if any(a > lt or g > gt for a, g, (lt, gt) in zip(loss_rel, gn_rel, tol)):
             failures.append(f"{name} kernel vs plain steps: loss {loss_rel}, grad norm {gn_rel} "
                             f"(limits {tol})")
@@ -2645,83 +2820,127 @@ def train_held_checks(cell: TrainCell) -> dict:
             failures.append(f"a kernel call of the kernel train steps is off its plain version: "
                             f"{worst} x the limit")
     out["held_s"] = time.perf_counter() - t_held
-
-    batches = train_batches(CHECK_BATCH, RESUME_AT + RESUME_MORE, arch=cell.arch)
-    ckpt_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
-    shutil.rmtree(ckpt_dir, ignore_errors=True)
-    model, state, step = train_setup(arch=cell.arch)
-    losses, t_save = [], 0.0
-    for i, b in enumerate(batches):
-        state, m = step(state, b)
-        losses.append(float(m["loss"]))
-        if i + 1 == RESUME_AT:
-            t0 = time.perf_counter()
-            ckpt_lib.save(str(ckpt_dir), RESUME_AT, state_tree(state))
-            t_save = time.perf_counter() - t0
-    fresh_model, fresh, fstep = train_setup(arch=cell.arch)
-    t0 = time.perf_counter()
-    tree, manifest = ckpt_lib.restore(str(ckpt_dir), state_tree(fresh))
-    load_state_tree(fresh, tree)
-    t_restore = time.perf_counter() - t0
-    resumed = []
-    for b in batches[RESUME_AT:]:
-        fresh, m = fstep(fresh, b)
-        resumed.append(float(m["loss"]))
-    same_params = all(torch.equal(a, b) for a, b in zip(fresh_model.parameters(),
-                                                        model.parameters()))
-    shutil.rmtree(ckpt_dir, ignore_errors=True)
-    out["resume"] = {"saved_at": manifest["step"], "losses": losses,
-                     "resumed_losses": resumed, "losses_bitwise": resumed == losses[RESUME_AT:],
-                     "params_bitwise": same_params, "save_s": t_save, "restore_s": t_restore,
-                     "leaves": len(manifest["keys"])}
-    if resumed != losses[RESUME_AT:] or not same_params:
-        failures.append(f"resume: losses {resumed} against {losses[RESUME_AT:]}, parameters "
-                        f"bitwise {same_params}")
-    del model, state, fresh_model, fresh, tree
-    torch.cuda.empty_cache()
-    out["resume"]["resume_s"] = time.perf_counter() - t_held - out["held_s"]
+    out["resume"] = resume_check(cell, failures)
     out["_failures"] = failures
     return out
 
 
+def resume_check(cell: TrainCell, failures: list) -> dict:
+    """At CHECK_BATCH x TRAIN_SEQ (the config of ``cell.resume_config`` where
+    given), a bfloat16 run saved after RESUME_AT steps (build/ must have
+    room for the state: checked first), taken to RESUME_AT + RESUME_MORE
+    steps, its parameters then kept on the host (two full states need not
+    fit the card); a fresh model and state restored from the checkpoint and
+    taken RESUME_MORE steps: losses and parameters bitwise the uninterrupted
+    run's. Appends to ``failures``."""
+    t0 = time.perf_counter()
+    config = cell.config if cell.resume_config is None else cell.resume_config
+    batches = train_batches(CHECK_BATCH, RESUME_AT + RESUME_MORE, arch=cell.arch)
+    ckpt_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt_dir.parent.mkdir(parents=True, exist_ok=True)
+    model, state, step = train_setup(cell, config=config)
+    need, free = state_bytes(state), shutil.disk_usage(ckpt_dir.parent).free
+    out = {"layers": model.cfg.num_layers, "state_bytes": need, "disk_free_bytes": free}
+    if free < 1.1 * need:
+        failures.append(f"resume: the checkpoint needs {need} bytes, build/ has {free} free")
+        return out
+    losses, t_save, t_tree = [], 0.0, 0.0
+    for i, b in enumerate(batches):
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        if i + 1 == RESUME_AT:
+            ts = time.perf_counter()
+            tree = state_tree(state)
+            t_tree = time.perf_counter() - ts
+            ckpt_lib.save(str(ckpt_dir), RESUME_AT, tree)
+            del tree
+            t_save = time.perf_counter() - ts
+    final = [p.detach().cpu() for p in model.parameters()]
+    del model, state, step
+    torch.cuda.empty_cache()
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt_dir.rglob("*") if f.is_file())
+    fresh_model, fresh, fstep = train_setup(cell, config=config)
+    ts = time.perf_counter()
+    tree, manifest = ckpt_lib.restore(str(ckpt_dir), state_tree(fresh, template=True))
+    t_read = time.perf_counter() - ts
+    load_state_tree(fresh, tree)
+    del tree
+    t_restore = time.perf_counter() - ts
+    resumed = []
+    for b in batches[RESUME_AT:]:
+        fresh, m = fstep(fresh, b)
+        resumed.append(float(m["loss"]))
+    same_params = all(torch.equal(a, b.to(a.device))
+                      for a, b in zip(fresh_model.parameters(), final))
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del fresh_model, fresh, fstep, final
+    torch.cuda.empty_cache()
+    out.update(saved_at=manifest["step"], losses=losses, resumed_losses=resumed,
+               losses_bitwise=resumed == losses[RESUME_AT:], params_bitwise=same_params,
+               checkpoint_bytes=ckpt_bytes, save_s=t_save, restore_s=t_restore,
+               save_tree_s=t_tree, restore_read_s=t_read,
+               leaves=len(manifest["keys"]), resume_s=time.perf_counter() - t0)
+    if resumed != losses[RESUME_AT:] or not same_params:
+        failures.append(f"resume: losses {resumed} against {losses[RESUME_AT:]}, parameters "
+                        f"bitwise {same_params}")
+    return out
+
+
+def reduced_fields(cell: TrainCell) -> dict:
+    """The line's ``reduced``: each config change as [published, run], the
+    resume check's apart."""
+    full = get_config(cell.arch)
+    red = {k: [getattr(full, k), v] for k, v in cell.config.items()}
+    if cell.resume_config is not None:
+        red["resume"] = {k: [getattr(full, k), v] for k, v in cell.resume_config.items()}
+    return red
+
+
 def train_phase(cell: TrainCell) -> tuple:
-    """``cell.arch`` whole, bf16 compute, f32 masters, remat "block", trained
-    on batches of TRAIN_BATCH x TRAIN_SEQ tokens: TRAIN_WARMUP steps, then
-    TRAIN_TIMED timed ones (steps/s, tokens/s, median ms/step, peak memory,
-    the kernels' forward and backward launches a step, ``cell.per_step``),
-    a profiled step (idle share, largest device items), then the rest to
-    TRAIN_STEPS: the last step's loss below the first's; then
-    train_held_checks."""
-    cfg = get_config(cell.arch)
+    """``cell.arch`` (``cell.config``'s changes), bf16 compute, f32 masters,
+    remat "block", trained on batches of TRAIN_BATCH x TRAIN_SEQ tokens:
+    TRAIN_WARMUP steps, then TRAIN_TIMED timed ones (steps/s, tokens/s,
+    median ms/step, peak memory, the kernels' forward and backward launches
+    a step, ``cell.per_step``), a profiled step (idle share, largest device
+    items), then the rest to TRAIN_STEPS: the last step's loss below the
+    first's, every loss and grad norm finite; each step's aux and, for moe,
+    the choices its dispatches dropped; then train_held_checks."""
+    cfg = train_config(cell)
+    ocfg = train_opt(cell)
     batches = train_batches(TRAIN_BATCH, TRAIN_STEPS, arch=cell.arch)
     with torch.enable_grad():
-        model, state, step = train_setup(arch=cell.arch)
-        state, first, _ = train_steps(state, step, batches[:TRAIN_WARMUP], cell.kernels)
-        torch.cuda.reset_peak_memory_stats()
-        walls, mets = [], list(first)
-        before = launches_of(cell.kernels)
-        for b in batches[TRAIN_WARMUP:TRAIN_WARMUP + TRAIN_TIMED]:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, m = step(state, b)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-            mets.append((float(m["loss"]), float(m["grad_norm"])))
-        launches = tuple(a - b for a, b in zip(launches_of(cell.kernels), before))
-        peak = torch.cuda.max_memory_allocated()
-        at = TRAIN_WARMUP + TRAIN_TIMED
-        it = iter(batches[at:at + 2])
+        with Routing() as route:
+            model, state, step = train_setup(cell)
+            weights_gib = sum(p.numel() * p.element_size() for p in model.parameters()) / 2**30
+            state_gib = state_bytes(state) / 2**30
+            masters = str(next(model.parameters()).dtype).replace("torch.", "")
+            state, first, _ = train_steps(state, step, batches[:TRAIN_WARMUP], cell.kernels)
+            torch.cuda.reset_peak_memory_stats()
+            walls, mets = [], list(first)
+            before = launches_of(cell.kernels)
+            for b in batches[TRAIN_WARMUP:TRAIN_WARMUP + TRAIN_TIMED]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, b)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                mets.append(step_metrics(m))
+            launches = tuple(a - b for a, b in zip(launches_of(cell.kernels), before))
+            peak = torch.cuda.max_memory_allocated()
+            at = TRAIN_WARMUP + TRAIN_TIMED
+            it = iter(batches[at:at + 2])
 
-        def one_step():
-            nonlocal state
-            state, m = step(state, next(it))
-            mets.append((float(m["loss"]), float(m["grad_norm"])))
+            def one_step():
+                nonlocal state
+                state, m = step(state, next(it))
+                mets.append(step_metrics(m))
 
-        prof = profile_window(one_step, "a train step", forbid=cell.forbid)
-        state, rest, _ = train_steps(state, step, batches[at + 2:], cell.kernels)
-        mets += rest
-        del model, state, step
-        torch.cuda.empty_cache()
+            prof = profile_window(one_step, "a train step", forbid=cell.forbid)
+            state, rest, _ = train_steps(state, step, batches[at + 2:], cell.kernels)
+            mets += rest
+            del model, state, step
+            torch.cuda.empty_cache()
         held = train_held_checks(cell)
     failures = held.pop("_failures")
     ms = statistics.median(walls) * 1e3
@@ -2730,20 +2949,31 @@ def train_phase(cell: TrainCell) -> tuple:
     line = {"phase": cell.phase, "arch": cfg.name, "layers": cfg.num_layers,
             "d_model": cfg.d_model, "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
             "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "compute": "bfloat16",
-            "masters": "float32", "remat": "block", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
-            "tokens_per_step": tokens,
-            "optimizer": "OptConfig(lr=3e-3, schedule='wsd', warmup 2, total 20)",
+            "masters": masters, "remat": "block", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "tokens_per_step": tokens, "reduced": reduced_fields(cell),
+            "optimizer": dataclasses.asdict(ocfg), "weights_gib": weights_gib,
+            "state_gib": state_gib,
             "median_ms_per_step": ms, "steps_s": 1e3 / ms, "tokens_s": tokens / ms * 1e3,
             "ms_per_step": [w * 1e3 for w in walls], "peak_mem_gib": peak / 2**30,
             "launches_per_step": {n: c / TRAIN_TIMED for n, c in zip(names, launches)},
             "losses": [m[0] for m in mets], "grad_norms": [m[1] for m in mets],
-            "profile": prof, "held": held}
+            "aux": [m[2] for m in mets], "profile": prof, "held": held}
+    if cfg.family == "moe":
+        calls = len(route.choices) // max(len(mets), 1)  # dispatches a step (layers x groups)
+        E = cfg.moe.num_experts
+        line.update(experts=E, top_k=cfg.moe.top_k, capacity_factor=cfg.moe.capacity_factor,
+                    dispatch_choices_per_step=sum(c.numel() for c in route.choices[:calls]),
+                    dropped_choices=[route.dropped(slice(i * calls, (i + 1) * calls))
+                                     for i in range(len(mets))],
+                    recompute_same=route.recompute_same())
+        if not line["recompute_same"]:
+            failures.append("a recomputed moe dispatch chose other experts than its forward")
     emit(line)
     if launches != tuple(TRAIN_TIMED * n for n in cell.per_step):
         failures.append(f"launches {dict(zip(names, launches))} in {TRAIN_TIMED} steps, "
                         f"expected {dict(zip(names, cell.per_step))} a step")
     if len(mets) != TRAIN_STEPS or not all(math.isfinite(l) and math.isfinite(g)
-                                           for l, g in mets):
+                                           for l, g, _ in mets):
         failures.append(f"{len(mets)} steps, non-finite loss or grad norm: {mets}")
     elif not mets[-1][0] < mets[0][0]:
         failures.append(f"the loss after {TRAIN_STEPS} steps, {mets[-1][0]}, is not below the "
@@ -2754,27 +2984,33 @@ def train_phase(cell: TrainCell) -> tuple:
 
 
 def train_cells() -> tuple:
-    """The three train phases: smollm-135m through the attention kernels (its
+    """The four train phases: smollm-135m through the attention kernels (its
     30 layers: 60 forward launches a step under remat, 30 backward),
-    xlstm-350m through the sLSTM kernels (12 pairs: 24 and 12; the held
-    checks at XLSTM_CHECK_SEQ, where the plain recurrence is ~20 launches a
-    step forward and ~40 backward), zamba2-1.2b through the attention
-    kernels (the shared block after each of its 38 // 6 = 6 groups: 12 and
-    6)."""
+    xlstm-350m at XLSTM_CUT through the sLSTM kernels (4 pairs: 8 and 4; the
+    held checks at XLSTM_CHECK_SEQ, where the plain recurrence is ~20
+    launches a step forward and ~40 backward; the resume at XLSTM_RESUME),
+    zamba2-1.2b at HYBRID_CUT through the attention kernels (the shared
+    block after each of its 14 // 6 = 2 groups: 4 and 2; the resume at
+    HYBRID_RESUME), dbrx-132b at
+    MOE_TRAIN_LAYERS through the attention kernels (2 and 1 a layer) on
+    MOE_OPT, its bfloat16 held steps with the routing pinned."""
     L = get_config(SERVE_ARCH).num_layers
-    P = get_config(XLSTM_ARCH).num_layers // 2
-    hcfg = get_config(HYBRID_ARCH)
+    P = cut(XLSTM_ARCH, XLSTM_CUT).num_layers // 2
+    hcfg = cut(HYBRID_ARCH, HYBRID_CUT)
     NG = hcfg.num_layers // hcfg.hybrid_attn_every
     attention = (flash_attention, flash_attention_bwd)
+    flash_calls = (("_flash_attention", flash_train_held), ("_flash_attention_bwd", flash_bwd_held))
     return (TrainCell("train", SERVE_ARCH, attention, (2 * L, L), forbid=LIBRARY_ATTENTION),
             TrainCell("train-xlstm", XLSTM_ARCH, (slstm_fused, slstm_fused_bwd), (2 * P, P),
                       check_seq=XLSTM_CHECK_SEQ, held_tol=XLSTM_HELD_TOL,
-                      held_calls=(("slstm", slstm_held), ("_slstm_fused_bwd", slstm_bwd_held))),
+                      held_calls=(("slstm", slstm_held), ("_slstm_fused_bwd", slstm_bwd_held)),
+                      config=XLSTM_CUT, resume_config=XLSTM_RESUME),
             TrainCell("train-hybrid", HYBRID_ARCH, attention, (2 * NG, NG),
-                      forbid=LIBRARY_ATTENTION, held_tol=HYBRID_HELD_TOL,
-                      held_calls=(("_flash_attention", flash_train_held),
-                                  ("_flash_attention_bwd", flash_bwd_held)),
-                      f64_attention=True))
+                      forbid=LIBRARY_ATTENTION, held_tol=HYBRID_HELD_TOL, held_calls=flash_calls,
+                      f64_attention=True, config=HYBRID_CUT, resume_config=HYBRID_RESUME),
+            TrainCell("train-moe", MOE_ARCH, attention, (2 * MOE_TRAIN_LAYERS, MOE_TRAIN_LAYERS),
+                      forbid=LIBRARY_ATTENTION, held_calls=flash_calls,
+                      config=dict(num_layers=MOE_TRAIN_LAYERS), opt=MOE_OPT, pin_routing=True))
 
 
 def main() -> None:
@@ -2863,6 +3099,11 @@ def main() -> None:
     hshape = dict(H=hcfg.num_heads, KVH=hcfg.num_kv_heads, hd=hcfg.head_dim, B=TRAIN_BATCH)
     hybrid_lines = {dtype: check_flash(gen, TRAIN_SEQ, dtype, **hshape)
                     for dtype in (torch.bfloat16, torch.float32)}
+    # dbrx's in the train-moe phase: 8 x 2048, 48 heads, 8 KV heads, hd 128
+    mcfg = get_config(MOE_ARCH)
+    mshape = dict(H=mcfg.num_heads, KVH=mcfg.num_kv_heads, hd=mcfg.head_dim, B=TRAIN_BATCH)
+    moe_lines = {dtype: check_flash(gen, TRAIN_SEQ, dtype, **mshape)
+                 for dtype in (torch.bfloat16, torch.float32)}
     vcfg, acfg = get_config(VLM_ARCH), get_config(AUDIO_ARCH)
     vshape = dict(H=vcfg.num_heads, KVH=vcfg.num_kv_heads, hd=vcfg.head_dim, B=ROWS)
     for dtype in (torch.bfloat16, torch.float32):
@@ -2875,11 +3116,13 @@ def main() -> None:
                     hd=acfg.head_dim, B=ROWS)
     # the attention backward: the train phases' shapes (smollm and zamba2, 8 x
     # 2048), ragged S, hd 32 and 128, non-causal
-    bwd_lines, hybrid_bwd_lines = {}, {}
+    bwd_lines, hybrid_bwd_lines, moe_bwd_lines = {}, {}, {}
     with time_limit(BWD_CHECK_S, "the flash_attention_bwd checks"):
         for dtype in (torch.bfloat16, torch.float32):
             bwd_lines[dtype] = check_flash_bwd(gen, TRAIN_SEQ, dtype, B=TRAIN_BATCH)
             hybrid_bwd_lines[dtype] = check_flash_bwd(gen, TRAIN_SEQ, dtype, **hshape)
+            moe_bwd_lines[dtype] = check_flash_bwd(gen, TRAIN_SEQ, dtype, **mshape)
+            torch.cuda.empty_cache()
             check_flash_bwd(gen, 517, dtype, B=2)
             check_flash_bwd(gen, 300, dtype, H=4, KVH=2, hd=32)
             check_flash_bwd(gen, 1024, dtype, hd=128)
@@ -2966,27 +3209,29 @@ def main() -> None:
     del ex, imgs
     phase_done("profile")
 
-    # 6. serving smollm-135m at full width through the flash kernel
-    model = build_model(serve_cfg, CallConfig(), device="cuda", seed=0)
-    _, flash_launches, eng = serve(model, serve_cfg, flash_attention, serve_cfg.num_layers,
+    # 6. serving smollm-135m at full width (SERVE_CUT) through the flash kernel
+    scfg = cut(SERVE_ARCH, SERVE_CUT)
+    model = build_model(scfg, CallConfig(), device="cuda", seed=0)
+    _, flash_launches, eng = serve(model, scfg, flash_attention, scfg.num_layers,
                                    logits_kernel_vs_plain(TOL[torch.float32]),
                                    "serve")
     phase_done("serve")
 
     # 7. where a prefill's and a decode step's device time goes
-    profile_serve(model, eng, serve_cfg, forbid=LIBRARY_ATTENTION)
+    profile_serve(model, eng, scfg, forbid=LIBRARY_ATTENTION)
     del model, eng
     torch.cuda.empty_cache()
     phase_done("profile-serve")
 
-    # 8. serving xlstm-350m at full width through the sLSTM kernel
-    xmodel = build_model(xcfg, CallConfig(), device="cuda", seed=0)
-    _, slstm_launches, xeng = serve(xmodel, xcfg, slstm_fused, xcfg.num_layers // 2,
+    # 8. serving xlstm-350m at full width (XLSTM_CUT) through the sLSTM kernel
+    xscfg = cut(XLSTM_ARCH, XLSTM_CUT)
+    xmodel = build_model(xscfg, CallConfig(), device="cuda", seed=0)
+    _, slstm_launches, xeng = serve(xmodel, xscfg, slstm_fused, xscfg.num_layers // 2,
                                     logits_xlstm, "serve-xlstm")
     phase_done("serve-xlstm")
 
     # 9. the same for xlstm-350m
-    profile_serve(xmodel, xeng, xcfg)
+    profile_serve(xmodel, xeng, xscfg)
     phase_done("profile-serve-xlstm")
 
     del xmodel, xeng
@@ -3017,12 +3262,12 @@ def main() -> None:
     phase_done("e2e-shard")
 
     # 16. streaming serving: smollm-135m through Engine.serve on a paged cache
-    model = build_model(serve_cfg, CallConfig(), device="cuda", seed=0)
-    traffic_launches, paged_eng, _ = serve_traffic_phase(model, serve_cfg)
+    model = build_model(scfg, CallConfig(), device="cuda", seed=0)
+    traffic_launches, paged_eng, _ = serve_traffic_phase(model, scfg)
     phase_done("serve-traffic")
 
     # 17. transient faults with retry-and-re-prefill, bfloat16 and float32
-    fault_launches, _ = serve_faults_phase(model, serve_cfg, paged_eng)
+    fault_launches, _ = serve_faults_phase(model, scfg, paged_eng)
     del model, paged_eng
     torch.cuda.empty_cache()
     phase_done("serve-faults")
@@ -3032,7 +3277,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_done("serve-moe")
 
-    # 20-21. serving zamba2-1.2b whole, contiguous and paged, and its profile windows
+    # 20-21. serving zamba2-1.2b (14 layers), contiguous and paged, and its profile windows
     hybrid_launches, hybrid_paged_launches, _ = serve_hybrid_phase()
     torch.cuda.empty_cache()
     phase_done("serve-hybrid")
@@ -3042,28 +3287,33 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_done("model-vlm")
 
-    # 24-25. musicgen-large whole: prefill and decode in lockstep
+    # 24-25. musicgen-large (12 layers): prefill and decode in lockstep
     audio_launches, _ = model_audio_phase()
     torch.cuda.empty_cache()
     phase_done("model-audio")
 
     # 26. training smollm-135m whole through the attention kernels, forward and backward
-    smollm_cell, xlstm_cell, hybrid_cell = train_cells()
+    smollm_cell, xlstm_cell, hybrid_cell, moe_cell = train_cells()
     _, train_launches = train_phase(smollm_cell)
     torch.cuda.empty_cache()
     phase_done("train")
 
-    # 27. training xlstm-350m whole through the sLSTM kernels, forward and backward
+    # 27. training xlstm-350m (8 layers) through the sLSTM kernels, forward and backward
     _, xtrain_launches = train_phase(xlstm_cell)
     torch.cuda.empty_cache()
     phase_done("train-xlstm")
 
-    # 28. training zamba2-1.2b whole through the attention kernels, the SSD under autograd
+    # 28. training zamba2-1.2b (14 layers) through the attention kernels, the SSD under autograd
     _, htrain_launches = train_phase(hybrid_cell)
     torch.cuda.empty_cache()
     phase_done("train-hybrid")
 
-    # 29. the phases' seconds, the kernels line, the card, the result
+    # 29. training dbrx-132b at full width (1 layer) with bf16 moments
+    _, mtrain_launches = train_phase(moe_cell)
+    torch.cuda.empty_cache()
+    phase_done("train-moe")
+
+    # 30. the phases' seconds, the kernels line, the card, the result
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
     emit({"kernels": [
         {"name": "com_matmul", "route": "cuda", "source": "src/repro_torch/csrc/com_matmul.cu",
@@ -3087,26 +3337,31 @@ def main() -> None:
                               "serve-hybrid": hybrid_launches,
                               "serve-hybrid-paged": hybrid_paged_launches,
                               "model-vlm": vlm_launches, "model-audio": audio_launches,
-                              "train": train_launches[0], "train-hybrid": htrain_launches[0]},
-         # a train-hybrid step's forward launches at zamba2's (8, 2048, 32, 32, 64)
+                              "train": train_launches[0], "train-hybrid": htrain_launches[0],
+                              "train-moe": mtrain_launches[0]},
+         # a train-hybrid step's forward launches at zamba2's (8, 2048, 32, 32, 64),
+         # a train-moe step's at dbrx's (8, 2048, 48, 8, 128)
          "train_hybrid_step": summary([hybrid_lines[torch.bfloat16]], hybrid_cell.per_step[0]),
-         **summary(flash_lines, serve_cfg.num_layers)},
+         "train_moe_step": summary([moe_lines[torch.bfloat16]], moe_cell.per_step[0]),
+         **summary(flash_lines, scfg.num_layers)},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/models/attention.py:159",
          "launches": train_launches[1],
-         "launches_by_path": {"train": train_launches[1], "train-hybrid": htrain_launches[1]},
+         "launches_by_path": {"train": train_launches[1], "train-hybrid": htrain_launches[1],
+                              "train-moe": mtrain_launches[1]},
          "train_hybrid_step": summary([hybrid_bwd_lines[torch.bfloat16]],
                                       hybrid_cell.per_step[1]),
+         "train_moe_step": summary([moe_bwd_lines[torch.bfloat16]], moe_cell.per_step[1]),
          "path": bwd_lines[torch.bfloat16]["path"],
          "mma_passes_per_pair": bwd_lines[torch.bfloat16]["mma_passes_per_pair"],
          "ptxas": {k: v for k, v in ptxas.items() if "wgmma" in k and "<64" in k},
-         **summary([bwd_lines[torch.bfloat16]], serve_cfg.num_layers)},
+         **summary([bwd_lines[torch.bfloat16]], smollm_cell.per_step[1])},
         {"name": "slstm_fused", "route": "cuda", "source": "src/repro_torch/csrc/slstm.cu",
          "replaces": "src/repro/kernels/slstm.py:70",
          "launches": slstm_launches, "launches_by_path": {"serve-xlstm": slstm_launches,
                                                           "train-xlstm": xtrain_launches[0]},
-         **summary(slstm_lines, xcfg.num_layers // 2)},
+         **summary(slstm_lines, xscfg.num_layers // 2)},
         {"name": "slstm_fused_bwd", "route": "cuda", "source": "src/repro_torch/csrc/slstm.cu",
          "replaces": "src/repro/models/xlstm.py:240",
          "replaces_note": "no Pallas kernel: jax.grad of the lax.scan over _slstm_cell",
@@ -3116,7 +3371,7 @@ def main() -> None:
          **{k: slstm_bwd_lines[torch.bfloat16][k] for k in (
              "rows_per_cluster", "cluster", "product", "step_floor_us", "floor_bound_ms")},
          "ptxas": {k: v for k, v in ptxas.items() if "slstm_bwd" in k},
-         **summary([slstm_bwd_lines[torch.bfloat16]], xcfg.num_layers // 2)},
+         **summary([slstm_bwd_lines[torch.bfloat16]], xlstm_cell.per_step[1])},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

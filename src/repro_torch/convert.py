@@ -226,7 +226,9 @@ def stack_tree(cfg, model, flat: Mapping[str, Any]) -> Dict[str, Any]:
             shape = tuple(1 + max(i[d] for i in order) for d in range(len(order[0])))
             if len(order) != int(np.prod(shape)):
                 raise ValueError(f"{jname}: {len(order)} entries do not fill {shape}")
-            leaf = np.stack([entries[i] for i in order]).reshape(shape + entries[order[0]].shape)
+            # one entry is stacked as a view of it
+            leaf = (entries[order[0]][None] if len(order) == 1 else
+                    np.stack([entries[i] for i in order])).reshape(shape + entries[order[0]].shape)
         node = tree
         *path, last = jname.split(".")
         for comp in path:

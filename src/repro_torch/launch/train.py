@@ -5,6 +5,7 @@
         --steps 50 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt [--resume]
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch dbrx-132b --reduced --device cpu
 
 The port's copy of ``repro.launch.train``: the same flags, plus
 ``--device``, in one process. The model is built with
@@ -14,8 +15,9 @@ from ``SyntheticTokens`` (seed ``--seed``), the optimizer is AdamW with
 ``--ckpt-dir`` every ``--ckpt-every`` steps in the reference's layout, and
 ``--resume`` continues from the latest one; the loop runs under the port's
 ``Supervisor``, which saves and, when a step raises, restores and retries.
-Trains the dense, ssm and hybrid families;
-moe, vlm and audio raise ``NotImplementedError`` (ROADMAP Queue 1, item 4). Prints
+Trains the dense, moe, ssm and hybrid families (the moe loss adds 0.01 times
+the layers' load-balance loss); vlm and audio raise ``NotImplementedError``
+(ROADMAP Queue 1, item 4). Prints
 ``step … loss … lr … gnorm … ms/step`` every ``--log-every`` steps and
 returns the logged losses.
 """
@@ -73,7 +75,7 @@ def main(argv=None):
     if args.resume and args.ckpt_dir:
         latest = ckpt_lib.latest_step(args.ckpt_dir)
         if latest is not None:
-            tree, manifest = ckpt_lib.restore(args.ckpt_dir, state_tree(state))
+            tree, manifest = ckpt_lib.restore(args.ckpt_dir, state_tree(state, template=True))
             load_state_tree(state, tree)
             start_step = manifest["step"]
             print(f"resumed from step {start_step}")
@@ -97,7 +99,7 @@ def main(argv=None):
             ckpt_lib.save(args.ckpt_dir, step, state_tree(st))
 
     def restore_fn():
-        tree, man = ckpt_lib.restore(args.ckpt_dir, state_tree(state))
+        tree, man = ckpt_lib.restore(args.ckpt_dir, state_tree(state, template=True))
         return load_state_tree(state, tree), man["step"]
 
     # checkpoints every --ckpt-every steps; a step that raises is retried from

@@ -58,18 +58,20 @@ the vlm ``selfs`` leaves, where it is 2
 (:func:`repro_torch.serve.kvcache.batch_axes` finds it).
 Prefill and decode write into the cache they are given, in place, where
 JAX returns a new one. The moe load-balance loss is computed by
-:func:`repro_torch.models.moe.moe_forward` and not returned: serving has no
-use for it.
+:func:`repro_torch.models.moe.moe_forward`; serving drops it, training sums
+it over the moe layers (:meth:`Block.forward_train`).
 
 Training (:meth:`Model.loss`, :meth:`Model.forward_train`) is ported for the
-dense, ssm and hybrid families: the full-sequence forward with grad, each
-layer (ssm: each ``[mLSTM, sLSTM]`` pair; hybrid: each Mamba2 block and each
-use of the shared block) recomputed in the backward under ``CallConfig.remat
+dense, moe, ssm and hybrid families: the full-sequence forward with grad,
+each layer (ssm: each ``[mLSTM, sLSTM]`` pair; hybrid: each Mamba2 block and
+each use of the shared block; moe every other layer: the dense and the moe
+layer of a group each) recomputed in the backward under ``CallConfig.remat
 == "block"`` (the reference's ``jax.checkpoint`` per scanned layer, pair or
-hybrid group), the attention differentiated through
+group), the attention differentiated through
 :class:`repro_torch.kernels.ops.FlashAttention`, the sLSTM recurrence through
-:class:`repro_torch.kernels.ops.SLSTMFused`, the Mamba2 / SSD chunk loop by
-autograd. ``model.requires_grad_()``
+:class:`repro_torch.kernels.ops.SLSTMFused`, the Mamba2 / SSD chunk loop and
+the moe dispatch, experts and load-balance loss by autograd.
+``model.requires_grad_()``
 makes the parameters trainable; the tied ``embed.table`` is one parameter.
 ``forward``, ``prefill`` and ``decode_step`` run under ``no_grad`` whatever
 that flag says.
@@ -96,9 +98,8 @@ Cache = Tuple[torch.Tensor, ...]  # the reference's cache leaves (see the module
 FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")  # the reference's layer layouts
 REMAT = ("none", "block")
 # what training each family still needs (ROADMAP Queue 1, item 4); dense,
-# ssm and hybrid train
+# moe, ssm and hybrid train
 UNTRAINED = {
-    "moe": "the moe load-balance loss out of the forward (moe_forward's aux)",
     "vlm": "the cross-attention groups and image embeddings under the train forward",
     "audio": "the codebook loss over (B, S, K, V) logits",
 }
@@ -160,12 +161,21 @@ class Block(nn.Module):
 
     def forward(self, x, positions, cfg: ArchConfig, cc: CallConfig,
                 cache: Optional[Cache] = None, cache_pos=None):
-        norm = make_norm(cfg.norm)
-        y = attn_lib.attention_block(
-            self.attn, norm(self.ln1, x), positions, cfg.num_heads, cfg.num_kv_heads,
-            rope_theta=cfg.rope_theta, rope_fraction=cfg.rope_fraction,
+        return self._ffn(self._self_attn(x, positions, cfg, cc, cache, cache_pos), cfg, cc)[0]
+
+    def forward_train(self, x, positions, cfg: ArchConfig, cc: CallConfig):
+        """The whole sequence without a cache (training): ``(x, aux)``,
+        ``aux`` the moe layer's float32 load-balance loss, None for a layer
+        without one (the reference's zero, which adds nothing)."""
+        return self._ffn(self._self_attn(x, positions, cfg, cc), cfg, cc)
+
+    def _self_attn(self, x, positions, cfg: ArchConfig, cc: CallConfig, cache=None,
+                   cache_pos=None):
+        """``x + attn(ln1(x))``, writing the layer's KV rows into ``cache`` if given."""
+        return x + attn_lib.attention_block(
+            self.attn, make_norm(cfg.norm)(self.ln1, x), positions, cfg.num_heads,
+            cfg.num_kv_heads, rope_theta=cfg.rope_theta, rope_fraction=cfg.rope_fraction,
             block_kv=cc.block_kv, backend=cc.kernel_backend, kv_cache=cache, cache_pos=cache_pos)
-        return self._ffn(x + y, cfg, cc)
 
     def forward_cross(self, x, k, v, cfg: ArchConfig, cc: CallConfig):
         """The cross layer: ``x + cross_attn(ln1(x); k, v)`` against image
@@ -173,22 +183,24 @@ class Block(nn.Module):
         y = attn_lib.cross_attention_kv(self.attn, make_norm(cfg.norm)(self.ln1, x), k, v,
                                         cfg.num_heads, block_kv=cc.block_kv,
                                         backend=cc.kernel_backend)
-        return self._ffn(x + y, cfg, cc)
+        return self._ffn(x + y, cfg, cc)[0]
 
     def _ffn(self, x, cfg: ArchConfig, cc: CallConfig):
-        """``x + mlp(ln2(x))``, or the moe, where the layer has a feed-forward part."""
+        """``(x + mlp(ln2(x)), None)``, or ``(x + moe(ln2(x)), aux)``, where
+        the layer has a feed-forward part; ``(x, None)`` where it has none."""
+        aux = None
         if cfg.d_ff > 0:
             h = make_norm(cfg.norm)(self.ln2, x)
             if self.is_moe_layer:
                 moe = cfg.moe
-                y, _ = moe_lib.moe_forward(
+                y, aux = moe_lib.moe_forward(
                     self.moe, h, top_k=moe.top_k, num_experts=moe.num_experts,
                     capacity_factor=moe.capacity_factor, dp_size=cc.dp_size,
                     ep_split=moe.ep_split)
             else:
                 y = mlp(self.mlp, h, cfg.activation)
             x = x + y
-        return x
+        return x, aux
 
 
 class MoEGroup(nn.Module):
@@ -537,15 +549,18 @@ class Model(nn.Module):
 
     # -------------------- training --------------------
     def forward_train(self, tokens, *, image_embeds=None):
-        """The full-sequence forward with grad (dense, ssm and hybrid
+        """The full-sequence forward with grad (dense, moe, ssm and hybrid
         families): tokens (B, S) -> ``(logits (B, S, V) in the compute dtype,
-        aux)``, ``aux`` the float32 auxiliary loss (0 for all three: no
-        block of theirs has a load-balance loss). Under ``remat == "block"``
-        and grad, each layer (ssm: each pair; hybrid: each Mamba2 block and
-        each use of the shared block) runs in ``torch.utils.checkpoint``
-        (non-reentrant): only its input is kept, and the backward runs it
-        again. The hybrid stack walks its groups as :meth:`_hybrid` does;
-        the shared block's gradient is autograd's sum over its uses."""
+        aux)``, ``aux`` the float32 sum of the moe layers' load-balance
+        losses in layer order, as the reference's scan carries it (0 for the
+        other families: no block of theirs has one). Under ``remat ==
+        "block"`` and grad, each layer (ssm: each pair; hybrid: each Mamba2
+        block and each use of the shared block; moe every other layer: the
+        dense and the moe layer of a group each) runs in
+        ``torch.utils.checkpoint`` (non-reentrant): only its input is kept,
+        and the backward runs it again, the moe dispatch included. The
+        hybrid stack walks its groups as :meth:`_hybrid` does; the shared
+        block's gradient is autograd's sum over its uses."""
         check_trainable(self.cfg)
         cfg, cc = self.cfg, self.cc
         tokens = self._tokens(tokens)
@@ -563,13 +578,13 @@ class Model(nn.Module):
                     calls.append((self.shared_attn, (positions, cfg, cc)))
                 calls += [(blk.forward_train, (cfg,)) for blk in getattr(self, "tail", ())]
             else:
-                calls = [(blk, (positions, cfg, cc)) for blk in self._attn_layers()]
-        for fn, args in calls:
-            if remat:
-                x = checkpoint(fn, x, *args, use_reentrant=False)
-            else:
-                x = fn(x, *args)
+                calls = [(blk.forward_train, (positions, cfg, cc)) for blk in self._attn_layers()]
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        for fn, args in calls:
+            out = checkpoint(fn, x, *args, use_reentrant=False) if remat else fn(x, *args)
+            x, a = out if isinstance(out, tuple) else (out, None)
+            if a is not None:
+                aux = aux + a
         return self._logits(x), aux
 
     def loss(self, batch):
@@ -641,8 +656,8 @@ def check_trainable(cfg: ArchConfig) -> None:
     if cfg.family in UNTRAINED:
         raise NotImplementedError(
             f"{cfg.name}: training the {cfg.family} family is not ported yet (ROADMAP Queue 1, "
-            f"item 4): it needs {UNTRAINED[cfg.family]}; the dense, ssm and hybrid families "
-            f"train")
+            f"item 4): it needs {UNTRAINED[cfg.family]}; the dense, moe, ssm and hybrid "
+            f"families train")
 
 
 def build_model(cfg: ArchConfig, cc: Optional[CallConfig] = None, *, device=None,

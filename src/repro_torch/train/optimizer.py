@@ -13,8 +13,12 @@ objects.
 The reference updates stacked leaves of more than 2e9 elements slice by
 slice (``lax.map``), so that XLA's float32 temporaries stay one layer's
 size. The port's parameters are per layer already (``blocks.<l>.*``, no
-stacked leaf), and PyTorch frees each leaf's temporaries before the next:
-there is nothing to chunk.
+stacked leaf), but one layer's leaf can be large (dbrx-132b's experts:
+1.06e9 elements, 4.2 GB of float32 for each of the update's ~7
+temporaries), so the port updates any leaf of more than ``SLICE_ELEMENTS``
+elements in slices of its first axis. Every operation of the update is
+elementwise or over the last axis (the int8 scales), so the slices give
+the bits of one pass.
 """
 from __future__ import annotations
 
@@ -25,6 +29,9 @@ from typing import Any, Dict, Iterable, Mapping, Tuple, Union
 import torch
 
 Moment = Union[torch.Tensor, Dict[str, torch.Tensor]]
+# a leaf larger than this is updated in slices of its first axis, each of
+# at most this many elements (1 GiB of float32) where a row allows it
+SLICE_ELEMENTS = 1 << 28
 
 
 @dataclass(frozen=True)
@@ -156,12 +163,29 @@ def _store(dst: Moment, new: Moment) -> None:
         dst.copy_(new)
 
 
+def _slices(shape, limit: int) -> list:
+    """Slices of the first axis that cut a leaf of ``shape`` into pieces of
+    at most ``limit`` elements (one row at least); the whole leaf (``...``)
+    where it fits, or where it has fewer than two axes (its last axis is a
+    row of the int8 scales)."""
+    n = math.prod(shape)
+    if len(shape) < 2 or n <= limit:
+        return [...]
+    rows = max(1, limit // (n // shape[0]))
+    return [slice(i, i + rows) for i in range(0, shape[0], rows)]
+
+
+def _part(m: Moment, s) -> Moment:
+    return {k: t[s] for k, t in m.items()} if _is_qleaf(m) else m[s]
+
+
 @torch.no_grad()
 def adamw_update(params: Mapping[str, torch.Tensor], grads: Mapping[str, torch.Tensor],
                  opt_state: Dict[str, Any], cfg: OptConfig):
     """One AdamW step, leaf by leaf, in place: returns ``(params, opt_state,
     {"lr", "grad_norm"})`` with ``params`` and ``opt_state`` the objects
-    given, overwritten (see the module docstring)."""
+    given, overwritten (see the module docstring); a leaf of more than
+    ``SLICE_ELEMENTS`` elements in slices of its first axis."""
     step = opt_state["step"] + 1
     lr = schedule_lr(cfg, step)
     gnorm = global_norm([grads[n] for n in params])
@@ -171,21 +195,23 @@ def adamw_update(params: Mapping[str, torch.Tensor], grads: Mapping[str, torch.T
     stepf = step.to(torch.float32)
     bc1 = 1 - b1 ** stepf
     bc2 = 1 - b2 ** stepf
-    for name, p in params.items():
-        g = grads[name].float() * clip
-        m, v = opt_state["m"][name], opt_state["v"][name]
-        m_f = _dequant(m) if _is_qleaf(m) else m.float()
-        v_f = _dequant(v) if _is_qleaf(v) else v.float()
-        m_f = b1 * m_f + (1 - b1) * g
-        v_f = b2 * v_f + (1 - b2) * torch.square(g)
-        update = (m_f / bc1) / (torch.sqrt(v_f / bc2) + cfg.eps)
-        pf = p.float()
-        p.copy_((pf - lr * (update + cfg.weight_decay * pf)).to(p.dtype))
-        if _is_qleaf(m):
-            m_f, v_f = _quant(m_f, True), _quant(v_f, False)
-        elif m.dtype == torch.bfloat16:
-            m_f, v_f = m_f.to(torch.bfloat16), v_f.to(torch.bfloat16)
-        _store(m, m_f)
-        _store(v, v_f)
+    for name, leaf in params.items():
+        for s in _slices(leaf.shape, SLICE_ELEMENTS):
+            p = leaf[s]
+            g = grads[name][s].float() * clip
+            m, v = _part(opt_state["m"][name], s), _part(opt_state["v"][name], s)
+            m_f = _dequant(m) if _is_qleaf(m) else m.float()
+            v_f = _dequant(v) if _is_qleaf(v) else v.float()
+            m_f = b1 * m_f + (1 - b1) * g
+            v_f = b2 * v_f + (1 - b2) * torch.square(g)
+            update = (m_f / bc1) / (torch.sqrt(v_f / bc2) + cfg.eps)
+            pf = p.float()
+            p.copy_((pf - lr * (update + cfg.weight_decay * pf)).to(p.dtype))
+            if _is_qleaf(m):
+                m_f, v_f = _quant(m_f, True), _quant(v_f, False)
+            elif m.dtype == torch.bfloat16:
+                m_f, v_f = m_f.to(torch.bfloat16), v_f.to(torch.bfloat16)
+            _store(m, m_f)
+            _store(v, v_f)
     opt_state["step"].copy_(step)
     return params, opt_state, {"lr": lr, "grad_norm": gnorm}

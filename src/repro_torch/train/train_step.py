@@ -99,35 +99,48 @@ def make_train_step(model, opt_cfg: OptConfig, *, accum_steps: int = 1,
 # ---------------------------------------------------------------------------
 
 
-def _flat_moments(moments: Dict[str, Any]) -> Dict[str, Any]:
+def _flat_moments(moments: Dict[str, Any], host) -> Dict[str, Any]:
     flat = {}
     for name, m in moments.items():
         if _is_qleaf(m):
-            flat.update({f"{name}.{k}": _host(t) for k, t in m.items()})
+            flat.update({f"{name}.{k}": host(t) for k, t in m.items()})
         else:
-            flat[name] = _host(m)
+            flat[name] = host(m)
     return flat
 
 
-def state_tree(state: Dict[str, Any]) -> Dict[str, Any]:
+def _placeholder(t) -> np.ndarray:
+    return np.zeros(())
+
+
+def state_tree(state: Dict[str, Any], *, template: bool = False) -> Dict[str, Any]:
     """The state as the reference's train-state tree: ``{"opt": {"m",
     "step", "v"}, "params", "rng"}`` with the parameters and moments
     stacked as ``repro.models.transformer.Model.init`` stacks them, numpy
-    leaves (bfloat16 moments as ml_dtypes' bfloat16, as JAX holds them)."""
+    leaves (bfloat16 moments as ml_dtypes' bfloat16, as JAX holds them).
+    With ``template`` every leaf is a 0-d placeholder: the structure alone,
+    which is all ``checkpoint.restore`` reads of its template, with nothing
+    copied off the card."""
     model = state["params"]
-    stack = lambda d: stack_tree(model.cfg, model, _flat_moments(d))  # noqa: E731
+    host = _placeholder if template else _host
+    stack = lambda d: stack_tree(model.cfg, model, _flat_moments(d, host))  # noqa: E731
     opt = state["opt"]
-    return {"opt": {"m": stack(opt["m"]), "step": _host(opt["step"]), "v": stack(opt["v"])},
-            "params": model_params_from_port(model), "rng": np.asarray(state["rng"])}
+    params = stack(dict(model.state_dict())) if template else model_params_from_port(model)
+    return {"opt": {"m": stack(opt["m"]), "step": host(opt["step"]), "v": stack(opt["v"])},
+            "params": params, "rng": np.asarray(state["rng"])}
 
 
 def _tensor(a) -> torch.Tensor:
-    """A restored leaf as a tensor. A bfloat16 leaf comes back from np.load
-    as 2-byte void (its bits), or as ml_dtypes' bfloat16 if never saved."""
+    """A restored leaf as a tensor, sharing its memory where it can (it is
+    only read, to be copied into the state). A bfloat16 leaf comes back from
+    np.load as 2-byte void (its bits), or as ml_dtypes' bfloat16 if never
+    saved."""
     a = np.asarray(a)
+    if not (a.flags.writeable and a.flags.c_contiguous):
+        a = np.array(a)  # 0-d stays 0-d
     if a.dtype.name == "bfloat16" or a.dtype == np.dtype("V2"):
-        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(np.array(a))  # a copy, 0-d stays 0-d
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 @torch.no_grad()

@@ -8,7 +8,8 @@ package's, on the CPU.
   uncommitted directory ignored, and a checkpoint written by either package
   restored by the other with equal keys and leaves, for plain trees and
   for reduced smollm-135m's whole train state (fp32 and int8 moments;
-  bf16 moments restore in the port from either package's checkpoint).
+  bf16 moments restore in the port from either package's checkpoint); the
+  restore's one-pass reader against ``np.load``.
 * ``plan_remesh`` equals the reference's over a grid.
 """
 import os
@@ -140,6 +141,37 @@ def _same_checkpoint(got, want, man_got, man_want):
     for a, b in zip(fg, fw):
         assert np.asarray(a).dtype == np.asarray(b).dtype
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("writer", ["savez", "savez_compressed"])
+def test_restore_reads_every_npz_member_as_np_load(tmp_path, writer):
+    """The restore's one-pass reader gives np.load's arrays (dtype, shape,
+    order and bytes) for float32, int8, 0-d, empty, Fortran-order and
+    bfloat16 (2-byte void) leaves; compressed members go through np.load;
+    a flipped byte fails the member's CRC."""
+    import ml_dtypes
+    import zipfile
+
+    arrays = {"leaf_0": np.arange(12, dtype=np.float32).reshape(3, 4),
+              "leaf_1": np.asarray(np.int32(5)), "leaf_2": np.zeros((0, 3), np.float32),
+              "leaf_3": np.asfortranarray(np.arange(6.0).reshape(2, 3)),
+              "leaf_4": np.arange(6, dtype=np.float32).astype(ml_dtypes.bfloat16),
+              "leaf_5": np.arange(-5, 5, dtype=np.int8)}
+    path = str(tmp_path / "shard.npz")
+    getattr(np, writer)(path, **arrays)
+    got = ck._loadz(path, list(arrays))
+    with np.load(path) as want:
+        for name, g in zip(arrays, got):
+            w = want[name]
+            assert (g.dtype, g.shape, g.flags.f_contiguous) == (w.dtype, w.shape, w.flags.f_contiguous)
+            assert g.tobytes(order="A") == w.tobytes(order="A"), name
+    if writer == "savez":
+        raw = bytearray(open(path, "rb").read())
+        at = raw.find(arrays["leaf_0"].tobytes())
+        raw[at + 5] ^= 1
+        open(path, "wb").write(bytes(raw))
+        with pytest.raises(zipfile.BadZipFile, match="leaf_0"):
+            ck._loadz(path, list(arrays))
 
 
 def test_checkpoints_cross_between_the_packages(tmp_path):

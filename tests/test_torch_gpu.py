@@ -687,6 +687,7 @@ BWD_CASES = [
     (2, 333, 9, 3, 64, True),    # S neither a multiple of 64 nor of 128
     (1, 256, 4, 4, 64, True),    # G = 1
     (2, 517, 32, 32, 64, True),  # zamba2-1.2b's shared block: 32 heads, G = 1
+    (2, 517, 48, 8, 128, True),  # dbrx-132b's attention: 48 heads, G = 6, hd 128
 ]
 
 
@@ -916,6 +917,41 @@ def test_reduced_zamba2_train_steps_through_the_kernels(cuda, dtype):
 
     _kernel_steps_match_plain(cuda, dtype, "zamba2-1.2b", (flash_attention, flash_attention_bwd),
                               (2 * 2, 2), num_layers=5)
+
+
+# reduced dbrx-132b widened to hd 128 and G = 6, so the hd 128 kernels run:
+# 2 layers of 6 heads over 1 KV head, 4 experts top-2 at the published
+# capacity factor 1.25 (the dispatch drops choices)
+DBRX_HD128 = dict(d_model=768, num_heads=6, num_kv_heads=1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reduced_dbrx_train_steps_through_the_kernels(cuda, dtype):
+    """Reduced dbrx-132b (DBRX_HD128) through the attention kernels against
+    the plain attention; under remat 2 forward and 1 backward launch a layer
+    and step."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    L = get_config("dbrx-132b").reduced().num_layers
+    _kernel_steps_match_plain(cuda, dtype, "dbrx-132b", (flash_attention, flash_attention_bwd),
+                              (2 * L, L), **DBRX_HD128)
+
+
+def test_reduced_dbrx_bf16_train_steps_give_the_same_bits_twice(cuda):
+    """Two runs of the same two bfloat16 train steps (the dispatch's
+    index_add_ and its backward's index_put_ on the card among them): the
+    same losses, grad norms and parameters, bit for bit."""
+    runs = []
+    for _ in range(2):
+        model, state, step = _train_setup(cuda, None, torch.bfloat16, "dbrx-132b", **DBRX_HD128)
+        mets = []
+        for batch in _train_batches(2):
+            state, m = step(state, batch)
+            mets.append((float(m["loss"]), float(m["grad_norm"]), float(m["aux"])))
+        runs.append((mets, [p.detach().clone() for p in model.parameters()]))
+        del model, state, step
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
 
 
 def test_train_resume_is_bitwise_on_the_card(cuda, tmp_path):
