@@ -3,23 +3,25 @@
 
     python3 chip_smoke.py        # from the repository root; one CUDA card, nvcc
 
-Thirteen paths: the compiled VGG-16 executor (phases 3-5, and split over two
-shards in phase 15), serving smollm-135m (phases 3, 6 and 7; streaming, paged
-and faulted in phases 16-17) at 10 of its 30 layers and serving xlstm-350m
-(phases 3, 8 and 9) at 8 of its 24, both at their full published widths, the
-paper's Tab. IV evaluation and design-space sweep (phases 10-12), VGG-16
-compiled around faults and from a searched mapping (phases 13-14), serving
-dbrx-132b at full width with its depth cut to 4 layers (phases 18-19),
-serving zamba2-1.2b at full width with its depth cut to 14 layers,
-contiguous and paged (phases 20-21), and the model's own prefill and decode
-of llama-3.2-vision-90b at full width cut to 2 of its 20 groups (phases
-22-23) and of musicgen-large at 12 of its 48 layers (phases 24-25), which no
-engine serves, and training smollm-135m whole (phase 26), xlstm-350m at 8 of
-its 24 layers (phase 27), zamba2-1.2b at 14 of its 38 (phase 28) and
-dbrx-132b at full width with its depth cut to 1 layer (phase 29). Every cut
-depth (SERVE_CUT, XLSTM_CUT, HYBRID_CUT, AUDIO_CUT, MOE_LAYERS,
-MOE_TRAIN_LAYERS, VLM_LAYERS) is in its phase lines' "reduced"; it keeps the
-script near half its time limit.
+Fourteen paths: the compiled VGG-16 executor (phases 3-5, and split over
+two shards in phase 15), serving smollm-135m (phases 3, 6 and 7; streaming,
+paged and faulted in phases 16-17) at 5 of its 30 layers and serving
+xlstm-350m (phases 3, 8 and 9) at 4 of its 24, both at their full published
+widths, the paper's Tab. IV evaluation and design-space sweep (phases
+10-12), VGG-16 compiled around faults and from a searched mapping (phases
+13-14), serving dbrx-132b at full width with its depth cut to 2 layers
+(phases 18-19), serving zamba2-1.2b at full width with its depth cut to 8
+layers, contiguous and paged (phases 20-21), and the model's own prefill
+and decode of llama-3.2-vision-90b at full width cut to 2 of its 20 groups
+(phases 22-23) and of musicgen-large at 12 of its 48 layers (phases 24-25),
+which no engine serves, and training smollm-135m at 10 of its 30 layers
+(phase 26), xlstm-350m at 4 of its 24 (phase 27), zamba2-1.2b at 14 of its
+38 (phase 28), dbrx-132b at full width with its depth cut to 1 layer (phase
+29) and llama-3.2-vision-90b at full width with its depth cut to 1 of its
+20 groups (phase 30). Every cut depth (SERVE_CUT, TRAIN_CUT, XLSTM_CUT,
+HYBRID_CUT, HYBRID_SERVE_CUT, AUDIO_CUT, MOE_LAYERS, MOE_TRAIN_LAYERS,
+VLM_LAYERS, VLM_TRAIN_CUT) is in its phase lines' "reduced"; it keeps the
+script near two thirds of its time limit.
 Phases, each printing JSON lines:
 
 1. card      — the card's name and power limit (nvidia-smi), torch and CUDA versions;
@@ -63,8 +65,12 @@ Phases, each printing JSON lines:
                atol 1e-4 of max|plain|, tests/test_layers.py:121) and
                bfloat16 (2e-2 of max|plain|; each element's error over one
                rounding reported), and both kernels at the train-hybrid
-               phase's (8, 2048, 32, 32, 64) and the train-moe phase's
-               (8, 2048, 48, 8, 128): a second call's bits, the
+               phase's (8, 2048, 32, 32, 64), the train-moe phase's
+               (8, 2048, 48, 8, 128) and the train-vlm phase's self
+               (8, 2048, 64, 8, 128; bfloat16) and cross shapes (Sq 2,048
+               against Skv 1,601 = 25 x 64 + 1 keys, non-causal; the
+               forward writing lse) and the backward at a small ragged
+               Sq 300 against Skv 77: a second call's bits, the
                forward's out bitwise with and without lse, lse against the
                plain lse; ms,
                graph_ms, the bound (5 products of 2 hd flop a kept pair),
@@ -86,12 +92,12 @@ Phases, each printing JSON lines:
                share and the kernels by time; fails if a cuBLAS, cuDNN or
                CUTLASS kernel ran in it (every product is the port's own);
 6. serve     — smollm-135m (d_model 576, 9 heads, 3 KV heads, vocab 49152,
-               tied) with its 30 layers cut to 10 (SERVE_CUT, the line's
+               tied) with its 30 layers cut to 5 (SERVE_CUT, the line's
                "reduced"), bf16, weights drawn from seed 0: 16 greedy
                requests with prompt lengths from numpy.random.default_rng(2)
                uniform in 128-1024, 64 new tokens each, 8 slots, max_seq 2048,
                through Engine.generate: wall time, tokens/s, median TTFT and
-               decode step, peak memory, flash_attention launches (10 per
+               decode step, peak memory, flash_attention launches (5 per
                prefill); the tokens against Engine.generate_sequential; the
                last-token logits of every request's prefill against the same
                model with the plain attention, in float32 and in bfloat16;
@@ -99,10 +105,10 @@ Phases, each printing JSON lines:
                fails if a library attention kernel (flash_fwd, fmha,
                efficient_attention, cuDNN) runs in the prefill;
 8. serve-xlstm — xlstm-350m (d_model 1024, 4 heads of 256, vocab 50304,
-               untied) with its 24 layers (12 [mLSTM, sLSTM] pairs) cut to 8
+               untied) with its 24 layers (12 [mLSTM, sLSTM] pairs) cut to 4
                (XLSTM_CUT, the line's "reduced"), bf16, weights drawn
                from seed 0, the same 16-request wave as phase 6: the same
-               numbers, slstm_fused launches (4 per prefill, each a cluster of
+               numbers, slstm_fused launches (2 per prefill, each a cluster of
                8 CTAs per head), the tokens
                against generate_sequential; then, on four of the prompts (the
                shortest, the longest, two between: the plain recurrence is a
@@ -188,13 +194,13 @@ Phases, each printing JSON lines:
                a poisoned token halts with the reference's RuntimeError;
 18. serve-moe — dbrx-132b at its published widths (d_model 6144, 48 heads, 8
                KV heads, d_ff 10752, 16 experts top-4, vocab 100352, rope
-               theta 5e5) with its 40 layers cut to 4 (the line's "reduced";
-               53.2 GiB of float32 weights), bf16, weights from seed 0,
+               theta 5e5) with its 40 layers cut to 2 (the line's "reduced";
+               ~29 GiB of float32 weights), bf16, weights from seed 0,
                capacity_factor 4.5 (the engine guard's drop-free value for
                8 slots): 8 greedy requests, prompts uniform in 128-512 from
                numpy.random.default_rng(2), 32 new tokens each, 8 slots,
                max_seq 1024, through Engine.generate: phase 6's numbers,
-               4 flash_attention launches a prefill, the tokens against
+               2 flash_attention launches a prefill, the tokens against
                generate_sequential, no expert choice dropped (served run and
                oracle); every prefill's last-token logits with the kernel
                against the plain attention: float32 within 2e-5 of
@@ -205,11 +211,11 @@ Phases, each printing JSON lines:
 20. serve-hybrid — zamba2-1.2b at full width (Mamba2 blocks of 64 SSD heads
                of 64, state 64, chunk 256, in groups of 6 each followed by
                the shared attention + MLP block, then tail blocks; d_model
-               2048, vocab 32000) with its 38 layers cut to 14 (2 of its 6
-               groups and the 2 tail blocks: HYBRID_CUT, the lines'
+               2048, vocab 32000) with its 38 layers cut to 8 (1 of its 6
+               groups and the 2 tail blocks: HYBRID_SERVE_CUT, the lines'
                "reduced"), bf16, weights from
                seed 0, on phase 6's wave:
-               phase 6's numbers, 2 flash_attention launches a prefill, the
+               phase 6's numbers, 1 flash_attention launch a prefill, the
                tokens against generate_sequential; every prefill's float32
                last-token logits with the kernel within 1e-4 of max|plain|
                (the state-space families' tolerance, tests/test_layers.py:95:
@@ -223,7 +229,7 @@ Phases, each printing JSON lines:
                simulate(check=True) on Engine(batch=8, max_seq=544,
                page_size=16, pool_pages=96), the KV rows paged and the Mamba2
                states dense per slot: matches_sequential, the virtual clock
-               equal to the JAX package's (FAULTS_CLOCK), 2 flash launches a
+               equal to the JAX package's (FAULTS_CLOCK), 1 flash launch a
                prefill, decode step, gather and scatter times;
 21. profile-serve — the same two windows for zamba2-1.2b;
 22. model-vlm — llama-3.2-vision-90b at its published widths (d_model 8192,
@@ -258,13 +264,14 @@ Phases, each printing JSON lines:
                (B, 1, K) token: phase 22's numbers and gates, 12
                flash_attention launches a prefill and none a step;
 25. profile-serve — the same two windows for it;
-26. train    — smollm-135m whole (phase 6's widths), bfloat16 compute on float32
+26. train    — smollm-135m at 10 of its 30 layers (TRAIN_CUT, the line's
+               "reduced"; phase 6's widths), bfloat16 compute on float32
                master weights, CallConfig(remat="block"), weights from seed 0,
                OptConfig(lr=3e-3, schedule="wsd", warm-up 2, 20 steps) as
                repro_torch.launch.train builds it, batches of 8 x 2048 tokens
                from SyntheticTokens(seed=0): 2 warm-up steps, 10 timed ones
                (median ms/step, steps/s, tokens/s, peak memory, flash_attention
-               launches a step: 60 forward under remat, 30 backward), one
+               launches a step: 20 forward under remat, 10 backward), one
                profiled step (idle share, largest device items; no library
                attention kernel), then the rest: the 20th step's loss below the
                first's; then at 2 x 2048, 3 steps through the kernels against
@@ -272,12 +279,13 @@ Phases, each printing JSON lines:
                (kernel_backend="ref"): float32 loss within 2e-5 and grad norm
                within 1e-4 relative, bfloat16 both within 2e-2; and a bfloat16
                run saved after step 5 (repro_torch.checkpoint, the reference's
-               layout), restored into a fresh model and state and taken 3 steps
-               further: losses and parameters bitwise the uninterrupted run's;
-27. train-xlstm — xlstm-350m at 8 of its 24 layers (phase 8's model,
+               layout, under build/), restored into a fresh model and state
+               and taken 3 steps further: losses and parameters bitwise the
+               uninterrupted run's;
+27. train-xlstm — xlstm-350m at 4 of its 24 layers (phase 8's model,
                XLSTM_CUT), the same recipe and
-               numbers as phase 26, slstm_fused 8 launches a step (4 pairs,
-               again under remat) and slstm_fused_bwd 4, a profiled step, the
+               numbers as phase 26, slstm_fused 4 launches a step (2 pairs,
+               again under remat) and slstm_fused_bwd 2, a profiled step, the
                20th loss below the first; the held checks at 2 x 256 tokens
                (the plain recurrence is ~20 launches a step forward, ~40
                backward): every sLSTM forward and backward call of the
@@ -288,10 +296,9 @@ Phases, each printing JSON lines:
                paths, since the model's gradient amplifies rounding: two
                orders of the same sums part by up to 0.69 in bfloat16 grad
                norm at step 1, and by more after one Adam step); the resume
-               at 2 x 2048 bitwise, at 2 of the 12 pairs (XLSTM_RESUME, the
-               line's "reduced");
-28. train-hybrid — zamba2-1.2b at 14 of its 38 layers (phase 20's model,
-               HYBRID_CUT), phase 26's recipe and
+               at 2 x 2048 bitwise;
+28. train-hybrid — zamba2-1.2b at 14 of its 38 layers (2 of its 6 groups
+               and the 2 tail blocks: HYBRID_CUT), phase 26's recipe and
                numbers: flash_attention 4 launches a step (the shared
                block's 2 uses, again under remat) and flash_attention_bwd 2,
                every Mamba2 block and every use of the shared block its own
@@ -324,7 +331,23 @@ Phases, each printing JSON lines:
                differ reported); build/ checked for room, then the resume
                at full width bitwise (a ~36 GB checkpoint: the bf16
                moments' round trip);
-30. the seconds of each phase, the kernels line (each kernel's launches on
+30. train-vlm — llama-3.2-vision-90b at its published widths (d_model 8192,
+               64 heads, 8 KV heads, d_ff 28672, vocab 128256, 1,601 image
+               tokens) with its 100 layers cut to 5 (VLM_TRAIN_CUT, the
+               line's "reduced": one of its 20 groups, 4 self layers and the
+               cross layer; 6,380 M parameters), phase 26's recipe on bf16
+               masters and bf16 moments at lr 3e-4 (VLM_OPT), each step's
+               image embeddings drawn as the launcher draws them
+               (image_embeds_at): 10 flash_attention launches a step (8 at
+               the self shape, 2 at the cross shape, Sq 2,048 against 1,601
+               keys, non-causal) and 5 flash_attention_bwd, a profiled step
+               with no library attention kernel, the 20th loss below the
+               first; the held checks at 2 x VLM_CHECK_SEQ at TRAIN_HELD_TOL,
+               every flash call held on its own inputs, the same steps with
+               a float64 attention reported beside; the resume at full
+               width bitwise (a ~38 GB checkpoint of bf16 masters and
+               moments);
+31. the seconds of each phase, the kernels line (each kernel's launches on
                every path), the card line, the result line.
 
 Any failed check exits non-zero before the result line is printed. Finding no
@@ -398,6 +421,7 @@ from repro_torch.search import PopulationEvaluator, greedy_candidate, search_map
 from repro_torch.runtime.fault_tolerance import RestartPolicy  # noqa: E402
 from repro_torch.checkpoint import checkpoint as ckpt_lib  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens  # noqa: E402
+from repro_torch.launch.train import image_embeds_at  # noqa: E402
 from repro_torch.train.optimizer import OptConfig  # noqa: E402
 from repro_torch.train.train_step import (  # noqa: E402
     load_state_tree, make_train_state, make_train_step, state_tree)
@@ -444,10 +468,10 @@ CHIP_FAULTS = dict(slot_rate=0.05, page_rate=0.002, seed=0)
 PATIENT = dict(max_restarts=10_000, backoff_s=1.0, backoff_mult=1.0)  # tests/test_serve_faults.py:56
 # the moe and hybrid serve phases: dbrx-132b at full width with its depth cut
 # to MOE_LAYERS (f32 weights: ~13.0 GB a layer and 4.9 GB of embed and
-# unembed), 8 requests of 128-512 prompt tokens; zamba2-1.2b (HYBRID_CUT)
+# unembed), 8 requests of 128-512 prompt tokens; zamba2-1.2b (HYBRID_SERVE_CUT)
 # on the serve phase's wave, then its first burst through a paged pool
 MOE_ARCH, MOE_LAYERS, MOE_REQUESTS, MOE_PROMPTS, MOE_NEW, MOE_MAX_SEQ = (
-    "dbrx-132b", 4, 8, (128, 512), 32, 1024)
+    "dbrx-132b", 2, 8, (128, 512), 32, 1024)
 HYBRID_ARCH = "zamba2-1.2b"
 # the vlm and audio phases: llama-3.2-vision-90b at full width with its 100
 # layers cut to VLM_LAYERS (2 of its 20 groups of 5: 8 self and 2 cross
@@ -458,7 +482,7 @@ VLM_ARCH, VLM_LAYERS, VLM_PROMPT, VLM_NEW = "llama-3.2-vision-90b", 10, 512, 32
 AUDIO_ARCH, AUDIO_FRAMES, AUDIO_NEW = "musicgen-large", 512, 64
 ROWS, CHECK_ROWS = 8, 2
 DECODE_RTOL = 2e-2  # prefill + decode against forward (tests/test_models.py:86-98, rtol = atol)
-# the train phase: smollm-135m whole, batches of TRAIN_BATCH x TRAIN_SEQ tokens
+# the train phase: smollm-135m (TRAIN_CUT), batches of TRAIN_BATCH x TRAIN_SEQ tokens
 # (SmolLM's training context), TRAIN_WARMUP untimed steps, then TRAIN_TIMED
 # timed ones, TRAIN_STEPS in all; the held checks at CHECK_BATCH rows
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_TIMED, TRAIN_STEPS = 8, 2048, 2, 10, 20
@@ -510,24 +534,48 @@ HYBRID_HELD_TOL = {torch.float32: ((2e-5, 1e-4), (3.5e-5, 2.25e-2), (2.5e-3, 5.2
 # and the 20th step's (26.1) stays above the first (the probe)
 MOE_TRAIN_LAYERS = 1
 MOE_OPT = dict(lr=3e-4, moment_dtype="bf16")
+# the train-vlm phase: llama-3.2-vision-90b at its published widths with its
+# 100 layers cut to VLM_TRAIN_CUT, one of its 20 groups (4 self layers, then
+# the cross layer over 1,601 image tokens; 6,380 M parameters, 2,101 M of
+# them in the untied embed and unembed), on VLM_OPT: bf16 masters (the
+# reference's recipe past 50 B parameters, src/repro/launch/dryrun.py:45-51,
+# cast as its :150-157 casts) and bf16 moments (its int8 moments diverge,
+# ROADMAP Queue 3, item 27), lr 3e-4 as MOE_OPT's. f32 masters and
+# gradients and bf16 moments would take ~76.5 GB, past the card; bf16
+# masters, gradients and moments take ~51 GB. The held checks at 2 x
+# VLM_CHECK_SEQ tokens (the cross layer keeps all 1,601 image keys)
+VLM_TRAIN_CUT = dict(num_layers=5)
+VLM_OPT = dict(lr=3e-4, moment_dtype="bf16", param_dtype="bf16")
+VLM_CHECK_SEQ = 256
 # earlier paths at a cut depth, widths whole, so that the script ends near
 # half its 1,200 s limit (with every path at the depths it had before the
 # train-moe phase it ran 1,095 s of phases on one machine and past 1,200 s on
 # another; host-paced phases move by up to 70 % between machines). Each cut
 # is in its phase lines' "reduced", and no gate changes with it:
-# smollm-135m serves at 10 of its 30 layers (serve, serve-traffic,
-# serve-faults; the train phase keeps all 30); xlstm-350m serves and trains
-# at 4 of its 12 [mLSTM, sLSTM] pairs; zamba2-1.2b serves and trains at 2 of
-# its 6 groups of 6 Mamba2 blocks (each followed by the shared block) and
-# its 2 tail blocks (14 of 38 layers); musicgen-large runs 12 of its 48
-SERVE_CUT = dict(num_layers=10)
-XLSTM_CUT = dict(num_layers=8)
+# smollm-135m serves at 5 of its 30 layers (serve, serve-traffic,
+# serve-faults) and trains at 10; xlstm-350m serves and trains at 2 of its
+# 12 [mLSTM, sLSTM] pairs; zamba2-1.2b trains at 2 of its 6 groups of 6
+# Mamba2 blocks (each followed by the shared block) and its 2 tail blocks
+# (14 of 38 layers) and serves at 1 group and the tail (8 of 38; the shared
+# block's second use in serving is held on the card at the reduced size,
+# tests/test_torch_gpu.py); dbrx-132b serves at 2 of its 40 layers
+# (MOE_LAYERS); musicgen-large runs 12 of its 48. The train-vlm phase bought
+# its time with its held checks at 2 x 256 tokens, then by cutting smollm's
+# serving from 10 layers to 5 and its training from 30 to 10, xlstm's from
+# 8 to 4, dbrx's serving from 4 to 2 and zamba2's from 14 to 8, then in the
+# resume's I/O (a checkpoint on the host's tmpfs does not fit beside the
+# host tree of a ~36-38 GB state: PERF.md). zamba2's training stays at 14:
+# at 8 its float32 held steps part past HYBRID_HELD_TOL and its 20th loss
+# stays above its first (PERF.md)
+SERVE_CUT = dict(num_layers=5)
+TRAIN_CUT = dict(num_layers=10)
+XLSTM_CUT = dict(num_layers=4)
 HYBRID_CUT = dict(num_layers=14)
+HYBRID_SERVE_CUT = dict(num_layers=8)
 AUDIO_CUT = dict(num_layers=12)
-# the resume checks of train-xlstm and train-hybrid at a smaller depth still:
-# 2 of xlstm's 12 pairs; one of zamba2's groups and the shared block. A
-# bitwise round trip does not change in kind with depth
-XLSTM_RESUME = dict(num_layers=4)
+# the resume check of train-hybrid at a smaller depth still: one of zamba2's
+# groups and the shared block, no tail. A bitwise round trip does not change
+# in kind with depth
 HYBRID_RESUME = dict(num_layers=6)
 BWD_CHECK_S = 300  # the backward checks' own time limit (they take well under a minute)
 FIRST_BURST = dict(PATIENT_TRAFFIC, name="chip-burst-8-patient", num_requests=8)
@@ -776,17 +824,26 @@ def sdpa(q, k, v, causal):
     return out.transpose(1, 2)
 
 
-def check_flash(gen, S, dtype=torch.bfloat16, causal=True, H=9, KVH=3, hd=64, B=1, Skv=None):
+def check_flash(gen, S, dtype=torch.bfloat16, causal=True, H=9, KVH=3, hd=64, B=1, Skv=None,
+                return_lse=False):
     """flash_attention at (B, Sq = S, Skv (default S), H, KVH, hd) against
     its plain version and SDPA, and a second call's bits; the causal mask is
-    top-left."""
+    top-left. With ``return_lse`` (a train forward) every call also writes
+    lse, held within 1e-5 of max|plain lse| + 1e-5, and out has the bits of
+    a call without it."""
     Skv = S if Skv is None else Skv
     q = randn((B, S, H, hd), gen, dtype)
     k, v = randn((B, Skv, KVH, hd), gen, dtype), randn((B, Skv, KVH, hd), gen, dtype)
-    got = flash_attention(q, k, v, causal=causal)
+
+    def call():
+        out = flash_attention(q, k, v, causal=causal, return_lse=return_lse)
+        return out[0] if return_lse else out
+
+    got = call()
     torch.cuda.synchronize()
     want = flash_attention_ref(q, k, v, causal=causal)
-    n_bytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    n_bytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel()) + (
+        4 * B * H * S if return_lse else 0)
     # (q, k) pairs the mask keeps
     pairs = sum(min(i + 1, Skv) for i in range(S)) if causal else S * Skv
     n_ops = 4.0 * hd * H * B * pairs
@@ -794,14 +851,20 @@ def check_flash(gen, S, dtype=torch.bfloat16, causal=True, H=9, KVH=3, hd=64, B=
     p = flash_plan(B, S, Skv, H, KVH, hd, dtype, causal)
     shape = (B, S, H, KVH, hd) if Skv == S else (B, S, Skv, H, KVH, hd)
     extra = {"plan": dataclasses.asdict(p), "bound_3xtf32_ms": bound_3xtf32(n_bytes, n_ops, dtype),
-             "graph_ms": graph_ms(lambda: flash_attention(q, k, v, causal=causal)),
-             "library_graph_ms": graph_ms(lambda: sdpa(q, k, v, causal)),
-             "same_bits": same_bits(lambda: flash_attention(q, k, v, causal=causal), got,
-                                    "flash_attention", shape)}
+             "graph_ms": graph_ms(call), "library_graph_ms": graph_ms(lambda: sdpa(q, k, v, causal)),
+             "same_bits": same_bits(call, got, "flash_attention", shape)}
+    if return_lse:
+        _, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        _, want_lse = flash_attention_ref(q, k, v, causal=causal, return_lse=True)
+        lse_err = (lse.double() - want_lse.double()).abs().max().item()
+        if not torch.equal(got, flash_attention(q, k, v, causal=causal)):
+            fail(f"flash_attention {shape} {dtype}: out changes when lse is written")
+        if lse_err > 1e-5 * want_lse.abs().max().item() + 1e-5:
+            fail(f"flash_attention {shape} {dtype}: lse off by {lse_err}")
+        extra.update(return_lse=True, lse_max_abs_err=lse_err, out_bits_same_with_lse=True)
     return compare(
         "flash_attention" + ("" if causal else "(non-causal)"), shape, dtype,
-        got, want, cuda_ms(lambda: flash_attention(q, k, v, causal=causal)),
-        cuda_ms(lambda: flash_attention_ref(q, k, v, causal=causal)),
+        got, want, cuda_ms(call), cuda_ms(lambda: flash_attention_ref(q, k, v, causal=causal)),
         cuda_ms(lambda: sdpa(q, k, v, causal)), t_parts, by, one_rounding=True, extra=extra)
 
 
@@ -825,25 +888,29 @@ def sdpa_bwd_graph_ms(q, k, v, dout, causal) -> float:
     return graph_ms(sdpa_bwd(q, k, v, dout, causal, side), stream=side)
 
 
-def check_flash_bwd(gen, S, dtype=torch.bfloat16, causal=True, H=9, KVH=3, hd=64, B=1):
-    """flash_attention_bwd at (B, S, H, KVH, hd) against flash_attention_bwd_ref
-    on the same (q, k, v, out, lse, dout): float32 within rtol 1e-3 and atol
-    1e-4 max|plain| element by element (tests/test_layers.py:121), bfloat16
-    within 2e-2 max|plain| (the ratio of each element's error to one bfloat16
-    rounding of it reported, not gated); a second call's bits; the forward's
-    out equal with and without lse, and lse against the plain lse."""
+def check_flash_bwd(gen, S, dtype=torch.bfloat16, causal=True, H=9, KVH=3, hd=64, B=1,
+                    Skv=None):
+    """flash_attention_bwd at (B, Sq = S, Skv (default S), H, KVH, hd)
+    against flash_attention_bwd_ref on the same (q, k, v, out, lse, dout):
+    float32 within rtol 1e-3 and atol 1e-4 max|plain| element by element
+    (tests/test_layers.py:121), bfloat16 within 2e-2 max|plain| (the ratio
+    of each element's error to one bfloat16 rounding of it reported, not
+    gated); a second call's bits; the forward's out equal with and without
+    lse, and lse against the plain lse."""
+    Skv = S if Skv is None else Skv
+    shape = (B, S, H, KVH, hd) if Skv == S else (B, S, Skv, H, KVH, hd)
     q = randn((B, S, H, hd), gen, dtype)
-    k, v = randn((B, S, KVH, hd), gen, dtype), randn((B, S, KVH, hd), gen, dtype)
+    k, v = randn((B, Skv, KVH, hd), gen, dtype), randn((B, Skv, KVH, hd), gen, dtype)
     dout = randn((B, S, H, hd), gen, dtype)
     plain_out = flash_attention(q, k, v, causal=causal)
     out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
     torch.cuda.synchronize()
     if not torch.equal(out, plain_out):
-        fail(f"flash_attention {(B, S, H, KVH, hd)} {dtype}: out changes when lse is written")
+        fail(f"flash_attention {shape} {dtype}: out changes when lse is written")
     _, want_lse = flash_attention_ref(q, k, v, causal=causal, return_lse=True)
     lse_err = (lse.double() - want_lse.double()).abs().max().item()
     if lse_err > 1e-5 * want_lse.abs().max().item() + 1e-5:
-        fail(f"flash_attention {(B, S, H, KVH, hd)} {dtype}: lse off by {lse_err}")
+        fail(f"flash_attention {shape} {dtype}: lse off by {lse_err}")
 
     def run():
         return flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
@@ -853,7 +920,6 @@ def check_flash_bwd(gen, S, dtype=torch.bfloat16, causal=True, H=9, KVH=3, hd=64
     want = flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal)
     again = run()
     torch.cuda.synchronize()
-    shape = (B, S, H, KVH, hd)
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         fail(f"flash_attention_bwd {shape} {dtype}: two calls differ")
     errs, over, rounding = [], [], []
@@ -869,8 +935,8 @@ def check_flash_bwd(gen, S, dtype=torch.bfloat16, causal=True, H=9, KVH=3, hd=64
         else:
             over.append(diff.max().item() / (TOL[dtype] * scale))
             rounding.append((diff / (BF16_ULP * wd.abs() + 2e-5 * scale)).max().item())
-    pairs = sum(min(i + 1, S) for i in range(S)) if causal else S * S
-    plan = flash_plan_bwd(B, S, S, H, KVH, hd, dtype, causal)
+    pairs = sum(min(i + 1, Skv) for i in range(S)) if causal else S * Skv
+    plan = flash_plan_bwd(B, S, Skv, H, KVH, hd, dtype, causal)
     es = q.element_size()
     # q, k, v, out, dout read and dq, dk, dv written once; lse read once
     n_bytes = es * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
@@ -1074,6 +1140,21 @@ def summary(lines, repeat: int = 1) -> dict:
         else repeat * sum(ln["library_ms"] for ln in lines),
         **extra,
     }
+
+
+def brief(line: dict) -> dict:
+    """A kernels-phase line's shape, error and times beside SDPA's and the bound."""
+    return {k: line[k] for k in ("shape", "max_abs_err", "kernel_ms", "graph_ms", "plain_ms",
+                                 "library_ms", "library_graph_ms", "bound_ms", "bound_by")}
+
+
+def vlm_step(self_lines: dict, cross_lines: dict, per_layer: int) -> list:
+    """A train-vlm step's bfloat16 lines: ``per_layer`` calls of each of the
+    group's 4 self layers (VLM_TRAIN_CUT: one group) and of its cross layer."""
+    cfg = cut(VLM_ARCH, VLM_TRAIN_CUT)
+    groups = cfg.num_layers // cfg.cross_attn_every
+    return per_layer * groups * ((cfg.cross_attn_every - 1) * [self_lines[torch.bfloat16]]
+                                 + [cross_lines[torch.bfloat16]])
 
 
 def ptxas_summary(log: str) -> dict:
@@ -2298,18 +2379,18 @@ def serve_moe_phase() -> tuple:
 
 
 def serve_hybrid_phase() -> tuple:
-    """zamba2-1.2b at full width cut to HYBRID_CUT (14 of 38 layers: 2
-    groups of 6 Mamba2 blocks, each followed by the shared attention block,
-    and the 2 tail blocks; bf16, seed 0) on the serve phase's wave:
-    serve()'s numbers and gates with 2 flash_attention launches a prefill
+    """zamba2-1.2b at full width cut to HYBRID_SERVE_CUT (8 of 38 layers: a
+    group of 6 Mamba2 blocks followed by the shared attention block, and
+    the 2 tail blocks; bf16, seed 0) on the serve phase's wave:
+    serve()'s numbers and gates with 1 flash_attention launch a prefill
     (the float32 prefill logits within SSM_TOL of the plain attention's,
     the state-space families' tolerance, reported against a float64
     attention); its profile windows; then the first burst of
     chip-burst-24-patient through simulate(check=True) on a paged pool
     (KV rows paged, the Mamba2 states dense per slot): matches_sequential,
-    the virtual clock equal to the JAX package's (FAULTS_CLOCK), 2 launches
+    the virtual clock equal to the JAX package's (FAULTS_CLOCK), 1 launch
     a prefill. Returns the two runs' flash launches and the lines."""
-    cfg = cut(HYBRID_ARCH, HYBRID_CUT)
+    cfg = cut(HYBRID_ARCH, HYBRID_SERVE_CUT)
     per_prefill = cfg.num_layers // cfg.hybrid_attn_every
     model = build_model(cfg, CallConfig(), device="cuda", seed=0)
     reduced = reduced_of(cfg)
@@ -2633,10 +2714,19 @@ def train_batches(batch: int, n: int, start: int = 0, arch: str = SERVE_ARCH,
                   seq: int = TRAIN_SEQ) -> list:
     """``n`` batches of ``batch`` rows of ``seq`` tokens from
     SyntheticTokens(seed=0) at ``arch``'s vocabulary, from step ``start``
-    (host numpy, made before any timing)."""
-    data = SyntheticTokens(DataConfig(vocab_size=get_config(arch).vocab_size,
-                                      seq_len=seq, global_batch=batch, seed=0))
-    return [data.batch_at(start + i) for i in range(n)]
+    (host numpy, made before any timing); for a vlm arch each with its
+    step's image embeddings as the launcher draws them (image_embeds_at,
+    seed 0, on the card), kept on the host in pinned memory, so that each
+    step copies its (batch, 1601, 8192) bf16 embeddings to the card as a
+    data loader would."""
+    cfg = get_config(arch)
+    data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                      global_batch=batch, seed=0))
+    batches = [data.batch_at(start + i) for i in range(n)]
+    if cfg.family == "vlm":
+        for i, b in enumerate(batches):
+            b["image_embeds"] = image_embeds_at(cfg, batch, 0, start + i, "cuda").cpu().pin_memory()
+    return batches
 
 
 def train_opt(cell) -> OptConfig:
@@ -2654,8 +2744,9 @@ def train_config(cell, config=None):
 
 
 def train_setup(cell, dtype=torch.bfloat16, kernel_backend=None, config=None):
-    """The model of train_config (weights from seed 0, f32 masters) with
-    remat "block", and its train state and step under train_opt."""
+    """The model of train_config (weights from seed 0, its masters in
+    train_opt's param_dtype: float32, or bfloat16 where ``cell.opt`` says
+    so) with remat "block", and its train state and step under train_opt."""
     model = build_model(train_config(cell, config),
                         CallConfig(compute_dtype=dtype, remat="block",
                                    kernel_backend=kernel_backend), device="cuda", seed=0)
@@ -2898,8 +2989,10 @@ def reduced_fields(cell: TrainCell) -> dict:
 
 
 def train_phase(cell: TrainCell) -> tuple:
-    """``cell.arch`` (``cell.config``'s changes), bf16 compute, f32 masters,
-    remat "block", trained on batches of TRAIN_BATCH x TRAIN_SEQ tokens:
+    """``cell.arch`` (``cell.config``'s changes), bf16 compute, f32 masters
+    (bf16 under ``cell.opt``'s param_dtype), remat "block", trained on
+    batches of TRAIN_BATCH x TRAIN_SEQ tokens (vlm: with each step's image
+    embeddings):
     TRAIN_WARMUP steps, then TRAIN_TIMED timed ones (steps/s, tokens/s,
     median ms/step, peak memory, the kernels' forward and backward launches
     a step, ``cell.per_step``), a profiled step (idle share, largest device
@@ -2918,7 +3011,8 @@ def train_phase(cell: TrainCell) -> tuple:
             state, first, _ = train_steps(state, step, batches[:TRAIN_WARMUP], cell.kernels)
             torch.cuda.reset_peak_memory_stats()
             walls, mets = [], list(first)
-            before = launches_of(cell.kernels)
+            for k in cell.kernels:
+                k.launches = 0
             for b in batches[TRAIN_WARMUP:TRAIN_WARMUP + TRAIN_TIMED]:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -2926,7 +3020,7 @@ def train_phase(cell: TrainCell) -> tuple:
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
                 mets.append(step_metrics(m))
-            launches = tuple(a - b for a, b in zip(launches_of(cell.kernels), before))
+            launches = launches_of(cell.kernels)
             peak = torch.cuda.max_memory_allocated()
             at = TRAIN_WARMUP + TRAIN_TIMED
             it = iter(batches[at:at + 2])
@@ -2939,7 +3033,7 @@ def train_phase(cell: TrainCell) -> tuple:
             prof = profile_window(one_step, "a train step", forbid=cell.forbid)
             state, rest, _ = train_steps(state, step, batches[at + 2:], cell.kernels)
             mets += rest
-            del model, state, step
+            del model, state, step, batches, it
             torch.cuda.empty_cache()
         held = train_held_checks(cell)
     failures = held.pop("_failures")
@@ -2958,6 +3052,11 @@ def train_phase(cell: TrainCell) -> tuple:
             "launches_per_step": {n: c / TRAIN_TIMED for n, c in zip(names, launches)},
             "losses": [m[0] for m in mets], "grad_norms": [m[1] for m in mets],
             "aux": [m[2] for m in mets], "profile": prof, "held": held}
+    if cfg.family == "vlm":
+        line.update(groups=cfg.num_layers // cfg.cross_attn_every,
+                    self_layers_per_group=cfg.cross_attn_every - 1,
+                    image_tokens=cfg.num_image_tokens,
+                    image_embeds="image_embeds_at(seed 0) each step, bf16, pinned host memory")
     if cfg.family == "moe":
         calls = len(route.choices) // max(len(mets), 1)  # dispatches a step (layers x groups)
         E = cfg.moe.num_experts
@@ -2984,33 +3083,41 @@ def train_phase(cell: TrainCell) -> tuple:
 
 
 def train_cells() -> tuple:
-    """The four train phases: smollm-135m through the attention kernels (its
-    30 layers: 60 forward launches a step under remat, 30 backward),
-    xlstm-350m at XLSTM_CUT through the sLSTM kernels (4 pairs: 8 and 4; the
+    """The five train phases: smollm-135m at TRAIN_CUT through the attention
+    kernels (10 layers: 20 forward launches a step under remat, 10 backward),
+    xlstm-350m at XLSTM_CUT through the sLSTM kernels (2 pairs: 4 and 2; the
     held checks at XLSTM_CHECK_SEQ, where the plain recurrence is ~20
-    launches a step forward and ~40 backward; the resume at XLSTM_RESUME),
+    launches a step forward and ~40 backward),
     zamba2-1.2b at HYBRID_CUT through the attention kernels (the shared
     block after each of its 14 // 6 = 2 groups: 4 and 2; the resume at
     HYBRID_RESUME), dbrx-132b at
     MOE_TRAIN_LAYERS through the attention kernels (2 and 1 a layer) on
-    MOE_OPT, its bfloat16 held steps with the routing pinned."""
-    L = get_config(SERVE_ARCH).num_layers
+    MOE_OPT, its bfloat16 held steps with the routing pinned, and
+    llama-3.2-vision-90b at VLM_TRAIN_CUT through the attention kernels at
+    its self and cross shapes (2 and 1 a layer: 10 and 5) on VLM_OPT, the
+    held checks at VLM_CHECK_SEQ beside a float64 attention."""
+    L = cut(SERVE_ARCH, TRAIN_CUT).num_layers
     P = cut(XLSTM_ARCH, XLSTM_CUT).num_layers // 2
     hcfg = cut(HYBRID_ARCH, HYBRID_CUT)
     NG = hcfg.num_layers // hcfg.hybrid_attn_every
+    VL = cut(VLM_ARCH, VLM_TRAIN_CUT).num_layers
     attention = (flash_attention, flash_attention_bwd)
     flash_calls = (("_flash_attention", flash_train_held), ("_flash_attention_bwd", flash_bwd_held))
-    return (TrainCell("train", SERVE_ARCH, attention, (2 * L, L), forbid=LIBRARY_ATTENTION),
+    return (TrainCell("train", SERVE_ARCH, attention, (2 * L, L), forbid=LIBRARY_ATTENTION,
+                      config=TRAIN_CUT),
             TrainCell("train-xlstm", XLSTM_ARCH, (slstm_fused, slstm_fused_bwd), (2 * P, P),
                       check_seq=XLSTM_CHECK_SEQ, held_tol=XLSTM_HELD_TOL,
                       held_calls=(("slstm", slstm_held), ("_slstm_fused_bwd", slstm_bwd_held)),
-                      config=XLSTM_CUT, resume_config=XLSTM_RESUME),
+                      config=XLSTM_CUT),
             TrainCell("train-hybrid", HYBRID_ARCH, attention, (2 * NG, NG),
                       forbid=LIBRARY_ATTENTION, held_tol=HYBRID_HELD_TOL, held_calls=flash_calls,
                       f64_attention=True, config=HYBRID_CUT, resume_config=HYBRID_RESUME),
             TrainCell("train-moe", MOE_ARCH, attention, (2 * MOE_TRAIN_LAYERS, MOE_TRAIN_LAYERS),
                       forbid=LIBRARY_ATTENTION, held_calls=flash_calls,
-                      config=dict(num_layers=MOE_TRAIN_LAYERS), opt=MOE_OPT, pin_routing=True))
+                      config=dict(num_layers=MOE_TRAIN_LAYERS), opt=MOE_OPT, pin_routing=True),
+            TrainCell("train-vlm", VLM_ARCH, attention, (2 * VL, VL), check_seq=VLM_CHECK_SEQ,
+                      forbid=LIBRARY_ATTENTION, held_calls=flash_calls, f64_attention=True,
+                      config=VLM_TRAIN_CUT, opt=VLM_OPT))
 
 
 def main() -> None:
@@ -3114,15 +3221,35 @@ def main() -> None:
         check_flash(gen, VLM_PROMPT, dtype, **vshape)
         check_flash(gen, AUDIO_FRAMES, dtype, H=acfg.num_heads, KVH=acfg.num_kv_heads,
                     hd=acfg.head_dim, B=ROWS)
+    # llama-3.2-vision-90b's in the train-vlm phase, 8 x 2048, writing lse as
+    # a train forward does: its self layers (causal; bf16, the train path's
+    # dtype: dbrx's shape above holds f32 at hd 128) and its cross layer
+    # (non-causal against 1,601 image tokens), bf16 and f32
+    vtshape = dict(H=vcfg.num_heads, KVH=vcfg.num_kv_heads, hd=vcfg.head_dim, B=TRAIN_BATCH)
+    vlm_self_lines = {torch.bfloat16: check_flash(gen, TRAIN_SEQ, return_lse=True, **vtshape)}
+    vlm_cross_lines = {dtype: check_flash(gen, TRAIN_SEQ, dtype, causal=False, return_lse=True,
+                                          Skv=vcfg.num_image_tokens, **vtshape)
+                       for dtype in (torch.bfloat16, torch.float32)}
+    torch.cuda.empty_cache()
     # the attention backward: the train phases' shapes (smollm and zamba2, 8 x
-    # 2048), ragged S, hd 32 and 128, non-causal
+    # 2048), ragged S, hd 32 and 128, non-causal; vlm's self and cross shapes
+    # (Sq 2,048 against Skv 1,601 = 25 x 64 + 1 keys) and a small ragged
+    # Sq 300 against Skv 77
     bwd_lines, hybrid_bwd_lines, moe_bwd_lines = {}, {}, {}
+    vlm_self_bwd_lines, vlm_cross_bwd_lines = {}, {}
     with time_limit(BWD_CHECK_S, "the flash_attention_bwd checks"):
         for dtype in (torch.bfloat16, torch.float32):
             bwd_lines[dtype] = check_flash_bwd(gen, TRAIN_SEQ, dtype, B=TRAIN_BATCH)
             hybrid_bwd_lines[dtype] = check_flash_bwd(gen, TRAIN_SEQ, dtype, **hshape)
             moe_bwd_lines[dtype] = check_flash_bwd(gen, TRAIN_SEQ, dtype, **mshape)
             torch.cuda.empty_cache()
+            if dtype == torch.bfloat16:  # f32 at hd 128, G = 8: dbrx's shape above
+                vlm_self_bwd_lines[dtype] = check_flash_bwd(gen, TRAIN_SEQ, dtype, **vtshape)
+                torch.cuda.empty_cache()
+            vlm_cross_bwd_lines[dtype] = check_flash_bwd(gen, TRAIN_SEQ, dtype, causal=False,
+                                                         Skv=vcfg.num_image_tokens, **vtshape)
+            torch.cuda.empty_cache()
+            check_flash_bwd(gen, 300, dtype, causal=False, H=8, KVH=2, hd=128, B=2, Skv=77)
             check_flash_bwd(gen, 517, dtype, B=2)
             check_flash_bwd(gen, 300, dtype, H=4, KVH=2, hd=32)
             check_flash_bwd(gen, 1024, dtype, hd=128)
@@ -3272,12 +3399,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_done("serve-faults")
 
-    # 18-19. serving dbrx-132b at full width (4 layers) and its profile windows
+    # 18-19. serving dbrx-132b at full width (2 layers) and its profile windows
     moe_launches, _ = serve_moe_phase()
     torch.cuda.empty_cache()
     phase_done("serve-moe")
 
-    # 20-21. serving zamba2-1.2b (14 layers), contiguous and paged, and its profile windows
+    # 20-21. serving zamba2-1.2b (8 layers), contiguous and paged, and its profile windows
     hybrid_launches, hybrid_paged_launches, _ = serve_hybrid_phase()
     torch.cuda.empty_cache()
     phase_done("serve-hybrid")
@@ -3292,8 +3419,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_done("model-audio")
 
-    # 26. training smollm-135m whole through the attention kernels, forward and backward
-    smollm_cell, xlstm_cell, hybrid_cell, moe_cell = train_cells()
+    # 26. training smollm-135m (10 layers) through the attention kernels, forward and backward
+    smollm_cell, xlstm_cell, hybrid_cell, moe_cell, vlm_cell = train_cells()
     _, train_launches = train_phase(smollm_cell)
     torch.cuda.empty_cache()
     phase_done("train")
@@ -3313,7 +3440,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_done("train-moe")
 
-    # 30. the phases' seconds, the kernels line, the card, the result
+    # 30. training llama-3.2-vision-90b at full width (1 group) on bf16 masters and moments
+    _, vtrain_launches = train_phase(vlm_cell)
+    torch.cuda.empty_cache()
+    phase_done("train-vlm")
+
+    # 31. the phases' seconds, the kernels line, the card, the result
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
     emit({"kernels": [
         {"name": "com_matmul", "route": "cuda", "source": "src/repro_torch/csrc/com_matmul.cu",
@@ -3338,21 +3470,33 @@ def main() -> None:
                               "serve-hybrid-paged": hybrid_paged_launches,
                               "model-vlm": vlm_launches, "model-audio": audio_launches,
                               "train": train_launches[0], "train-hybrid": htrain_launches[0],
-                              "train-moe": mtrain_launches[0]},
+                              "train-moe": mtrain_launches[0], "train-vlm": vtrain_launches[0]},
          # a train-hybrid step's forward launches at zamba2's (8, 2048, 32, 32, 64),
-         # a train-moe step's at dbrx's (8, 2048, 48, 8, 128)
+         # a train-moe step's at dbrx's (8, 2048, 48, 8, 128), a train-vlm
+         # step's at llama-3.2-vision's self (8, 2048, 64, 8, 128) and cross
+         # (Skv 1,601, non-causal) shapes, with lse: 2 of each layer under remat
          "train_hybrid_step": summary([hybrid_lines[torch.bfloat16]], hybrid_cell.per_step[0]),
          "train_moe_step": summary([moe_lines[torch.bfloat16]], moe_cell.per_step[0]),
+         "train_vlm_step": summary(vlm_step(vlm_self_lines, vlm_cross_lines, 2)),
+         "train_vlm_shapes": {
+             "self": {"bfloat16": brief(vlm_self_lines[torch.bfloat16])},
+             "cross": {str(dt).replace("torch.", ""): brief(ln)
+                       for dt, ln in vlm_cross_lines.items()}},
          **summary(flash_lines, scfg.num_layers)},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/models/attention.py:159",
          "launches": train_launches[1],
          "launches_by_path": {"train": train_launches[1], "train-hybrid": htrain_launches[1],
-                              "train-moe": mtrain_launches[1]},
+                              "train-moe": mtrain_launches[1], "train-vlm": vtrain_launches[1]},
          "train_hybrid_step": summary([hybrid_bwd_lines[torch.bfloat16]],
                                       hybrid_cell.per_step[1]),
          "train_moe_step": summary([moe_bwd_lines[torch.bfloat16]], moe_cell.per_step[1]),
+         "train_vlm_step": summary(vlm_step(vlm_self_bwd_lines, vlm_cross_bwd_lines, 1)),
+         "train_vlm_shapes": {
+             "self": {"bfloat16": brief(vlm_self_bwd_lines[torch.bfloat16])},
+             "cross": {str(dt).replace("torch.", ""): brief(ln)
+                       for dt, ln in vlm_cross_bwd_lines.items()}},
          "path": bwd_lines[torch.bfloat16]["path"],
          "mma_passes_per_pair": bwd_lines[torch.bfloat16]["mma_passes_per_pair"],
          "ptxas": {k: v for k, v in ptxas.items() if "wgmma" in k and "<64" in k},

@@ -208,15 +208,19 @@ def unstack_tree(cfg, model, tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     return out
 
 
-def stack_tree(cfg, model, flat: Mapping[str, Any]) -> Dict[str, Any]:
+def stack_tree(cfg, model, flat: Mapping[str, Any], convert=None) -> Dict[str, Any]:
     """The inverse of :func:`unstack_tree`: ``{port name: array}`` -> the
     JAX package's nested tree, each stacked leaf stacked back in index
-    order."""
+    order. Tensor entries are stacked as tensors, where they live
+    (``torch.stack``); ``convert``, if given, maps each leaf as it is made
+    (:func:`repro_torch.train.train_step.state_tree`: a tensor on the card
+    to the host), so that a stacked leaf crosses to the host once, already
+    stacked, and one stacked leaf at a time stands on the card."""
     stacking = _stacking(cfg, model)
-    groups: Dict[str, Dict[Tuple[int, ...], np.ndarray]] = {}
+    groups: Dict[str, Dict[Tuple[int, ...], Any]] = {}
     for name, a in flat.items():
         jname, idx = _port_name(stacking, name)
-        groups.setdefault(jname, {})[idx] = np.asarray(a)
+        groups.setdefault(jname, {})[idx] = a if isinstance(a, torch.Tensor) else np.asarray(a)
     tree: Dict[str, Any] = {}
     for jname, entries in groups.items():
         if list(entries) == [()]:
@@ -226,9 +230,13 @@ def stack_tree(cfg, model, flat: Mapping[str, Any]) -> Dict[str, Any]:
             shape = tuple(1 + max(i[d] for i in order) for d in range(len(order[0])))
             if len(order) != int(np.prod(shape)):
                 raise ValueError(f"{jname}: {len(order)} entries do not fill {shape}")
+            first = entries[order[0]]
+            stack = torch.stack if isinstance(first, torch.Tensor) else np.stack
             # one entry is stacked as a view of it
-            leaf = (entries[order[0]][None] if len(order) == 1 else
-                    np.stack([entries[i] for i in order])).reshape(shape + entries[order[0]].shape)
+            leaf = (first[None] if len(order) == 1 else
+                    stack([entries[i] for i in order])).reshape(shape + tuple(first.shape))
+        if convert is not None:
+            leaf = convert(leaf)
         node = tree
         *path, last = jname.split(".")
         for comp in path:

@@ -6,6 +6,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch dbrx-132b --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama-3.2-vision-90b --reduced \
+        --device cpu
 
 The port's copy of ``repro.launch.train``: the same flags, plus
 ``--device``, in one process. The model is built with
@@ -15,9 +17,10 @@ from ``SyntheticTokens`` (seed ``--seed``), the optimizer is AdamW with
 ``--ckpt-dir`` every ``--ckpt-every`` steps in the reference's layout, and
 ``--resume`` continues from the latest one; the loop runs under the port's
 ``Supervisor``, which saves and, when a step raises, restores and retries.
-Trains the dense, moe, ssm and hybrid families (the moe loss adds 0.01 times
-the layers' load-balance loss); vlm and audio raise ``NotImplementedError``
-(ROADMAP Queue 1, item 4). Prints
+Trains the dense, moe, vlm, ssm and hybrid families (the moe loss adds 0.01
+times the layers' load-balance loss; a vlm batch carries image embeddings
+drawn each step, :func:`image_embeds_at`); audio raises
+``NotImplementedError`` (ROADMAP Queue 1, item 4). Prints
 ``step … loss … lr … gnorm … ms/step`` every ``--log-every`` steps and
 returns the logged losses.
 """
@@ -26,14 +29,32 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
+import torch
+
 from repro_torch.checkpoint import checkpoint as ckpt_lib
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+from repro_torch.models.frontend import synth_image_embeds
 from repro_torch.models.transformer import CallConfig, build_model, check_trainable
 from repro_torch.runtime.fault_tolerance import Supervisor
 from repro_torch.train.optimizer import OptConfig
 from repro_torch.train.train_step import (load_state_tree, make_train_state, make_train_step,
                                           prng_key, state_tree)
+
+
+def image_embeds_at(cfg, batch: int, seed: int, step: int, device) -> torch.Tensor:
+    """A vlm batch's image embeddings at ``step``: ``synth_image_embeds`` (B,
+    num_image_tokens, d_model) in bfloat16 from a ``torch.Generator`` on
+    ``device`` seeded from ``seed + 1`` and ``step`` (mixed into 32 bits by
+    ``numpy.random.SeedSequence``: the CPU generator keeps only the low 32
+    bits of a seed), where the reference's launcher draws from
+    ``fold_in(PRNGKey(seed + 1), step)``. The two give other numbers
+    (ROADMAP Queue 3, item 29); each step's draw is its own, so a resumed
+    run sees the embeddings the uninterrupted one did."""
+    mixed = int(np.random.SeedSequence([seed + 1, step]).generate_state(1)[0])
+    gen = torch.Generator(device=device).manual_seed(mixed)
+    return synth_image_embeds(gen, cfg, batch)
 
 
 def main(argv=None):
@@ -68,6 +89,13 @@ def main(argv=None):
         seed=args.seed, num_codebooks=cfg.num_codebooks,
     ))
     step_fn = make_train_step(model, ocfg, accum_steps=args.accum)
+
+    def batch_at(step):
+        batch = data.batch_at(step)
+        if cfg.family == "vlm":
+            batch["image_embeds"] = image_embeds_at(cfg, args.batch, args.seed, step,
+                                                    model.device)
+        return batch
 
     start_step = 0
     state = make_train_state(model, None, ocfg)  # the weights build_model drew
@@ -105,7 +133,7 @@ def main(argv=None):
     # checkpoints every --ckpt-every steps; a step that raises is retried from
     # the latest checkpoint under the supervisor's restart policy
     sup = Supervisor(save_fn=save_fn, restore_fn=restore_fn, ckpt_every=args.ckpt_every)
-    sup.run(train_fn, state, data.batch_at, start_step=start_step, num_steps=args.steps)
+    sup.run(train_fn, state, batch_at, start_step=start_step, num_steps=args.steps)
     return losses
 
 

@@ -29,8 +29,9 @@ layer), ``blocks.<g>.{dense,moe_l}.<...>`` (moe every other layer),
 ``shared_attn.<...>`` (hybrid) or ``blocks.<g>.{ln_m,mlstm,ln_s,slstm}.<leaf>``
 (ssm): a JAX leaf of the stacked ``blocks`` (``tail``) pytree cut at its
 stacked axes (:func:`repro_torch.convert.model_params_to_port`). Parameters
-are float32 and every product casts them to the compute dtype, as the
-reference does.
+are float32 (bfloat16 once a train state on bf16 masters casts them,
+:func:`repro_torch.train.optimizer.cast_params`) and every product casts
+them to the compute dtype, as the reference does.
 
 The cache is a flat tuple of tensors, the reference's cache pytree in
 ``jax.tree.leaves`` order:
@@ -62,15 +63,17 @@ JAX returns a new one. The moe load-balance loss is computed by
 it over the moe layers (:meth:`Block.forward_train`).
 
 Training (:meth:`Model.loss`, :meth:`Model.forward_train`) is ported for the
-dense, moe, ssm and hybrid families: the full-sequence forward with grad,
-each layer (ssm: each ``[mLSTM, sLSTM]`` pair; hybrid: each Mamba2 block and
-each use of the shared block; moe every other layer: the dense and the moe
-layer of a group each) recomputed in the backward under ``CallConfig.remat
-== "block"`` (the reference's ``jax.checkpoint`` per scanned layer, pair or
-group), the attention differentiated through
-:class:`repro_torch.kernels.ops.FlashAttention`, the sLSTM recurrence through
-:class:`repro_torch.kernels.ops.SLSTMFused`, the Mamba2 / SSD chunk loop and
-the moe dispatch, experts and load-balance loss by autograd.
+dense, moe, vlm, ssm and hybrid families: the full-sequence forward with
+grad, each layer (ssm: each ``[mLSTM, sLSTM]`` pair; hybrid: each Mamba2
+block and each use of the shared block; moe every other layer: the dense
+and the moe layer of a group each; vlm: each self layer and each cross
+layer) recomputed in the backward under ``CallConfig.remat == "block"`` (the
+reference's ``jax.checkpoint`` per scanned layer, pair or group), the
+attention (the vlm cross layers' too, non-causal against the image tokens)
+differentiated through :class:`repro_torch.kernels.ops.FlashAttention`, the
+sLSTM recurrence through :class:`repro_torch.kernels.ops.SLSTMFused`, the
+Mamba2 / SSD chunk loop and the moe dispatch, experts and load-balance loss
+by autograd.
 ``model.requires_grad_()``
 makes the parameters trainable; the tied ``embed.table`` is one parameter.
 ``forward``, ``prefill`` and ``decode_step`` run under ``no_grad`` whatever
@@ -98,9 +101,8 @@ Cache = Tuple[torch.Tensor, ...]  # the reference's cache leaves (see the module
 FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")  # the reference's layer layouts
 REMAT = ("none", "block")
 # what training each family still needs (ROADMAP Queue 1, item 4); dense,
-# moe, ssm and hybrid train
+# moe, vlm, ssm and hybrid train
 UNTRAINED = {
-    "vlm": "the cross-attention groups and image embeddings under the train forward",
     "audio": "the codebook loss over (B, S, K, V) logits",
 }
 
@@ -184,6 +186,15 @@ class Block(nn.Module):
                                         cfg.num_heads, block_kv=cc.block_kv,
                                         backend=cc.kernel_backend)
         return self._ffn(x + y, cfg, cc)[0]
+
+    def forward_cross_train(self, x, ctx, cfg: ArchConfig, cc: CallConfig):
+        """The cross layer over the whole sequence without a cache
+        (training): its K/V projected from the image context ``ctx`` (B, T,
+        D) by :func:`~repro_torch.models.attention.cross_kv`, then
+        :meth:`forward_cross`, so that ``wk`` and ``wv`` get their gradient
+        through the projection."""
+        k, v = attn_lib.cross_kv(self.attn, ctx, cfg.num_heads, cfg.num_kv_heads, cfg.d_model)
+        return self.forward_cross(x, k, v, cfg, cc)
 
     def _ffn(self, x, cfg: ArchConfig, cc: CallConfig):
         """``(x + mlp(ln2(x)), None)``, or ``(x + moe(ln2(x)), aux)``, where
@@ -438,10 +449,11 @@ class Model(nn.Module):
         return torch.as_tensor(tokens, device=self.device).long()
 
     def _image_ctx(self, image_embeds) -> torch.Tensor:
-        """The vlm prefill's image embeddings (B, T, D) on the model's
-        device, cast to the compute dtype as the reference casts them."""
+        """The vlm image embeddings (B, T, D) on the model's device, cast to
+        the compute dtype as the reference casts them; an input, carrying no
+        gradient."""
         if image_embeds is None:
-            raise ValueError("the vlm family's prefill needs image_embeds "
+            raise ValueError("the vlm family's prefill and train forward need image_embeds "
                              "(B, num_image_tokens, d_model) for its cross-attention layers")
         return torch.as_tensor(image_embeds, device=self.device).to(self.cc.compute_dtype)
 
@@ -549,18 +561,26 @@ class Model(nn.Module):
 
     # -------------------- training --------------------
     def forward_train(self, tokens, *, image_embeds=None):
-        """The full-sequence forward with grad (dense, moe, ssm and hybrid
-        families): tokens (B, S) -> ``(logits (B, S, V) in the compute dtype,
-        aux)``, ``aux`` the float32 sum of the moe layers' load-balance
+        """The full-sequence forward with grad (dense, moe, vlm, ssm and
+        hybrid families): tokens (B, S) -> ``(logits (B, S, V) in the compute
+        dtype, aux)``, ``aux`` the float32 sum of the moe layers' load-balance
         losses in layer order, as the reference's scan carries it (0 for the
-        other families: no block of theirs has one). Under ``remat ==
-        "block"`` and grad, each layer (ssm: each pair; hybrid: each Mamba2
-        block and each use of the shared block; moe every other layer: the
-        dense and the moe layer of a group each) runs in
-        ``torch.utils.checkpoint`` (non-reentrant): only its input is kept,
-        and the backward runs it again, the moe dispatch included. The
-        hybrid stack walks its groups as :meth:`_hybrid` does; the shared
-        block's gradient is autograd's sum over its uses."""
+        other families: no block of theirs has one). ``image_embeds`` (B, T,
+        D) is the vlm family's (required there, ignored elsewhere). Under
+        ``remat == "block"`` and grad, each layer (ssm: each pair; hybrid:
+        each Mamba2 block and each use of the shared block; moe every other
+        layer: the dense and the moe layer of a group each; vlm: each self
+        layer and each cross layer, the image context an input of the cross
+        layer's checkpoint) runs in ``torch.utils.checkpoint``
+        (non-reentrant): only its inputs are kept, and the backward runs it
+        again, the moe dispatch included. The reference remats a whole vlm
+        group (``_maybe_remat`` over the group's scan body); a checkpoint a
+        layer recomputes the same values, so the gradients are the same and
+        fewer activations are held at once. The hybrid stack walks its
+        groups as :meth:`_hybrid` does; the shared block's gradient is
+        autograd's sum over its uses. The vlm stack walks its groups as
+        :meth:`_vlm` does, each cross layer projecting its K/V from the
+        image context (:meth:`_image_ctx`)."""
         check_trainable(self.cfg)
         cfg, cc = self.cfg, self.cc
         tokens = self._tokens(tokens)
@@ -577,6 +597,12 @@ class Model(nn.Module):
                     calls += [(blk.forward_train, (cfg,)) for blk in group]
                     calls.append((self.shared_attn, (positions, cfg, cc)))
                 calls += [(blk.forward_train, (cfg,)) for blk in getattr(self, "tail", ())]
+            elif cfg.family == "vlm":
+                ctx = self._image_ctx(image_embeds)
+                calls = []
+                for group in self.blocks:
+                    calls += [(blk.forward_train, (positions, cfg, cc)) for blk in group.selfs]
+                    calls.append((group.cross.forward_cross_train, (ctx, cfg, cc)))
             else:
                 calls = [(blk.forward_train, (positions, cfg, cc)) for blk in self._attn_layers()]
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -656,7 +682,7 @@ def check_trainable(cfg: ArchConfig) -> None:
     if cfg.family in UNTRAINED:
         raise NotImplementedError(
             f"{cfg.name}: training the {cfg.family} family is not ported yet (ROADMAP Queue 1, "
-            f"item 4): it needs {UNTRAINED[cfg.family]}; the dense, moe, ssm and hybrid "
+            f"item 4): it needs {UNTRAINED[cfg.family]}; the dense, moe, vlm, ssm and hybrid "
             f"families train")
 
 

@@ -1,5 +1,6 @@
-"""Optimizer: AdamW with cosine / WSD schedules, global-norm clipping and
-optional bf16 or 8-bit (per-row quantized) moments.
+"""Optimizer: AdamW with cosine / WSD schedules, global-norm clipping,
+optional bf16 or 8-bit (per-row quantized) moments and optional bf16
+master weights (:func:`cast_params`).
 
 The port's copy of ``repro.train.optimizer``, on a flat mapping of
 parameter name -> tensor (``dict(model.named_parameters())``) where the
@@ -47,7 +48,30 @@ class OptConfig:
     decay_frac: float = 0.1       # WSD: final fraction of steps in decay
     min_lr_ratio: float = 0.1
     moment_dtype: str = "fp32"    # "fp32" | "bf16" | "int8"
-    param_dtype: str = "fp32"     # "fp32" | "bf16" master weights
+    param_dtype: str = "fp32"     # "fp32" | "bf16" master weights (cast_params)
+
+
+PARAM_DTYPES = ("fp32", "bf16")
+
+
+@torch.no_grad()
+def cast_params(params: Mapping[str, torch.Tensor], cfg: OptConfig) -> None:
+    """The master weights in ``cfg.param_dtype``, in place: with ``"bf16"``
+    every float32 parameter becomes bfloat16 (any other dtype stays), as the
+    reference's dry run casts a train state's parameters before
+    ``init_opt_state`` (``repro/launch/dryrun.py:150-157``); ``"fp32"``
+    leaves them as they are. Leaf by leaf: each tensor's float32 storage is
+    released as its bfloat16 copy replaces it (``.data``, so a
+    ``nn.Parameter`` stays the same object), and the two copies of the
+    model never stand side by side. :func:`adamw_update` then writes each
+    update back in the parameter's dtype."""
+    if cfg.param_dtype not in PARAM_DTYPES:
+        raise ValueError(f"param_dtype={cfg.param_dtype!r}; expected one of {PARAM_DTYPES}")
+    if cfg.param_dtype == "fp32":
+        return
+    for p in params.values():
+        if p.dtype == torch.float32:
+            p.data = p.data.to(torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------

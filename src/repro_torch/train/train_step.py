@@ -3,7 +3,8 @@ accumulation and an optional gradient transform.
 
 The port's copy of ``repro.train.train_step``. A train state is a dict
 ``{"params": model, "opt": {"step", "m", "v"}, "rng"}``: the model itself
-(its parameters are the master weights, float32), the optimizer state of
+(its parameters are the master weights, float32, or bfloat16 under
+``OptConfig(param_dtype="bf16")``), the optimizer state of
 :func:`repro_torch.train.optimizer.init_opt_state` keyed by parameter name,
 and the reference's PRNG key as a uint32 array ``[0, seed]`` (the port draws
 nothing from it). ``train_step(state, batch)`` updates the state in place
@@ -19,8 +20,9 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.checkpoint import _host
-from repro_torch.convert import model_params_from_port, stack_tree, unstack_tree
-from repro_torch.train.optimizer import OptConfig, _is_qleaf, adamw_update, init_opt_state
+from repro_torch.convert import stack_tree, unstack_tree
+from repro_torch.train.optimizer import (OptConfig, _is_qleaf, adamw_update, cast_params,
+                                         init_opt_state)
 
 
 def prng_key(seed: int) -> np.ndarray:
@@ -31,10 +33,12 @@ def prng_key(seed: int) -> np.ndarray:
 
 def make_train_state(model, seed: Optional[int], opt_cfg: OptConfig) -> Dict[str, Any]:
     """A fresh train state: the parameters redrawn from ``seed`` (None keeps
-    the model's own, e.g. converted from the reference's), made trainable,
-    and zero moments."""
+    the model's own, e.g. converted from the reference's), cast to
+    ``opt_cfg.param_dtype`` (:func:`~repro_torch.train.optimizer.cast_params`),
+    made trainable, and zero moments."""
     if seed is not None:
         model.init(seed)
+    cast_params(dict(model.named_parameters()), opt_cfg)
     model.requires_grad_(True)
     return {"params": model, "opt": init_opt_state(dict(model.named_parameters()), opt_cfg),
             "rng": prng_key(0 if seed is None else seed)}
@@ -113,21 +117,25 @@ def _placeholder(t) -> np.ndarray:
     return np.zeros(())
 
 
+
 def state_tree(state: Dict[str, Any], *, template: bool = False) -> Dict[str, Any]:
     """The state as the reference's train-state tree: ``{"opt": {"m",
     "step", "v"}, "params", "rng"}`` with the parameters and moments
     stacked as ``repro.models.transformer.Model.init`` stacks them, numpy
-    leaves (bfloat16 moments as ml_dtypes' bfloat16, as JAX holds them).
+    leaves in their own dtype (bfloat16 masters and moments as ml_dtypes'
+    bfloat16, as JAX holds them).
     With ``template`` every leaf is a 0-d placeholder: the structure alone,
     which is all ``checkpoint.restore`` reads of its template, with nothing
     copied off the card."""
     model = state["params"]
     host = _placeholder if template else _host
-    stack = lambda d: stack_tree(model.cfg, model, _flat_moments(d, host))  # noqa: E731
+    # the tensors stacked where they live, then each stacked leaf to the host once
+    leaf, convert = (_placeholder, None) if template else (lambda t: t, _host)
+    stack = lambda d: stack_tree(model.cfg, model, _flat_moments(d, leaf),  # noqa: E731
+                                 convert=convert)
     opt = state["opt"]
-    params = stack(dict(model.state_dict())) if template else model_params_from_port(model)
     return {"opt": {"m": stack(opt["m"]), "step": host(opt["step"]), "v": stack(opt["v"])},
-            "params": params, "rng": np.asarray(state["rng"])}
+            "params": stack(dict(model.state_dict())), "rng": np.asarray(state["rng"])}
 
 
 def _tensor(a) -> torch.Tensor:

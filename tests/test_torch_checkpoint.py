@@ -174,6 +174,26 @@ def test_restore_reads_every_npz_member_as_np_load(tmp_path, writer):
             ck._loadz(path, list(arrays))
 
 
+def test_restore_reads_in_chunks_with_the_crc_of_each(tmp_path, monkeypatch):
+    """The reader at a chunk of 7 bytes (a member in many pieces, the last
+    one short, each CRC taken while the next piece is read): np.load's
+    bytes, and a byte flipped in a middle piece still fails the CRC."""
+    import zipfile
+
+    monkeypatch.setattr(ck, "READ_CHUNK", 7)
+    arrays = {"leaf_0": np.arange(1000, dtype=np.float32).reshape(10, 100),
+              "leaf_1": np.arange(3, dtype=np.int8)}
+    path = str(tmp_path / "shard.npz")
+    np.savez(path, **arrays)
+    for name, g in zip(arrays, ck._loadz(path, list(arrays))):
+        assert g.tobytes() == arrays[name].tobytes(), name
+    raw = bytearray(open(path, "rb").read())
+    raw[raw.find(arrays["leaf_0"].tobytes()) + 2001] ^= 1
+    open(path, "wb").write(bytes(raw))
+    with pytest.raises(zipfile.BadZipFile, match="leaf_0"):
+        ck._loadz(path, list(arrays))
+
+
 def test_checkpoints_cross_between_the_packages(tmp_path):
     jd, td = str(tmp_path / "jax"), str(tmp_path / "port")
     jck.save(jd, 4, TREE)

@@ -735,6 +735,48 @@ def test_flash_attention_bwd_kernel_matches_plain_version(cuda, b, s, h, kvh, hd
         _grad_within(g, w, dtype)
 
 
+# (B, Sq, Skv, H, KVH, hd) of the backward against fewer or more keys than
+# queries, non-causal: llama-3.2-vision-90b's cross layer in training (Sq
+# 2,048 against its 1,601 = 25 x 64 + 1 image tokens, 64 heads over 8, hd
+# 128), a small ragged pair, reduced vlm's 16 image tokens, one key past a
+# 64-key tile and more keys than queries
+CROSS_BWD_CASES = [
+    (8, 2048, 1601, 64, 8, 128),
+    (2, 300, 77, 8, 2, 128),
+    (2, 37, 16, 4, 2, 32),
+    (1, 70, 65, 8, 8, 128),
+    (2, 64, 200, 6, 3, 64),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,kvh,hd", CROSS_BWD_CASES)
+def test_flash_attention_bwd_at_the_cross_shapes(cuda, b, sq, skv, h, kvh, hd, dtype):
+    """The backward kernels at Sq != Skv, non-causal, against
+    flash_attention_bwd_ref on the same inputs (float32 rtol 1e-3, atol
+    1e-4 max; bfloat16 2e-2 max); two calls give the same bits; the
+    forward's out is the same with and without lse."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    gen = torch.Generator(device=cuda).manual_seed(sq + skv + hd)
+    q = torch.randn((b, sq, h, hd), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, skv, kvh, hd), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    dout = torch.randn((b, sq, h, hd), generator=gen, device=cuda).to(dtype)
+    out, lse = flash_attention(q, k, v, causal=False, return_lse=True)
+    assert torch.equal(out, flash_attention(q, k, v, causal=False))
+    got = flash_attention_bwd(q, k, v, out, lse, dout, causal=False)
+    again = flash_attention_bwd(q, k, v, out, lse, dout, causal=False)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=False)
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert torch.equal(g, a)
+        _grad_within(g, w, dtype)
+    del want
+    torch.cuda.empty_cache()
+
+
 def test_flash_attention_bwd_rejects(cuda):
     from repro_torch.kernels.flash_attention import flash_attention_bwd
 
@@ -843,35 +885,45 @@ def test_slstm_bwd_routes_and_rejects(cuda):
                         torch.zeros((2, 30, 64), device=cuda), 2)
 
 
-def _train_setup(cuda, kernel_backend=None, dtype=torch.float32, arch="smollm-135m", **changes):
+def _train_setup(cuda, kernel_backend=None, dtype=torch.float32, arch="smollm-135m", opt=None,
+                 **changes):
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.train_step import make_train_state, make_train_step
 
     cfg = dataclasses.replace(get_config(arch).reduced(), **changes)
     model = build_model(cfg, CallConfig(compute_dtype=dtype, kernel_backend=kernel_backend),
                         device=cuda, seed=0)
-    ocfg = OptConfig(lr=3e-3, schedule="wsd", warmup_steps=1, total_steps=8)
+    ocfg = OptConfig(lr=3e-3, schedule="wsd", warmup_steps=1, total_steps=8, **(opt or {}))
     return model, make_train_state(model, None, ocfg), make_train_step(model, ocfg)
 
 
-def _train_batches(n):
+def _train_batches(n, arch="smollm-135m", **changes):
+    """``n`` batches of 4 x 128 tokens; a vlm arch's with each step's image
+    embeddings as the launcher draws them, on the card."""
     from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch.train import image_embeds_at
 
     data = SyntheticTokens(DataConfig(vocab_size=512, seq_len=128, global_batch=4, seed=0))
-    return [data.batch_at(i) for i in range(n)]
+    batches = [data.batch_at(i) for i in range(n)]
+    cfg = dataclasses.replace(get_config(arch).reduced(), **changes)
+    if cfg.family == "vlm":
+        for i, b in enumerate(batches):
+            b["image_embeds"] = image_embeds_at(cfg, 4, 0, i, "cuda")
+    return batches
 
 
-def _kernel_steps_match_plain(cuda, dtype, arch, kernels, per_step, **changes):
+def _kernel_steps_match_plain(cuda, dtype, arch, kernels, per_step, opt=None, **changes):
     """Three steps of reduced ``arch`` through ``kernels`` (forward,
     backward) against the same steps with their plain versions: losses and
     grad norms within 2e-5 / 1e-4 relative in float32, 2e-2 in bfloat16;
-    ``per_step`` (forward, backward) launches a step, none plain."""
+    ``per_step`` (forward, backward) launches a step, none plain. ``opt``:
+    OptConfig changes (bf16 masters)."""
     runs = []
     for backend in (None, "ref"):
-        model, state, step = _train_setup(cuda, backend, dtype, arch, **changes)
+        model, state, step = _train_setup(cuda, backend, dtype, arch, opt, **changes)
         before = [k.launches for k in kernels]
         mets = []
-        for batch in _train_batches(3):
+        for batch in _train_batches(3, arch, **changes):
             state, m = step(state, batch)
             mets.append((float(m["loss"]), float(m["grad_norm"])))
         torch.cuda.synchronize()
@@ -935,6 +987,43 @@ def test_reduced_dbrx_train_steps_through_the_kernels(cuda, dtype):
     L = get_config("dbrx-132b").reduced().num_layers
     _kernel_steps_match_plain(cuda, dtype, "dbrx-132b", (flash_attention, flash_attention_bwd),
                               (2 * L, L), **DBRX_HD128)
+
+
+# reduced llama-3.2-vision-90b widened to hd 128 and G = 8 (the published
+# ratio), so the hd 128 kernels run at both of its shapes: one group of a
+# self layer and a cross layer over 16 image tokens
+VLM_HD128 = dict(d_model=1024, num_heads=8, num_kv_heads=1)
+
+
+@pytest.mark.parametrize("changes", [{}, VLM_HD128], ids=["hd32", "hd128"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reduced_vlm_train_steps_through_the_kernels(cuda, dtype, changes):
+    """Reduced llama-3.2-vision-90b through the attention kernels, its cross
+    layer non-causal against the image tokens, against the plain attention,
+    with each step's image embeddings; under remat 2 forward and 1 backward
+    launch a layer and step."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    L = get_config("llama-3.2-vision-90b").reduced().num_layers
+    _kernel_steps_match_plain(cuda, dtype, "llama-3.2-vision-90b",
+                              (flash_attention, flash_attention_bwd), (2 * L, L), **changes)
+
+
+def test_reduced_vlm_bf16_master_steps_through_the_kernels(cuda):
+    """The train-vlm recipe at the reduced size: bf16 masters and bf16
+    moments (every parameter bfloat16 after the state is made), bf16
+    compute, through the kernels against the plain attention."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    opt = dict(param_dtype="bf16", moment_dtype="bf16")
+    model, _, _ = _train_setup(cuda, None, torch.bfloat16, "llama-3.2-vision-90b", opt,
+                               **VLM_HD128)
+    assert {p.dtype for p in model.parameters()} == {torch.bfloat16}
+    del model
+    L = get_config("llama-3.2-vision-90b").reduced().num_layers
+    _kernel_steps_match_plain(cuda, torch.bfloat16, "llama-3.2-vision-90b",
+                              (flash_attention, flash_attention_bwd), (2 * L, L), opt,
+                              **VLM_HD128)
 
 
 def test_reduced_dbrx_bf16_train_steps_give_the_same_bits_twice(cuda):

@@ -39,7 +39,7 @@ from repro_torch.convert import (model_params_from_port, model_params_to_port, s
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import flash_attention_bwd_ref, flash_attention_ref
 from repro_torch.launch import train as train_launcher
-from repro_torch.models.transformer import CallConfig, build_model
+from repro_torch.models.transformer import CallConfig, build_model, check_trainable
 from repro_torch.train import optimizer as topt
 from repro_torch.train.train_step import make_train_state, make_train_step
 
@@ -225,9 +225,21 @@ def test_tied_embedding_is_one_parameter():
 
 @pytest.mark.parametrize("arch", ["vlm", "audio"])
 def test_other_families_refuse_to_train(arch):
+    """audio still refuses, naming the ROADMAP item; vlm trains now
+    (tests/test_torch_vlm_train.py): check_trainable passes and its loss
+    is finite with image embeddings."""
     name = next(n for n in ARCHS if get_config(n).family == arch)
-    tm = build_model(get_config(name).reduced(), device="cpu")
+    cfg = get_config(name).reduced()
+    tm = build_model(cfg, device="cpu")
     toks = np.ones((1, 8), dtype=np.int32)
+    if arch == "vlm":
+        check_trainable(cfg)
+        img = np.zeros((1, cfg.num_image_tokens, cfg.d_model), dtype=np.float32)
+        loss, _ = tm.loss({"tokens": toks, "targets": toks, "image_embeds": img})
+        assert math.isfinite(float(loss))
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 4"):
+        check_trainable(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 4"):
         tm.loss({"tokens": toks, "targets": toks})
 
@@ -442,6 +454,6 @@ def test_launcher_resume_continues_the_uninterrupted_run(tmp_path, capsys):
 
 
 def test_launcher_refuses_other_families():
-    with pytest.raises(NotImplementedError, match="vlm"):
-        train_launcher.main(["--arch", "llama-3.2-vision-90b", "--reduced", "--device", "cpu",
+    with pytest.raises(NotImplementedError, match="audio"):
+        train_launcher.main(["--arch", "musicgen-large", "--reduced", "--device", "cpu",
                              "--steps", "1"])
