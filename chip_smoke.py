@@ -3,25 +3,26 @@
 
     python3 chip_smoke.py        # from the repository root; one CUDA card, nvcc
 
-Fourteen paths: the compiled VGG-16 executor (phases 3-5, and split over
+Fifteen paths: the compiled VGG-16 executor (phases 3-5, and split over
 two shards in phase 15), serving smollm-135m (phases 3, 6 and 7; streaming,
 paged and faulted in phases 16-17) at 5 of its 30 layers and serving
-xlstm-350m (phases 3, 8 and 9) at 4 of its 24, both at their full published
+xlstm-350m (phases 3, 8 and 9) at 2 of its 24, both at their full published
 widths, the paper's Tab. IV evaluation and design-space sweep (phases
 10-12), VGG-16 compiled around faults and from a searched mapping (phases
 13-14), serving dbrx-132b at full width with its depth cut to 2 layers
 (phases 18-19), serving zamba2-1.2b at full width with its depth cut to 8
 layers, contiguous and paged (phases 20-21), and the model's own prefill
 and decode of llama-3.2-vision-90b at full width cut to 2 of its 20 groups
-(phases 22-23) and of musicgen-large at 12 of its 48 layers (phases 24-25),
+(phases 22-23) and of musicgen-large at 6 of its 48 layers (phases 24-25),
 which no engine serves, and training smollm-135m at 10 of its 30 layers
-(phase 26), xlstm-350m at 4 of its 24 (phase 27), zamba2-1.2b at 14 of its
+(phase 26), xlstm-350m at 2 of its 24 (phase 27), zamba2-1.2b at 14 of its
 38 (phase 28), dbrx-132b at full width with its depth cut to 1 layer (phase
-29) and llama-3.2-vision-90b at full width with its depth cut to 1 of its
-20 groups (phase 30). Every cut depth (SERVE_CUT, TRAIN_CUT, XLSTM_CUT,
-HYBRID_CUT, HYBRID_SERVE_CUT, AUDIO_CUT, MOE_LAYERS, MOE_TRAIN_LAYERS,
-VLM_LAYERS, VLM_TRAIN_CUT) is in its phase lines' "reduced"; it keeps the
-script near two thirds of its time limit.
+29), llama-3.2-vision-90b at full width with its depth cut to 1 of its
+20 groups (phase 30) and musicgen-large whole (phase 31). Every cut depth
+(SERVE_CUT, TRAIN_CUT, XLSTM_CUT, HYBRID_CUT, HYBRID_SERVE_CUT, AUDIO_CUT,
+MOE_LAYERS, MOE_TRAIN_LAYERS, VLM_LAYERS, VLM_TRAIN_CUT, and the resumes'
+HYBRID_RESUME and AUDIO_RESUME) is in its phase lines' "reduced"; it keeps
+the script near two thirds of its time limit.
 Phases, each printing JSON lines:
 
 1. card      — the card's name and power limit (nvidia-smi), torch and CUDA versions;
@@ -65,7 +66,7 @@ Phases, each printing JSON lines:
                atol 1e-4 of max|plain|, tests/test_layers.py:121) and
                bfloat16 (2e-2 of max|plain|; each element's error over one
                rounding reported), and both kernels at the train-hybrid
-               phase's (8, 2048, 32, 32, 64), the train-moe phase's
+               and train-audio phases' (8, 2048, 32, 32, 64), the train-moe phase's
                (8, 2048, 48, 8, 128) and the train-vlm phase's self
                (8, 2048, 64, 8, 128; bfloat16) and cross shapes (Sq 2,048
                against Skv 1,601 = 25 x 64 + 1 keys, non-causal; the
@@ -105,10 +106,10 @@ Phases, each printing JSON lines:
                fails if a library attention kernel (flash_fwd, fmha,
                efficient_attention, cuDNN) runs in the prefill;
 8. serve-xlstm — xlstm-350m (d_model 1024, 4 heads of 256, vocab 50304,
-               untied) with its 24 layers (12 [mLSTM, sLSTM] pairs) cut to 4
+               untied) with its 24 layers (12 [mLSTM, sLSTM] pairs) cut to 2
                (XLSTM_CUT, the line's "reduced"), bf16, weights drawn
                from seed 0, the same 16-request wave as phase 6: the same
-               numbers, slstm_fused launches (2 per prefill, each a cluster of
+               numbers, slstm_fused launches (1 per prefill, each a cluster of
                8 CTAs per head), the tokens
                against generate_sequential; then, on four of the prompts (the
                shortest, the longest, two between: the plain recurrence is a
@@ -257,11 +258,11 @@ Phases, each printing JSON lines:
 23. profile-serve — the 8-row prefill's and decode step's windows for it;
 24. model-audio — musicgen-large (d_model 2048, 32 heads, d_ff 8192,
                layernorm, gelu, 4 codebooks of 2048) with its 48 layers cut to
-               12 (AUDIO_CUT, the line's "reduced"), bf16, weights
+               6 (AUDIO_CUT, the line's "reduced"), bf16, weights
                from seed 0: 8 rows of 512 frames x 4 codebooks
                (numpy.random.default_rng(3)), one prefill and 64 greedy decode
                steps, each feeding back every codebook's argmax as the
-               (B, 1, K) token: phase 22's numbers and gates, 12
+               (B, 1, K) token: phase 22's numbers and gates, 6
                flash_attention launches a prefill and none a step;
 25. profile-serve — the same two windows for it;
 26. train    — smollm-135m at 10 of its 30 layers (TRAIN_CUT, the line's
@@ -282,10 +283,10 @@ Phases, each printing JSON lines:
                layout, under build/), restored into a fresh model and state
                and taken 3 steps further: losses and parameters bitwise the
                uninterrupted run's;
-27. train-xlstm — xlstm-350m at 4 of its 24 layers (phase 8's model,
+27. train-xlstm — xlstm-350m at 2 of its 24 layers (phase 8's model,
                XLSTM_CUT), the same recipe and
-               numbers as phase 26, slstm_fused 4 launches a step (2 pairs,
-               again under remat) and slstm_fused_bwd 2, a profiled step, the
+               numbers as phase 26, slstm_fused 2 launches a step (1 pair,
+               again under remat) and slstm_fused_bwd 1, a profiled step, the
                20th loss below the first; the held checks at 2 x 256 tokens
                (the plain recurrence is ~20 launches a step forward, ~40
                backward): every sLSTM forward and backward call of the
@@ -347,7 +348,24 @@ Phases, each printing JSON lines:
                a float64 attention reported beside; the resume at full
                width bitwise (a ~38 GB checkpoint of bf16 masters and
                moments);
-31. the seconds of each phase, the kernels line (each kernel's launches on
+31. train-audio — musicgen-large whole (48 layers, d_model 2048, 32 heads,
+               32 KV heads, d_ff 8192, layernorm, gelu, 4 codebooks of
+               2048, untied (4, 2048, 2048) embed and unembed tables;
+               2,449.87 M parameters, the line's "params"), phase 26's
+               recipe on f32 masters and f32 moments, batches of 8 x 2048
+               frames x 4 codebooks from SyntheticTokens(num_codebooks=4):
+               96 flash_attention and 48 flash_attention_bwd launches a
+               step at (8, 2048, 32, 32, 64), the train-hybrid shape, a
+               profiled step with no library attention kernel and the
+               host's synchronizing calls counted, the 20th loss below the
+               first; the held checks at 2 x AUDIO_CHECK_SEQ frames at
+               TRAIN_HELD_TOL with every flash call held on its own inputs,
+               the float32 backward calls against the float64 gradient
+               within F32_BWD_VS_PLAIN times the plain float32 backward's
+               own distance from it (flash_bwd_f64_held; their distance
+               from the plain backward reported); the resume bitwise at
+               AUDIO_RESUME (6 layers, the line's "reduced");
+32. the seconds of each phase, the kernels line (each kernel's launches on
                every path), the card line, the result line.
 
 Any failed check exits non-zero before the result line is printed. Finding no
@@ -553,30 +571,40 @@ VLM_CHECK_SEQ = 256
 # another; host-paced phases move by up to 70 % between machines). Each cut
 # is in its phase lines' "reduced", and no gate changes with it:
 # smollm-135m serves at 5 of its 30 layers (serve, serve-traffic,
-# serve-faults) and trains at 10; xlstm-350m serves and trains at 2 of its
+# serve-faults) and trains at 10; xlstm-350m serves and trains at 1 of its
 # 12 [mLSTM, sLSTM] pairs; zamba2-1.2b trains at 2 of its 6 groups of 6
 # Mamba2 blocks (each followed by the shared block) and its 2 tail blocks
 # (14 of 38 layers) and serves at 1 group and the tail (8 of 38; the shared
 # block's second use in serving is held on the card at the reduced size,
 # tests/test_torch_gpu.py); dbrx-132b serves at 2 of its 40 layers
-# (MOE_LAYERS); musicgen-large runs 12 of its 48. The train-vlm phase bought
+# (MOE_LAYERS); musicgen-large prefills and decodes at 6 of its 48
+# (AUDIO_CUT; train-audio drives all 48 at full width). The train-vlm phase bought
 # its time with its held checks at 2 x 256 tokens, then by cutting smollm's
 # serving from 10 layers to 5 and its training from 30 to 10, xlstm's from
 # 8 to 4, dbrx's serving from 4 to 2 and zamba2's from 14 to 8, then in the
 # resume's I/O (a checkpoint on the host's tmpfs does not fit beside the
 # host tree of a ~36-38 GB state: PERF.md). zamba2's training stays at 14:
 # at 8 its float32 held steps part past HYBRID_HELD_TOL and its 20th loss
-# stays above its first (PERF.md)
+# stays above its first (PERF.md). The train-audio phase bought its time with
+# its own cuts (AUDIO_CHECK_SEQ, AUDIO_RESUME), then with model-audio's
+# depth, 12 to 6, and xlstm-350m's, 4 to 2 (serve-xlstm and train-xlstm)
 SERVE_CUT = dict(num_layers=5)
 TRAIN_CUT = dict(num_layers=10)
-XLSTM_CUT = dict(num_layers=4)
+XLSTM_CUT = dict(num_layers=2)
 HYBRID_CUT = dict(num_layers=14)
 HYBRID_SERVE_CUT = dict(num_layers=8)
-AUDIO_CUT = dict(num_layers=12)
+AUDIO_CUT = dict(num_layers=6)
 # the resume check of train-hybrid at a smaller depth still: one of zamba2's
 # groups and the shared block, no tail. A bitwise round trip does not change
 # in kind with depth
 HYBRID_RESUME = dict(num_layers=6)
+# the train-audio phase: musicgen-large whole (48 layers, 2,449.87 M
+# parameters: f32 masters, gradients and moments take 39.2 GB) on the
+# launcher's recipe, 8 x 2048 frames x 4 codebooks a step; its held checks at
+# 2 x AUDIO_CHECK_SEQ frames (model-audio's prompt length) and its resume at
+# AUDIO_RESUME (a 4.0 GB checkpoint where the whole model's would be 29.4 GB)
+AUDIO_CHECK_SEQ = AUDIO_FRAMES
+AUDIO_RESUME = dict(num_layers=6)
 BWD_CHECK_S = 300  # the backward checks' own time limit (they take well under a minute)
 FIRST_BURST = dict(PATIENT_TRAFFIC, name="chip-burst-8-patient", num_requests=8)
 # the virtual clock is a function of the profile, the pool and the fault draws
@@ -1235,13 +1263,36 @@ def profile_window(fn, what: str, forbid=None) -> dict:
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10])
     line = {"device_busy_ms": busy / 1e3, "device_span_ms": span / 1e3,
             "idle_share": 1.0 - busy / span, "host_wall_ms": wall * 1e3,
-            "device_kernels": len(spans), "ms_by_kernel": top}
+            "device_kernels": len(spans), "ms_by_kernel": top,
+            "host_syncs": host_syncs(prof)}
     if forbid is not None:
         found = sorted({name for _, _, name in spans if forbid.search(name)})
         line["library_kernels"] = found
         if found:
             fail(f"{what} ran library kernels: {found}")
     return line
+
+
+# the CUDA runtime calls in a trace that make the host wait for the device
+# (PyTorch follows a copy from pageable host memory with a stream synchronize)
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+              "cudaMemcpy")
+COPY_KINDS = ("HtoD", "DtoH", "DtoD")
+
+
+def host_syncs(prof) -> dict:
+    """How many of each SYNC_CALLS call the trace holds, and its device
+    copies by direction (a cudaMemcpyAsync device to device does not wait)."""
+    counts = dict.fromkeys(SYNC_CALLS, 0)
+    copies = dict.fromkeys(COPY_KINDS, 0)
+    for e in prof.events():
+        if e.name in counts:
+            counts[e.name] += 1
+        elif e.device_type == torch.autograd.DeviceType.CUDA and e.name.startswith("Memcpy "):
+            kind = e.name.split()[1]
+            if kind in copies:
+                copies[kind] += 1
+    return {**counts, "copies": copies}
 
 
 def serve_wave(vocab: int, n: int = N_REQUESTS, prompts=(128, 1024), max_new: int = MAX_NEW):
@@ -1357,14 +1408,7 @@ def slstm_bwd_held(kernel_bwd, worst: dict):
         got = kernel_bwd(rg, saved, dh, num_heads)
         want = slstm_bwd_ref(rg, saved, dh, num_heads)
         name = str(dh.dtype).replace("torch.", "")
-        for g, w in zip(got, want):
-            wd = w.double()
-            diff, scale = (g.double() - wd).abs(), wd.abs().max()
-            if g.dtype == torch.float32:
-                ratio = (diff / (GRAD_RTOL * wd.abs() + GRAD_ATOL * scale)).max().item()
-            else:
-                ratio = (diff.max() / (TOL[g.dtype] * scale)).item()
-            worst[name] = max(worst.get(name, 0.0), ratio)
+        worst[name] = max([worst.get(name, 0.0)] + grad_over_limit(got, want))
         return got
     return run
 
@@ -1394,27 +1438,83 @@ def flash_train_held(kernel_fwd, worst: dict):
     return run
 
 
-def flash_bwd_held(kernel_bwd, worst: dict):
+def attention_bwd_f64(q, k, v, dout, *, causal=True) -> tuple:
+    """dq, dk, dv of attention_f64 on ``q, k, v`` taken to float64, by
+    autograd: the exact gradient the float32 backwards round."""
+    q, k, v = (t.detach().double().requires_grad_() for t in (q, k, v))
+    with torch.enable_grad():
+        out = attention_f64(q, k, v, causal=causal)
+    return torch.autograd.grad(out, (q, k, v), dout.double())
+
+
+# the float32 attention backward held against the float64 gradient
+# (flash_bwd_f64_held): each of dq, dk and dv may stand, over the held limit,
+# F32_BWD_VS_PLAIN times as far from the float64 gradient as the plain float32
+# backward does on the same inputs, and no further than the limit where the
+# plain stands within 1 / F32_BWD_VS_PLAIN of it. Set from readings
+# (scripts/train_audio_probe.py --part held; PERF.md): over musicgen-large's
+# 144 float32 held calls the kernel needs 2.30 (its third step's call 45, dq
+# 1.75 of the limit from float64 where the plain stands at 0.76), times 1.5
+F32_BWD_VS_PLAIN = 3.5
+# the key of a held-calls worst dict that reports a float32 call's distance
+# from the plain backward where the call is held against float64 (ungated)
+FROM_PLAIN = "float32 from plain (reported)"
+
+
+def grad_over_limit(got, want) -> list:
+    """For each gradient of ``got`` and ``want``, the largest error of ``got``
+    over the held limit: rtol 1e-3, atol 1e-4 of max|want| in float32
+    (tests/test_layers.py:121), 2e-2 of max|want| in bfloat16."""
+    out = []
+    for g, w in zip(got, want):
+        wd = w.double()
+        diff, scale = (g.double() - wd).abs(), wd.abs().max()
+        if g.dtype == torch.float32:
+            out.append((diff / (GRAD_RTOL * wd.abs() + GRAD_ATOL * scale)).max().item())
+        else:
+            out.append((diff.max() / (TOL[g.dtype] * scale)).item())
+    return out
+
+
+def flash_bwd_f64_ratio(got, plain, exact) -> float:
+    """A float32 attention backward ``got`` (dq, dk, dv) held against the
+    float64 gradient ``exact``, with the plain float32 backward ``plain`` on
+    the same inputs as the measure of float32's own rounding there: the
+    largest, over dq, dk and dv, of got's distance from ``exact`` over the
+    held limit divided by max(1, F32_BWD_VS_PLAIN times plain's). Passes at
+    1 or less."""
+    return max(a / max(1.0, F32_BWD_VS_PLAIN * b)
+               for a, b in zip(grad_over_limit(got, exact), grad_over_limit(plain, exact)))
+
+
+def flash_bwd_held(kernel_bwd, worst: dict, *, f64: bool = False):
     """``ops._flash_attention_bwd`` that also holds each call against
     flash_attention_bwd_ref on the same (q, k, v, out, lse, dout) (real model
-    activations and gradients): dq, dk, dv within rtol 1e-3, atol 1e-4 of
-    max|plain| in float32 (tests/test_layers.py:121), within 2e-2 of
-    max|plain| in bfloat16, as check_flash_bwd; the worst ratio of error to
-    limit goes to ``worst[dtype]``."""
+    activations and gradients), dq, dk and dv within grad_over_limit's
+    limits, as check_flash_bwd; the worst ratio of error to limit goes to
+    ``worst[dtype]``. With ``f64`` every float32 call is held against
+    attention_bwd_f64 on its inputs instead (flash_bwd_f64_ratio), and its
+    distance from the plain backward goes to ``worst[FROM_PLAIN]``."""
     def run(q, k, v, out, lse, dout, *, causal=True, block_kv=None):
         got = kernel_bwd(q, k, v, out, lse, dout, causal=causal, block_kv=block_kv)
         want = flash_attention_bwd_ref(q, k, v, out, lse, dout, causal=causal)
         name = str(q.dtype).replace("torch.", "")
-        for g, w in zip(got, want):
-            wd = w.double()
-            diff, scale = (g.double() - wd).abs(), wd.abs().max()
-            if g.dtype == torch.float32:
-                ratio = (diff / (GRAD_RTOL * wd.abs() + GRAD_ATOL * scale)).max().item()
-            else:
-                ratio = (diff.max() / (TOL[g.dtype] * scale)).item()
-            worst[name] = max(worst.get(name, 0.0), ratio)
+        ratios = grad_over_limit(got, want)
+        if f64 and q.dtype == torch.float32:
+            worst[FROM_PLAIN] = max([worst.get(FROM_PLAIN, 0.0)] + ratios)
+            ratios = [flash_bwd_f64_ratio(got, want, attention_bwd_f64(q, k, v, dout,
+                                                                       causal=causal))]
+        worst[name] = max([worst.get(name, 0.0)] + ratios)
         return got
     return run
+
+
+def flash_bwd_f64_held(kernel_bwd, worst: dict):
+    """flash_bwd_held with every float32 call held against the float64
+    gradient: where a softmax peaks (lse to ~40) ``dp - delta`` cancels and
+    the plain float32 backward itself stands several times the limit from
+    it (PERF.md)."""
+    return flash_bwd_held(kernel_bwd, worst, f64=True)
 
 
 def slstm_reordered(gx, rg, num_heads, *, backend=None):
@@ -2712,7 +2812,8 @@ def model_audio_phase() -> tuple:
 
 def train_batches(batch: int, n: int, start: int = 0, arch: str = SERVE_ARCH,
                   seq: int = TRAIN_SEQ) -> list:
-    """``n`` batches of ``batch`` rows of ``seq`` tokens from
+    """``n`` batches of ``batch`` rows of ``seq`` tokens (audio: ``seq``
+    frames x its codebooks, as the launcher builds them) from
     SyntheticTokens(seed=0) at ``arch``'s vocabulary, from step ``start``
     (host numpy, made before any timing); for a vlm arch each with its
     step's image embeddings as the launcher draws them (image_embeds_at,
@@ -2721,7 +2822,8 @@ def train_batches(batch: int, n: int, start: int = 0, arch: str = SERVE_ARCH,
     data loader would."""
     cfg = get_config(arch)
     data = SyntheticTokens(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
-                                      global_batch=batch, seed=0))
+                                      global_batch=batch, seed=0,
+                                      num_codebooks=cfg.num_codebooks))
     batches = [data.batch_at(start + i) for i in range(n)]
     if cfg.family == "vlm":
         for i, b in enumerate(batches):
@@ -2744,9 +2846,12 @@ def train_config(cell, config=None):
 
 
 def train_setup(cell, dtype=torch.bfloat16, kernel_backend=None, config=None):
-    """The model of train_config (weights from seed 0, its masters in
-    train_opt's param_dtype: float32, or bfloat16 where ``cell.opt`` says
-    so) with remat "block", and its train state and step under train_opt."""
+    """The model of train_config (``config``'s changes in place of
+    ``cell.config``'s: the resume's depth), weights from seed 0, its
+    masters in train_opt's param_dtype (float32, or bfloat16 where
+    ``cell.opt`` says so), compute in ``dtype``, remat "block", the
+    kernels or (``kernel_backend="ref"``) their plain versions; and its
+    train state and step under train_opt."""
     model = build_model(train_config(cell, config),
                         CallConfig(compute_dtype=dtype, remat="block",
                                    kernel_backend=kernel_backend), device="cuda", seed=0)
@@ -2907,7 +3012,7 @@ def train_held_checks(cell: TrainCell) -> dict:
         out["held_calls_worst_err_over_limit"] = worst
         if not all(worst.values()):
             failures.append(f"the held calls never ran: the train steps missed the kernels {worst}")
-        elif max(r for w in worst.values() for r in w.values()) > 1.0:
+        elif max(r for w in worst.values() for k, r in w.items() if k != FROM_PLAIN) > 1.0:
             failures.append(f"a kernel call of the kernel train steps is off its plain version: "
                             f"{worst} x the limit")
     out["held_s"] = time.perf_counter() - t_held
@@ -2992,19 +3097,21 @@ def train_phase(cell: TrainCell) -> tuple:
     """``cell.arch`` (``cell.config``'s changes), bf16 compute, f32 masters
     (bf16 under ``cell.opt``'s param_dtype), remat "block", trained on
     batches of TRAIN_BATCH x TRAIN_SEQ tokens (vlm: with each step's image
-    embeddings):
+    embeddings; audio: TRAIN_SEQ frames of its codebooks' tokens):
     TRAIN_WARMUP steps, then TRAIN_TIMED timed ones (steps/s, tokens/s,
     median ms/step, peak memory, the kernels' forward and backward launches
     a step, ``cell.per_step``), a profiled step (idle share, largest device
-    items), then the rest to TRAIN_STEPS: the last step's loss below the
-    first's, every loss and grad norm finite; each step's aux and, for moe,
-    the choices its dispatches dropped; then train_held_checks."""
+    items, the host's synchronizing calls), then the rest to TRAIN_STEPS: the last
+    step's loss below the first's, every loss and grad norm finite; the
+    parameter count, each step's aux and, for moe, the choices its
+    dispatches dropped; then train_held_checks."""
     cfg = train_config(cell)
     ocfg = train_opt(cell)
     batches = train_batches(TRAIN_BATCH, TRAIN_STEPS, arch=cell.arch)
     with torch.enable_grad():
         with Routing() as route:
             model, state, step = train_setup(cell)
+            n_params = sum(p.numel() for p in model.parameters())
             weights_gib = sum(p.numel() * p.element_size() for p in model.parameters()) / 2**30
             state_gib = state_bytes(state) / 2**30
             masters = str(next(model.parameters()).dtype).replace("torch.", "")
@@ -3045,13 +3152,16 @@ def train_phase(cell: TrainCell) -> tuple:
             "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "compute": "bfloat16",
             "masters": masters, "remat": "block", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
             "tokens_per_step": tokens, "reduced": reduced_fields(cell),
-            "optimizer": dataclasses.asdict(ocfg), "weights_gib": weights_gib,
+            "optimizer": dataclasses.asdict(ocfg), "params": n_params, "weights_gib": weights_gib,
             "state_gib": state_gib,
             "median_ms_per_step": ms, "steps_s": 1e3 / ms, "tokens_s": tokens / ms * 1e3,
             "ms_per_step": [w * 1e3 for w in walls], "peak_mem_gib": peak / 2**30,
             "launches_per_step": {n: c / TRAIN_TIMED for n, c in zip(names, launches)},
             "losses": [m[0] for m in mets], "grad_norms": [m[1] for m in mets],
             "aux": [m[2] for m in mets], "profile": prof, "held": held}
+    if cfg.num_codebooks:
+        line.update(codebooks=cfg.num_codebooks, norm=cfg.norm, activation=cfg.activation,
+                    codebook_tokens_per_step=TRAIN_BATCH * TRAIN_SEQ * cfg.num_codebooks)
     if cfg.family == "vlm":
         line.update(groups=cfg.num_layers // cfg.cross_attn_every,
                     self_layers_per_group=cfg.cross_attn_every - 1,
@@ -3083,9 +3193,9 @@ def train_phase(cell: TrainCell) -> tuple:
 
 
 def train_cells() -> tuple:
-    """The five train phases: smollm-135m at TRAIN_CUT through the attention
+    """The six train phases: smollm-135m at TRAIN_CUT through the attention
     kernels (10 layers: 20 forward launches a step under remat, 10 backward),
-    xlstm-350m at XLSTM_CUT through the sLSTM kernels (2 pairs: 4 and 2; the
+    xlstm-350m at XLSTM_CUT through the sLSTM kernels (1 pair: 2 and 1; the
     held checks at XLSTM_CHECK_SEQ, where the plain recurrence is ~20
     launches a step forward and ~40 backward),
     zamba2-1.2b at HYBRID_CUT through the attention kernels (the shared
@@ -3095,14 +3205,20 @@ def train_cells() -> tuple:
     MOE_OPT, its bfloat16 held steps with the routing pinned, and
     llama-3.2-vision-90b at VLM_TRAIN_CUT through the attention kernels at
     its self and cross shapes (2 and 1 a layer: 10 and 5) on VLM_OPT, the
-    held checks at VLM_CHECK_SEQ beside a float64 attention."""
+    held checks at VLM_CHECK_SEQ beside a float64 attention, and
+    musicgen-large whole through the attention kernels (48 layers: 96 and
+    48), the held checks at AUDIO_CHECK_SEQ with the float32 backward calls
+    held against the float64 gradient (flash_bwd_f64_held), the resume at
+    AUDIO_RESUME."""
     L = cut(SERVE_ARCH, TRAIN_CUT).num_layers
     P = cut(XLSTM_ARCH, XLSTM_CUT).num_layers // 2
     hcfg = cut(HYBRID_ARCH, HYBRID_CUT)
     NG = hcfg.num_layers // hcfg.hybrid_attn_every
     VL = cut(VLM_ARCH, VLM_TRAIN_CUT).num_layers
+    AL = get_config(AUDIO_ARCH).num_layers
     attention = (flash_attention, flash_attention_bwd)
     flash_calls = (("_flash_attention", flash_train_held), ("_flash_attention_bwd", flash_bwd_held))
+    flash_calls_f64 = (flash_calls[0], ("_flash_attention_bwd", flash_bwd_f64_held))
     return (TrainCell("train", SERVE_ARCH, attention, (2 * L, L), forbid=LIBRARY_ATTENTION,
                       config=TRAIN_CUT),
             TrainCell("train-xlstm", XLSTM_ARCH, (slstm_fused, slstm_fused_bwd), (2 * P, P),
@@ -3117,7 +3233,10 @@ def train_cells() -> tuple:
                       config=dict(num_layers=MOE_TRAIN_LAYERS), opt=MOE_OPT, pin_routing=True),
             TrainCell("train-vlm", VLM_ARCH, attention, (2 * VL, VL), check_seq=VLM_CHECK_SEQ,
                       forbid=LIBRARY_ATTENTION, held_calls=flash_calls, f64_attention=True,
-                      config=VLM_TRAIN_CUT, opt=VLM_OPT))
+                      config=VLM_TRAIN_CUT, opt=VLM_OPT),
+            TrainCell("train-audio", AUDIO_ARCH, attention, (2 * AL, AL),
+                      check_seq=AUDIO_CHECK_SEQ, forbid=LIBRARY_ATTENTION,
+                      held_calls=flash_calls_f64, resume_config=AUDIO_RESUME))
 
 
 def main() -> None:
@@ -3201,8 +3320,13 @@ def main() -> None:
         for S in lengths:
             for dtype in (torch.bfloat16, torch.float32):
                 check_flash(gen, S, dtype, H=c.num_heads, KVH=c.num_kv_heads, hd=c.head_dim)
-    # zamba2's shared block in the train-hybrid phase: 8 x 2048, 32 heads, G = 1
+    # zamba2's shared block in the train-hybrid phase: 8 x 2048, 32 heads, G = 1;
+    # musicgen's train-audio layers have the same shape (checked once)
     hcfg = get_config(HYBRID_ARCH)
+    acfg = get_config(AUDIO_ARCH)
+    if (acfg.num_heads, acfg.num_kv_heads, acfg.head_dim) != (
+            hcfg.num_heads, hcfg.num_kv_heads, hcfg.head_dim):
+        fail("musicgen-large's attention shape is not zamba2-1.2b's: check it apart")
     hshape = dict(H=hcfg.num_heads, KVH=hcfg.num_kv_heads, hd=hcfg.head_dim, B=TRAIN_BATCH)
     hybrid_lines = {dtype: check_flash(gen, TRAIN_SEQ, dtype, **hshape)
                     for dtype in (torch.bfloat16, torch.float32)}
@@ -3211,7 +3335,7 @@ def main() -> None:
     mshape = dict(H=mcfg.num_heads, KVH=mcfg.num_kv_heads, hd=mcfg.head_dim, B=TRAIN_BATCH)
     moe_lines = {dtype: check_flash(gen, TRAIN_SEQ, dtype, **mshape)
                  for dtype in (torch.bfloat16, torch.float32)}
-    vcfg, acfg = get_config(VLM_ARCH), get_config(AUDIO_ARCH)
+    vcfg = get_config(VLM_ARCH)
     vshape = dict(H=vcfg.num_heads, KVH=vcfg.num_kv_heads, hd=vcfg.head_dim, B=ROWS)
     for dtype in (torch.bfloat16, torch.float32):
         # the vlm's cross layers in a decode step (Sq = 1) and a prefill, its
@@ -3420,7 +3544,7 @@ def main() -> None:
     phase_done("model-audio")
 
     # 26. training smollm-135m (10 layers) through the attention kernels, forward and backward
-    smollm_cell, xlstm_cell, hybrid_cell, moe_cell, vlm_cell = train_cells()
+    smollm_cell, xlstm_cell, hybrid_cell, moe_cell, vlm_cell, audio_cell = train_cells()
     _, train_launches = train_phase(smollm_cell)
     torch.cuda.empty_cache()
     phase_done("train")
@@ -3445,7 +3569,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_done("train-vlm")
 
-    # 31. the phases' seconds, the kernels line, the card, the result
+    # 31. training musicgen-large whole (48 layers) through the attention kernels
+    _, atrain_launches = train_phase(audio_cell)
+    torch.cuda.empty_cache()
+    phase_done("train-audio")
+
+    # 32. the phases' seconds, the kernels line, the card, the result
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
     emit({"kernels": [
         {"name": "com_matmul", "route": "cuda", "source": "src/repro_torch/csrc/com_matmul.cu",
@@ -3470,12 +3599,15 @@ def main() -> None:
                               "serve-hybrid-paged": hybrid_paged_launches,
                               "model-vlm": vlm_launches, "model-audio": audio_launches,
                               "train": train_launches[0], "train-hybrid": htrain_launches[0],
-                              "train-moe": mtrain_launches[0], "train-vlm": vtrain_launches[0]},
-         # a train-hybrid step's forward launches at zamba2's (8, 2048, 32, 32, 64),
+                              "train-moe": mtrain_launches[0], "train-vlm": vtrain_launches[0],
+                              "train-audio": atrain_launches[0]},
+         # a train-hybrid and a train-audio step's forward launches at zamba2's
+         # and musicgen's (8, 2048, 32, 32, 64),
          # a train-moe step's at dbrx's (8, 2048, 48, 8, 128), a train-vlm
          # step's at llama-3.2-vision's self (8, 2048, 64, 8, 128) and cross
          # (Skv 1,601, non-causal) shapes, with lse: 2 of each layer under remat
          "train_hybrid_step": summary([hybrid_lines[torch.bfloat16]], hybrid_cell.per_step[0]),
+         "train_audio_step": summary([hybrid_lines[torch.bfloat16]], audio_cell.per_step[0]),
          "train_moe_step": summary([moe_lines[torch.bfloat16]], moe_cell.per_step[0]),
          "train_vlm_step": summary(vlm_step(vlm_self_lines, vlm_cross_lines, 2)),
          "train_vlm_shapes": {
@@ -3488,9 +3620,11 @@ def main() -> None:
          "replaces": "src/repro/models/attention.py:159",
          "launches": train_launches[1],
          "launches_by_path": {"train": train_launches[1], "train-hybrid": htrain_launches[1],
-                              "train-moe": mtrain_launches[1], "train-vlm": vtrain_launches[1]},
+                              "train-moe": mtrain_launches[1], "train-vlm": vtrain_launches[1],
+                              "train-audio": atrain_launches[1]},
          "train_hybrid_step": summary([hybrid_bwd_lines[torch.bfloat16]],
                                       hybrid_cell.per_step[1]),
+         "train_audio_step": summary([hybrid_bwd_lines[torch.bfloat16]], audio_cell.per_step[1]),
          "train_moe_step": summary([moe_bwd_lines[torch.bfloat16]], moe_cell.per_step[1]),
          "train_vlm_step": summary(vlm_step(vlm_self_bwd_lines, vlm_cross_bwd_lines, 1)),
          "train_vlm_shapes": {

@@ -8,6 +8,7 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch dbrx-132b --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama-3.2-vision-90b --reduced \
         --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch musicgen-large --reduced --device cpu
 
 The port's copy of ``repro.launch.train``: the same flags, plus
 ``--device``, in one process. The model is built with
@@ -17,10 +18,10 @@ from ``SyntheticTokens`` (seed ``--seed``), the optimizer is AdamW with
 ``--ckpt-dir`` every ``--ckpt-every`` steps in the reference's layout, and
 ``--resume`` continues from the latest one; the loop runs under the port's
 ``Supervisor``, which saves and, when a step raises, restores and retries.
-Trains the dense, moe, vlm, ssm and hybrid families (the moe loss adds 0.01
-times the layers' load-balance loss; a vlm batch carries image embeddings
-drawn each step, :func:`image_embeds_at`); audio raises
-``NotImplementedError`` (ROADMAP Queue 1, item 4). Prints
+Trains every family (the moe loss adds 0.01 times the layers' load-balance
+loss; a vlm batch carries image embeddings drawn each step,
+:func:`image_embeds_at`; an audio batch carries ``(B, S, num_codebooks)``
+tokens and targets). Prints
 ``step … loss … lr … gnorm … ms/step`` every ``--log-every`` steps and
 returns the logged losses.
 """
@@ -36,7 +37,7 @@ from repro_torch.checkpoint import checkpoint as ckpt_lib
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens
 from repro_torch.models.frontend import synth_image_embeds
-from repro_torch.models.transformer import CallConfig, build_model, check_trainable
+from repro_torch.models.transformer import CallConfig, build_model
 from repro_torch.runtime.fault_tolerance import Supervisor
 from repro_torch.train.optimizer import OptConfig
 from repro_torch.train.train_step import (load_state_tree, make_train_state, make_train_step,
@@ -79,7 +80,6 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    check_trainable(cfg)
     model = build_model(cfg, CallConfig(remat="block", dp_size=1), device=args.device,
                         seed=args.seed)
     ocfg = OptConfig(lr=args.lr, schedule=args.schedule, warmup_steps=max(args.steps // 10, 1),

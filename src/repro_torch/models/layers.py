@@ -114,9 +114,11 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     to it first (0.044677734375 and 0.796875 in bfloat16) and the cube two
     rounded products (``integer_pow`` is ``x * x * x``). In bfloat16 that
     differs from ``F.gelu(approximate="tanh")`` (one rounding) in about
-    two fifths of the elements."""
-    c = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
-    s = torch.tensor(math.sqrt(2.0 / math.pi), dtype=x.dtype, device=x.device)
+    two fifths of the elements. The constants are 0-dim CPU tensors: a CUDA
+    kernel takes them as values, where a tensor made on the card would be a
+    host-to-device copy that waits for the stream at every call."""
+    c = torch.tensor(0.044715, dtype=x.dtype)
+    s = torch.tensor(math.sqrt(2.0 / math.pi), dtype=x.dtype)
     return x * (0.5 * (1 + torch.tanh(s * (x + c * (x * x * x)))))
 
 

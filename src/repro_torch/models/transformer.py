@@ -62,8 +62,8 @@ JAX returns a new one. The moe load-balance loss is computed by
 :func:`repro_torch.models.moe.moe_forward`; serving drops it, training sums
 it over the moe layers (:meth:`Block.forward_train`).
 
-Training (:meth:`Model.loss`, :meth:`Model.forward_train`) is ported for the
-dense, moe, vlm, ssm and hybrid families: the full-sequence forward with
+Training (:meth:`Model.loss`, :meth:`Model.forward_train`) is ported for all
+six families: the full-sequence forward with
 grad, each layer (ssm: each ``[mLSTM, sLSTM]`` pair; hybrid: each Mamba2
 block and each use of the shared block; moe every other layer: the dense
 and the moe layer of a group each; vlm: each self layer and each cross
@@ -72,8 +72,8 @@ reference's ``jax.checkpoint`` per scanned layer, pair or group), the
 attention (the vlm cross layers' too, non-causal against the image tokens)
 differentiated through :class:`repro_torch.kernels.ops.FlashAttention`, the
 sLSTM recurrence through :class:`repro_torch.kernels.ops.SLSTMFused`, the
-Mamba2 / SSD chunk loop and the moe dispatch, experts and load-balance loss
-by autograd.
+Mamba2 / SSD chunk loop, the moe dispatch, experts and load-balance loss
+and the audio codebook lookups and unembeddings by autograd.
 ``model.requires_grad_()``
 makes the parameters trainable; the tied ``embed.table`` is one parameter.
 ``forward``, ``prefill`` and ``decode_step`` run under ``no_grad`` whatever
@@ -100,11 +100,6 @@ from repro_torch.models.layers import embed, make_norm, mlp, mlp_params, norm_pa
 Cache = Tuple[torch.Tensor, ...]  # the reference's cache leaves (see the module docstring)
 FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")  # the reference's layer layouts
 REMAT = ("none", "block")
-# what training each family still needs (ROADMAP Queue 1, item 4); dense,
-# moe, vlm, ssm and hybrid train
-UNTRAINED = {
-    "audio": "the codebook loss over (B, S, K, V) logits",
-}
 
 
 @dataclass(frozen=True)
@@ -561,9 +556,9 @@ class Model(nn.Module):
 
     # -------------------- training --------------------
     def forward_train(self, tokens, *, image_embeds=None):
-        """The full-sequence forward with grad (dense, moe, vlm, ssm and
-        hybrid families): tokens (B, S) -> ``(logits (B, S, V) in the compute
-        dtype, aux)``, ``aux`` the float32 sum of the moe layers' load-balance
+        """The full-sequence forward with grad, every family: tokens (B, S),
+        or (B, S, K) for audio -> ``(logits (B, S, V), or (B, S, K, V), in the
+        compute dtype, aux)``, ``aux`` the float32 sum of the moe layers' load-balance
         losses in layer order, as the reference's scan carries it (0 for the
         other families: no block of theirs has one). ``image_embeds`` (B, T,
         D) is the vlm family's (required there, ignored elsewhere). Under
@@ -581,7 +576,6 @@ class Model(nn.Module):
         autograd's sum over its uses. The vlm stack walks its groups as
         :meth:`_vlm` does, each cross layer projecting its K/V from the
         image context (:meth:`_image_ctx`)."""
-        check_trainable(self.cfg)
         cfg, cc = self.cfg, self.cc
         tokens = self._tokens(tokens)
         x = self._embed_tokens(tokens)
@@ -615,9 +609,11 @@ class Model(nn.Module):
 
     def loss(self, batch):
         """``(loss, {"nll", "aux"})`` of a batch ``{"tokens", "targets"}``
-        (B, S each), as ``repro.models.transformer.Model.loss``: the
-        cross-entropy in float32, ``logsumexp`` with its max held out of the
-        gradient, ``loss = nll + 0.01 * aux``. The target logit is taken by
+        (B, S each, or (B, S, K) for audio), as
+        ``repro.models.transformer.Model.loss``: the cross-entropy in float32
+        over the last axis, its mean over every other (audio: over B, S and
+        K), ``logsumexp`` with its max held out of the gradient, ``loss = nll
+        + 0.01 * aux``. The target logit is taken by
         ``gather``, where the reference contracts with a one-hot: the same
         value (every other term of its sum is an exact zero)."""
         logits, aux = self.forward_train(batch["tokens"],
@@ -674,16 +670,6 @@ class Model(nn.Module):
             for blk, lc in zip(self._attn_layers(), self._attn_caches(cache)):
                 x = blk(x, positions, cfg, cc, lc, pos)
         return self._logits(x), cache
-
-
-def check_trainable(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a family whose training is not
-    ported yet, naming what it needs."""
-    if cfg.family in UNTRAINED:
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family} family is not ported yet (ROADMAP Queue 1, "
-            f"item 4): it needs {UNTRAINED[cfg.family]}; the dense, moe, vlm, ssm and hybrid "
-            f"families train")
 
 
 def build_model(cfg: ArchConfig, cc: Optional[CallConfig] = None, *, device=None,

@@ -898,14 +898,16 @@ def _train_setup(cuda, kernel_backend=None, dtype=torch.float32, arch="smollm-13
 
 
 def _train_batches(n, arch="smollm-135m", **changes):
-    """``n`` batches of 4 x 128 tokens; a vlm arch's with each step's image
-    embeddings as the launcher draws them, on the card."""
+    """``n`` batches of 4 x 128 tokens (an audio arch's x its codebooks); a
+    vlm arch's with each step's image embeddings as the launcher draws
+    them, on the card."""
     from repro_torch.data.pipeline import DataConfig, SyntheticTokens
     from repro_torch.launch.train import image_embeds_at
 
-    data = SyntheticTokens(DataConfig(vocab_size=512, seq_len=128, global_batch=4, seed=0))
-    batches = [data.batch_at(i) for i in range(n)]
     cfg = dataclasses.replace(get_config(arch).reduced(), **changes)
+    data = SyntheticTokens(DataConfig(vocab_size=512, seq_len=128, global_batch=4, seed=0,
+                                      num_codebooks=cfg.num_codebooks))
+    batches = [data.batch_at(i) for i in range(n)]
     if cfg.family == "vlm":
         for i, b in enumerate(batches):
             b["image_embeds"] = image_embeds_at(cfg, 4, 0, i, "cuda")
@@ -1024,6 +1026,40 @@ def test_reduced_vlm_bf16_master_steps_through_the_kernels(cuda):
     _kernel_steps_match_plain(cuda, torch.bfloat16, "llama-3.2-vision-90b",
                               (flash_attention, flash_attention_bwd), (2 * L, L), opt,
                               **VLM_HD128)
+
+
+# reduced musicgen-large widened to musicgen's hd 64 (4 heads of 64, G = 1)
+AUDIO_HD64 = dict(d_model=256)
+
+
+@pytest.mark.parametrize("changes", [{}, AUDIO_HD64], ids=["hd32", "hd64"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reduced_musicgen_train_steps_through_the_kernels(cuda, dtype, changes):
+    """Reduced musicgen-large (4 codebooks, (B, S, K) tokens and targets)
+    through the attention kernels against the plain attention; under remat
+    2 forward and 1 backward launch a layer and step."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    L = get_config("musicgen-large").reduced().num_layers
+    _kernel_steps_match_plain(cuda, dtype, "musicgen-large",
+                              (flash_attention, flash_attention_bwd), (2 * L, L), **changes)
+
+
+def test_reduced_musicgen_bf16_train_steps_give_the_same_bits_twice(cuda):
+    """Two runs of the same two bfloat16 musicgen train steps (the codebook
+    lookups' backward, an accumulating index_put_ of Zipf tokens, among
+    them): the same losses, grad norms and parameters, bit for bit."""
+    runs = []
+    for _ in range(2):
+        model, state, step = _train_setup(cuda, None, torch.bfloat16, "musicgen-large")
+        mets = []
+        for batch in _train_batches(2, "musicgen-large"):
+            state, m = step(state, batch)
+            mets.append((float(m["loss"]), float(m["grad_norm"])))
+        runs.append((mets, [p.detach().clone() for p in model.parameters()]))
+        del model, state, step
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
 
 
 def test_reduced_dbrx_bf16_train_steps_give_the_same_bits_twice(cuda):
