@@ -3,14 +3,14 @@
 
     python3 chip_smoke.py        # from the repository root; one CUDA card, nvcc
 
-Fifteen paths: the compiled VGG-16 executor (phases 3-5, and split over
+Sixteen paths: the compiled VGG-16 executor (phases 3-5, and split over
 two shards in phase 15), serving smollm-135m (phases 3, 6 and 7; streaming,
 paged and faulted in phases 16-17) at 5 of its 30 layers and serving
 xlstm-350m (phases 3, 8 and 9) at 2 of its 24, both at their full published
 widths, the paper's Tab. IV evaluation and design-space sweep (phases
 10-12), VGG-16 compiled around faults and from a searched mapping (phases
 13-14), serving dbrx-132b at full width with its depth cut to 2 layers
-(phases 18-19), serving zamba2-1.2b at full width with its depth cut to 8
+(phases 18-19), serving zamba2-1.2b at full width with its depth cut to 6
 layers, contiguous and paged (phases 20-21), and the model's own prefill
 and decode of llama-3.2-vision-90b at full width cut to 2 of its 20 groups
 (phases 22-23) and of musicgen-large at 6 of its 48 layers (phases 24-25),
@@ -18,11 +18,14 @@ which no engine serves, and training smollm-135m at 10 of its 30 layers
 (phase 26), xlstm-350m at 2 of its 24 (phase 27), zamba2-1.2b at 14 of its
 38 (phase 28), dbrx-132b at full width with its depth cut to 1 layer (phase
 29), llama-3.2-vision-90b at full width with its depth cut to 1 of its
-20 groups (phase 30) and musicgen-large whole (phase 31). Every cut depth
-(SERVE_CUT, TRAIN_CUT, XLSTM_CUT, HYBRID_CUT, HYBRID_SERVE_CUT, AUDIO_CUT,
-MOE_LAYERS, MOE_TRAIN_LAYERS, VLM_LAYERS, VLM_TRAIN_CUT, and the resumes'
-HYBRID_RESUME and AUDIO_RESUME) is in its phase lines' "reduced"; it keeps
-the script near two thirds of its time limit.
+20 groups (phase 30) and musicgen-large at 6 of its 48 layers (phase 31),
+and the COM ring and data/pod-parallel training over torch.distributed
+(phase 32: ranks on the one card in a gloo group, and a one-rank NCCL
+group). Every cut depth (SERVE_CUT, TRAIN_CUT, XLSTM_CUT, HYBRID_CUT,
+HYBRID_SERVE_CUT, AUDIO_CUT, AUDIO_TRAIN_CUT, MOE_LAYERS, MOE_TRAIN_LAYERS,
+VLM_LAYERS, VLM_TRAIN_CUT, and the resume's HYBRID_RESUME)
+is in its phase lines' "reduced"; it keeps the script's phases near two
+thirds of its time limit.
 Phases, each printing JSON lines:
 
 1. card      — the card's name and power limit (nvidia-smi), torch and CUDA versions;
@@ -212,8 +215,8 @@ Phases, each printing JSON lines:
 20. serve-hybrid — zamba2-1.2b at full width (Mamba2 blocks of 64 SSD heads
                of 64, state 64, chunk 256, in groups of 6 each followed by
                the shared attention + MLP block, then tail blocks; d_model
-               2048, vocab 32000) with its 38 layers cut to 8 (1 of its 6
-               groups and the 2 tail blocks: HYBRID_SERVE_CUT, the lines'
+               2048, vocab 32000) with its 38 layers cut to 6 (1 of its 6
+               groups, no tail block: HYBRID_SERVE_CUT, the lines'
                "reduced"), bf16, weights from
                seed 0, on phase 6's wave:
                phase 6's numbers, 1 flash_attention launch a prefill, the
@@ -348,13 +351,14 @@ Phases, each printing JSON lines:
                a float64 attention reported beside; the resume at full
                width bitwise (a ~38 GB checkpoint of bf16 masters and
                moments);
-31. train-audio — musicgen-large whole (48 layers, d_model 2048, 32 heads,
-               32 KV heads, d_ff 8192, layernorm, gelu, 4 codebooks of
-               2048, untied (4, 2048, 2048) embed and unembed tables;
-               2,449.87 M parameters, the line's "params"), phase 26's
+31. train-audio — musicgen-large at its published widths (d_model 2048, 32
+               heads, 32 KV heads, d_ff 8192, layernorm, gelu, 4 codebooks
+               of 2048, untied (4, 2048, 2048) embed and unembed tables)
+               with its 48 layers cut to 6 (AUDIO_TRAIN_CUT, the line's
+               "reduced"; the line's "params"), phase 26's
                recipe on f32 masters and f32 moments, batches of 8 x 2048
                frames x 4 codebooks from SyntheticTokens(num_codebooks=4):
-               96 flash_attention and 48 flash_attention_bwd launches a
+               12 flash_attention and 6 flash_attention_bwd launches a
                step at (8, 2048, 32, 32, 64), the train-hybrid shape, a
                profiled step with no library attention kernel and the
                host's synchronizing calls counted, the 20th loss below the
@@ -363,9 +367,27 @@ Phases, each printing JSON lines:
                the float32 backward calls against the float64 gradient
                within F32_BWD_VS_PLAIN times the plain float32 backward's
                own distance from it (flash_bwd_f64_held; their distance
-               from the plain backward reported); the resume bitwise at
-               AUDIO_RESUME (6 layers, the line's "reduced");
-32. the seconds of each phase, the kernels line (each kernel's launches on
+               from the plain backward reported); the resume bitwise;
+32. collectives — 4 ranks spawned on cuda:0 in a gloo group (NCCL refuses
+               two ranks on one GPU; each hop copies its CUDA tensor through
+               pinned host memory): the COM ring (reduce-scatter,
+               all-gather, make_com_matmul with no epilogue, silu, and bias
+               + residual, the bidirectional ring, matmul_strategy psum /
+               com / com_bidir) at qwen1.5-32b's MLP down projection (2,048
+               tokens, K 27,392, N 5,120) in float32 and bfloat16, each
+               against one dense product on the card (TOL), the all-gather
+               bitwise, the bytes each rank sent equal to wire_bytes, ms a
+               call; smollm-135m at TRAIN_CUT on a (pod=2, data=2) mesh, 2
+               of the train phase's 8 x 2048 rows a rank, step 1 through
+               grad_transform against the one-process step (float32: the
+               whole batch at TRAIN_TOL; bfloat16: the same rows in 4
+               microbatches at TRAIN_TOL, the whole batch's distance
+               reported), and with compress_pod every gradient leaf within
+               its rows' int8 bound and the residual under 2 % of max|g|;
+               then a one-rank NCCL group runs the n = 1 paths; and (in
+               phase 12) the "torch-sharded" sweep on [cuda:0, cuda:0]
+               bitwise the torch backend's;
+33. the seconds of each phase, the kernels line (each kernel's launches on
                every path), the card line, the result line.
 
 Any failed check exits non-zero before the result line is printed. Finding no
@@ -385,6 +407,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import json
 import math
 import os
@@ -393,6 +416,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -401,9 +425,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+import torch.multiprocessing as mp  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import com as com_lib  # noqa: E402
+from repro_torch.core.com import (  # noqa: E402
+    com_all_gather, com_matmul_local_bidir, com_reduce_scatter, make_com_matmul)
 from repro_torch.core.energy import COUNTERPARTS, PAPER_DOMINO  # noqa: E402
 from repro_torch.core.executor import _maxpool, random_weights  # noqa: E402
 from repro_torch.core.mapping import ConvSpec, vgg16_imagenet  # noqa: E402
@@ -434,7 +463,11 @@ from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models.frontend import synth_image_embeds  # noqa: E402
 from repro_torch.models.transformer import CallConfig, build_model  # noqa: E402
 from repro_torch.launch import table_iv  # noqa: E402
+from repro_torch.launch.mesh import make_data_mesh, make_debug_mesh, make_mesh  # noqa: E402
 from repro_torch.launch.sweep import check_against_scalar, smoke_1e6_grid  # noqa: E402
+from repro_torch.parallel.collectives import (  # noqa: E402
+    axis_mean, grad_transform, matmul_strategy, wire_bytes)
+from repro_torch.parallel.shard_sweep import make_sharded_backend  # noqa: E402
 from repro_torch.search import PopulationEvaluator, greedy_candidate, search_mapping  # noqa: E402
 from repro_torch.runtime.fault_tolerance import RestartPolicy  # noqa: E402
 from repro_torch.checkpoint import checkpoint as ckpt_lib  # noqa: E402
@@ -577,8 +610,8 @@ VLM_CHECK_SEQ = 256
 # (14 of 38 layers) and serves at 1 group and the tail (8 of 38; the shared
 # block's second use in serving is held on the card at the reduced size,
 # tests/test_torch_gpu.py); dbrx-132b serves at 2 of its 40 layers
-# (MOE_LAYERS); musicgen-large prefills and decodes at 6 of its 48
-# (AUDIO_CUT; train-audio drives all 48 at full width). The train-vlm phase bought
+# (MOE_LAYERS); musicgen-large prefills, decodes and trains at 6 of its 48
+# (AUDIO_CUT, AUDIO_TRAIN_CUT). The train-vlm phase bought
 # its time with its held checks at 2 x 256 tokens, then by cutting smollm's
 # serving from 10 layers to 5 and its training from 30 to 10, xlstm's from
 # 8 to 4, dbrx's serving from 4 to 2 and zamba2's from 14 to 8, then in the
@@ -586,26 +619,33 @@ VLM_CHECK_SEQ = 256
 # host tree of a ~36-38 GB state: PERF.md). zamba2's training stays at 14:
 # at 8 its float32 held steps part past HYBRID_HELD_TOL and its 20th loss
 # stays above its first (PERF.md). The train-audio phase bought its time with
-# its own cuts (AUDIO_CHECK_SEQ, AUDIO_RESUME), then with model-audio's
-# depth, 12 to 6, and xlstm-350m's, 4 to 2 (serve-xlstm and train-xlstm)
+# its own cuts (AUDIO_CHECK_SEQ, its resume at 6 layers), then with model-audio's
+# depth, 12 to 6, and xlstm-350m's, 4 to 2 (serve-xlstm and train-xlstm).
+# The collectives phase bought its time with train-audio's depth, 48 to 6,
+# and serve-hybrid's, 8 to 6 (PERF.md §4)
 SERVE_CUT = dict(num_layers=5)
 TRAIN_CUT = dict(num_layers=10)
 XLSTM_CUT = dict(num_layers=2)
 HYBRID_CUT = dict(num_layers=14)
-HYBRID_SERVE_CUT = dict(num_layers=8)
+HYBRID_SERVE_CUT = dict(num_layers=6)
 AUDIO_CUT = dict(num_layers=6)
+AUDIO_TRAIN_CUT = dict(num_layers=6)
 # the resume check of train-hybrid at a smaller depth still: one of zamba2's
 # groups and the shared block, no tail. A bitwise round trip does not change
 # in kind with depth
 HYBRID_RESUME = dict(num_layers=6)
-# the train-audio phase: musicgen-large whole (48 layers, 2,449.87 M
-# parameters: f32 masters, gradients and moments take 39.2 GB) on the
-# launcher's recipe, 8 x 2048 frames x 4 codebooks a step; its held checks at
-# 2 x AUDIO_CHECK_SEQ frames (model-audio's prompt length) and its resume at
-# AUDIO_RESUME (a 4.0 GB checkpoint where the whole model's would be 29.4 GB)
+# the train-audio phase: musicgen-large at AUDIO_TRAIN_CUT on the launcher's
+# recipe, 8 x 2048 frames x 4 codebooks a step; its held checks at 2 x
+# AUDIO_CHECK_SEQ frames (model-audio's prompt length); its resume a 4.0 GB
+# checkpoint (the whole model's would be 29.4 GB)
 AUDIO_CHECK_SEQ = AUDIO_FRAMES
-AUDIO_RESUME = dict(num_layers=6)
 BWD_CHECK_S = 300  # the backward checks' own time limit (they take well under a minute)
+# the collectives phase: COLLECTIVE_RANKS processes on cuda:0 in a gloo group
+# (NCCL refuses a second rank on one GPU); the COM ring at qwen1.5-32b's MLP
+# down projection (K = d_ff = 27,392, N = d_model = 5,120) over COM_TOKENS
+# tokens, each strategy timed over COM_TIMED calls; COLLECTIVES_S is the
+# ranks' own time limit, so that a stuck rank fails the phase loudly
+COM_ARCH, COM_TOKENS, COM_TIMED, COLLECTIVE_RANKS, COLLECTIVES_S = "qwen1.5-32b", 2048, 2, 4, 240
 FIRST_BURST = dict(PATIENT_TRAFFIC, name="chip-burst-8-patient", num_requests=8)
 # the virtual clock is a function of the profile, the pool and the fault draws
 # (eos_id=None): the JAX package's numbers on these profiles, which the CPU
@@ -1790,8 +1830,10 @@ def comgrid_phase(program, weights) -> None:
 def sweep_phase() -> None:
     """smoke_1e6_grid through the torch backend on the card, full grid and in
     chunks of 65536, against the NumPy oracle on every column at the
-    reference's 1e-6, and the NumPy oracle against the scalar path at 1e-9
-    on 1,000 sampled scenarios."""
+    reference's 1e-6; the "torch-sharded" backend on make_data_mesh([cuda:0,
+    cuda:0]) bitwise the unsharded torch backend, chunked and as one flat
+    chunk; and the NumPy oracle against the scalar path at 1e-9 on 1,000
+    sampled scenarios."""
     grid = smoke_1e6_grid()
     n = grid.n_scenarios
     t0 = time.perf_counter()
@@ -1823,6 +1865,19 @@ def sweep_phase() -> None:
         if backend == "numpy" and max(errs.values()) != 0.0:
             fail(f"sweep numpy chunk={chunk}: not chunking-invariant ({errs})")
         worst = max(worst, max(errs.values()))
+    # the "torch-sharded" backend over a data mesh of two shards of the card,
+    # against the unsharded torch backend on the same flat evaluation: the
+    # chunked run above, and one flat chunk of the whole grid
+    sharded = make_sharded_backend(make_data_mesh([torch.device("cuda", 0)] * 2))
+    chunked = [r for backend, chunk, r in runs if backend == "torch" and chunk == 65536][-1]
+    for chunk, want in ((65536, chunked), (None, run_sweep(grid, chunk_size=n))):
+        r = run_sweep(grid, backend=sharded, chunk_size=chunk)
+        same = all(np.array_equal(r.columns[c], want.columns[c]) for c in COLUMNS)
+        emit({"phase": "sweep-sharded", "n_shards": 2, "devices": "[cuda:0, cuda:0]",
+              "chunk_size": chunk, "n_scenarios": n, "engine_wall_s": r.engine_wall_s,
+              "backend_s": r.engine_wall_s - r.build_wall_s, "bitwise_equal_torch": same})
+        if not same:
+            fail(f"sweep-sharded chunk={chunk}: not bitwise the unsharded torch backend")
     sample = np.random.default_rng(0).choice(n, size=1000, replace=False)
     t0 = time.perf_counter()
     scalar_err = check_against_scalar(oracle, 1e-9, sample)
@@ -2479,9 +2534,9 @@ def serve_moe_phase() -> tuple:
 
 
 def serve_hybrid_phase() -> tuple:
-    """zamba2-1.2b at full width cut to HYBRID_SERVE_CUT (8 of 38 layers: a
-    group of 6 Mamba2 blocks followed by the shared attention block, and
-    the 2 tail blocks; bf16, seed 0) on the serve phase's wave:
+    """zamba2-1.2b at full width cut to HYBRID_SERVE_CUT (6 of 38 layers: a
+    group of 6 Mamba2 blocks followed by the shared attention block, no
+    tail block; bf16, seed 0) on the serve phase's wave:
     serve()'s numbers and gates with 1 flash_attention launch a prefill
     (the float32 prefill logits within SSM_TOL of the plain attention's,
     the state-space families' tolerance, reported against a float64
@@ -3206,16 +3261,15 @@ def train_cells() -> tuple:
     llama-3.2-vision-90b at VLM_TRAIN_CUT through the attention kernels at
     its self and cross shapes (2 and 1 a layer: 10 and 5) on VLM_OPT, the
     held checks at VLM_CHECK_SEQ beside a float64 attention, and
-    musicgen-large whole through the attention kernels (48 layers: 96 and
-    48), the held checks at AUDIO_CHECK_SEQ with the float32 backward calls
-    held against the float64 gradient (flash_bwd_f64_held), the resume at
-    AUDIO_RESUME."""
+    musicgen-large at AUDIO_TRAIN_CUT through the attention kernels (6
+    layers: 12 and 6), the held checks at AUDIO_CHECK_SEQ with the float32 backward calls
+    held against the float64 gradient (flash_bwd_f64_held)."""
     L = cut(SERVE_ARCH, TRAIN_CUT).num_layers
     P = cut(XLSTM_ARCH, XLSTM_CUT).num_layers // 2
     hcfg = cut(HYBRID_ARCH, HYBRID_CUT)
     NG = hcfg.num_layers // hcfg.hybrid_attn_every
     VL = cut(VLM_ARCH, VLM_TRAIN_CUT).num_layers
-    AL = get_config(AUDIO_ARCH).num_layers
+    AL = cut(AUDIO_ARCH, AUDIO_TRAIN_CUT).num_layers
     attention = (flash_attention, flash_attention_bwd)
     flash_calls = (("_flash_attention", flash_train_held), ("_flash_attention_bwd", flash_bwd_held))
     flash_calls_f64 = (flash_calls[0], ("_flash_attention_bwd", flash_bwd_f64_held))
@@ -3236,7 +3290,331 @@ def train_cells() -> tuple:
                       config=VLM_TRAIN_CUT, opt=VLM_OPT),
             TrainCell("train-audio", AUDIO_ARCH, attention, (2 * AL, AL),
                       check_seq=AUDIO_CHECK_SEQ, forbid=LIBRARY_ATTENTION,
-                      held_calls=flash_calls_f64, resume_config=AUDIO_RESUME))
+                      held_calls=flash_calls_f64, config=AUDIO_TRAIN_CUT))
+
+
+# ---------------------------------------------------------------------------
+# 32. collectives: the COM ring and data/pod-parallel training over
+# torch.distributed (ranks on cuda:0 in a gloo group; a one-rank NCCL group)
+# ---------------------------------------------------------------------------
+
+
+def spread_err(got, want) -> float:
+    """max|got - want| / max|want| in float64 (inf where ``got`` is not finite)."""
+    if not torch.isfinite(got).all().item():
+        return math.inf
+    return ((got.double() - want.double()).abs().max() / want.double().abs().max()).item()
+
+
+def com_checks(mesh, dtype) -> dict:
+    """The COM collectives over ``mesh``'s "model" axis at qwen1.5-32b's MLP
+    down projection (COM_TOKENS x d_ff @ d_ff x d_model), inputs drawn from
+    seed 0 on the card (the same on every rank): each against one dense
+    float32 product of the same inputs on the card (max|err| / max|dense|,
+    for TOL[dtype]), the all-gather bitwise against every rank's own draw,
+    and per strategy the counted sends, bytes and all-reduces of one call
+    beside ``wire_bytes`` and the ms a call over COM_TIMED calls."""
+    cfg = get_config(COM_ARCH)
+    M, K, N = COM_TOKENS, cfg.d_ff, cfg.d_model
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x, w = randn((M, K), gen, dtype), randn((K, N), gen, dtype, K ** -0.5)
+    bias, residual = randn((N,), gen, dtype), randn((M, N), gen, dtype)
+    group = mesh.get_group("model")
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    c, k = N // n, K // n
+    cols = slice(me * c, (me + 1) * c)
+    x_l, w_l = x[:, me * k:(me + 1) * k], w[me * k:(me + 1) * k]
+    dense = x.float() @ w.float()
+    part = dense[:, cols]
+    errs = {"reduce_scatter": spread_err(
+        com_reduce_scatter((x_l @ w_l).reshape(M, n, c).transpose(0, 1), group), part)}
+    own = [randn((M, c), torch.Generator(device="cuda").manual_seed(100 + p), dtype)
+           for p in range(n)]
+    gathered = com_all_gather(own[me], group)
+    all_gather_bitwise = all(torch.equal(gathered[p], own[p]) for p in range(n))
+    com_mm = make_com_matmul(mesh, "model")
+    errs["com_matmul"] = spread_err(com_mm(x, w).to_local(), part)
+    errs["com_matmul_silu"] = spread_err(com_mm(x, w, epilogue="silu").to_local(), F.silu(part))
+    errs["com_matmul_bias_residual"] = spread_err(
+        com_mm(x, w, bias=bias, residual=residual).to_local(),
+        part + bias[cols].float() + residual[:, cols].float())
+    errs["com_matmul_local_bidir"] = spread_err(com_matmul_local_bidir(x_l, w_l, group), part)
+    strategies = {}
+    out_bytes = M * N * x.element_size()
+    for s in ("psum", "com", "com_bidir"):
+        mm = matmul_strategy(mesh, s)
+        com_lib.counters.reset()
+        y = mm(x, w).to_local()
+        counted = com_lib.counters.as_dict()
+        errs[f"strategy_{s}"] = spread_err(y, dense if s == "psum" else part)
+        dist.barrier(group=group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(COM_TIMED):
+            mm(x, w)
+        torch.cuda.synchronize()
+        strategies[s] = {**counted, "out_bytes": out_bytes, "wire_bytes": wire_bytes(s, out_bytes, n),
+                         "ms_per_call": (time.perf_counter() - t0) / COM_TIMED * 1e3}
+    del x, w, bias, residual, dense
+    torch.cuda.empty_cache()
+    return {"errs": errs, "tol": TOL[dtype], "all_gather_bitwise": all_gather_bitwise,
+            "strategies": strategies}
+
+
+def _rows(t):
+    """A gradient leaf as grad_compress quantizes it: rows of its first axis."""
+    return t.reshape(-1) if t.ndim <= 1 else t.reshape(t.shape[0], -1)
+
+
+def dp_step(mesh, cell, dtype, batch, *, compress=False, uncompressed=None) -> tuple:
+    """Step 1 of ``cell`` (weights from seed 0, compute in ``dtype``) on this
+    rank's ``batch`` through grad_transform(mesh, compress_pod=compress):
+    loss (this rank's), grad norm (of the reduced gradients), ms, the
+    kernels' launches and what the transform sent; with ``compress`` also
+    each leaf held against ``uncompressed`` (the grads of the same step
+    without compression): the worst |compressed - uncompressed| over its
+    row's int8 bound (the pods' largest max|row| / 254, plus float32
+    rounding) and the worst error-feedback residual over max|g|. Returns
+    (that dict, the reduced grads)."""
+    model, state, _ = train_setup(cell, dtype)
+    transform, seen = grad_transform(mesh, compress_pod=compress), {}
+
+    def capture(grads, carry):
+        seen["raw"] = grads
+        seen["out"] = transform(grads, carry)
+        return seen["out"]
+
+    step = make_train_step(model, train_opt(cell), grad_transform=capture)
+    for kern in cell.kernels:
+        kern.launches = 0
+    com_lib.counters.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    line = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "ms": (time.perf_counter() - t0) * 1e3, "launches": list(launches_of(cell.kernels)),
+            "sent": com_lib.counters.as_dict()}
+    grads = seen["out"][0]
+    if compress:
+        data_mean = axis_mean(seen["raw"], mesh, "data")
+        pod = mesh.get_group("pod")
+        bound_ratio, err_ratio = 0.0, 0.0
+        for name, g in grads.items():
+            dm = _rows(data_mean[name].float())
+            amax = com_all_gather(dm.abs().amax(dim=-1, keepdim=True), pod).amax(dim=0)
+            diff = _rows((g.float() - uncompressed[name].float()).abs())
+            bound_ratio = max(bound_ratio, (diff / torch.clamp_min(
+                amax * (1 / 254 + 2 ** -20), 1e-30)).max().item())
+            err_ratio = max(err_ratio, (state["grad_carry"][name].abs().max() /
+                                        torch.clamp_min(dm.abs().max(), 1e-30)).item())
+        line.update(int8_bound_ratio=bound_ratio, error_feedback_ratio=err_ratio)
+    del model, state, step, seen
+    torch.cuda.empty_cache()
+    return line, grads
+
+
+def collectives_rank(rank: int, world: int, workdir: str, spawned: float) -> None:
+    """One rank of the collectives phase, spawned: cuda:0, a gloo group of
+    ``world`` through a file store in ``workdir``; (a) com_checks on a
+    ("model",) mesh of ``world`` in float32 and bfloat16, (b) the
+    smollm-135m train step (TRAIN_CUT) on a (pod=2, data=2) mesh, this
+    rank's TRAIN_BATCH / world rows of the train phase's first batch:
+    float32 and bfloat16 uncompressed, float32 with the compressed pod
+    mean. Writes its line to ``workdir``/rank<r>.json, with its seconds
+    from ``spawned`` (the parent's wall clock at the spawn) to its start."""
+    t0 = time.time()
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/store", world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=COLLECTIVES_S))
+    line = {"rank": rank, "seconds": {"spawn_and_import": t0 - spawned}}
+    with torch.no_grad():
+        mesh = make_mesh((world,), ("model",))
+        line["ring"] = {str(dt).replace("torch.", ""): com_checks(mesh, dt)
+                        for dt in (torch.float32, torch.bfloat16)}
+    line["seconds"]["ring"] = time.time() - t0
+    mesh = make_debug_mesh(data=world // 2, model=1, pod=2)
+    per = TRAIN_BATCH // world
+    batch = {k: v[rank * per:(rank + 1) * per] for k, v in train_batches(TRAIN_BATCH, 1)[0].items()}
+    cell = train_cells()[0]
+    with torch.enable_grad():
+        line["float32"], grads = dp_step(mesh, cell, torch.float32, batch)
+        line["bfloat16"], _ = dp_step(mesh, cell, torch.bfloat16, batch)
+        line["float32_compressed"], _ = dp_step(mesh, cell, torch.float32, batch, compress=True,
+                                                uncompressed=grads)
+    line["pod"], line["data"] = mesh.get_local_rank("pod"), mesh.get_local_rank("data")
+    line["seconds"]["train"] = time.time() - t0 - line["seconds"]["ring"]
+    Path(workdir, f"rank{rank}.json").write_text(json.dumps(line))
+    dist.destroy_process_group()
+
+
+def ring_failures(what: str, ring: dict) -> list:
+    """The gates of com_checks' lines: every error within its tolerance,
+    the all-gather bitwise, the ring strategies' counted bytes equal to
+    wire_bytes with no all-reduce, psum one all-reduce and no send."""
+    out = []
+    for dt, r in ring.items():
+        out += [f"{what} {dt} {k}: {e} over {r['tol']}" for k, e in r["errs"].items()
+                if not e <= r["tol"]]
+        if not r["all_gather_bitwise"]:
+            out.append(f"{what} {dt}: the all-gather is not bitwise every rank's own")
+        for s, c in r["strategies"].items():
+            if s == "psum":
+                ok = c["sends"] == 0 and c["all_reduces"] == 1
+            else:
+                ok = c["bytes_sent"] == c["wire_bytes"] and c["all_reduces"] == 0
+            if not ok:
+                out.append(f"{what} {dt} {s}: sent {c}")
+    return out
+
+
+def collectives_phase(cell) -> tuple:
+    """The collectives phase: the parent's one-process steps of
+    ``cell`` (smollm-135m at TRAIN_CUT) on the train phase's first 8 x
+    2048 batch, float32 and bfloat16, as the yardstick; then
+    COLLECTIVE_RANKS ranks spawned on cuda:0 in a gloo group (NCCL refuses
+    a second rank on a GPU, so the hops go through pinned host memory:
+    "host-staged gloo, one card"), each running collectives_rank, under
+    COLLECTIVES_S; then a one-rank NCCL group in this process running the
+    n == 1 paths (the products, psum's NCCL all-reduce of a CUDA tensor,
+    the train step through grad_transform on the whole batch). Gates: the
+    errors within TOL, the counted bytes equal to wire_bytes, each step's
+    loss (the ranks' mean) and grad norm within TRAIN_TOL of the
+    one-process step's (bf16: of the one-process step in COLLECTIVE_RANKS
+    microbatches of the ranks' rows, since a bf16 gradient depends on how
+    the batch is split; the whole batch's reported beside it), the
+    compressed step within its int8 bound and its
+    residual under 2 % of max|g|, the kernels' launches a step. Returns the
+    line and the flash launches (forward, backward) of the ranks' steps."""
+    t0 = time.perf_counter()
+    batch = train_batches(TRAIN_BATCH, 1)[0]
+    ref = {}
+    with torch.enable_grad():
+        # the whole batch at once, and (bf16) in COLLECTIVE_RANKS microbatches
+        # of the ranks' rows: a bf16 gradient depends on the batch's split
+        for key, dtype, accum in (("float32", torch.float32, 1), ("bfloat16", torch.bfloat16, 1),
+                                  ("bfloat16_split", torch.bfloat16, COLLECTIVE_RANKS)):
+            model, state, _ = train_setup(cell, dtype)
+            state, m = make_train_step(model, train_opt(cell), accum_steps=accum)(state, batch)
+            ref[key] = step_metrics(m)[:2]
+            del model, state, m
+            torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t0
+    failures = []
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        ctx = mp.start_processes(collectives_rank, args=(COLLECTIVE_RANKS, tmp, time.time()),
+                                 nprocs=COLLECTIVE_RANKS, join=False, start_method="spawn")
+        deadline = time.monotonic() + COLLECTIVES_S
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                fail(f"collectives: the ranks did not finish within {COLLECTIVES_S} s")
+        ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
+                 for r in range(COLLECTIVE_RANKS)]
+        t_ranks = time.perf_counter() - t1
+
+        # (c) a one-rank NCCL group: the n == 1 paths, NCCL's init and its
+        # all-reduce of CUDA tensors
+        t2 = time.perf_counter()
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_store", world_size=1,
+                                rank=0, timeout=datetime.timedelta(seconds=COLLECTIVES_S))
+        mesh = make_debug_mesh(data=1, model=1, pod=1)
+        nccl_ring = {"float32": com_checks(mesh, torch.float32)}
+        with torch.enable_grad():
+            nccl_step, _ = dp_step(mesh, cell, torch.float32, batch)
+        dist.destroy_process_group()
+        t_nccl = time.perf_counter() - t2
+    for r in ranks:
+        failures += ring_failures(f"rank {r['rank']}", r["ring"])
+    failures += ring_failures("nccl", nccl_ring)
+    L = cell.per_step
+    train = {}
+    for key, dt, yardstick in (("float32", "float32", "float32"),
+                               ("bfloat16", "bfloat16", "bfloat16_split"),
+                               ("float32_compressed", "float32", "float32")):
+        steps = [r[key] for r in ranks]
+        loss = sum(s["loss"] for s in steps) / len(steps)
+        norms = [s["grad_norm"] for s in steps]
+        ltol, gtol = TRAIN_TOL[getattr(torch, dt)]
+        want = ref[yardstick]
+        lerr, gerr = abs(loss - want[0]) / abs(want[0]), abs(norms[0] - want[1]) / want[1]
+        train[key] = {"loss": loss, "grad_norm": norms[0], "one_process": want,
+                      "one_process_microbatches": COLLECTIVE_RANKS if yardstick.endswith("split")
+                      else 1, "loss_rel_err": lerr, "grad_norm_rel_err": gerr, "tol": [ltol, gtol],
+                      "ms_by_rank": [s["ms"] for s in steps],
+                      "launches_by_rank": [s["launches"] for s in steps],
+                      "sent_by_rank": [s["sent"] for s in steps]}
+        if len(set(norms)) != 1:
+            failures.append(f"{key}: the ranks' grad norms differ: {norms}")
+        if key != "float32_compressed" and not (lerr <= ltol and gerr <= gtol):
+            failures.append(f"{key}: loss {lerr} / grad norm {gerr} from the one-process step, "
+                            f"over {ltol} / {gtol}")
+        if any(s["launches"] != list(L) for s in steps):
+            failures.append(f"{key}: launches {[s['launches'] for s in steps]}, expected {L}")
+    whole = ref["bfloat16"]
+    train["bfloat16"]["whole_batch_one_process"] = {
+        "loss_grad_norm": whole, "rel_errs": [abs(train["bfloat16"]["loss"] - whole[0]) / whole[0],
+                                              abs(train["bfloat16"]["grad_norm"] - whole[1]) / whole[1]],
+        "split_vs_whole_rel_errs": [abs(ref["bfloat16_split"][i] - whole[i]) / whole[i]
+                                    for i in (0, 1)]}
+    comp = [r["float32_compressed"] for r in ranks]
+    train["float32_compressed"].update(
+        int8_bound_ratio=max(s["int8_bound_ratio"] for s in comp),
+        error_feedback_ratio=max(s["error_feedback_ratio"] for s in comp))
+    if not train["float32_compressed"]["int8_bound_ratio"] <= 1.0:
+        failures.append(f"compressed: a leaf past its rows' int8 bound "
+                        f"({train['float32_compressed']['int8_bound_ratio']})")
+    if not train["float32_compressed"]["error_feedback_ratio"] < 0.02:
+        failures.append(f"compressed: the residual is "
+                        f"{train['float32_compressed']['error_feedback_ratio']} of max|g|")
+    ltol, gtol = TRAIN_TOL[torch.float32]
+    nccl_errs = (abs(nccl_step["loss"] - ref["float32"][0]) / abs(ref["float32"][0]),
+                 abs(nccl_step["grad_norm"] - ref["float32"][1]) / ref["float32"][1])
+    if not (nccl_errs[0] <= ltol and nccl_errs[1] <= gtol):
+        failures.append(f"nccl: the step stands {nccl_errs} from the one-process step")
+    cfg = get_config(COM_ARCH)
+    strategies = {}  # rank 0's counts (every rank sends as much), the slowest rank's ms
+    for dt, ring in ranks[0]["ring"].items():
+        strategies[dt] = {}
+        for s, counted in ring["strategies"].items():
+            ms = [r["ring"][dt]["strategies"][s]["ms_per_call"] for r in ranks]
+            strategies[dt][s] = dict(counted, ms_per_call=max(ms), ms_by_rank=ms)
+    flash = tuple(sum(r[k]["launches"][i] for r in ranks
+                      for k in ("float32", "bfloat16", "float32_compressed")) for i in (0, 1))
+    line = {"phase": "collectives", "ranks": COLLECTIVE_RANKS,
+            "transport": "host-staged gloo, one card",
+            "transport_detail": "each hop's CUDA tensor copied through pinned host memory "
+                                "(gloo cannot send device memory); gloo all-reduces the CUDA "
+                                "tensor itself",
+            "nccl_across_ranks": "not measured: one card, and NCCL refuses two ranks on one GPU",
+            "ring_shape": {"arch": cfg.name, "tokens": COM_TOKENS, "K": cfg.d_ff, "N": cfg.d_model,
+                           "mesh": {"model": COLLECTIVE_RANKS}},
+            "ring_errs": {dt: {k: max(r["ring"][dt]["errs"][k] for r in ranks)
+                               for k in ranks[0]["ring"][dt]["errs"]} for dt in ranks[0]["ring"]},
+            "all_gather_bitwise": all(r["ring"][dt]["all_gather_bitwise"] for r in ranks
+                                      for dt in r["ring"]),
+            "strategies": strategies,
+            "train": {"arch": cut(SERVE_ARCH, TRAIN_CUT).name, "reduced": reduced_of(
+                cut(SERVE_ARCH, TRAIN_CUT)), "mesh": {"pod": 2, "data": COLLECTIVE_RANKS // 2},
+                "rows_per_rank": TRAIN_BATCH // COLLECTIVE_RANKS, "seq": TRAIN_SEQ,
+                "ranks_pod_data": [[r["pod"], r["data"]] for r in ranks], **train},
+            "nccl_one_rank": {"ring_errs": nccl_ring["float32"]["errs"],
+                              "strategies": nccl_ring["float32"]["strategies"],
+                              "train_float32": {**nccl_step, "rel_errs": list(nccl_errs),
+                                                "bitwise": [nccl_step["loss"], nccl_step[
+                                                    "grad_norm"]] == list(ref["float32"])}},
+            "flash_launches": list(flash),
+            "rank_seconds": [r["seconds"] for r in ranks],
+            "seconds": {"one_process_steps": t_ref, "ranks": t_ranks, "nccl": t_nccl,
+                        "total": time.perf_counter() - t0}}
+    emit(line)
+    if failures:
+        fail("collectives: " + "; ".join(failures))
+    return line, flash
 
 
 def main() -> None:
@@ -3528,7 +3906,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_done("serve-moe")
 
-    # 20-21. serving zamba2-1.2b (8 layers), contiguous and paged, and its profile windows
+    # 20-21. serving zamba2-1.2b (6 layers), contiguous and paged, and its profile windows
     hybrid_launches, hybrid_paged_launches, _ = serve_hybrid_phase()
     torch.cuda.empty_cache()
     phase_done("serve-hybrid")
@@ -3569,12 +3947,17 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_done("train-vlm")
 
-    # 31. training musicgen-large whole (48 layers) through the attention kernels
+    # 31. training musicgen-large (6 layers) through the attention kernels
     _, atrain_launches = train_phase(audio_cell)
     torch.cuda.empty_cache()
     phase_done("train-audio")
 
-    # 32. the phases' seconds, the kernels line, the card, the result
+    # 32. the COM ring and data/pod-parallel training over torch.distributed
+    _, collective_launches = collectives_phase(smollm_cell)
+    torch.cuda.empty_cache()
+    phase_done("collectives")
+
+    # 33. the phases' seconds, the kernels line, the card, the result
     emit({"phase": "seconds", **seconds, "total": sum(seconds.values())})
     emit({"kernels": [
         {"name": "com_matmul", "route": "cuda", "source": "src/repro_torch/csrc/com_matmul.cu",
@@ -3600,7 +3983,8 @@ def main() -> None:
                               "model-vlm": vlm_launches, "model-audio": audio_launches,
                               "train": train_launches[0], "train-hybrid": htrain_launches[0],
                               "train-moe": mtrain_launches[0], "train-vlm": vtrain_launches[0],
-                              "train-audio": atrain_launches[0]},
+                              "train-audio": atrain_launches[0],
+                              "collectives": collective_launches[0]},
          # a train-hybrid and a train-audio step's forward launches at zamba2's
          # and musicgen's (8, 2048, 32, 32, 64),
          # a train-moe step's at dbrx's (8, 2048, 48, 8, 128), a train-vlm
@@ -3621,7 +4005,8 @@ def main() -> None:
          "launches": train_launches[1],
          "launches_by_path": {"train": train_launches[1], "train-hybrid": htrain_launches[1],
                               "train-moe": mtrain_launches[1], "train-vlm": vtrain_launches[1],
-                              "train-audio": atrain_launches[1]},
+                              "train-audio": atrain_launches[1],
+                              "collectives": collective_launches[1]},
          "train_hybrid_step": summary([hybrid_bwd_lines[torch.bfloat16]],
                                       hybrid_cell.per_step[1]),
          "train_audio_step": summary([hybrid_bwd_lines[torch.bfloat16]], audio_cell.per_step[1]),

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""What paces a musicgen-large train step (chip_smoke.py's train-audio cell:
-48 layers at full width, bf16 compute on f32 masters, remat "block", 8 x 2048
-frames x 4 codebooks a step), with ``layers.gelu``'s two constants made on
+"""What paces a musicgen-large train step (chip_smoke.py's train-audio cell,
+but all 48 layers unless --layers cuts them: full width, bf16 compute on f32
+masters, remat "block", 8 x 2048 frames x 4 codebooks a step), with ``layers.gelu``'s two constants made on
 the host (the port's) and on the card (``torch.tensor(..., device=x.device)``
 at every call, a host-to-device copy that waits for the stream), on one
 NVIDIA card.
@@ -349,8 +349,9 @@ def main(argv=None) -> None:
     emit({"probe": "card", "nvidia_smi": smi, "kind": torch.cuda.get_device_name(0)})
     _build.build(_build.all_kernels())
     cell = next(c for c in cs.train_cells() if c.phase == "train-audio")
-    if args.layers is not None:
-        cell = dataclasses.replace(cell, config=dict(num_layers=args.layers))
+    # the whole model unless --layers cuts it (chip_smoke.py's cell trains 6 layers)
+    cell = dataclasses.replace(cell, config={} if args.layers is None
+                               else dict(num_layers=args.layers))
     if args.part == "held":
         held_part(cell)
     else:

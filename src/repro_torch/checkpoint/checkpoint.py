@@ -13,8 +13,14 @@ flattens them), lists and tuples, with array leaves (numpy arrays, numbers
 or tensors, copied to the host). The manifest's ``keys`` are the strings
 ``jax.tree_util.keystr`` gives for the same paths (``['opt']['m']...``);
 its ``treedef`` is the port's own rendering of the structure, which
-``restore`` never reads (nor does the reference's). Restoring onto another
-mesh (the reference's ``shardings``) waits for the port's scale-out.
+``restore`` never reads (nor does the reference's).
+
+A ``DTensor`` leaf is saved whole: ``full_tensor()`` gathers it, which is
+a collective, so every rank of its mesh calls ``save`` (each with its own
+``host_id``, as the reference's hosts do; ``restore`` reads host 0's
+file). ``restore(..., shardings=)`` is the elastic restart onto another
+mesh: each leaf is placed with ``distribute_tensor`` on its
+:class:`~repro_torch.parallel.sharding.Sharding`'s mesh and placements.
 """
 from __future__ import annotations
 
@@ -81,11 +87,14 @@ def _unflatten(template: PyTree, leaves: List[Any]) -> PyTree:
 
 
 def _host(leaf) -> np.ndarray:
-    """A leaf as a numpy array (a tensor is copied to the host; bfloat16
-    becomes ml_dtypes' bfloat16, as a JAX array's does)."""
+    """A leaf as a numpy array (a tensor is copied to the host, a
+    ``DTensor`` gathered whole first; bfloat16 becomes ml_dtypes' bfloat16,
+    as a JAX array's does)."""
     if hasattr(leaf, "detach"):
         import torch
 
+        if hasattr(leaf, "full_tensor"):
+            leaf = leaf.full_tensor()
         t = leaf.detach().cpu()
         if t.dtype == torch.bfloat16:
             import ml_dtypes
@@ -198,11 +207,28 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, template: PyTree, *, step: Optional[int] = None
-            ) -> Tuple[PyTree, Dict]:
+def _tensor(a):
+    """A restored leaf as a tensor, sharing its memory where it can. A
+    bfloat16 leaf comes back from np.load as 2-byte void (its bits), or as
+    ml_dtypes' bfloat16 if never saved."""
+    import torch
+
+    a = np.asarray(a)
+    if not (a.flags.writeable and a.flags.c_contiguous):
+        a = np.array(a)  # 0-d stays 0-d
+    if a.dtype.name == "bfloat16" or a.dtype == np.dtype("V2"):
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def restore(ckpt_dir: str, template: PyTree, *, step: Optional[int] = None,
+            shardings: Optional[PyTree] = None) -> Tuple[PyTree, Dict]:
     """The checkpoint at ``step`` (default: the latest committed one) in
     ``template``'s structure (its leaves are not read), numpy leaves, and
-    its manifest."""
+    its manifest. With ``shardings`` (a tree of
+    :class:`~repro_torch.parallel.sharding.Sharding` in the template's
+    structure), each leaf is instead a ``DTensor`` placed on its sharding's
+    mesh: every rank of that mesh calls ``restore``."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -212,7 +238,13 @@ def restore(ckpt_dir: str, template: PyTree, *, step: Optional[int] = None
         manifest = json.load(f)
     leaves = _loadz(os.path.join(path, "shard_00000.npz"),
                     [f"leaf_{i}" for i in range(len(manifest["keys"]))])
-    return _unflatten(template, leaves), manifest
+    tree = _unflatten(template, leaves)
+    if shardings is not None:
+        flat, where = _flat_with_paths(tree), _flat_with_paths(shardings)
+        if [k for k, _ in flat] != [k for k, _ in where]:
+            raise ValueError("shardings do not have the template's structure")
+        tree = _unflatten(template, [s.place(_tensor(x)) for (_, x), (_, s) in zip(flat, where)])
+    return tree, manifest
 
 
 def save_async(ckpt_dir: str, step: int, tree: PyTree, **kw) -> threading.Thread:

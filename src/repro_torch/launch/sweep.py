@@ -19,6 +19,7 @@ Default grid: 4 networks x 4 chip counts x 2 precisions x 2 e_mac points
     PYTHONPATH=src python -m repro_torch.launch.sweep --backend both --perf \\
         --no-check --out sweep-perf.json
     PYTHONPATH=src python -m repro_torch.launch.sweep --device cpu --chips 5 10
+    PYTHONPATH=src python -m repro_torch.launch.sweep --backend both --sharded
 """
 from __future__ import annotations
 
@@ -156,6 +157,13 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="the torch backend's device (default: the card; "
                          "'cpu' runs it on the CPU)")
+    ap.add_argument("--sharded", action="store_true",
+                    help="additionally run the 'torch-sharded' backend (the "
+                         "scenario axis over a ('data',) mesh of every visible "
+                         "card, or of two shards of --device), record its "
+                         "timing and shard count, and check it bitwise against "
+                         "the unsharded torch backend on the same flat "
+                         "evaluation")
     ap.add_argument("--perf", action="store_true",
                     help="use the >=1e5-scenario ArchSpec-axes perf grid")
     ap.add_argument("--smoke-1e6", action="store_true",
@@ -199,12 +207,23 @@ def main(argv=None) -> int:
         ap.error(str(e))
 
     backends = ("numpy", "torch") if args.backend == "both" else (args.backend,)
+    runners = {b: (lambda b=b: run_sweep(grid, backend=b, chunk_size=args.chunk_size,
+                                         device=args.device if b == "torch" else None))
+               for b in backends}
+    if args.sharded:
+        from repro_torch.launch.mesh import make_data_mesh
+        from repro_torch.parallel.shard_sweep import make_sharded_backend
+
+        mesh = make_data_mesh(None if args.device is None else [args.device] * 2)
+        sharded = make_sharded_backend(mesh)
+        backends = backends + ("torch-sharded",)
+        runners["torch-sharded"] = lambda: run_sweep(grid, backend=sharded,
+                                                     chunk_size=args.chunk_size)
     results = {}
     for backend in backends:
         best = None
         for _ in range(max(args.repeats, 1)):
-            r = run_sweep(grid, backend=backend, chunk_size=args.chunk_size,
-                          device=args.device if backend == "torch" else None)
+            r = runners[backend]()
             if best is None or r.engine_wall_s < best.engine_wall_s:
                 best = r
         results[backend] = best
@@ -229,6 +248,19 @@ def main(argv=None) -> int:
     if "numpy" in results and "torch" in results:
         payload["torch_max_rel_err_vs_numpy"] = check_backends_agree(
             results["numpy"], results["torch"])
+    if "torch-sharded" in results:
+        # bitwise against the unsharded torch backend on the same flat
+        # evaluation (chunk_size=n_scenarios: one full chunk); the full-grid
+        # broadcast path may differ by a few ulp
+        flat = run_sweep(grid, backend="torch", device=args.device,
+                         chunk_size=args.chunk_size or grid.n_scenarios)
+        payload["n_shards"] = len(mesh)
+        payload["sharded_bitwise_equal_torch"] = bool(all(
+            np.array_equal(results["torch-sharded"].columns[c], flat.columns[c])
+            for c in COLUMNS))
+        if "numpy" in results:
+            payload["sharded_max_rel_err_vs_numpy"] = check_backends_agree(
+                results["numpy"], results["torch-sharded"])
     if not args.no_check:
         t1 = time.perf_counter()
         # the NumPy backend is held to the 1e-9 oracle contract; a lone

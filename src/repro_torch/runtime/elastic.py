@@ -5,14 +5,16 @@ The port's copy of ``repro.runtime.elastic``'s pure part. Policy: keep the
 'model' axis intact (TP size is baked into layer math far less flexibly
 than batch), shrink the 'data'/'pod' axes to the largest feasible size, and
 rescale grad-accumulation so the GLOBAL batch stays constant (synchronous
-semantics preserved across the re-mesh). ``build_mesh``, which turns a plan
-into a device mesh, waits for the port's scale-out over
-``torch.distributed`` (ROADMAP Queue 1, item 5).
+semantics preserved across the re-mesh). ``build_mesh`` turns a plan into
+a ``DeviceMesh`` over the initialized ``torch.distributed`` world
+(``repro_torch.launch.mesh``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Optional
+
+from repro_torch.launch.mesh import make_mesh
 
 
 @dataclass(frozen=True)
@@ -50,3 +52,14 @@ def plan_remesh(current: MeshPlan, available_devices: int) -> Optional[MeshPlan]
     return MeshPlan(data=data, model=current.model,
                     pod=pods if current.pod else 0,
                     accum_multiplier=current.accum_multiplier * mult)
+
+
+def build_mesh(plan: MeshPlan, *, device_type: Optional[str] = None):
+    """The plan's ``DeviceMesh``: (pod, data, model), or (data, model) with
+    no pod axis, over a world of exactly ``plan.devices`` ranks
+    (``device_type=None``: the card)."""
+    if plan.pod:
+        shape, names = (plan.pod, plan.data, plan.model), ("pod", "data", "model")
+    else:
+        shape, names = (plan.data, plan.model), ("data", "model")
+    return make_mesh(shape, names, device_type)

@@ -22,6 +22,9 @@ Backends (``run_sweep(grid, backend=...)``):
 * ``"numpy"`` — the golden oracle on the host. Mirrors
   ``DominoModel.evaluate`` operation-for-operation, so batched and scalar
   results agree to the last ulp — the golden tests assert 1e-9.
+* ``"torch-sharded"`` — :mod:`repro_torch.parallel.shard_sweep`: the
+  torch backend's column math with the scenario axis split over a data
+  mesh of devices, the same bits as ``"torch"`` on the flat evaluation.
 
 Third-party backends register through :func:`register_backend`; a backend
 is any callable taking a :class:`ScenarioBatch` and returning the
@@ -342,6 +345,12 @@ def _resolve_backend(name) -> SweepBackend:
         # an unregistered SweepBackend callable passes straight through —
         # e.g. repro_torch.sweep.backend_torch.make_torch_backend(device)
         return name
+    if name == "torch-sharded" and name not in BACKENDS:
+        # the scenario axis over a ("data",) mesh of every card, resolved
+        # here on use (not registered, so the registry stays what callers put there)
+        from repro_torch.parallel.shard_sweep import sharded_torch_backend
+
+        return sharded_torch_backend
     try:
         return BACKENDS[name]
     except KeyError:

@@ -19,7 +19,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.checkpoint import _host
+from repro_torch.checkpoint.checkpoint import _host, _tensor
 from repro_torch.convert import stack_tree, unstack_tree
 from repro_torch.train.optimizer import (OptConfig, _is_qleaf, adamw_update, cast_params,
                                          init_opt_state)
@@ -136,19 +136,6 @@ def state_tree(state: Dict[str, Any], *, template: bool = False) -> Dict[str, An
     opt = state["opt"]
     return {"opt": {"m": stack(opt["m"]), "step": host(opt["step"]), "v": stack(opt["v"])},
             "params": stack(dict(model.state_dict())), "rng": np.asarray(state["rng"])}
-
-
-def _tensor(a) -> torch.Tensor:
-    """A restored leaf as a tensor, sharing its memory where it can (it is
-    only read, to be copied into the state). A bfloat16 leaf comes back from
-    np.load as 2-byte void (its bits), or as ml_dtypes' bfloat16 if never
-    saved."""
-    a = np.asarray(a)
-    if not (a.flags.writeable and a.flags.c_contiguous):
-        a = np.array(a)  # 0-d stays 0-d
-    if a.dtype.name == "bfloat16" or a.dtype == np.dtype("V2"):
-        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
-    return torch.from_numpy(a)
 
 
 @torch.no_grad()

@@ -1101,3 +1101,28 @@ def test_train_resume_is_bitwise_on_the_card(cuda, tmp_path):
         assert float(m["loss"]) == want
     for (n, a), (_, b) in zip(fresh_model.named_parameters(), model.named_parameters()):
         assert torch.equal(a, b), n
+
+
+def test_com_matmul_over_ranks_on_the_card(cuda, tmp_path):
+    """Ranks on cuda:0 in a gloo group (NCCL refuses two ranks on one
+    GPU, so the hops go through pinned host memory): make_com_matmul with
+    silu in float32 and bfloat16 within 2e-5 / 2e-2 of the dense product's
+    largest magnitude, each rank's shard on the card, the counted bytes
+    equal to wire_bytes."""
+    import json
+
+    import _torch_ranks as ranks
+    from repro_torch.parallel.collectives import wire_bytes
+
+    world = 2
+    ranks.spawn(ranks.gpu_com_rank, world, tmp_path, timeout=300)
+    for r in range(world):
+        info = json.loads((tmp_path / f"gpu_{r}.json").read_text())
+        for dtype in (torch.float32, torch.bfloat16):
+            line = info[str(dtype)]
+            assert line["device"].startswith("cuda") and line["dtype"] == str(dtype)
+            assert line["shape"] == [96, 128 // world]
+            assert line["err"] <= (2e-2 if dtype == torch.bfloat16 else 2e-5), line
+            assert line["sent"]["bytes_sent"] == wire_bytes("com", line["out_bytes"], world)
+            assert line["sent"]["sends"] == world - 1 and line["sent"]["all_reduces"] == 0
+

@@ -1,4 +1,5 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import no
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the rank
+processes of the collective tests (``tests/_torch_ranks.py``) import no
 ``jax`` and nothing of the JAX package ``repro``.
 
 Checked on the source with ``ast`` (every import statement of every file),
@@ -14,6 +15,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the collective tests' rank processes re-import this helper when spawned
+PORT_FILES += [ROOT / "tests" / "_torch_ranks.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -52,6 +55,16 @@ def test_the_source_check_covers_the_training_modules():
         assert f"src/repro_torch/{mod}.py" in names
 
 
+def test_the_source_check_covers_the_scale_out_modules():
+    """The collectives slice's modules are among the files checked above."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("launch/mesh", "core/com", "parallel/collectives", "parallel/pipeline",
+                "parallel/sharding", "parallel/shard_sweep", "train/grad_compress",
+                "runtime/elastic", "checkpoint/checkpoint"):
+        assert f"src/repro_torch/{mod}.py" in names
+    assert "tests/_torch_ranks.py" in names
+
+
 def test_importing_the_port_loads_no_jax():
     mods = sorted(
         "repro_torch." + ".".join(p.relative_to(ROOT / "src" / "repro_torch").with_suffix("").parts)
@@ -60,10 +73,12 @@ def test_importing_the_port_loads_no_jax():
         "import sys, importlib\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "import chip_smoke\n"
+        "import _torch_ranks\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
     )
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT),
+                                                        str(ROOT / "tests")]))
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
