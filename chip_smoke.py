@@ -5,7 +5,7 @@
 
 Sixteen paths: the compiled VGG-16 executor (phases 3-5, and split over
 two shards in phase 15), serving smollm-135m (phases 3, 6 and 7; streaming,
-paged and faulted in phases 16-17) at 5 of its 30 layers and serving
+paged and faulted in phases 16-17) at 3 of its 30 layers and serving
 xlstm-350m (phases 3, 8 and 9) at 2 of its 24, both at their full published
 widths, the paper's Tab. IV evaluation and design-space sweep (phases
 10-12), VGG-16 compiled around faults and from a searched mapping (phases
@@ -18,7 +18,7 @@ which no engine serves, and training smollm-135m at 10 of its 30 layers
 (phase 26), xlstm-350m at 2 of its 24 (phase 27), zamba2-1.2b at 14 of its
 38 (phase 28), dbrx-132b at full width with its depth cut to 1 layer (phase
 29), llama-3.2-vision-90b at full width with its depth cut to 1 of its
-20 groups (phase 30) and musicgen-large at 6 of its 48 layers (phase 31),
+20 groups (phase 30) and musicgen-large at 3 of its 48 layers (phase 31),
 and the COM ring and data/pod-parallel training over torch.distributed
 (phase 32: ranks on the one card in a gloo group, and a one-rank NCCL
 group). Every cut depth (SERVE_CUT, TRAIN_CUT, XLSTM_CUT, HYBRID_CUT,
@@ -96,12 +96,12 @@ Phases, each printing JSON lines:
                share and the kernels by time; fails if a cuBLAS, cuDNN or
                CUTLASS kernel ran in it (every product is the port's own);
 6. serve     — smollm-135m (d_model 576, 9 heads, 3 KV heads, vocab 49152,
-               tied) with its 30 layers cut to 5 (SERVE_CUT, the line's
+               tied) with its 30 layers cut to 3 (SERVE_CUT, the line's
                "reduced"), bf16, weights drawn from seed 0: 16 greedy
                requests with prompt lengths from numpy.random.default_rng(2)
                uniform in 128-1024, 64 new tokens each, 8 slots, max_seq 2048,
                through Engine.generate: wall time, tokens/s, median TTFT and
-               decode step, peak memory, flash_attention launches (5 per
+               decode step, peak memory, flash_attention launches (3 per
                prefill); the tokens against Engine.generate_sequential; the
                last-token logits of every request's prefill against the same
                model with the plain attention, in float32 and in bfloat16;
@@ -174,22 +174,22 @@ Phases, each printing JSON lines:
                2e-5 · max|ref| of the float64 reference and bit for bit phase
                4's unless a layer's com_matmul plan (split-K) changes at the
                shard's rows; the layers whose plans change, images/s;
-16. serve-traffic — phase 6's smollm-135m (10 layers), bf16, weights from seed 0,
+16. serve-traffic — phase 6's smollm-135m (SERVE_CUT), bf16, weights from seed 0,
                through simulate(check=True) on Engine(batch=8, max_seq=544,
                page_size=16, pool_pages=96) (35 % of the 272 pages a contiguous
                pool needs) with the profile chip-burst-24 (24 greedy requests in
                bursts of 8, prompts of 128/256/512 and budgets of 8/16/32
                tokens weighted 1:2:1, admission deadline 40 ticks):
                matches_sequential, the virtual-clock payload equal to the JAX
-               package's numbers (TRAFFIC_CLOCK), flash_attention launches (10 a
-               prefill), wall time, tokens/s, decode step, page gather and
+               package's numbers (TRAFFIC_CLOCK), flash_attention launches (one
+               a layer a prefill), wall time, tokens/s, decode step, page gather and
                scatter times, peak memory;
 17. serve-faults — chip-burst-24-patient (no deadline) through Engine.serve on
                that engine, fault-free and with TransientFaults(slot_rate=0.05,
                page_rate=0.002, seed=0) under RestartPolicy(max_restarts=10000,
                backoff_s=1, backoff_mult=1): counters and makespans equal to the
-               JAX package's (FAULTS_CLOCK), 10 flash launches a prefill and a
-               re-prefill; in bf16 the tokens of every request whose slot never
+               JAX package's (FAULTS_CLOCK), a flash launch a layer a prefill
+               and a re-prefill; in bf16 the tokens of every request whose slot never
                failed, and of each retried request up to its first retry, equal
                the fault-free run's (a re-prefill's KV rows round otherwise
                than the decode steps' on the card), how many retried requests
@@ -354,11 +354,11 @@ Phases, each printing JSON lines:
 31. train-audio — musicgen-large at its published widths (d_model 2048, 32
                heads, 32 KV heads, d_ff 8192, layernorm, gelu, 4 codebooks
                of 2048, untied (4, 2048, 2048) embed and unembed tables)
-               with its 48 layers cut to 6 (AUDIO_TRAIN_CUT, the line's
+               with its 48 layers cut to 3 (AUDIO_TRAIN_CUT, the line's
                "reduced"; the line's "params"), phase 26's
                recipe on f32 masters and f32 moments, batches of 8 x 2048
                frames x 4 codebooks from SyntheticTokens(num_codebooks=4):
-               12 flash_attention and 6 flash_attention_bwd launches a
+               6 flash_attention and 3 flash_attention_bwd launches a
                step at (8, 2048, 32, 32, 64), the train-hybrid shape, a
                profiled step with no library attention kernel and the
                host's synchronizing calls counted, the 20th loss below the
@@ -384,9 +384,31 @@ Phases, each printing JSON lines:
                microbatches at TRAIN_TOL, the whole batch's distance
                reported), and with compress_pod every gradient leaf within
                its rows' int8 bound and the residual under 2 % of max|g|;
-               then a one-rank NCCL group runs the n = 1 paths; and (in
-               phase 12) the "torch-sharded" sweep on [cuda:0, cuda:0]
-               bitwise the torch backend's;
+               model-parallel training on DTensor over a (data=2, model=2)
+               mesh of the same ranks (MP_MESH: parameters placed by
+               param_rules, FSDP over "data" and tensor parallel over
+               "model", activations by make_shard_fn, the logits split over
+               the vocabulary): (c) smollm-135m at TRAIN_CUT, the train
+               phase's whole first batch (4 rows a data group, heads
+               replicated over "model": 9 and 3 do not divide 2), one float32
+               step at TRAIN_TOL of the parent's one-process step on the same
+               8 rows and every parameter within 1e-5 + 1e-3 of how far it
+               moved of the one-process step's (Adam eps MP_EPS in both),
+               one bfloat16 step at TRAIN_TOL of the one-process step in 2
+               microbatches of the same rows; (d) one qwen1.5-32b decoder
+               block at full width (d_model 5,120, 40 heads of 128, d_ff
+               27,392, qkv bias: 525.6 M parameters), 2 x 2048 tokens (a row
+               a data group, 20 heads a model rank), forward and backward in
+               float32 and bfloat16 against the parent's one-process block
+               (output 2e-5 / 2e-2 of its largest magnitude, every gradient
+               rtol 1e-3 and atol 1e-4 of max / 2e-2 of max, each rank's
+               shard against its chunk of the parent's, which the spawn
+               shares on the card); every flash call of (c) and (d) held
+               against its plain version, the calls' local shapes and
+               launches checked, the collectives' bytes counted
+               (CommCounter); then a one-rank NCCL group runs the n = 1
+               paths; and (in phase 12) the "torch-sharded" sweep on
+               [cuda:0, cuda:0] bitwise the torch backend's;
 33. the seconds of each phase, the kernels line (each kernel's launches on
                every path), the card line, the result line.
 
@@ -428,6 +450,7 @@ import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 import torch.multiprocessing as mp  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+from torch.distributed.tensor import distribute_tensor  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import com as com_lib  # noqa: E402
@@ -461,13 +484,15 @@ from repro_torch.kernels.slstm import plan_bwd as slstm_plan_bwd  # noqa: E402
 from repro_torch.kernels.slstm import slstm_fused, slstm_fused_bwd  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models.frontend import synth_image_embeds  # noqa: E402
-from repro_torch.models.transformer import CallConfig, build_model  # noqa: E402
+from repro_torch.models.transformer import Block, CallConfig, block_axes, build_model  # noqa: E402
 from repro_torch.launch import table_iv  # noqa: E402
 from repro_torch.launch.mesh import make_data_mesh, make_debug_mesh, make_mesh  # noqa: E402
 from repro_torch.launch.sweep import check_against_scalar, smoke_1e6_grid  # noqa: E402
 from repro_torch.parallel.collectives import (  # noqa: E402
     axis_mean, grad_transform, matmul_strategy, wire_bytes)
 from repro_torch.parallel.shard_sweep import make_sharded_backend  # noqa: E402
+from repro_torch.parallel.sharding import (  # noqa: E402
+    CommCounter, act_rules, batch_shardings, device_collectives, make_shard_fn, place_params)
 from repro_torch.search import PopulationEvaluator, greedy_candidate, search_mapping  # noqa: E402
 from repro_torch.runtime.fault_tolerance import RestartPolicy  # noqa: E402
 from repro_torch.checkpoint import checkpoint as ckpt_lib  # noqa: E402
@@ -603,15 +628,15 @@ VLM_CHECK_SEQ = 256
 # train-moe phase it ran 1,095 s of phases on one machine and past 1,200 s on
 # another; host-paced phases move by up to 70 % between machines). Each cut
 # is in its phase lines' "reduced", and no gate changes with it:
-# smollm-135m serves at 5 of its 30 layers (serve, serve-traffic,
+# smollm-135m serves at 3 of its 30 layers (serve, serve-traffic,
 # serve-faults) and trains at 10; xlstm-350m serves and trains at 1 of its
 # 12 [mLSTM, sLSTM] pairs; zamba2-1.2b trains at 2 of its 6 groups of 6
 # Mamba2 blocks (each followed by the shared block) and its 2 tail blocks
 # (14 of 38 layers) and serves at 1 group and the tail (8 of 38; the shared
 # block's second use in serving is held on the card at the reduced size,
 # tests/test_torch_gpu.py); dbrx-132b serves at 2 of its 40 layers
-# (MOE_LAYERS); musicgen-large prefills, decodes and trains at 6 of its 48
-# (AUDIO_CUT, AUDIO_TRAIN_CUT). The train-vlm phase bought
+# (MOE_LAYERS); musicgen-large prefills and decodes at 6 of its 48 and
+# trains at 3 (AUDIO_CUT, AUDIO_TRAIN_CUT). The train-vlm phase bought
 # its time with its held checks at 2 x 256 tokens, then by cutting smollm's
 # serving from 10 layers to 5 and its training from 30 to 10, xlstm's from
 # 8 to 4, dbrx's serving from 4 to 2 and zamba2's from 14 to 8, then in the
@@ -622,22 +647,25 @@ VLM_CHECK_SEQ = 256
 # its own cuts (AUDIO_CHECK_SEQ, its resume at 6 layers), then with model-audio's
 # depth, 12 to 6, and xlstm-350m's, 4 to 2 (serve-xlstm and train-xlstm).
 # The collectives phase bought its time with train-audio's depth, 48 to 6,
-# and serve-hybrid's, 8 to 6 (PERF.md §4)
-SERVE_CUT = dict(num_layers=5)
+# and serve-hybrid's, 8 to 6; its model-parallel checks bought theirs with
+# smollm's serving depth, 5 to 3 (serve, serve-traffic, serve-faults), and
+# train-audio's, 6 to 3 (PERF.md §4). zamba2's training stays at 14: its
+# float32 held step 3 stands at 0.86 of HYBRID_HELD_TOL's grad norm limit
+SERVE_CUT = dict(num_layers=3)
 TRAIN_CUT = dict(num_layers=10)
 XLSTM_CUT = dict(num_layers=2)
 HYBRID_CUT = dict(num_layers=14)
 HYBRID_SERVE_CUT = dict(num_layers=6)
 AUDIO_CUT = dict(num_layers=6)
-AUDIO_TRAIN_CUT = dict(num_layers=6)
+AUDIO_TRAIN_CUT = dict(num_layers=3)
 # the resume check of train-hybrid at a smaller depth still: one of zamba2's
 # groups and the shared block, no tail. A bitwise round trip does not change
 # in kind with depth
 HYBRID_RESUME = dict(num_layers=6)
 # the train-audio phase: musicgen-large at AUDIO_TRAIN_CUT on the launcher's
 # recipe, 8 x 2048 frames x 4 codebooks a step; its held checks at 2 x
-# AUDIO_CHECK_SEQ frames (model-audio's prompt length); its resume a 4.0 GB
-# checkpoint (the whole model's would be 29.4 GB)
+# AUDIO_CHECK_SEQ frames (model-audio's prompt length); its resume a
+# checkpoint at the same depth (the whole model's would be 29.4 GB)
 AUDIO_CHECK_SEQ = AUDIO_FRAMES
 BWD_CHECK_S = 300  # the backward checks' own time limit (they take well under a minute)
 # the collectives phase: COLLECTIVE_RANKS processes on cuda:0 in a gloo group
@@ -645,7 +673,16 @@ BWD_CHECK_S = 300  # the backward checks' own time limit (they take well under a
 # down projection (K = d_ff = 27,392, N = d_model = 5,120) over COM_TOKENS
 # tokens, each strategy timed over COM_TIMED calls; COLLECTIVES_S is the
 # ranks' own time limit, so that a stuck rank fails the phase loudly
-COM_ARCH, COM_TOKENS, COM_TIMED, COLLECTIVE_RANKS, COLLECTIVES_S = "qwen1.5-32b", 2048, 2, 4, 240
+COM_ARCH, COM_TOKENS, COM_TIMED, COLLECTIVE_RANKS, COLLECTIVES_S = "qwen1.5-32b", 2048, 2, 4, 300
+# its model-parallel checks (tensor parallelism and FSDP on DTensor) on a
+# (data=2, model=2) mesh of the same ranks: smollm-135m at TRAIN_CUT on the
+# train phase's first batch, 4 rows a data group, and one of qwen1.5-32b's
+# decoder blocks at full width over QWEN_ROWS x TRAIN_SEQ tokens, one row a
+# data group, its 40 heads split 20 to a model rank. Adam's eps is MP_EPS in
+# the model-parallel step and its yardstick: at the default 1e-8 an update
+# amplifies float32 rounding in gradient elements near 1e-8 by about 1e4,
+# and the updated parameters compare rounding (ROADMAP Queue 3, item 23)
+MP_MESH, QWEN_ROWS, MP_EPS = dict(data=2, model=2), 2, 1e-6
 FIRST_BURST = dict(PATIENT_TRAFFIC, name="chip-burst-8-patient", num_requests=8)
 # the virtual clock is a function of the profile, the pool and the fault draws
 # (eos_id=None): the JAX package's numbers on these profiles, which the CPU
@@ -3261,8 +3298,8 @@ def train_cells() -> tuple:
     llama-3.2-vision-90b at VLM_TRAIN_CUT through the attention kernels at
     its self and cross shapes (2 and 1 a layer: 10 and 5) on VLM_OPT, the
     held checks at VLM_CHECK_SEQ beside a float64 attention, and
-    musicgen-large at AUDIO_TRAIN_CUT through the attention kernels (6
-    layers: 12 and 6), the held checks at AUDIO_CHECK_SEQ with the float32 backward calls
+    musicgen-large at AUDIO_TRAIN_CUT through the attention kernels (3
+    layers: 6 and 3), the held checks at AUDIO_CHECK_SEQ with the float32 backward calls
     held against the float64 gradient (flash_bwd_f64_held)."""
     L = cut(SERVE_ARCH, TRAIN_CUT).num_layers
     P = cut(XLSTM_ARCH, XLSTM_CUT).num_layers // 2
@@ -3414,15 +3451,182 @@ def dp_step(mesh, cell, dtype, batch, *, compress=False, uncompressed=None) -> t
     return line, grads
 
 
-def collectives_rank(rank: int, world: int, workdir: str, spawned: float) -> None:
+def mp_opt(cell) -> OptConfig:
+    """train_opt(cell) at Adam eps MP_EPS."""
+    return dataclasses.replace(train_opt(cell), eps=MP_EPS)
+
+
+def block_inputs(cfg, dtype) -> tuple:
+    """A qwen1.5-32b block's input x and its output's cotangent dy, each
+    (QWEN_ROWS, TRAIN_SEQ, d_model) in ``dtype`` drawn on the card from
+    seeds 1 and 2, and the positions."""
+    shape = (QWEN_ROWS, TRAIN_SEQ, cfg.d_model)
+    x, dy = (randn(shape, torch.Generator(device="cuda").manual_seed(s), dtype) for s in (1, 2))
+    pos = torch.arange(TRAIN_SEQ, device="cuda")[None, :].expand(QWEN_ROWS, TRAIN_SEQ)
+    return x, dy, pos.contiguous()
+
+
+def block_yardstick(dtype) -> dict:
+    """One qwen1.5-32b decoder block at full width (weights from seed 0 on
+    the card) in one process: its output and every parameter's gradient
+    for block_inputs, compute in ``dtype``."""
+    cfg = get_config(COM_ARCH)
+    blk = Block(cfg, torch.Generator(device="cuda").manual_seed(0)).requires_grad_(True)
+    x, dy, pos = block_inputs(cfg, dtype)
+    with torch.enable_grad():
+        out, _ = blk.forward_train(x, pos, cfg, CallConfig(compute_dtype=dtype, remat="none"))
+        grads = torch.autograd.grad(out, list(blk.parameters()), dy)
+    names = [n for n, _ in blk.named_parameters()]
+    del blk
+    return {"out": out.detach(), "grads": dict(zip(names, grads))}
+
+
+@contextlib.contextmanager
+def held_flash(worst: dict, shapes: list):
+    """Every flash forward and backward kernel call held against its plain
+    version on its own inputs (flash_train_held, flash_bwd_held; the worst
+    ratios to worst["fwd"] and worst["bwd"]), each forward call's local (q,
+    k) shapes appended to ``shapes``."""
+    originals = ops._flash_attention, ops._flash_attention_bwd
+    fwd = flash_train_held(originals[0], worst.setdefault("fwd", {}))
+
+    def recorded(q, k, v, **kw):
+        shapes.append([list(q.shape), list(k.shape)])
+        return fwd(q, k, v, **kw)
+
+    ops._flash_attention = recorded
+    ops._flash_attention_bwd = flash_bwd_held(originals[1], worst.setdefault("bwd", {}))
+    try:
+        yield
+    finally:
+        ops._flash_attention, ops._flash_attention_bwd = originals
+
+
+def shape_counts(shapes: list) -> list:
+    """[q shape, k shape, calls] for each distinct pair of shapes."""
+    out = {}
+    for q, k in shapes:
+        out[(tuple(q), tuple(k))] = out.get((tuple(q), tuple(k)), 0) + 1
+    return [[list(q), list(k), n] for (q, k), n in out.items()]
+
+
+def chunk_of(whole, d) -> torch.Tensor:
+    """This rank's chunk of ``whole``, laid out as the DTensor ``d``."""
+    return distribute_tensor(whole, d.device_mesh, d.placements, src_data_rank=None).to_local()
+
+
+def mp_smollm(mesh, cell, batch, dtype, yard=None) -> dict:
+    """Step 1 of ``cell`` (smollm-135m at TRAIN_CUT, weights from seed 0,
+    compute in ``dtype``, remat "block", mp_opt) on ``mesh``: the
+    parameters placed by param_rules (FSDP over "data", tensor parallel over
+    "model"), the activations by make_shard_fn, the whole ``batch`` placed
+    by batch_shardings (each data group its rows); every flash call held.
+    Returns the loss, grad norm, ms (the held checks' plain versions
+    included), launches, the flash calls' local shapes, the held ratios and
+    the collectives' bytes (float32); with ``yard`` (the one-process
+    step's parameters and how far each moved) every parameter's shard
+    against its chunk of the one-process step's, over 1e-5 + 1e-3 x moved."""
+    cc = CallConfig(compute_dtype=dtype, remat="block",
+                    shard_fn=make_shard_fn(mesh, act_rules(mesh)))
+    model = place_params(build_model(train_config(cell), cc, device="cuda", seed=0), mesh)
+    state = make_train_state(model, None, mp_opt(cell))
+    step = make_train_step(model, mp_opt(cell))
+    worst, shapes, counter = {}, [], CommCounter()
+    for kern in cell.kernels:
+        kern.launches = 0
+    with held_flash(worst, shapes), (counter if yard is not None else contextlib.nullcontext()):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+    line = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "ms_held": (time.perf_counter() - t0) * 1e3, "launches": list(launches_of(cell.kernels)),
+            "flash_shapes": shape_counts(shapes), "held": worst}
+    if yard is not None:
+        line["comms"] = counter.counts
+        ratios = {n: ((p.to_local() - chunk_of(yard["params"][n], p)).abs().max().item()
+                      / (1e-5 + 1e-3 * yard["moved"][n])) for n, p in model.named_parameters()}
+        leaf = max(ratios, key=ratios.get)
+        line.update(param_ratio=ratios[leaf], param_worst_leaf=leaf)
+    del model, state, step
+    torch.cuda.empty_cache()
+    return line
+
+
+def grad_ratio(got, want, scale: float, dtype) -> float:
+    """``got`` (a gradient's shard) against ``want`` (its chunk of the
+    one-process gradient), over the held limit: with float32 compute rtol
+    1e-3, atol 1e-4 of ``scale`` (the whole gradient's largest magnitude);
+    with bfloat16 compute 2e-2 of ``scale``."""
+    diff = (got.double() - want.double()).abs()
+    if dtype == torch.float32:
+        return (diff / (GRAD_RTOL * want.double().abs() + GRAD_ATOL * scale)).max().item()
+    return diff.max().item() / (TOL[dtype] * scale)
+
+
+def mp_block(mesh, dtype, yard) -> dict:
+    """One qwen1.5-32b decoder block at full width (weights from seed 0) on
+    ``mesh``: placed by param_rules over block_axes (its 40 heads split 20
+    to a model rank, d_ff 27,392 split 13,696), block_inputs placed by
+    batch_shardings (a row a data group), the forward and the backward for
+    dy, every flash call held; its output against ``yard``'s (f32 2e-5,
+    bf16 2e-2 of the largest magnitude) and every parameter's gradient, on
+    its parameter's placements, against its chunk of ``yard``'s
+    (grad_ratio). Returns ms (held), launches, shapes, ratios and bytes."""
+    cfg = get_config(COM_ARCH)
+    blk = Block(cfg, torch.Generator(device="cuda").manual_seed(0))
+    place_params(blk, mesh, axes=block_axes(cfg)).requires_grad_(True)
+    torch.cuda.empty_cache()
+    x, dy, pos = block_inputs(cfg, dtype)
+    rules = act_rules(mesh)
+    x, dy, pos = (batch_shardings(rules, t).place(t) for t in (x, dy, pos))
+    cc = CallConfig(compute_dtype=dtype, remat="none", shard_fn=make_shard_fn(mesh, rules))
+    params = list(blk.named_parameters())
+    worst, shapes, counter = {}, [], CommCounter()
+    for kern in (flash_attention, flash_attention_bwd):
+        kern.launches = 0
+    with held_flash(worst, shapes), counter, device_collectives(mesh), torch.enable_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _ = blk.forward_train(x, pos, cfg, cc)
+        grads = torch.autograd.grad(out, [p for _, p in params],
+                                    dy.redistribute(out.device_mesh, out.placements))
+        grads = [g.redistribute(p.device_mesh, p.placements) for g, (_, p) in zip(grads, params)]
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    want = yard["out"]
+    out_ratio = ((out.to_local().double() - chunk_of(want, out).double()).abs().max().item()
+                 / (TOL[dtype] * want.double().abs().max().item()))
+    ratios = {n: grad_ratio(g.to_local(), chunk_of(yard["grads"][n], p),
+                            yard["grads"][n].double().abs().max().item(), dtype)
+              for (n, p), g in zip(params, grads)}
+    leaf = max(ratios, key=ratios.get)
+    line = {"ms_held": ms, "launches": list(launches_of((flash_attention, flash_attention_bwd))),
+            "flash_shapes": shape_counts(shapes), "held": worst, "out_ratio": out_ratio,
+            "grad_ratio": ratios[leaf], "grad_worst_leaf": leaf, "comms": counter.counts,
+            "local_param_bytes": sum(p.to_local().numel() * p.to_local().element_size()
+                                     for _, p in params),
+            "params": sum(p.numel() for _, p in params)}
+    del blk, params, grads, out, x, dy
+    torch.cuda.empty_cache()
+    return line
+
+
+def collectives_rank(rank: int, world: int, workdir: str, spawned: float, shared: dict) -> None:
     """One rank of the collectives phase, spawned: cuda:0, a gloo group of
     ``world`` through a file store in ``workdir``; (a) com_checks on a
     ("model",) mesh of ``world`` in float32 and bfloat16, (b) the
     smollm-135m train step (TRAIN_CUT) on a (pod=2, data=2) mesh, this
     rank's TRAIN_BATCH / world rows of the train phase's first batch:
     float32 and bfloat16 uncompressed, float32 with the compressed pod
-    mean. Writes its line to ``workdir``/rank<r>.json, with its seconds
-    from ``spawned`` (the parent's wall clock at the spawn) to its start."""
+    mean; on a MP_MESH mesh, (c) mp_smollm on the whole batch in float32
+    (its parameters against ``shared["smollm"]``, the one-process step's)
+    and bfloat16, (d) mp_block in float32 and bfloat16 against
+    ``shared["qwen"]`` (the one-process block's output and gradients).
+    ``shared``'s tensors live on the card in the parent (the spawn shares
+    them, nothing is copied). Writes its line to
+    ``workdir``/rank<r>.json, with its seconds from ``spawned`` (the
+    parent's wall clock at the spawn) to its start."""
     t0 = time.time()
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3446,6 +3650,20 @@ def collectives_rank(rank: int, world: int, workdir: str, spawned: float) -> Non
                                                 uncompressed=grads)
     line["pod"], line["data"] = mesh.get_local_rank("pod"), mesh.get_local_rank("data")
     line["seconds"]["train"] = time.time() - t0 - line["seconds"]["ring"]
+    t1 = time.time()
+    mesh = make_debug_mesh(**MP_MESH)
+    whole = train_batches(TRAIN_BATCH, 1)[0]
+    mpl = {}
+    with torch.enable_grad():
+        mpl["smollm_float32"] = mp_smollm(mesh, cell, whole, torch.float32, shared["smollm"])
+        mpl["smollm_bfloat16"] = mp_smollm(mesh, cell, whole, torch.bfloat16)
+    line["seconds"]["model_parallel_smollm"] = time.time() - t1
+    t1 = time.time()
+    for dt in (torch.float32, torch.bfloat16):
+        mpl[f"qwen_block_{dt}".replace("torch.", "")] = mp_block(mesh, dt, shared["qwen"][str(dt)])
+    line["seconds"]["model_parallel_qwen_block"] = time.time() - t1
+    line["model_parallel"] = mpl
+    line["mp_coords"] = {"data": mesh.get_local_rank("data"), "model": mesh.get_local_rank("model")}
     Path(workdir, f"rank{rank}.json").write_text(json.dumps(line))
     dist.destroy_process_group()
 
@@ -3470,6 +3688,91 @@ def ring_failures(what: str, ring: dict) -> list:
     return out
 
 
+def mp_report(ranks: list, ref: dict, cell) -> tuple:
+    """The ranks' model-parallel lines and their gates: (c) smollm's float32
+    step (loss and grad norm, each rank's, at TRAIN_TOL of the one-process
+    step on the same 8 rows; every parameter within its limit of the
+    one-process step's) and bfloat16 step (at TRAIN_TOL of the one-process
+    step in MP_MESH["data"] microbatches of the same rows); (d) qwen1.5-32b's
+    block, output and gradients within their limits in float32 and
+    bfloat16; every flash call of both within its held limit, its launches
+    and its local shapes (the heads split over "model" where they divide
+    it). Returns (the line, the failures)."""
+    fails, out = [], {"mesh": MP_MESH, "transport": "host-staged gloo, one card",
+                      "ms": "wall ms of the rank's step, the held checks' plain versions "
+                            "included (host-staged gloo, one card)"}
+    m = MP_MESH["model"]
+
+    def local(arch, rows):
+        c = get_config(arch)
+        split = c.num_heads % m == 0 and c.num_kv_heads % m == 0
+        H, KVH = (c.num_heads // m, c.num_kv_heads // m) if split else (c.num_heads,
+                                                                       c.num_kv_heads)
+        return [[rows, TRAIN_SEQ, H, c.head_dim], [rows, TRAIN_SEQ, KVH, c.head_dim]], split
+
+    def held(line, what):
+        bad = {f"{d}/{k}": v for d, w in line["held"].items() for k, v in w.items() if not v <= 1.0}
+        if bad:
+            fails.append(f"{what}: flash calls past their held limits {bad}")
+
+    L = cell.per_step
+    shapes, split = local(SERVE_ARCH, TRAIN_BATCH // MP_MESH["data"])
+    for dt, yardstick in (("float32", "float32"), ("bfloat16", "bfloat16_split_mp")):
+        steps = [r["model_parallel"][f"smollm_{dt}"] for r in ranks]
+        want = ref[yardstick]
+        ltol, gtol = TRAIN_TOL[getattr(torch, dt)]
+        lerr = max(abs(s["loss"] - want[0]) / abs(want[0]) for s in steps)
+        gerr = max(abs(s["grad_norm"] - want[1]) / want[1] for s in steps)
+        entry = {"loss_by_rank": [s["loss"] for s in steps],
+                 "grad_norm_by_rank": [s["grad_norm"] for s in steps], "one_process": want,
+                 "one_process_microbatches": 1 if dt == "float32" else MP_MESH["data"],
+                 "loss_rel_err": lerr, "grad_norm_rel_err": gerr, "tol": [ltol, gtol],
+                 "ms_held_by_rank": [s["ms_held"] for s in steps],
+                 "launches_by_rank": [s["launches"] for s in steps],
+                 "flash_shapes": steps[0]["flash_shapes"], "heads_split": split,
+                 "held": [s["held"] for s in steps]}
+        if not (lerr <= ltol and gerr <= gtol):
+            fails.append(f"mp smollm {dt}: loss {lerr} / grad norm {gerr} from the one-process "
+                         f"step, over {ltol} / {gtol}")
+        for s in steps:
+            held(s, f"mp smollm {dt}")
+            if s["launches"] != list(L) or s["flash_shapes"] != [shapes + [L[0]]]:
+                fails.append(f"mp smollm {dt}: launches {s['launches']}, shapes "
+                             f"{s['flash_shapes']}; expected {L} at {shapes}")
+        if dt == "float32":
+            entry.update(param_ratio=max(s["param_ratio"] for s in steps),
+                         param_worst_leaf=[s["param_worst_leaf"] for s in steps],
+                         comms_by_rank=[s["comms"] for s in steps])
+            if not entry["param_ratio"] <= 1.0:
+                fails.append(f"mp smollm: a parameter {entry['param_ratio']} of its limit from "
+                             f"the one-process step's ({entry['param_worst_leaf']})")
+        out[f"smollm_{dt}"] = entry
+    shapes, split = local(COM_ARCH, QWEN_ROWS // MP_MESH["data"])
+    for dt in ("float32", "bfloat16"):
+        lines = [r["model_parallel"][f"qwen_block_{dt}"] for r in ranks]
+        entry = {"out_ratio": max(ln["out_ratio"] for ln in lines),
+                 "grad_ratio": max(ln["grad_ratio"] for ln in lines),
+                 "grad_worst_leaf": [ln["grad_worst_leaf"] for ln in lines],
+                 "ms_held_by_rank": [ln["ms_held"] for ln in lines],
+                 "launches_by_rank": [ln["launches"] for ln in lines],
+                 "flash_shapes": lines[0]["flash_shapes"], "heads_split": split,
+                 "local_param_bytes": lines[0]["local_param_bytes"],
+                 "comms_by_rank": [ln["comms"] for ln in lines],
+                 "held": [ln["held"] for ln in lines]}
+        if not (entry["out_ratio"] <= 1.0 and entry["grad_ratio"] <= 1.0):
+            fails.append(f"mp qwen block {dt}: output {entry['out_ratio']}, gradients "
+                         f"{entry['grad_ratio']} of their limits")
+        for ln in lines:
+            held(ln, f"mp qwen block {dt}")
+            if ln["launches"] != [1, 1] or ln["flash_shapes"] != [shapes + [1]]:
+                fails.append(f"mp qwen block {dt}: launches {ln['launches']}, shapes "
+                             f"{ln['flash_shapes']}; expected [1, 1] at {shapes}")
+        out[f"qwen_block_{dt}"] = entry
+    out["qwen_block"] = {"arch": COM_ARCH, "rows": QWEN_ROWS, "seq": TRAIN_SEQ,
+                         "params": ranks[0]["model_parallel"]["qwen_block_float32"]["params"]}
+    return out, fails
+
+
 def collectives_phase(cell) -> tuple:
     """The collectives phase: the parent's one-process steps of
     ``cell`` (smollm-135m at TRAIN_CUT) on the train phase's first 8 x
@@ -3492,20 +3795,33 @@ def collectives_phase(cell) -> tuple:
     batch = train_batches(TRAIN_BATCH, 1)[0]
     ref = {}
     with torch.enable_grad():
-        # the whole batch at once, and (bf16) in COLLECTIVE_RANKS microbatches
-        # of the ranks' rows: a bf16 gradient depends on the batch's split
+        # the whole batch at once, and (bf16) in COLLECTIVE_RANKS and in
+        # MP_MESH["data"] microbatches of the ranks' rows: a bf16 gradient
+        # depends on the batch's split. The float32 step at mp_opt's eps
+        # (its loss and grad norm are the same at any eps) keeps its
+        # parameters: the model-parallel step's yardstick
         for key, dtype, accum in (("float32", torch.float32, 1), ("bfloat16", torch.bfloat16, 1),
-                                  ("bfloat16_split", torch.bfloat16, COLLECTIVE_RANKS)):
+                                  ("bfloat16_split", torch.bfloat16, COLLECTIVE_RANKS),
+                                  ("bfloat16_split_mp", torch.bfloat16, MP_MESH["data"])):
             model, state, _ = train_setup(cell, dtype)
-            state, m = make_train_step(model, train_opt(cell), accum_steps=accum)(state, batch)
+            before = {n: p.detach().clone() for n, p in model.named_parameters()}
+            ocfg = mp_opt(cell) if key == "float32" else train_opt(cell)
+            state, m = make_train_step(model, ocfg, accum_steps=accum)(state, batch)
             ref[key] = step_metrics(m)[:2]
-            del model, state, m
+            if key == "float32":
+                smollm_yard = {"params": {n: p.detach() for n, p in model.named_parameters()},
+                               "moved": {n: (p.detach() - before[n]).abs().max().item()
+                                         for n, p in model.named_parameters()}}
+            del model, state, m, before
             torch.cuda.empty_cache()
+        shared = {"smollm": smollm_yard,
+                  "qwen": {str(dt): block_yardstick(dt) for dt in (torch.float32, torch.bfloat16)}}
+        torch.cuda.empty_cache()
     t_ref = time.perf_counter() - t0
     failures = []
     with tempfile.TemporaryDirectory() as tmp:
         t1 = time.perf_counter()
-        ctx = mp.start_processes(collectives_rank, args=(COLLECTIVE_RANKS, tmp, time.time()),
+        ctx = mp.start_processes(collectives_rank, args=(COLLECTIVE_RANKS, tmp, time.time(), shared),
                                  nprocs=COLLECTIVE_RANKS, join=False, start_method="spawn")
         deadline = time.monotonic() + COLLECTIVES_S
         while not ctx.join(timeout=1.0):
@@ -3516,6 +3832,8 @@ def collectives_phase(cell) -> tuple:
         ranks = [json.loads(Path(tmp, f"rank{r}.json").read_text())
                  for r in range(COLLECTIVE_RANKS)]
         t_ranks = time.perf_counter() - t1
+        del shared
+        torch.cuda.empty_cache()
 
         # (c) a one-rank NCCL group: the n == 1 paths, NCCL's init and its
         # all-reduce of CUDA tensors
@@ -3583,8 +3901,12 @@ def collectives_phase(cell) -> tuple:
         for s, counted in ring["strategies"].items():
             ms = [r["ring"][dt]["strategies"][s]["ms_per_call"] for r in ranks]
             strategies[dt][s] = dict(counted, ms_per_call=max(ms), ms_by_rank=ms)
+    model_parallel, mp_failures = mp_report(ranks, ref, cell)
+    failures += mp_failures
     flash = tuple(sum(r[k]["launches"][i] for r in ranks
-                      for k in ("float32", "bfloat16", "float32_compressed")) for i in (0, 1))
+                      for k in ("float32", "bfloat16", "float32_compressed")) +
+                  sum(r["model_parallel"][k]["launches"][i] for r in ranks
+                      for k in r["model_parallel"]) for i in (0, 1))
     line = {"phase": "collectives", "ranks": COLLECTIVE_RANKS,
             "transport": "host-staged gloo, one card",
             "transport_detail": "each hop's CUDA tensor copied through pinned host memory "
@@ -3607,6 +3929,7 @@ def collectives_phase(cell) -> tuple:
                               "train_float32": {**nccl_step, "rel_errs": list(nccl_errs),
                                                 "bitwise": [nccl_step["loss"], nccl_step[
                                                     "grad_norm"]] == list(ref["float32"])}},
+            "model_parallel": model_parallel,
             "flash_launches": list(flash),
             "rank_seconds": [r["seconds"] for r in ranks],
             "seconds": {"one_process_steps": t_ref, "ranks": t_ranks, "nccl": t_nccl,
@@ -3947,7 +4270,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_done("train-vlm")
 
-    # 31. training musicgen-large (6 layers) through the attention kernels
+    # 31. training musicgen-large (3 layers) through the attention kernels
     _, atrain_launches = train_phase(audio_cell)
     torch.cuda.empty_cache()
     phase_done("train-audio")

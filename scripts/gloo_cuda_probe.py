@@ -9,11 +9,19 @@ because PyTorch's table of backends marks gloo's send, receive and
 all-gather CPU only (its all-reduce takes CUDA tensors). This probe hands
 gloo the CUDA tensors themselves: for each
 operation (a ring hop through ``batch_isend_irecv``, ``all_reduce``,
-``all_gather_into_tensor``) two fresh ranks on cuda:0 run it once on a
-tensor drawn from a seed, and the line says whether it returned, what it
-raised, or how the rank exited, and whether the result equals the staged
-transport's. Reports; gates nothing. Ends with the card's name and power
-limit. The lines are also written to chiprun_out/gloo_cuda_probe.jsonl.
+``all_gather_into_tensor``, ``reduce_scatter_tensor``,
+``all_to_all_single``, and the ``DTensor`` redistributions, which issue
+functional collectives: ``Partial`` to ``Shard`` (a reduce-scatter),
+``Shard(0)`` to ``Shard(1)`` (an all-to-all), ``Shard`` to ``Replicate`` (an
+all-gather) and ``Partial`` to ``Replicate`` (an all-reduce), the last two
+also under ``repro_torch.parallel.sharding.GlooDeviceCollectives``, which
+routes the all-gather through ``torch.distributed``'s own call) two fresh
+ranks on cuda:0 run it once on a tensor drawn from a seed, and the line
+says whether it returned, what it raised, or how the rank exited, and
+whether the result equals the same operation done through collectives of
+CPU tensors (the staged transport's, for the first three). Reports; gates
+nothing. Ends with the card's name and power limit. The lines are also
+written to chiprun_out/gloo_cuda_probe.jsonl.
 """
 from __future__ import annotations
 
@@ -32,7 +40,13 @@ import torch.distributed as dist  # noqa: E402
 import torch.multiprocessing as mp  # noqa: E402
 
 OUT = ROOT / "chiprun_out" / "gloo_cuda_probe.jsonl"
-OPS = ("hop", "all_reduce", "all_gather")
+DTENSOR = {"dtensor_partial_to_shard": ("Partial", "Shard0"),
+           "dtensor_shard_to_shard": ("Shard0", "Shard1"),
+           "dtensor_shard_to_replicate": ("Shard0", "Replicate"),
+           "dtensor_partial_to_replicate": ("Partial", "Replicate"),
+           "routed_shard_to_replicate": ("Shard0", "Replicate"),
+           "routed_partial_to_replicate": ("Partial", "Replicate")}
+OPS = ("hop", "all_reduce", "all_gather", "reduce_scatter", "all_to_all") + tuple(DTENSOR)
 WORLD = 2
 
 
@@ -47,6 +61,8 @@ def run_op(rank: int, op: str, workdir: str) -> None:
     group = dist.group.WORLD
     x = torch.randn(1024, 257, generator=torch.Generator(device="cuda").manual_seed(rank),
                     device="cuda")
+    if op not in ("hop", "all_reduce", "all_gather"):
+        x = x[:, :256].contiguous()  # even splits of both axes
     line = {"op": op, "rank": rank}
     try:
         if op == "hop":
@@ -60,11 +76,39 @@ def run_op(rank: int, op: str, workdir: str) -> None:
             out = x.clone()
             dist.all_reduce(out)
             staged = com.all_reduce(x, group)
-        else:
+        elif op == "all_gather":
             out = torch.empty((WORLD * x.shape[0],) + tuple(x.shape[1:]), device="cuda")
             dist.all_gather_into_tensor(out, x)
             out = out.view((WORLD,) + tuple(x.shape))
             staged = com.com_all_gather(x, group)
+        elif op == "reduce_scatter":
+            out = torch.empty((x.shape[0] // WORLD,) + tuple(x.shape[1:]), device="cuda")
+            dist.reduce_scatter_tensor(out, x)
+            staged = _on_cpu(lambda c: _reduce_scatter_cpu(c), x)
+        elif op == "all_to_all":
+            out = torch.empty_like(x)
+            dist.all_to_all_single(out, x)
+            staged = _on_cpu(lambda c: _all_to_all_cpu(c), x)
+        else:
+            import contextlib
+
+            from torch.distributed.device_mesh import init_device_mesh
+            from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+            from repro_torch.parallel.sharding import GlooDeviceCollectives
+
+            mesh = init_device_mesh("cuda", (WORLD,), mesh_dim_names=("model",))
+            cpu_mesh = init_device_mesh("cpu", (WORLD,), mesh_dim_names=("model",))
+            kinds = {"Partial": Partial(), "Shard0": Shard(0), "Shard1": Shard(1),
+                     "Replicate": Replicate()}
+            src, dst = ([kinds[k]] for k in DTENSOR[op])
+            routed = GlooDeviceCollectives() if op.startswith("routed") else \
+                contextlib.nullcontext()
+            with routed:
+                out = DTensor.from_local(x, mesh, src, run_check=False).redistribute(
+                    mesh, dst).to_local()
+            staged = DTensor.from_local(x.cpu(), cpu_mesh, src, run_check=False).redistribute(
+                cpu_mesh, dst).to_local().to("cuda")
         torch.cuda.synchronize()
         line.update(returned=True, equal_to_staged=bool(torch.equal(out, staged)),
                     out_device=str(out.device))
@@ -72,6 +116,23 @@ def run_op(rank: int, op: str, workdir: str) -> None:
         line.update(returned=False, raised=f"{type(e).__name__}: {str(e)[:300]}")
     Path(workdir, f"{op}_{rank}.json").write_text(json.dumps(line))
     dist.destroy_process_group()
+
+
+def _on_cpu(fn, x):
+    """``fn`` of ``x`` copied to the host, in the same gloo group, back on the card."""
+    return fn(x.cpu()).to("cuda")
+
+
+def _reduce_scatter_cpu(x):
+    out = torch.empty((x.shape[0] // WORLD,) + tuple(x.shape[1:]))
+    dist.reduce_scatter_tensor(out, x)
+    return out
+
+
+def _all_to_all_cpu(x):
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x)
+    return out
 
 
 def main() -> int:

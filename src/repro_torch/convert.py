@@ -178,34 +178,60 @@ def _port_name(stacking, name: str) -> Tuple[str, Tuple[int, ...]]:
     return name, ()
 
 
+def _unstack(cfg, model, tree: Mapping[str, Any], prepare, cut) -> Dict[str, Any]:
+    """``{port name: entry}`` of a reference-layout tree: each leaf's
+    ``prepare(name, leaf, stacked shape)`` (the shape ``()`` for a leaf that
+    is not stacked, which is its entry), each stacked leaf then cut at every
+    index of its stacked axes by ``cut(prepared, index)``."""
+    stacking = _stacking(cfg, model)
+    out = {}
+    for name, leaf in _leaves(tree):
+        prefix = next((p for p in stacking if name.startswith(p + ".")), None)
+        if prefix is None:
+            out[name] = prepare(name, leaf, ())
+            continue
+        levels = stacking[prefix]
+        axes = sum(levels, ())
+        leaf = prepare(name, leaf, axes)
+        rest = name[len(prefix) + 1:]
+        for idx in np.ndindex(*axes):
+            parts, it = [], iter(idx)
+            for comp, lvl in zip(prefix.split("."), levels):
+                parts += [comp, *(str(next(it)) for _ in lvl)]
+            out[".".join(parts + [rest])] = cut(leaf, idx)
+    return out
+
+
 def unstack_tree(cfg, model, tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     """The JAX package's nested tree shaped like ``Model.init``'s parameters
     (the parameters, or an optimizer moment, whose leaves may be dicts of
     int8 codes and scales) -> ``{port name: array}``, each stacked leaf cut
     at its stacked axes; a leaf nested below a parameter keeps its key as a
     suffix (``blocks.0.attn.wq.q``)."""
-    stacking = _stacking(cfg, model)
-    out = {}
-    for name, leaf in _leaves(tree):
+    def prepare(name, leaf, axes):
         a = np.asarray(leaf)
-        prefix = next((p for p in stacking if name.startswith(p + ".")), None)
-        if prefix is None:
-            out[name] = a
-            continue
-        levels = stacking[prefix]
-        axes = sum(levels, ())
         if a.shape[:len(axes)] != axes:
             got, want = a.shape[:len(axes)], axes
             if len(axes) == 1:
                 got, want = got[0] if got else None, want[0]
             raise ValueError(f"{name} stacks {got} blocks, the config has {want}")
-        rest = name[len(prefix) + 1:]
-        for idx in np.ndindex(*axes):
-            parts, it = [], iter(idx)
-            for comp, lvl in zip(prefix.split("."), levels):
-                parts += [comp, *(str(next(it)) for _ in lvl)]
-            out[".".join(parts + [rest])] = a[idx]
-    return out
+        return a
+
+    return _unstack(cfg, model, tree, prepare, lambda a, idx: a[idx])
+
+
+def unstack_axes(cfg, model, axes_tree: Mapping[str, Any]) -> Dict[str, Tuple]:
+    """The reference's logical-axes tree (``Model.axes_tree()``: nested
+    dicts of tuples of names, a stacked leaf's tuple led by one ``"layers"``
+    per stacked axis) -> ``{port name: axes}``, as :func:`unstack_tree`
+    cuts the leaves: every entry of a stacked leaf gets its tuple without
+    the stacked axes' names."""
+    def prepare(name, ax, axes):
+        if tuple(ax[:len(axes)]) != ("layers",) * len(axes):
+            raise ValueError(f"{name}: axes {ax} do not lead with {len(axes)} stacked axes")
+        return tuple(ax)
+
+    return _unstack(cfg, model, axes_tree, prepare, lambda ax, idx: ax[len(idx):])
 
 
 def stack_tree(cfg, model, flat: Mapping[str, Any], convert=None) -> Dict[str, Any]:
@@ -215,7 +241,9 @@ def stack_tree(cfg, model, flat: Mapping[str, Any], convert=None) -> Dict[str, A
     (``torch.stack``); ``convert``, if given, maps each leaf as it is made
     (:func:`repro_torch.train.train_step.state_tree`: a tensor on the card
     to the host), so that a stacked leaf crosses to the host once, already
-    stacked, and one stacked leaf at a time stands on the card."""
+    stacked, and one stacked leaf at a time stands on the card. A
+    ``DTensor`` entry is gathered whole (``full_tensor()``, a collective of
+    its mesh) as its stacked leaf is made."""
     stacking = _stacking(cfg, model)
     groups: Dict[str, Dict[Tuple[int, ...], Any]] = {}
     for name, a in flat.items():
@@ -224,17 +252,18 @@ def stack_tree(cfg, model, flat: Mapping[str, Any], convert=None) -> Dict[str, A
     tree: Dict[str, Any] = {}
     for jname, entries in groups.items():
         if list(entries) == [()]:
-            leaf = entries[()]
+            leaf = _whole(entries[()])
         else:
             order = sorted(entries)
             shape = tuple(1 + max(i[d] for i in order) for d in range(len(order[0])))
             if len(order) != int(np.prod(shape)):
                 raise ValueError(f"{jname}: {len(order)} entries do not fill {shape}")
-            first = entries[order[0]]
+            items = [_whole(entries[i]) for i in order]
+            first = items[0]
             stack = torch.stack if isinstance(first, torch.Tensor) else np.stack
             # one entry is stacked as a view of it
-            leaf = (first[None] if len(order) == 1 else
-                    stack([entries[i] for i in order])).reshape(shape + tuple(first.shape))
+            leaf = (first[None] if len(order) == 1 else stack(items)).reshape(
+                shape + tuple(first.shape))
         if convert is not None:
             leaf = convert(leaf)
         node = tree
@@ -243,6 +272,11 @@ def stack_tree(cfg, model, flat: Mapping[str, Any], convert=None) -> Dict[str, A
             node = node.setdefault(comp, {})
         node[last] = leaf
     return tree
+
+
+def _whole(t):
+    """A ``DTensor`` gathered whole; anything else as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
 def model_params_from_port(model) -> Dict[str, Any]:

@@ -14,10 +14,17 @@ Every Pallas kernel of the JAX package is ported: ``com_matmul``,
 and an input requires it, they run through :class:`FlashAttention` and
 :class:`SLSTMFused`, whose backwards are the CUDA backward kernels for CUDA
 tensors and the plain backwards for CPU tensors or ``backend="ref"``.
+
+Under a mesh (``DTensor`` inputs, model-parallel training)
+``flash_attention`` runs through ``local_map``: each rank's forward and
+backward, the CUDA kernels on the card, see its own plain local tensors
+``(B_local, S, H_local, hd)`` with ``KVH_local`` heads, and nothing is
+gathered for them.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.com_matmul import com_matmul as _com_matmul
@@ -88,13 +95,36 @@ def flash_attention(q, k, v, *, causal=True, backend=None, block_kv=BLOCK_KV):
     """q: (B, Sq, H, hd); k, v: (B, Skv, KVH, hd) -> (B, Sq, H, hd), GQA read
     in place, causal mask top-left aligned. Differentiable through
     :class:`FlashAttention` where grad is enabled and an input requires it;
-    otherwise (serving) the forward alone, with no lse written."""
+    otherwise (serving) the forward alone, with no lse written. ``DTensor``
+    inputs run on each rank's local rows and heads (:func:`_flash_local`)."""
+    if isinstance(q, DTensor):
+        return _flash_local(q, k, v, causal=causal, backend=backend, block_kv=block_kv)
     path = _resolve(q, backend)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttention.apply(q, k, v, bool(causal), path, block_kv)
     if path == "ref":
         return _ref.flash_attention_ref(q, k, v, causal=causal)
     return _flash_attention(q, k, v, causal=causal, block_kv=block_kv)
+
+
+def _flash_local(q, k, v, *, causal, backend, block_kv):
+    """:func:`flash_attention` of ``DTensor`` q, k, v laid out alike over
+    every mesh axis (batch or heads split, or replicated; never the
+    sequence, never a partial sum), each rank on its local tensors; the
+    output is laid out as q."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    if not (q.placements == k.placements == v.placements):
+        raise ValueError(f"q, k and v must be laid out alike: {q.placements}, {k.placements}, "
+                         f"{v.placements}")
+    if any(not (p.is_replicate() or (isinstance(p, Shard) and p.dim in (0, 2)))
+           for p in q.placements):
+        raise ValueError(f"attention splits the batch or the heads only, not {q.placements}")
+    return local_map(lambda a, b, c: flash_attention(a, b, c, causal=causal, backend=backend,
+                                                     block_kv=block_kv),
+                     out_placements=list(q.placements), in_placements=(list(q.placements),) * 3,
+                     device_mesh=q.device_mesh)(q, k, v)
 
 
 class SLSTMFused(torch.autograd.Function):

@@ -10,6 +10,15 @@ reference's explicit max-subtracted softmax chain in plain PyTorch.
 
 Where JAX returns an updated cache, the port writes the KV rows into the
 cache tensors it is given, in place.
+
+Under a mesh (``DTensor`` activations and parameters, model-parallel
+training) :func:`qkv_project` lays q, k and v out by heads over the mesh's
+"model" axis where ``num_heads`` and ``num_kv_heads`` both divide it, and
+replicates them over "model" otherwise (the reference's GSPMD does the
+same, silently, where a reshape cannot keep the split); RoPE and the
+flash kernels then run on each rank's own rows and heads
+(``local_map``), and ``wo`` is the row-parallel product whose partial sum
+the residual's ``shard`` reduces.
 """
 from __future__ import annotations
 
@@ -17,10 +26,11 @@ import math
 from typing import Mapping, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import BLOCK_KV
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import apply_rope, dense_init, weight
 
 Params = Mapping[str, torch.Tensor]
 KVCache = Tuple[torch.Tensor, torch.Tensor]
@@ -43,19 +53,69 @@ def attention_params(gen: torch.Generator, d: int, num_heads: int, num_kv_heads:
     return p
 
 
+def attention_axes(qkv_bias: bool = False) -> dict:
+    """The logical axes of :func:`attention_params`' parameters."""
+    ax = {"wq": ("embed", "heads"), "wk": ("embed", "kv"), "wv": ("embed", "kv"),
+          "wo": ("heads", "embed")}
+    if qkv_bias:
+        ax.update(bq=("heads",), bk=("kv",), bv=("kv",))
+    return ax
+
+
+def heads_split(mesh, num_heads: int, num_kv_heads: int) -> bool:
+    """Whether the heads of q, k and v are split over ``mesh``'s "model"
+    axis: only where the axis has more than one rank and divides both head
+    counts (smollm-135m's 9 and 3 heads divide no "model" axis of 2 or 4)."""
+    names = mesh.mesh_dim_names or ()
+    if "model" not in names:
+        return False
+    m = mesh.shape[names.index("model")]
+    return m > 1 and num_heads % m == 0 and num_kv_heads % m == 0
+
+
+def _by_heads(x, t, split: bool):
+    """``t`` (B, S, heads · hd), a product of ``x``, laid out as ``x`` is
+    over every mesh axis but "model", where its last dim is split
+    (``split``) or replicated."""
+    names = x.device_mesh.mesh_dim_names or ()
+    placements = [(Shard(t.ndim - 1) if split else Replicate()) if n == "model" else p
+                  for n, p in zip(names, x.placements)]
+    return t.redistribute(x.device_mesh, placements)
+
+
 def qkv_project(params: Params, x: torch.Tensor, num_heads: int, num_kv_heads: int):
     d = x.shape[-1]
     hd = d // num_heads
-    q = x @ params["wq"].to(x.dtype)
-    k = x @ params["wk"].to(x.dtype)
-    v = x @ params["wv"].to(x.dtype)
+    q = x @ weight(params["wq"], x)
+    k = x @ weight(params["wk"], x)
+    v = x @ weight(params["wv"], x)
     if "bq" in params:
-        q = q + params["bq"].to(x.dtype)
-        k = k + params["bk"].to(x.dtype)
-        v = v + params["bv"].to(x.dtype)
+        q = q + weight(params["bq"], x)
+        k = k + weight(params["bk"], x)
+        v = v + weight(params["bv"], x)
     B, S = x.shape[:2]
+    if isinstance(x, DTensor):
+        split = heads_split(x.device_mesh, num_heads, num_kv_heads)
+        q, k, v = (_by_heads(x, t, split) for t in (q, k, v))
     return (q.reshape(B, S, num_heads, hd), k.reshape(B, S, num_kv_heads, hd),
             v.reshape(B, S, num_kv_heads, hd))
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float, fraction: float = 1.0):
+    """:func:`~repro_torch.models.layers.apply_rope`; on a ``DTensor`` it
+    runs on each rank's own rows and heads (``local_map``), ``positions``
+    a ``DTensor`` laid out over the batch as ``x`` is."""
+    if not isinstance(x, DTensor):
+        return apply_rope(x, positions, theta, fraction)
+    if not isinstance(positions, DTensor):
+        raise TypeError("positions must be a DTensor placed as the batch where the "
+                        "activations are DTensors")
+    from torch.distributed.tensor.experimental import local_map
+
+    return local_map(lambda t, pos: apply_rope(t, pos, theta, fraction),
+                     out_placements=list(x.placements),
+                     in_placements=(list(x.placements), list(positions.placements)),
+                     device_mesh=x.device_mesh)(x, positions)
 
 
 def naive_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
@@ -185,6 +245,9 @@ def attention_block(
 ) -> torch.Tensor:
     """Self-attention with its QKV and output projections.
 
+    Under a mesh (``x`` a ``DTensor``) only the forward without a cache
+    (training) runs; ``positions`` is then a ``DTensor`` placed as the batch.
+
     Modes:
       - prefill / forward (``cache_pos`` None): flash attention over the
         sequence; with ``kv_cache`` given, the RoPE'd k/v are written into
@@ -196,9 +259,12 @@ def attention_block(
         to cache rows ``<= pos``.
     """
     B, S, d = x.shape
+    if isinstance(x, DTensor) and kv_cache is not None:
+        raise ValueError("a KV cache under a mesh is not ported: model-parallel training "
+                         "runs without one")
     q, k, v = qkv_project(params, x, num_heads, num_kv_heads)
-    q = apply_rope(q, positions, rope_theta, rope_fraction)
-    k = apply_rope(k, positions, rope_theta, rope_fraction)
+    q = rope(q, positions, rope_theta, rope_fraction)
+    k = rope(k, positions, rope_theta, rope_fraction)
 
     if kv_cache is not None and cache_pos is not None:
         k_cache, v_cache = kv_cache
@@ -213,4 +279,11 @@ def attention_block(
             v_cache[:, :S] = v.to(v_cache.dtype)
 
     hd = d // num_heads
-    return out.reshape(B, S, num_heads * hd) @ params["wo"].to(x.dtype)
+    out = out.reshape(B, S, num_heads * hd)
+    if isinstance(out, DTensor):
+        # wo's input split by heads over "model" (a local chunk where the
+        # heads were replicated): the row-parallel product's gradient then
+        # comes back through this redistribution in the heads' own layout,
+        # never split where the heads cannot be
+        out = _by_heads(out, out, True)
+    return out @ weight(params["wo"], x)

@@ -5,6 +5,19 @@ tensors (an ``nn.ParameterDict`` in :mod:`repro_torch.models.transformer`)
 in the JAX package's layout — a dense weight is ``(in, out)`` — so weights
 convert between the two packages without transposes. Every product casts
 its float32 weight to the activation's dtype, as the reference does.
+
+Each ``*_axes`` function gives the logical axis names of its parameters,
+the tree that the reference's ``init_*`` returns beside the weights and
+that :mod:`repro_torch.parallel.sharding` maps onto a mesh:
+
+  "embed"   - d_model dim            -> fsdp ("data")
+  "mlp"     - ffn hidden dim         -> tensor ("model")
+  "heads"   - attention heads dim    -> tensor ("model")
+  "kv"      - kv head dim            -> None (small) / tensor
+  "vocab"   - vocabulary dim         -> tensor ("model")
+  "experts" - MoE expert dim         -> tensor ("model")
+  "layers"  - stacked layer dim      -> None
+  None      - replicated
 """
 from __future__ import annotations
 
@@ -13,6 +26,7 @@ from typing import Mapping
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 Params = Mapping[str, torch.Tensor]
 
@@ -30,12 +44,29 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, *,
 # ---------------------------------------------------------------------------
 
 
+def gathered(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A parameter ``w`` as its product with the activation ``x`` takes it:
+    itself in one process; under a mesh gathered over the axes that split
+    ``x``'s batch (FSDP's all-gather), so that the product keeps ``x``'s
+    rows where they are and moves the weight, never the activations."""
+    if isinstance(w, DTensor) and isinstance(x, DTensor):
+        keep = [Replicate() if xp.is_shard(0) else wp for wp, xp in zip(w.placements, x.placements)]
+        return w.redistribute(w.device_mesh, keep)
+    return w
+
+
+def weight(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A dense weight cast to ``x``'s dtype, as the reference casts it, then
+    :func:`gathered`."""
+    return gathered(w.to(x.dtype), x)
+
+
 def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """In float32, cast back to ``x.dtype``."""
     dt = x.dtype
     x = x.float()
     var = x.square().mean(dim=-1, keepdim=True)
-    y = x * torch.rsqrt(var + eps) * params["scale"]
+    y = x * torch.rsqrt(var + eps) * gathered(params["scale"], x)
     return y.to(dt)
 
 
@@ -44,7 +75,8 @@ def layernorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tenso
     x = x.float()
     mu = x.mean(dim=-1, keepdim=True)
     var = (x - mu).square().mean(dim=-1, keepdim=True)
-    y = (x - mu) * torch.rsqrt(var + eps) * params["scale"] + params["bias"]
+    y = (x - mu) * torch.rsqrt(var + eps) * gathered(params["scale"], x) + gathered(
+        params["bias"], x)
     return y.to(dt)
 
 
@@ -54,6 +86,15 @@ def norm_params(kind: str, d: int, device) -> dict:
         return {"scale": torch.ones((d,), device=device)}
     if kind == "layernorm":
         return {"scale": torch.ones((d,), device=device), "bias": torch.zeros((d,), device=device)}
+    raise ValueError(kind)
+
+
+def norm_axes(kind: str) -> dict:
+    """The logical axes of a ``kind`` norm's parameters."""
+    if kind == "rmsnorm":
+        return {"scale": ("embed",)}
+    if kind == "layernorm":
+        return {"scale": ("embed",), "bias": ("embed",)}
     raise ValueError(kind)
 
 
@@ -134,18 +175,24 @@ def mlp_params(gen: torch.Generator, d: int, f: int, activation: str) -> dict:
     return {"wi": dense_init(gen, d, f), "wo": dense_init(gen, f, d)}  # gelu 2-matrix
 
 
+def mlp_axes(activation: str) -> dict:
+    if activation == "silu":
+        return {"wi_gate": ("embed", "mlp"), "wi_up": ("embed", "mlp"), "wo": ("mlp", "embed")}
+    return {"wi": ("embed", "mlp"), "wo": ("mlp", "embed")}
+
+
 def mlp(params: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
     if activation == "silu":
-        g = x @ params["wi_gate"].to(x.dtype)
-        u = x @ params["wi_up"].to(x.dtype)
+        g = x @ weight(params["wi_gate"], x)
+        u = x @ weight(params["wi_up"], x)
         # F.silu rounds once where jax.nn.silu (layers.silu) rounds each
         # operation in bfloat16; with layers.silu here, reduced zamba2's bf16
         # tail state lands 2.08e-2 · max from the reference's, past the 2e-2
         # of tests/test_torch_hybrid.py (ROADMAP Queue 3, item 18)
         h = F.silu(g) * u
     else:
-        h = gelu(x @ params["wi"].to(x.dtype))
-    return h @ params["wo"].to(x.dtype)
+        h = gelu(x @ weight(params["wi"], x))
+    return h @ weight(params["wo"], x)
 
 
 # ---------------------------------------------------------------------------
@@ -153,10 +200,53 @@ def mlp(params: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def embedding_axes() -> dict:
+    return {"table": ("vocab", "embed")}
+
+
 def embed(params: Params, tokens: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """The table is cast to ``dtype`` before the gather."""
-    return params["table"].to(dtype)[tokens]
+    """The table is cast to ``dtype`` before the gather; a ``DTensor`` table
+    takes :func:`_embed_split`."""
+    table = params["table"].to(dtype)
+    if isinstance(table, DTensor):
+        return _embed_split(table, tokens)
+    return table[tokens]
+
+
+def _embed_split(table, tokens):
+    """The lookup of ``DTensor`` tokens (laid out over the batch) in a
+    ``DTensor`` table: the table gathered over every mesh axis but the one
+    that splits its vocabulary (FSDP's gather of its "embed" dim), then on
+    each rank the rows of its own vocabulary shard, the others zero: a
+    partial sum over that axis, which the caller's ``shard`` reduces (one
+    rank adds each row, the rest add zeros: the lookup's values)."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    split = [i for i, p in enumerate(table.placements) if p.is_shard(0)]
+    table = table.redistribute(mesh, [p if p.is_shard(0) else Replicate() for p in table.placements])
+    if not split:
+        return F.embedding(tokens, table)
+    (axis,) = split
+    rows = table.shape[0] // mesh.size(axis)
+    first = mesh.get_local_rank(axis) * rows
+
+    def lookup(t, tok):
+        idx = tok - first
+        inside = ((idx >= 0) & (idx < rows))[..., None]
+        return torch.where(inside, t[idx.clamp(0, rows - 1)], torch.zeros((), dtype=t.dtype,
+                                                                          device=t.device))
+
+    # the table's gradient: a partial sum over the axes that split the batch
+    grad = [p if i == axis else (Partial() if tp.is_shard() else Replicate())
+            for i, (p, tp) in enumerate(zip(table.placements, tokens.placements))]
+    out = [Partial() if i == axis else p for i, p in enumerate(tokens.placements)]
+    return local_map(lookup, out_placements=out,
+                     in_placements=(list(table.placements), list(tokens.placements)),
+                     in_grad_placements=(grad, list(tokens.placements)),
+                     device_mesh=mesh)(table, tokens)
 
 
 def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
-    return x @ params["table"].to(x.dtype).t()
+    return x @ weight(params["table"], x).t()

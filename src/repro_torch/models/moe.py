@@ -98,6 +98,14 @@ def expert_capacity(n_tokens: int, *, top_k: int, num_experts: int,
     return dp, tl, max(1, int((tl * top_k / num_experts) * capacity_factor))
 
 
+def moe_axes(ep_split: int = 1) -> dict:
+    """The logical axes of :func:`init_moe`'s parameters; the
+    expert-parallel layout's leading axis is "experts_ep" (the whole mesh)."""
+    experts = "experts_ep" if ep_split > 1 else "experts"
+    return {"router": ("embed", None), "wi_gate": (experts, "embed", "mlp"),
+            "wi_up": (experts, "embed", "mlp"), "wo": (experts, "mlp", "embed")}
+
+
 def _experts(ebuf: torch.Tensor, params: Params) -> torch.Tensor:
     """The SwiGLU of every expert on its buffer: ebuf (dp, E', C, D) with
     E' the weights' leading axis -> (dp, E', C, D). Each weight is cast to
@@ -113,9 +121,12 @@ def moe_forward(params: Params, x: torch.Tensor, *, top_k: int, num_experts: int
                 ep_split: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (y (B, S, D), aux_loss () float32).
 
-    The reference's ``shard_fn`` (a GSPMD placement hint for the dispatch
-    buffers and the expert-parallel all-to-all) has no counterpart in one
-    process and is left out; with ``ep_split > 1`` each expert's buffer is
+    The reference's ``shard_fn`` (a placement of the dispatch buffers that
+    makes the expert-parallel all-to-all) waits for the moe family's
+    model-parallel training (ROADMAP.md, Queue 1): in one process it places
+    nothing, and under a mesh the train forward refuses the moe family
+    (:meth:`repro_torch.models.transformer.Model.forward_train`). With
+    ``ep_split > 1`` each expert's buffer is
     repeated for its ``ep_split`` weight slices and their down-projections
     are summed, as the reference computes it."""
     B, S, D = x.shape

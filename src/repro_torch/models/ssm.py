@@ -42,6 +42,13 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
+def mamba2_axes() -> dict:
+    """The logical axes of :func:`init_mamba2`'s parameters."""
+    return {"in_proj": ("embed", "mlp"), "conv_w": (None, "mlp"), "conv_b": ("mlp",),
+            "A_log": (None,), "D": (None,), "dt_bias": (None,), "norm_scale": ("mlp",),
+            "out_proj": ("mlp", "embed")}
+
+
 def init_mamba2(gen: torch.Generator, d: int, *, expand: int, head_dim: int, state_dim: int,
                 conv_width: int) -> dict:
     inner = expand * d

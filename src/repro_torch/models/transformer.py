@@ -78,14 +78,26 @@ and the audio codebook lookups and unembeddings by autograd.
 makes the parameters trainable; the tied ``embed.table`` is one parameter.
 ``forward``, ``prefill`` and ``decode_step`` run under ``no_grad`` whatever
 that flag says.
+
+Model-parallel training (tensor parallelism and FSDP, the dense family) runs
+on ``DTensor``: :func:`repro_torch.parallel.sharding.place_params` places
+the parameters by the logical axes of :meth:`Model.axes_tree` (the
+reference's tree, stacked), ``CallConfig.shard_fn``
+(:func:`repro_torch.parallel.sharding.make_shard_fn`) redistributes the
+activations at the reference's call sites (``CallConfig.shard``: the
+embedding, the residual after each block, the logits), and
+:meth:`Model.loss` places the batch by ``batch_shardings`` and keeps the
+logits split over the vocabulary. The other families' train forward, and
+serving, refuse a mesh (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
@@ -95,7 +107,9 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
-from repro_torch.models.layers import embed, make_norm, mlp, mlp_params, norm_params, unembed
+from repro_torch.models.layers import (embed, embedding_axes, make_norm, mlp, mlp_axes,
+                                      mlp_params, norm_axes, norm_params, unembed)
+from repro_torch.parallel.sharding import device_collectives
 
 Cache = Tuple[torch.Tensor, ...]  # the reference's cache leaves (see the module docstring)
 FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")  # the reference's layer layouts
@@ -117,6 +131,12 @@ class CallConfig:
     # training: "block" recomputes each layer in the backward (the
     # reference's default), "none" keeps every activation
     remat: str = "block"
+    # (x, logical axes) -> x laid out on the mesh of model-parallel
+    # training (repro_torch.parallel.sharding.make_shard_fn); None in one process
+    shard_fn: Optional[Callable] = None
+
+    def shard(self, x, axes: Tuple):
+        return self.shard_fn(x, axes) if self.shard_fn is not None else x
 
 
 def _params(d: dict) -> nn.ParameterDict:
@@ -169,10 +189,11 @@ class Block(nn.Module):
     def _self_attn(self, x, positions, cfg: ArchConfig, cc: CallConfig, cache=None,
                    cache_pos=None):
         """``x + attn(ln1(x))``, writing the layer's KV rows into ``cache`` if given."""
-        return x + attn_lib.attention_block(
+        return cc.shard(x + attn_lib.attention_block(
             self.attn, make_norm(cfg.norm)(self.ln1, x), positions, cfg.num_heads,
             cfg.num_kv_heads, rope_theta=cfg.rope_theta, rope_fraction=cfg.rope_fraction,
-            block_kv=cc.block_kv, backend=cc.kernel_backend, kv_cache=cache, cache_pos=cache_pos)
+            block_kv=cc.block_kv, backend=cc.kernel_backend, kv_cache=cache, cache_pos=cache_pos),
+            ("batch", "seq", "embed"))
 
     def forward_cross(self, x, k, v, cfg: ArchConfig, cc: CallConfig):
         """The cross layer: ``x + cross_attn(ln1(x); k, v)`` against image
@@ -180,7 +201,7 @@ class Block(nn.Module):
         y = attn_lib.cross_attention_kv(self.attn, make_norm(cfg.norm)(self.ln1, x), k, v,
                                         cfg.num_heads, block_kv=cc.block_kv,
                                         backend=cc.kernel_backend)
-        return self._ffn(x + y, cfg, cc)[0]
+        return self._ffn(cc.shard(x + y, ("batch", "seq", "embed")), cfg, cc)[0]
 
     def forward_cross_train(self, x, ctx, cfg: ArchConfig, cc: CallConfig):
         """The cross layer over the whole sequence without a cache
@@ -205,7 +226,7 @@ class Block(nn.Module):
                     ep_split=moe.ep_split)
             else:
                 y = mlp(self.mlp, h, cfg.activation)
-            x = x + y
+            x = cc.shard(x + y, ("batch", "seq", "embed"))
         return x, aux
 
 
@@ -240,18 +261,19 @@ class MambaBlock(nn.Module):
             gen, cfg.d_model, expand=s.expand, head_dim=s.head_dim, state_dim=s.state_dim,
             conv_width=s.conv_width))
 
-    def forward(self, x, cfg: ArchConfig, *, return_state: bool):
+    def forward(self, x, cfg: ArchConfig, cc: CallConfig, *, return_state: bool):
         """The whole sequence from the zero state; returns ``x`` and, with
         ``return_state``, the block's decode state (else None)."""
         h = make_norm(cfg.norm)(self.ln, x)
         if return_state:
             y, st = ssm_lib.mamba2_forward(self.mamba, h, cfg, return_state=True)
-            return x + y, st
-        return x + ssm_lib.mamba2_forward(self.mamba, h, cfg), None
+        else:
+            y, st = ssm_lib.mamba2_forward(self.mamba, h, cfg), None
+        return cc.shard(x + y, ("batch", "seq", "embed")), st
 
-    def forward_train(self, x, cfg: ArchConfig):
+    def forward_train(self, x, cfg: ArchConfig, cc: CallConfig):
         """The whole sequence from the zero state, the state dropped (training)."""
-        return self(x, cfg, return_state=False)[0]
+        return self(x, cfg, cc, return_state=False)[0]
 
     def step(self, x, cfg: ArchConfig, state):
         """One token from the block's state; returns ``x`` and the new state."""
@@ -277,17 +299,19 @@ class XLSTMPair(nn.Module):
         norm = make_norm(cfg.norm)
         ym, st_m = xlstm_lib.mlstm_forward(self.mlstm, norm(self.ln_m, x), cfg.num_heads,
                                            return_state=True)
-        x = x + ym
+        x = cc.shard(x + ym, ("batch", "seq", "embed"))
         ys, st_s = xlstm_lib.slstm_forward(self.slstm, norm(self.ln_s, x), cfg.num_heads,
                                            return_state=True, backend=cc.kernel_backend)
-        return x + ys, st_m, st_s
+        return cc.shard(x + ys, ("batch", "seq", "embed")), st_m, st_s
 
     def forward_train(self, x, cfg: ArchConfig, cc: CallConfig):
         """The whole sequence from the zero state, states dropped (training)."""
         norm = make_norm(cfg.norm)
-        x = x + xlstm_lib.mlstm_forward(self.mlstm, norm(self.ln_m, x), cfg.num_heads)
-        return x + xlstm_lib.slstm_forward(self.slstm, norm(self.ln_s, x), cfg.num_heads,
-                                           backend=cc.kernel_backend)
+        x = cc.shard(x + xlstm_lib.mlstm_forward(self.mlstm, norm(self.ln_m, x), cfg.num_heads),
+                     ("batch", "seq", "embed"))
+        return cc.shard(x + xlstm_lib.slstm_forward(self.slstm, norm(self.ln_s, x),
+                                                    cfg.num_heads, backend=cc.kernel_backend),
+                        ("batch", "seq", "embed"))
 
     def step(self, x, cfg: ArchConfig, st_m, st_s):
         """One token from the pair's states; returns ``x`` and the new states."""
@@ -298,6 +322,123 @@ class XLSTMPair(nn.Module):
         ys, st_s = xlstm_lib.slstm_decode_step(self.slstm, norm(self.ln_s, x), st_s,
                                                cfg.num_heads)
         return x + ys, st_m, st_s
+
+
+def block_axes(cfg: ArchConfig, *, is_moe_layer: bool = False, cross: bool = False) -> dict:
+    """The logical axes of one :class:`Block`'s parameters."""
+    norm = norm_axes(cfg.norm)
+    ax = {"ln1": norm, "attn": attn_lib.attention_axes(cfg.qkv_bias and not cross)}
+    if cfg.d_ff > 0:
+        ax["ln2"] = norm
+        if is_moe_layer:
+            ax["moe"] = moe_lib.moe_axes(cfg.moe.ep_split)
+        else:
+            ax["mlp"] = mlp_axes(cfg.activation)
+    return ax
+
+
+def _stacked(tree) -> dict:
+    """Every leaf's axes led by one more stacked "layers" axis."""
+    if isinstance(tree, dict):
+        return {k: _stacked(v) for k, v in tree.items()}
+    return ("layers",) + tuple(tree)
+
+
+def axes_tree(cfg: ArchConfig) -> dict:
+    """The logical axes of every parameter of an ``cfg`` model, in the
+    reference's stacked tree (``repro.models.transformer.Model.axes_tree``):
+    a leaf of the stacked ``blocks`` (``tail``) pytree led by one
+    ``"layers"`` per stacked axis, audio's tables ``(None, "vocab",
+    "embed")``. Built from the config: nothing is allocated."""
+    fam = cfg.family
+    if cfg.num_codebooks:
+        table = {"table": (None, "vocab", "embed")}
+    else:
+        table = embedding_axes()
+    ax = {"embed": table, "ln_f": norm_axes(cfg.norm)}
+    if not cfg.tie_embeddings:
+        ax["unembed"] = dict(table)
+    if fam == "ssm":
+        norm = norm_axes(cfg.norm)
+        ax["blocks"] = _stacked({"ln_m": norm, "mlstm": xlstm_lib.mlstm_axes(), "ln_s": norm,
+                                 "slstm": xlstm_lib.slstm_axes()})
+    elif fam == "hybrid":
+        mamba = {"ln": norm_axes(cfg.norm), "mamba": ssm_lib.mamba2_axes()}
+        ax["blocks"] = _stacked(_stacked(mamba))
+        if cfg.num_layers % cfg.hybrid_attn_every:
+            ax["tail"] = _stacked(mamba)
+        ax["shared_attn"] = block_axes(cfg)
+    elif fam == "vlm":
+        ax["blocks"] = _stacked({"selfs": _stacked(block_axes(cfg)),
+                                 "cross": block_axes(cfg, cross=True)})
+    elif _moe_every(cfg) == 2:
+        ax["blocks"] = _stacked({"dense": block_axes(cfg),
+                                 "moe_l": block_axes(cfg, is_moe_layer=True)})
+    else:
+        ax["blocks"] = _stacked(block_axes(cfg, is_moe_layer=fam == "moe"))
+    return ax
+
+
+def cache_paths(cfg: ArchConfig) -> Tuple[str, ...]:
+    """The reference's key path (``jax.tree_util.keystr``) of each leaf of
+    an ``cfg`` model's cache, in the order of the port's flat cache tuple
+    (the module docstring)."""
+    kv = ("[0]", "[1]")
+    if cfg.family == "ssm":
+        return tuple("".join(f"['{k}']" for k in leaf.split("."))
+                     for leaf in xlstm_lib.STATE_LEAVES)
+    if cfg.family == "vlm":
+        return tuple(f"['{g}']{i}" for g in ("cross", "selfs") for i in kv)
+    if cfg.family == "hybrid":
+        paths = tuple(f"['groups']['attn']{i}" for i in kv) + tuple(
+            f"['groups']['mamba']['{k}']" for k in ("conv", "ssd"))
+        if cfg.num_layers % cfg.hybrid_attn_every:
+            paths += tuple(f"['tail']['{k}']" for k in ("conv", "ssd"))
+        return paths
+    if _moe_every(cfg) == 2:
+        return tuple(f"['{g}']{i}" for g in ("dense", "moe_l") for i in kv)
+    return kv
+
+
+def _replicated(t: torch.Tensor, mesh) -> DTensor:
+    """A plain tensor, the same on every rank, as a ``DTensor`` replicated on ``mesh``."""
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def _reduced(t):
+    """A ``DTensor`` with its partial placements (a partial max, a masked
+    partial gather) reduced, at its own shape; anything else as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    return t.redistribute(placements=[Replicate() if p.is_partial() else p for p in t.placements])
+
+
+def _target_logit(lf, targets):
+    """Each position's logit of its target: ``lf`` (B, S, V) and ``targets``
+    (B, S). Logits split over the vocabulary take a masked partial gather:
+    each rank gathers the targets in its own columns, the rest zero, and the
+    (B, S) partial sums are reduced; no logits move, forward or backward."""
+    if not isinstance(lf, DTensor) or not any(p.is_shard(lf.ndim - 1) for p in lf.placements):
+        return _reduced(lf.gather(-1, targets[..., None]))[..., 0]
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = lf.device_mesh
+    (axis,) = [i for i, p in enumerate(lf.placements) if p.is_shard(lf.ndim - 1)]
+    cols = lf.shape[-1] // mesh.size(axis)
+    first = mesh.get_local_rank(axis) * cols
+
+    def pick(logits, tgt):
+        idx = tgt - first
+        got = logits.gather(-1, idx.clamp(0, cols - 1)[..., None])[..., 0]
+        return torch.where((idx >= 0) & (idx < cols), got,
+                           torch.zeros((), dtype=got.dtype, device=got.device))
+
+    out = [Partial() if i == axis else p for i, p in enumerate(targets.placements)]
+    return _reduced(local_map(pick, out_placements=out,
+                              in_placements=(list(lf.placements), list(targets.placements)),
+                              in_grad_placements=(list(lf.placements), list(targets.placements)),
+                              device_mesh=mesh)(lf, targets))
 
 
 def _write_ssm_states(cache: Cache, g: int, st_m, st_s) -> None:
@@ -371,6 +512,52 @@ class Model(nn.Module):
                                         for _ in range(cfg.num_layers))
         return self
 
+    def axes_tree(self) -> dict:
+        """The logical axes of the parameters, the reference's stacked tree
+        (:func:`axes_tree`)."""
+        return axes_tree(self.cfg)
+
+    # -------------------- model-parallel training --------------------
+    def _placed(self) -> bool:
+        return isinstance(self.embed["table"], DTensor)
+
+    def _train_mesh(self):
+        """The mesh of model-parallel training (``CallConfig.shard_fn``'s, or
+        the placed parameters'), or None in one process. Only the dense
+        family trains under a mesh; a mesh of more than one rank needs the
+        parameters placed (``place_params``)."""
+        from repro_torch.parallel.sharding import mesh_size
+
+        placed = self._placed()
+        mesh = getattr(self.cc.shard_fn, "mesh", None)
+        if mesh is None and placed:
+            mesh = self.embed["table"].device_mesh
+        if mesh is None or not (placed or mesh_size(mesh) > 1):
+            return None
+        if self.cfg.family != "dense":
+            raise ValueError(f"model-parallel training of the {self.cfg.family} family is not "
+                             f"ported (ROADMAP.md, Queue 1, item 6: the dense family only); "
+                             f"train it in one process, or data-parallel through grad_transform")
+        if not placed:
+            raise ValueError(f"a mesh of {mesh_size(mesh)} ranks needs the parameters placed "
+                             f"on it: call repro_torch.parallel.sharding.place_params first")
+        return mesh
+
+    def _place_batch(self, t: torch.Tensor, mesh):
+        """A batch tensor (the same on every rank) placed by ``batch_shardings``
+        under ``CallConfig.shard_fn``'s rules (``act_rules(mesh)`` without)."""
+        from repro_torch.parallel.sharding import act_rules, batch_shardings
+
+        if isinstance(t, DTensor):
+            return t
+        rules = getattr(self.cc.shard_fn, "rules", None) or act_rules(mesh)
+        return batch_shardings(rules, t).place(t.contiguous())
+
+    def _refuse_placed(self, what: str) -> None:
+        if self._placed():
+            raise ValueError(f"{what} of a model placed on a mesh is not ported: model-parallel "
+                             f"training runs forward_train and loss only")
+
     # -------------------- embedding / logits --------------------
     def _embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         """(B, S) tokens, or (B, S, K) for audio, -> (B, S, D) in the compute
@@ -380,8 +567,10 @@ class Model(nn.Module):
         cfg, dt = self.cfg, self.cc.compute_dtype
         if cfg.num_codebooks:
             tabs = self.embed["table"].to(dt)  # (K, Vp, D)
-            return sum(tabs[i][tokens[..., i]] for i in range(cfg.num_codebooks))
-        return embed(self.embed, tokens, dt)
+            x = sum(tabs[i][tokens[..., i]] for i in range(cfg.num_codebooks))
+        else:
+            x = embed(self.embed, tokens, dt)
+        return self.cc.shard(x, ("batch", "seq", "embed"))
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         """(B, S, V) logits, or (B, S, K, V) for audio (one unembedding per
@@ -392,9 +581,11 @@ class Model(nn.Module):
         if cfg.num_codebooks:
             logits = torch.einsum("bsd,kvd->bskv", x, table["table"].to(x.dtype))
         else:
-            logits = unembed(table, x)
+            logits = self.cc.shard(unembed(table, x), ("batch", "seq", "vocab"))
         if self.padded_vocab != cfg.vocab_size:
             valid = torch.arange(self.padded_vocab, device=x.device) < cfg.vocab_size
+            if isinstance(logits, DTensor):
+                valid = _replicated(valid, logits.device_mesh)
             logits = logits.masked_fill(~valid, -1e30)
         return logits
 
@@ -512,10 +703,10 @@ class Model(nn.Module):
         ``at`` of the cache leaves ``leaves`` (conv, ssd)."""
         cfg = self.cfg
         if cache is None:
-            return blk(x, cfg, return_state=False)[0]
+            return blk(x, cfg, self.cc, return_state=False)[0]
         conv, ssd = cache[leaves[0]][at], cache[leaves[1]][at]
         if pos is None:
-            x, st = blk(x, cfg, return_state=True)
+            x, st = blk(x, cfg, self.cc, return_state=True)
         else:
             x, st = blk.step(x, cfg, {"conv": conv, "ssd": ssd})
         _write_mamba_state(conv, ssd, st)
@@ -533,6 +724,7 @@ class Model(nn.Module):
         overwritten with the final state of the prompt (the scans start from
         the zero state and never read the cache, as the reference's do)."""
         cfg, cc = self.cfg, self.cc
+        self._refuse_placed("serving")
         tokens = self._tokens(tokens)
         x = self._embed_tokens(tokens)
         B, S = tokens.shape[:2]
@@ -575,9 +767,20 @@ class Model(nn.Module):
         groups as :meth:`_hybrid` does; the shared block's gradient is
         autograd's sum over its uses. The vlm stack walks its groups as
         :meth:`_vlm` does, each cross layer projecting its K/V from the
-        image context (:meth:`_image_ctx`)."""
+        image context (:meth:`_image_ctx`).
+
+        Under a mesh (:meth:`_train_mesh`; the dense family) the tokens and
+        positions are placed by ``batch_shardings`` and every activation is
+        a ``DTensor``; the logits come back split over the vocabulary."""
+        mesh = self._train_mesh()
+        with device_collectives(mesh):
+            return self._forward_train(tokens, image_embeds, mesh)
+
+    def _forward_train(self, tokens, image_embeds, mesh):
         cfg, cc = self.cfg, self.cc
         tokens = self._tokens(tokens)
+        if mesh is not None:
+            tokens = self._place_batch(tokens, mesh)
         x = self._embed_tokens(tokens)
         B, S = tokens.shape[:2]
         remat = cc.remat == "block" and torch.is_grad_enabled()
@@ -585,12 +788,14 @@ class Model(nn.Module):
             calls = [(pair.forward_train, (cfg, cc)) for pair in self.blocks]
         else:
             positions = torch.arange(S, device=self.device)[None, :].expand(B, S)
+            if mesh is not None:
+                positions = self._place_batch(positions, mesh)
             if cfg.family == "hybrid":
                 calls = []
                 for group in self.blocks:
-                    calls += [(blk.forward_train, (cfg,)) for blk in group]
+                    calls += [(blk.forward_train, (cfg, cc)) for blk in group]
                     calls.append((self.shared_attn, (positions, cfg, cc)))
-                calls += [(blk.forward_train, (cfg,)) for blk in getattr(self, "tail", ())]
+                calls += [(blk.forward_train, (cfg, cc)) for blk in getattr(self, "tail", ())]
             elif cfg.family == "vlm":
                 ctx = self._image_ctx(image_embeds)
                 calls = []
@@ -600,6 +805,8 @@ class Model(nn.Module):
             else:
                 calls = [(blk.forward_train, (positions, cfg, cc)) for blk in self._attn_layers()]
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        if mesh is not None:
+            aux = _replicated(aux, mesh)
         for fn, args in calls:
             out = checkpoint(fn, x, *args, use_reentrant=False) if remat else fn(x, *args)
             x, a = out if isinstance(out, tuple) else (out, None)
@@ -615,16 +822,32 @@ class Model(nn.Module):
         K), ``logsumexp`` with its max held out of the gradient, ``loss = nll
         + 0.01 * aux``. The target logit is taken by
         ``gather``, where the reference contracts with a one-hot: the same
-        value (every other term of its sum is an exact zero)."""
+        value (every other term of its sum is an exact zero).
+
+        Under a mesh the logits stay split over the vocabulary: the max is a
+        partial max and the target's logit a masked partial gather, both
+        reduced over "model" at (B, S), so no (B, S, V) logits are
+        gathered; the loss and its metrics come back replicated
+        ``DTensor`` scalars."""
+        with device_collectives(self._train_mesh()):
+            return self._loss(batch)
+
+    def _loss(self, batch):
         logits, aux = self.forward_train(batch["tokens"],
                                          image_embeds=batch.get("image_embeds"))
         targets = torch.as_tensor(batch["targets"], device=self.device).long()
+        if isinstance(logits, DTensor):
+            targets = self._place_batch(targets, logits.device_mesh)
         lf = logits.float()
-        m = lf.amax(dim=-1, keepdim=True).detach()
-        logz = torch.log(torch.exp(lf - m).sum(dim=-1)) + m[..., 0]
-        tgt = lf.gather(-1, targets[..., None])[..., 0]
+        m = _reduced(lf.amax(dim=-1, keepdim=True)).detach()
+        logz = torch.log(_reduced(torch.exp(lf - m).sum(dim=-1))) + m[..., 0]
+        tgt = _target_logit(lf, targets)
         nll = (logz - tgt).mean()
-        return nll + 0.01 * aux, {"nll": nll, "aux": aux}
+        loss = nll + 0.01 * aux
+        if isinstance(loss, DTensor):
+            whole = [Replicate()] * loss.device_mesh.ndim
+            loss, nll = loss.redistribute(placements=whole), nll.redistribute(placements=whole)
+        return loss, {"nll": nll, "aux": aux}
 
     def prefill(self, tokens, cache: Cache, *, image_embeds=None):
         """Fill ``cache`` from a prompt, in place; returns (last-token
@@ -651,6 +874,7 @@ class Model(nn.Module):
         it is read again).
         """
         cfg, cc = self.cfg, self.cc
+        self._refuse_placed("decoding")
         token = self._tokens(token)
         x = self._embed_tokens(token)
         B = x.shape[0]

@@ -41,6 +41,13 @@ State = Dict[str, torch.Tensor]
 # ---------------------------------------------------------------------------
 
 
+def mlstm_axes() -> dict:
+    """The logical axes of :func:`init_mlstm`'s parameters."""
+    return {"wq": ("embed", "heads"), "wk": ("embed", "heads"), "wv": ("embed", "heads"),
+            "wi": ("embed", None), "wf": ("embed", None),
+            "wo_gate": ("embed", "heads"), "wo": ("heads", "embed")}
+
+
 def init_mlstm(gen: torch.Generator, d: int, num_heads: int) -> dict:
     return {
         "wq": dense_init(gen, d, d),
@@ -180,6 +187,12 @@ def mlstm_decode_step(params: Params, x: torch.Tensor, state: State, num_heads: 
 # ---------------------------------------------------------------------------
 # sLSTM
 # ---------------------------------------------------------------------------
+
+
+def slstm_axes() -> dict:
+    """The logical axes of :func:`init_slstm`'s parameters."""
+    return {"wg": ("embed", "heads"), "rg": (None, None, None, None), "bg": ("heads",),
+            "wo": ("heads", "embed")}
 
 
 def init_slstm(gen: torch.Generator, d: int, num_heads: int) -> dict:

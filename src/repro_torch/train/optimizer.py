@@ -20,6 +20,16 @@ temporaries), so the port updates any leaf of more than ``SLICE_ELEMENTS``
 elements in slices of its first axis. Every operation of the update is
 elementwise or over the last axis (the int8 scales), so the slices give
 the bits of one pass.
+
+Under a mesh (model-parallel training) a parameter is a ``DTensor``; its
+moments are ``DTensor`` s of the same placements, its gradient arrives in
+them (``train_step`` redistributes it), and the update runs on each
+rank's local shard (sliced the same way) with the clip, learning rate
+and bias corrections as plain scalars, the same on every rank.
+:func:`global_norm` sums each shard's squares once (a replicated shard
+counted once over its copies) and reduces over the mesh before the square
+root. int8 moments keep one scale per global row, so they refuse a
+placement that splits a row (its last axis).
 """
 from __future__ import annotations
 
@@ -28,6 +38,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, Iterable, Mapping, Tuple, Union
 
 import torch
+from torch.distributed.tensor import DTensor, Partial
 
 Moment = Union[torch.Tensor, Dict[str, torch.Tensor]]
 # a leaf larger than this is updated in slices of its first axis, each of
@@ -145,6 +156,10 @@ def init_opt_state(params: Mapping[str, torch.Tensor], cfg: OptConfig) -> Dict[s
     mapping of parameter name -> zeros of its shape (float32, bfloat16, or
     int8 / uint8 codes with scales)."""
     def zeros_like_moment(p, signed):
+        if isinstance(p, DTensor):
+            if cfg.moment_dtype == "int8":
+                _whole_rows(p)
+            return _placed_as(zeros_like_moment(p.to_local(), signed), p)
         z = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
         if cfg.moment_dtype == "bf16":
             return z.to(torch.bfloat16)
@@ -161,6 +176,34 @@ def init_opt_state(params: Mapping[str, torch.Tensor], cfg: OptConfig) -> Dict[s
         }
 
 
+def _whole_rows(p: DTensor) -> None:
+    """int8 moments keep one scale per row of the last axis: refuse a
+    placement that splits it."""
+    mesh = p.device_mesh
+    for i, pl in enumerate(p.placements):
+        if pl.is_shard(p.ndim - 1) and mesh.size(i) > 1:
+            raise ValueError(f"int8 moments keep one scale per global row; a parameter of shape "
+                             f"{tuple(p.shape)} placed {p.placements} splits its rows over "
+                             f"{mesh.mesh_dim_names[i]!r} (use moment_dtype 'fp32' or 'bf16')")
+
+
+def _placed_as(local, p: DTensor):
+    """A local moment (a tensor, or int8 codes and scales) as ``DTensor`` s
+    of ``p``'s placements."""
+    wrap = lambda t: DTensor.from_local(t, p.device_mesh, p.placements, run_check=False)  # noqa: E731
+    if isinstance(local, Mapping):
+        return {k: (t if k == "_scalar" else wrap(t)) for k, t in local.items()}
+    return wrap(local)
+
+
+def _local(t):
+    """A ``DTensor`` (or a dict of them) as this rank's local tensor(s), which
+    share its memory; anything else as it is."""
+    if isinstance(t, Mapping):
+        return {k: _local(v) for k, v in t.items()}
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def _tensors(tree) -> Iterable[torch.Tensor]:
     if isinstance(tree, torch.Tensor):
         yield tree
@@ -174,8 +217,22 @@ def _tensors(tree) -> Iterable[torch.Tensor]:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's float32 sum of squares (a mapping or
-    sequence of tensors, nested)."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in _tensors(tree)))
+    sequence of tensors, nested). ``DTensor`` leaves (all on one mesh, split
+    or replicated, as ``train_step`` hands them over): each rank sums its
+    shards' squares, a shard replicated over ``c`` ranks
+    weighted ``1 / c``, and the sum is reduced over the mesh before the
+    square root; a plain tensor, the same on every rank, comes back."""
+    leaves = list(_tensors(tree))
+    if not any(isinstance(x, DTensor) for x in leaves):
+        return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))
+    mesh = leaves[0].device_mesh
+    total = None
+    for x in leaves:
+        copies = math.prod(mesh.size(i) for i, p in enumerate(x.placements) if p.is_replicate())
+        part = torch.sum(torch.square(x.to_local().float())) / copies
+        total = part if total is None else total + part
+    total = DTensor.from_local(total, mesh, [Partial()] * mesh.ndim, run_check=False)
+    return torch.sqrt(total.full_tensor())
 
 
 def _store(dst: Moment, new: Moment) -> None:
@@ -220,10 +277,16 @@ def adamw_update(params: Mapping[str, torch.Tensor], grads: Mapping[str, torch.T
     bc1 = 1 - b1 ** stepf
     bc2 = 1 - b2 ** stepf
     for name, leaf in params.items():
+        grad, m_all, v_all = grads[name], opt_state["m"][name], opt_state["v"][name]
+        if isinstance(leaf, DTensor):
+            if grad.placements != leaf.placements:
+                raise ValueError(f"{name}: the gradient is placed {grad.placements}, the "
+                                 f"parameter {leaf.placements}")
+            leaf, grad, m_all, v_all = (_local(t) for t in (leaf, grad, m_all, v_all))
         for s in _slices(leaf.shape, SLICE_ELEMENTS):
             p = leaf[s]
-            g = grads[name][s].float() * clip
-            m, v = _part(opt_state["m"][name], s), _part(opt_state["v"][name], s)
+            g = grad[s].float() * clip
+            m, v = _part(m_all, s), _part(v_all, s)
             m_f = _dequant(m) if _is_qleaf(m) else m.float()
             v_f = _dequant(v) if _is_qleaf(v) else v.float()
             m_f = b1 * m_f + (1 - b1) * g

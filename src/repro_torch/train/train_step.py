@@ -11,6 +11,16 @@ nothing from it). ``train_step(state, batch)`` updates the state in place
 and returns it with the step's metrics. :func:`state_tree` and
 :func:`load_state_tree` carry a state to and from the reference's own
 train-state tree (stacked leaves), which is what checkpoints hold.
+
+Under a mesh (model-parallel training: the parameters ``DTensor`` s placed
+by :func:`repro_torch.parallel.sharding.place_params`) each gradient comes
+back from autograd laid out as the product left it (a weight split over
+"data" gets a partial sum over "data") and is redistributed to its
+parameter's placements before the update: the reduce-scatter of the data
+mean. The metrics come back as plain tensors. :func:`state_tree` gathers
+each leaf whole (``full_tensor()``, one at a time), and
+:func:`load_state_tree` writes each rank's chunk of a whole leaf into its
+shard.
 """
 from __future__ import annotations
 
@@ -18,9 +28,11 @@ from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.checkpoint.checkpoint import _host, _tensor
 from repro_torch.convert import stack_tree, unstack_tree
+from repro_torch.parallel.sharding import device_collectives
 from repro_torch.train.optimizer import (OptConfig, _is_qleaf, adamw_update, cast_params,
                                          init_opt_state)
 
@@ -60,11 +72,17 @@ def make_train_step(model, opt_cfg: OptConfig, *, accum_steps: int = 1,
     def value_and_grad(params, batch):
         loss, metrics = model.loss(batch)
         grads = torch.autograd.grad(loss, list(params.values()))
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
+        grads = [g.redistribute(p.device_mesh, p.placements) if isinstance(p, DTensor) else g
+                 for g, p in zip(grads, params.values())]
+        return _plain(loss.detach()), {k: _plain(v.detach()) for k, v in metrics.items()}, \
             dict(zip(params, grads))
 
     def train_step(state: Dict[str, Any], batch: Dict[str, Any]):
         params = dict(state["params"].named_parameters())
+        with device_collectives(_mesh(params.values())):
+            return _step(state, params, batch)
+
+    def _step(state, params, batch):
         if accum_steps == 1:
             loss, metrics, grads = value_and_grad(params, batch)
         else:
@@ -75,9 +93,9 @@ def make_train_step(model, opt_cfg: OptConfig, *, accum_steps: int = 1,
                 n = b // accum_steps
                 return x[i * n:(i + 1) * n]
 
-            grads = {n: torch.zeros(p.shape, device=p.device,
-                                    dtype=torch.float32 if p.dtype == torch.float32
-                                    else torch.bfloat16)
+            grads = {n: torch.zeros_like(p, dtype=torch.float32 if p.dtype == torch.float32
+                                         else torch.bfloat16,
+                                         memory_format=torch.contiguous_format)
                      for n, p in params.items()}
             loss = torch.zeros((), device=next(iter(params.values())).device)
             for i in range(accum_steps):
@@ -101,6 +119,28 @@ def make_train_step(model, opt_cfg: OptConfig, *, accum_steps: int = 1,
 # ---------------------------------------------------------------------------
 # The reference's train-state tree (checkpoints)
 # ---------------------------------------------------------------------------
+
+
+def _mesh(tensors):
+    """The mesh of the first ``DTensor`` of ``tensors``, or None."""
+    return next((t.device_mesh for t in tensors if isinstance(t, DTensor)), None)
+
+
+def _plain(t):
+    """A replicated ``DTensor`` metric as the plain tensor every rank holds."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _load(dst: torch.Tensor, whole) -> None:
+    """Overwrite ``dst`` with a whole restored leaf, in place: a ``DTensor``
+    with its own chunk of it (the same on every rank, so nothing crosses the
+    mesh)."""
+    t = _tensor(whole).reshape(dst.shape)
+    if isinstance(dst, DTensor):
+        t = distribute_tensor(t.to(dst.to_local().device), dst.device_mesh, dst.placements,
+                              src_data_rank=None).to_local()
+        dst = dst.to_local()
+    dst.copy_(t)
 
 
 def _flat_moments(moments: Dict[str, Any], host) -> Dict[str, Any]:
@@ -127,6 +167,11 @@ def state_tree(state: Dict[str, Any], *, template: bool = False) -> Dict[str, An
     With ``template`` every leaf is a 0-d placeholder: the structure alone,
     which is all ``checkpoint.restore`` reads of its template, with nothing
     copied off the card."""
+    with device_collectives(None if template else _mesh(state["params"].parameters())):
+        return _state_tree(state, template)
+
+
+def _state_tree(state, template: bool):
     model = state["params"]
     host = _placeholder if template else _host
     # the tensors stacked where they live, then each stacked leaf to the host once
@@ -150,15 +195,15 @@ def load_state_tree(state: Dict[str, Any], tree: Dict[str, Any]) -> Dict[str, An
         raise KeyError(f"parameters missing: {sorted(set(params) - set(flat))}, "
                        f"unknown: {sorted(set(flat) - set(params))}")
     for name, p in params.items():
-        p.copy_(_tensor(flat[name]).reshape(p.shape))
+        _load(p, flat[name])
     for which in ("m", "v"):
         flat = unstack_tree(model.cfg, model, tree["opt"][which])
         for name, m in state["opt"][which].items():
             if _is_qleaf(m):
                 for k, t in m.items():
-                    t.copy_(_tensor(flat[f"{name}.{k}"]).reshape(t.shape))
+                    _load(t, flat[f"{name}.{k}"])
             else:
-                m.copy_(_tensor(flat[name]).reshape(m.shape))
+                _load(m, flat[name])
     state["opt"]["step"].copy_(_tensor(tree["opt"]["step"]))
     state["rng"] = np.asarray(tree["rng"], dtype=np.uint32)
     return state

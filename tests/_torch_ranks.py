@@ -1,4 +1,5 @@
-"""Rank processes for tests/test_torch_collectives.py.
+"""Rank processes for tests/test_torch_collectives.py and
+tests/test_torch_model_parallel.py.
 
 One process a rank, started with the ``spawn`` start method, in a ``gloo``
 group of CPU processes whose store is a file under the test's temporary
@@ -11,6 +12,7 @@ port's collectives on its slice, and writes what the test compares into
 ``<name>_<rank>.npz`` (arrays) and ``<name>_<rank>.json`` (counters,
 shapes, flags).
 """
+import dataclasses
 import json
 import pickle
 import time
@@ -230,3 +232,226 @@ def gpu_com_rank(rank: int, world: int, workdir: Path) -> None:
                             "shape": list(local.shape), "sent": sent,
                             "out_bytes": M * N * x.element_size()}
     (workdir / f"gpu_{rank}.json").write_text(json.dumps(info))
+
+
+# ---- model-parallel training (tests/test_torch_model_parallel.py) ------------------------
+
+MP_MESHES = {"2x4": dict(data=2, model=4), "2x2x2": dict(pod=2, data=2, model=2)}
+# the shard_fn cases: logical axes and a shape, under act_rules(job="train")
+SHARD_CASES = [(("batch", "seq", "embed"), (4, 8, 16)), (("batch", "seq", "vocab"), (4, 8, 512)),
+               (("batch", None, "kv_heads", None), (4, 8, 4, 8)), ((None, "embed"), (6, 16)),
+               (("exp_dp", "experts", None), (4, 8, 12))]
+# the attention cases: (num_heads, num_kv_heads) at head_dim 32, heads split over
+# model=4 and replicated
+ATTN_CASES = {"split": (8, 4), "replicated": (4, 2)}
+REFUSING = ("dbrx-132b", "llama-3.2-vision-90b", "zamba2-1.2b", "xlstm-350m", "musicgen-large")
+# the comm-count case: a vocabulary padded to 4,096 (its last 96 logits
+# masked), local logits (2, 32, 1024) on (2, 4)
+WIDE_VOCAB, WIDE_PADDED = 4000, 4096
+
+
+def _mesh(name: str):
+    return make_debug_mesh(device_type="cpu", **MP_MESHES[name])
+
+
+def _placed_model(cfg, mesh, params=None, dtype=torch.float32, seed=0):
+    """The port's model of ``cfg`` (the reference's ``params`` converted, or
+    drawn from ``seed``) placed on ``mesh`` by param_rules, with
+    make_shard_fn(mesh, act_rules(mesh))."""
+    from repro_torch.models.transformer import build_model
+    from repro_torch.parallel import sharding as sh
+
+    cc = CallConfig(compute_dtype=dtype, remat="block",
+                    shard_fn=sh.make_shard_fn(mesh, sh.act_rules(mesh)))
+    model = (model_params_to_port(cfg, params, cc=cc, device="cpu") if params is not None
+             else build_model(cfg, cc, device="cpu", seed=seed))
+    return sh.place_params(model, mesh)
+
+
+def _sharded_step(cfg, mesh, params, batch, dtype, out, info, tag):
+    """Step 1 of TRAIN_OPT on ``mesh``: the loss, the grad norm, every
+    gradient (as the step redistributed it) and updated parameter, gathered."""
+    model = _placed_model(cfg, mesh, params, dtype)
+    seen = {}
+
+    def capture(grads, carry):
+        seen["grads"] = grads
+        return grads, carry
+
+    state = make_train_state(model, None, OptConfig(**TRAIN_OPT))
+    state, mets = make_train_step(model, OptConfig(**TRAIN_OPT), grad_transform=capture)(state,
+                                                                                         batch)
+    info[tag] = {"loss": float(mets["loss"]), "grad_norm": float(mets["grad_norm"]),
+                 "grad_placements": {n: [repr(p) for p in g.placements]
+                                     for n, g in seen["grads"].items()},
+                 "param_placements": {n: [repr(p) for p in q.placements]
+                                      for n, q in model.named_parameters()}}
+    if dtype == torch.float32:
+        out.update({f"{tag}.grad.{n}": _np(g.full_tensor()) for n, g in seen["grads"].items()})
+        out.update({f"{tag}.param.{n}": _np(q.full_tensor()) for n, q in model.named_parameters()})
+    return model, state
+
+
+def model_parallel_rank(rank: int, world: int, workdir: Path) -> None:
+    """8 ranks: reduced smollm's sharded train step on (data=2, model=4) and
+    (pod=2, data=2, model=2) in float32 (with the flash calls' local shapes)
+    and bfloat16, the collectives of a wide-vocabulary loss, shard_fn's
+    placements, attention with heads split and replicated, a sharded train
+    state saved and restored, and the refusals."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention
+    from repro_torch.models.transformer import build_model
+    from repro_torch.parallel import sharding as sh
+    from repro_torch.train.train_step import load_state_tree, state_tree
+
+    with open(workdir / "params.pkl", "rb") as f:
+        params = pickle.load(f)
+    tokens = np.load(workdir / "batch.npz")["tokens"]
+    batch = {"tokens": tokens[:, :-1], "targets": tokens[:, 1:]}
+    cfg = get_config("smollm-135m").reduced()
+    out, info = {}, {}
+
+    # the flash calls' local shapes: the plain version is what the CPU runs
+    shapes, plain = [], ref.flash_attention_ref
+
+    def recording(q, k, v, **kw):
+        shapes.append([list(q.shape), list(k.shape)])
+        return plain(q, k, v, **kw)
+
+    for name in MP_MESHES:
+        mesh = _mesh(name)
+        ref.flash_attention_ref = recording
+        try:
+            model, state = _sharded_step(cfg, mesh, params, batch, torch.float32, out, info, name)
+        finally:
+            ref.flash_attention_ref = plain
+        info[name]["flash_shapes"] = shapes[:]
+        shapes.clear()
+        # the same step with DTensor's functional all-gather routed through
+        # torch.distributed's own call, as a gloo group of ranks on one card
+        # takes it (GlooDeviceCollectives, here on CPU tensors)
+        with sh.GlooDeviceCollectives(devices=("cpu",)) as mode:
+            routed, _ = _sharded_step(cfg, mesh, params, batch, torch.float32, {}, info,
+                                      f"{name}.routed")
+        info[name]["routed_calls"] = mode.routed
+        info[name]["routed_param_diff"] = max(
+            (a.full_tensor() - b.full_tensor()).abs().max().item()
+            for a, b in zip(routed.parameters(), model.parameters()))
+        _sharded_step(cfg, mesh, params, batch, torch.bfloat16, out, info, f"{name}.bf16")
+
+        # a sharded train state through a checkpoint and back, bitwise
+        tree = state_tree(state)
+        ck.save(str(workdir / f"ckpt_{name}"), 1, tree, host_id=rank)
+        dist.barrier()
+        fresh = _placed_model(cfg, mesh, seed=1)
+        fresh_state = make_train_state(fresh, None, OptConfig(**TRAIN_OPT))
+        restored, _ = ck.restore(str(workdir / f"ckpt_{name}"), state_tree(fresh_state,
+                                                                           template=True))
+        load_state_tree(fresh_state, restored)
+        same = all(torch.equal(a.to_local(), b.to_local()) and a.placements == b.placements
+                   for a, b in zip(fresh.parameters(), model.parameters()))
+        for which in ("m", "v"):
+            same = same and all(torch.equal(fresh_state["opt"][which][n].to_local(),
+                                            state["opt"][which][n].to_local())
+                                for n in state["opt"][which])
+        info[name]["restored_bitwise"] = bool(same and int(fresh_state["opt"]["step"]) == 1)
+        info[name]["int8_refused"] = _raises(lambda: make_train_state(
+            model, None, OptConfig(moment_dtype="int8")), ValueError)
+
+        # shard_fn: the placements of the reference's spec, the values untouched
+        shard = sh.make_shard_fn(mesh, sh.act_rules(mesh))
+        gen = torch.Generator().manual_seed(3)
+        cases = []
+        for axes, shape in SHARD_CASES:
+            x = torch.randn(shape, generator=gen)
+            whole = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+            got = shard(whole, axes)
+            again = shard(got.redistribute(mesh, [Shard(len(shape) - 1)] + [Replicate()] * (
+                mesh.ndim - 1)), axes)
+            cases.append({"placements": [repr(p) for p in got.placements],
+                          "bitwise": bool(torch.equal(got.full_tensor(), x)
+                                          and torch.equal(again.full_tensor(), x)
+                                          and again.placements == got.placements)})
+        info[name]["shard_cases"] = cases
+        info[name]["plain_refused"] = _raises(lambda: shard(torch.zeros(4, 8, 16),
+                                                            ("batch", "seq", "embed")), TypeError)
+        del model, state, fresh, fresh_state
+
+    mesh = _mesh("2x4")
+    # attention with heads split over model=4 and replicated, against one process
+    for case, (H, KVH) in ATTN_CASES.items():
+        d, B, S = 32 * H, 4, 16
+        gen = torch.Generator().manual_seed(5)
+        p = attention.attention_params(gen, d, H, KVH, qkv_bias=True)
+        p = {k: v + 0.01 * torch.randn(v.shape, generator=gen) for k, v in p.items()}
+        x = torch.randn(B, S, d, generator=gen)
+        pos = torch.arange(S)[None, :].expand(B, S)
+        want = attention.attention_block(p, x, pos, H, KVH, rope_theta=10000.0)
+        rules = sh.param_rules(mesh)
+        pp = {k: rules.named(attention.attention_axes(True)[k], tuple(v.shape)).place(v)
+              for k, v in p.items()}
+        arules = sh.act_rules(mesh)
+        xd = sh.batch_shardings(arules, x).place(x)
+        posd = sh.batch_shardings(arules, pos).place(pos.contiguous())
+        q, k, _ = attention.qkv_project(pp, xd, H, KVH)
+        got = attention.attention_block(pp, xd, posd, H, KVH, rope_theta=10000.0)
+        out[f"attn.{case}.got"] = _np(got.full_tensor())
+        out[f"attn.{case}.want"] = _np(want)
+        info[f"attn.{case}"] = {"q_local": list(q.to_local().shape),
+                                "k_local": list(k.to_local().shape),
+                                "q_placements": [repr(p) for p in q.placements]}
+
+    # the collectives of a wide-vocabulary step: none moves (B, S, V) logits
+    wide = dataclasses.replace(cfg, vocab_size=WIDE_VOCAB)
+    model = _placed_model(wide, mesh, seed=0)
+    model.requires_grad_(True)
+    toks = np.random.default_rng(9).integers(1, WIDE_VOCAB, size=(4, 33))
+    counter = sh.CommCounter()
+    with counter:
+        loss, _ = model.loss({"tokens": toks[:, :-1], "targets": toks[:, 1:]})
+        torch.autograd.grad(loss, list(model.parameters()))
+    one = build_model(wide, CallConfig(compute_dtype=torch.float32), device="cpu", seed=0)
+    info["wide"] = {"counts": counter.counts, "loss": float(loss),
+                    "one_process_loss": float(one.loss({"tokens": toks[:, :-1],
+                                                        "targets": toks[:, 1:]})[0]),
+                    "shapes": {k: sorted(map(list, v)) for k, v in counter.shapes.items()}}
+
+    # the families whose model-parallel forward is not ported, and a dense
+    # model whose parameters were not placed
+    refusals = {}
+    for arch in REFUSING:
+        rcfg = get_config(arch).reduced()
+        m = _placed_model(rcfg, mesh, seed=0)
+        refusals[arch] = _raises(lambda: m.loss(_family_batch(rcfg)), ValueError, "Queue 1")
+    unplaced = build_model(cfg, CallConfig(shard_fn=sh.make_shard_fn(mesh, sh.act_rules(mesh))),
+                           device="cpu")
+    refusals["dense unplaced"] = _raises(lambda: unplaced.loss(batch), ValueError, "place_params")
+    refusals["serving"] = _raises(lambda: _placed_model(cfg, mesh).forward(batch["tokens"]),
+                                  ValueError)
+    info["refusals"] = refusals
+    if rank == 0:
+        _write(workdir, "mp", rank, out, info)
+    else:
+        _write(workdir, "mp", rank, {k: v for k, v in out.items() if k.startswith("attn")}, info)
+
+
+def _family_batch(cfg) -> dict:
+    """A small train batch of ``cfg``'s family (audio: codebook grids; vlm:
+    image embeddings)."""
+    shape = (4, 8, cfg.num_codebooks) if cfg.num_codebooks else (4, 8)
+    toks = np.random.default_rng(2).integers(1, cfg.vocab_size, size=shape)
+    b = {"tokens": toks, "targets": toks}
+    if cfg.family == "vlm":
+        b["image_embeds"] = np.zeros((4, cfg.num_image_tokens, cfg.d_model), np.float32)
+    return b
+
+
+def _raises(fn, kind, words: str = "") -> bool:
+    """Whether ``fn()`` raises ``kind`` with ``words`` in its message."""
+    try:
+        fn()
+    except kind as e:
+        return words in str(e)
+    return False

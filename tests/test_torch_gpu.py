@@ -1126,3 +1126,63 @@ def test_com_matmul_over_ranks_on_the_card(cuda, tmp_path):
             assert line["sent"]["bytes_sent"] == wire_bytes("com", line["out_bytes"], world)
             assert line["sent"]["sends"] == world - 1 and line["sent"]["all_reduces"] == 0
 
+
+
+@pytest.fixture
+def one_rank(cuda, tmp_path):
+    """A gloo group of this process alone, and a (data=1, model=1) mesh on the card."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", world_size=1, rank=0)
+    try:
+        yield make_debug_mesh(data=1, model=1)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_through_local_map_on_one_rank_is_the_direct_call(one_rank, dtype):
+    """DTensor q, k, v on a one-rank mesh run the kernels through local_map:
+    the output and the gradients bitwise the direct call's, one forward and
+    one backward launch each."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                     for shape in ((2, 300, 4, 64), (2, 300, 2, 64), (2, 300, 2, 64),
+                                   (2, 300, 4, 64)))
+    runs = []
+    for placed in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        args = [DTensor.from_local(t, one_rank, [Replicate(), Replicate()]) for t in leaves] \
+            if placed else leaves
+        flash_attention.launches = flash_attention_bwd.launches = 0
+        with torch.enable_grad():
+            out = ops.flash_attention(*args)
+            if placed:
+                out = out.to_local()
+            out.backward(dout)
+        runs.append((out.detach(), [t.grad for t in leaves],
+                     (flash_attention.launches, flash_attention_bwd.launches)))
+    (out, grads, launches), (out_p, grads_p, launches_p) = runs
+    assert torch.equal(out, out_p) and all(torch.equal(a, b) for a, b in zip(grads, grads_p))
+    assert launches == launches_p == (1, 1)
+
+
+def test_place_params_refuses_a_mesh_off_the_models_device(cuda, tmp_path):
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.parallel.sharding import place_params
+
+    model = build_model(get_config("smollm-135m").reduced(), CallConfig(), device="cuda")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", world_size=1, rank=0)
+    try:
+        with pytest.raises(ValueError, match="mesh is over 'cpu'"):
+            place_params(model, make_debug_mesh(data=1, model=1, device_type="cpu"))
+    finally:
+        dist.destroy_process_group()
