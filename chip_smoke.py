@@ -14,8 +14,8 @@ widths, the paper's Tab. IV evaluation and design-space sweep (phases
 layers, contiguous and paged (phases 20-21), and the model's own prefill
 and decode of llama-3.2-vision-90b at full width cut to 2 of its 20 groups
 (phases 22-23) and of musicgen-large at 6 of its 48 layers (phases 24-25),
-which no engine serves, and training smollm-135m at 10 of its 30 layers
-(phase 26), xlstm-350m at 2 of its 24 (phase 27), zamba2-1.2b at 14 of its
+which no engine serves, and training smollm-135m at 5 of its 30 layers
+(phase 26), xlstm-350m at 2 of its 24 (phase 27), zamba2-1.2b at 6 of its
 38 (phase 28), dbrx-132b at full width with its depth cut to 1 layer (phase
 29), llama-3.2-vision-90b at full width with its depth cut to 1 of its
 20 groups (phase 30) and musicgen-large at 3 of its 48 layers (phase 31),
@@ -23,8 +23,7 @@ and the COM ring and data/pod-parallel training over torch.distributed
 (phase 32: ranks on the one card in a gloo group, and a one-rank NCCL
 group). Every cut depth (SERVE_CUT, TRAIN_CUT, XLSTM_CUT, HYBRID_CUT,
 HYBRID_SERVE_CUT, AUDIO_CUT, AUDIO_TRAIN_CUT, MOE_LAYERS, MOE_TRAIN_LAYERS,
-VLM_LAYERS, VLM_TRAIN_CUT, and the resume's HYBRID_RESUME)
-is in its phase lines' "reduced"; it keeps the script's phases near two
+VLM_LAYERS and VLM_TRAIN_CUT) is in its phase lines' "reduced"; it keeps the script's phases near two
 thirds of its time limit.
 Phases, each printing JSON lines:
 
@@ -268,7 +267,7 @@ Phases, each printing JSON lines:
                (B, 1, K) token: phase 22's numbers and gates, 6
                flash_attention launches a prefill and none a step;
 25. profile-serve — the same two windows for it;
-26. train    — smollm-135m at 10 of its 30 layers (TRAIN_CUT, the line's
+26. train    — smollm-135m at 5 of its 30 layers (TRAIN_CUT, the line's
                "reduced"; phase 6's widths), bfloat16 compute on float32
                master weights, CallConfig(remat="block"), weights from seed 0,
                OptConfig(lr=3e-3, schedule="wsd", warm-up 2, 20 steps) as
@@ -301,10 +300,10 @@ Phases, each printing JSON lines:
                orders of the same sums part by up to 0.69 in bfloat16 grad
                norm at step 1, and by more after one Adam step); the resume
                at 2 x 2048 bitwise;
-28. train-hybrid — zamba2-1.2b at 14 of its 38 layers (2 of its 6 groups
-               and the 2 tail blocks: HYBRID_CUT), phase 26's recipe and
-               numbers: flash_attention 4 launches a step (the shared
-               block's 2 uses, again under remat) and flash_attention_bwd 2,
+28. train-hybrid — zamba2-1.2b at 6 of its 38 layers (1 of its 6 groups,
+               no tail block: HYBRID_CUT), phase 26's recipe at lr 3e-4
+               (HYBRID_OPT) and numbers: flash_attention 2 launches a step (the shared
+               block's use, again under remat) and flash_attention_bwd 1,
                every Mamba2 block and every use of the shared block its own
                checkpoint, the SSD chunk loop under autograd, a profiled step
                with no library attention kernel, the 20th loss below the
@@ -313,12 +312,10 @@ Phases, each printing JSON lines:
                version on its own inputs (flash_train_held, flash_bwd_held),
                the same steps with a float64 attention and both paths'
                distances from them reported, the steps' losses and grad norms
-               against the plain path's at HYBRID_HELD_TOL (float32 step 1 at
-               TRAIN_TOL; the rest at limits from readings of the three
-               paths: the plain path stands as far from the float64
-               attention's steps as the kernel path does); the resume
-               bitwise, at one group of 6 Mamba2 blocks and the shared block
-               (HYBRID_RESUME, the line's "reduced");
+               against the plain path's at TRAIN_TOL, each step of the
+               kernel and float64 paths from the plain path's parameters
+               before it (forced: compounded, the steps' updates amplify
+               rounding past any fixed limit); the resume bitwise;
 29. train-moe — dbrx-132b at its published widths with its 40 layers cut to
                1 (MOE_TRAIN_LAYERS, the line's "reduced"; 4,492 M
                parameters), its published capacity_factor 1.25 (the
@@ -395,18 +392,38 @@ Phases, each printing JSON lines:
                8 rows and every parameter within 1e-5 + 1e-3 of how far it
                moved of the one-process step's (Adam eps MP_EPS in both),
                one bfloat16 step at TRAIN_TOL of the one-process step in 2
-               microbatches of the same rows; (d) one qwen1.5-32b decoder
-               block at full width (d_model 5,120, 40 heads of 128, d_ff
-               27,392, qkv bias: 525.6 M parameters), 2 x 2048 tokens (a row
-               a data group, 20 heads a model rank), forward and backward in
-               float32 and bfloat16 against the parent's one-process block
+               microbatches of the same rows; then one block of each family
+               on the same mesh (FAMILY_CHECKS, each yardstick drawn by the
+               parent once the ranks are through (c) and handed to them
+               through a queue, each rank's shards against its chunks of
+               it): (d) one qwen1.5-32b decoder block at full width
+               (d_model 5,120, 40 heads of 128, d_ff 27,392, qkv bias: 525.6
+               M parameters), 2 x 2048 tokens (a row a data group, 20 heads
+               a model rank), forward and backward in float32 and bfloat16
                (output 2e-5 / 2e-2 of its largest magnitude, every gradient
-               rtol 1e-3 and atol 1e-4 of max / 2e-2 of max, each rank's
-               shard against its chunk of the parent's, which the spawn
-               shares on the card); every flash call of (c) and (d) held
+               rtol 1e-3 and atol 1e-4 of max / 2e-2 of max); (e) one
+               dbrx-132b moe block at full width (3,259 M parameters, 16
+               experts top-4, capacity factor 1.25), 2 x 2048 tokens in 2
+               dispatch groups, at ep_split 2 in float32 (unpinned, its
+               routing the one-process block's token for token) and
+               bfloat16, and at ep_split 1 in bfloat16 (each rank's experts
+               cast, then gathered over "data"), bfloat16 with the experts
+               pinned to the one-process block's choices (the pairs apart
+               unpinned reported), its backward for the output's cotangent
+               and 0.01 on the load-balance loss (the router's gradient
+               takes both), its aux at TOL and its dropped choices equal to
+               the one-process block's; (f) one llama-3.2-vision-90b cross
+               layer at full width (855.7 M parameters), 2,048 text tokens
+               against 1,601 image tokens, float32 and bfloat16; each as
+               (d), one flash forward and backward at each rank's own
+               heads; (g) musicgen-large at AUDIO_TRAIN_CUT, a float32 and
+               a bfloat16 step as (c)'s on train-audio's first batch, the
+               codebook tables split to 1,024 rows a model rank, every
+               gradient against the one-process step's (bfloat16: in 2
+               microbatches); every flash call of (c)-(g) held
                against its plain version, the calls' local shapes and
                launches checked, the collectives' bytes counted
-               (CommCounter); then a one-rank NCCL group runs the n = 1
+               (CommCounter), the ranks' seconds by check; then a one-rank NCCL group runs the n = 1
                paths; and (in phase 12) the "torch-sharded" sweep on
                [cuda:0, cuda:0] bitwise the torch backend's;
 33. the seconds of each phase, the kernels line (each kernel's launches on
@@ -430,9 +447,11 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import datetime
+import gc
 import json
 import math
 import os
+import queue
 import re
 import shutil
 import statistics
@@ -450,7 +469,7 @@ import torch  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 import torch.multiprocessing as mp  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
-from torch.distributed.tensor import distribute_tensor  # noqa: E402
+from torch.distributed.tensor import DTensor, distribute_tensor  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import com as com_lib  # noqa: E402
@@ -583,19 +602,19 @@ TRAIN_HELD_TOL = {dt: (tol,) * CHECK_STEPS for dt, tol in TRAIN_TOL.items()}
 XLSTM_HELD_TOL = {torch.float32: ((2e-5, 1e-4), (1.5e-3, 0.5), (3e-2, 1.25)),
                   torch.bfloat16: ((2e-2, 1.1), (2.5e-2, 2.0), (5e-2, 30.0))}
 XLSTM_CHECK_SEQ = 256  # train-xlstm's held checks: 2 x 256 tokens (the plain recurrence is slow)
-# zamba2-1.2b's, set from readings of three correct paths (the train-hybrid
-# phase: the kernels, the plain attention and a float64 attention; PERF.md):
-# at each step the larger of TRAIN_TOL and 1.5 times the largest relative
-# distance between any two of them. The plain path itself stands 1.49e-2
-# (float32, step 2) and 2.06e-2 (bfloat16, step 1) in grad norm from the
-# float64 attention's steps, the kernel path 1.53e-3 and 2.97e-2: after one
-# Adam step at lr 3e-3 (the loss jumps from 10.8 to 16.2) the model
-# amplifies any rounding, as xlstm's does. Float32 step 1, where the three
-# paths stand within 4.4e-6, is TRAIN_TOL; the rest only catch a gross
-# fault, and every flash forward and backward call of the kernel steps is
-# held against its plain version on its own inputs besides.
-HYBRID_HELD_TOL = {torch.float32: ((2e-5, 1e-4), (3.5e-5, 2.25e-2), (2.5e-3, 5.25e-2)),
-                   torch.bfloat16: ((2e-2, 7.7e-2), (2e-2, 0.28), (2e-2, 0.575))}
+# the train-hybrid phase: zamba2-1.2b at HYBRID_CUT on HYBRID_OPT, the
+# launcher's recipe at lr 3e-4 (OptConfig's default, as MOE_OPT's and
+# VLM_OPT's), its held steps forced (TrainCell.forced) at TRAIN_HELD_TOL. At
+# the launcher's lr 3e-3 the cut model's grad norm climbs from ~10 to
+# 10^3-10^4 within 8 steps at every depth from 6 to 14 layers, and the
+# 20-step run turns NaN on the kernel path at 6 layers and on the plain
+# path at 14, while the forced steps of the two paths stand within 1.41e-6
+# of each other in grad norm at every depth (scripts/hybrid_depth_probe.py,
+# PERF.md §4): such a run tells a recipe's chaos, not the kernels'. Held
+# steps that compound their own updates part by up to 0.74 at step 3 there
+# (the plain path 2.2 from a float64 attention's at 6 layers, the kernel
+# path 0.76 at 12)
+HYBRID_OPT = dict(lr=3e-4)
 # the train-moe phase: dbrx-132b at its published widths with its 40 layers
 # cut to MOE_TRAIN_LAYERS (4,492 M parameters: 3,259 M in the layer, 1,233 M
 # in embed and unembed), its published capacity_factor 1.25 (training drops
@@ -629,39 +648,38 @@ VLM_CHECK_SEQ = 256
 # another; host-paced phases move by up to 70 % between machines). Each cut
 # is in its phase lines' "reduced", and no gate changes with it:
 # smollm-135m serves at 3 of its 30 layers (serve, serve-traffic,
-# serve-faults) and trains at 10; xlstm-350m serves and trains at 1 of its
-# 12 [mLSTM, sLSTM] pairs; zamba2-1.2b trains at 2 of its 6 groups of 6
-# Mamba2 blocks (each followed by the shared block) and its 2 tail blocks
-# (14 of 38 layers) and serves at 1 group and the tail (8 of 38; the shared
-# block's second use in serving is held on the card at the reduced size,
-# tests/test_torch_gpu.py); dbrx-132b serves at 2 of its 40 layers
+# serve-faults) and trains at 5; xlstm-350m serves and trains at 1 of its
+# 12 [mLSTM, sLSTM] pairs; zamba2-1.2b trains and serves at 1 of its 6
+# groups of 6 Mamba2 blocks, followed by the shared block (6 of 38 layers;
+# the shared block's second use in serving is held on the card at the
+# reduced size, tests/test_torch_gpu.py); dbrx-132b serves at 2 of its 40 layers
 # (MOE_LAYERS); musicgen-large prefills and decodes at 6 of its 48 and
 # trains at 3 (AUDIO_CUT, AUDIO_TRAIN_CUT). The train-vlm phase bought
 # its time with its held checks at 2 x 256 tokens, then by cutting smollm's
 # serving from 10 layers to 5 and its training from 30 to 10, xlstm's from
 # 8 to 4, dbrx's serving from 4 to 2 and zamba2's from 14 to 8, then in the
 # resume's I/O (a checkpoint on the host's tmpfs does not fit beside the
-# host tree of a ~36-38 GB state: PERF.md). zamba2's training stays at 14:
-# at 8 its float32 held steps part past HYBRID_HELD_TOL and its 20th loss
-# stays above its first (PERF.md). The train-audio phase bought its time with
+# host tree of a ~36-38 GB state: PERF.md). zamba2's training stayed at 14
+# then: at 8 its compounded float32 held steps parted past that time's
+# limits and its 20th loss stayed above its first (PERF.md). The train-audio phase bought its time with
 # its own cuts (AUDIO_CHECK_SEQ, its resume at 6 layers), then with model-audio's
 # depth, 12 to 6, and xlstm-350m's, 4 to 2 (serve-xlstm and train-xlstm).
 # The collectives phase bought its time with train-audio's depth, 48 to 6,
 # and serve-hybrid's, 8 to 6; its model-parallel checks bought theirs with
 # smollm's serving depth, 5 to 3 (serve, serve-traffic, serve-faults), and
-# train-audio's, 6 to 3 (PERF.md §4). zamba2's training stays at 14: its
-# float32 held step 3 stands at 0.86 of HYBRID_HELD_TOL's grad norm limit
+# train-audio's, 6 to 3 (PERF.md §4). The audio, vlm and moe families'
+# model-parallel checks ((e)-(g), ~30 s) bought theirs with zamba2's
+# training, 14 to 6 layers (one group of 6 Mamba2 blocks and the shared
+# block, at HYBRID_OPT's lr: at the launcher's lr 3e-3 its 20-step run
+# turned NaN at 6 layers, PERF.md §4), and smollm-135m's, 10 to 5 (train,
+# and (b) and (c) of collectives)
 SERVE_CUT = dict(num_layers=3)
-TRAIN_CUT = dict(num_layers=10)
+TRAIN_CUT = dict(num_layers=5)
 XLSTM_CUT = dict(num_layers=2)
-HYBRID_CUT = dict(num_layers=14)
+HYBRID_CUT = dict(num_layers=6)
 HYBRID_SERVE_CUT = dict(num_layers=6)
 AUDIO_CUT = dict(num_layers=6)
 AUDIO_TRAIN_CUT = dict(num_layers=3)
-# the resume check of train-hybrid at a smaller depth still: one of zamba2's
-# groups and the shared block, no tail. A bitwise round trip does not change
-# in kind with depth
-HYBRID_RESUME = dict(num_layers=6)
 # the train-audio phase: musicgen-large at AUDIO_TRAIN_CUT on the launcher's
 # recipe, 8 x 2048 frames x 4 codebooks a step; its held checks at 2 x
 # AUDIO_CHECK_SEQ frames (model-audio's prompt length); its resume a
@@ -673,16 +691,43 @@ BWD_CHECK_S = 300  # the backward checks' own time limit (they take well under a
 # down projection (K = d_ff = 27,392, N = d_model = 5,120) over COM_TOKENS
 # tokens, each strategy timed over COM_TIMED calls; COLLECTIVES_S is the
 # ranks' own time limit, so that a stuck rank fails the phase loudly
-COM_ARCH, COM_TOKENS, COM_TIMED, COLLECTIVE_RANKS, COLLECTIVES_S = "qwen1.5-32b", 2048, 2, 4, 300
+COM_ARCH, COM_TOKENS, COM_TIMED, COLLECTIVE_RANKS, COLLECTIVES_S = "qwen1.5-32b", 2048, 2, 4, 600
 # its model-parallel checks (tensor parallelism and FSDP on DTensor) on a
-# (data=2, model=2) mesh of the same ranks: smollm-135m at TRAIN_CUT on the
-# train phase's first batch, 4 rows a data group, and one of qwen1.5-32b's
-# decoder blocks at full width over QWEN_ROWS x TRAIN_SEQ tokens, one row a
-# data group, its 40 heads split 20 to a model rank. Adam's eps is MP_EPS in
+# (data=2, model=2) mesh of the same ranks: (c) smollm-135m at TRAIN_CUT on
+# the train phase's first batch, 4 rows a data group. Adam's eps is MP_EPS in
 # the model-parallel step and its yardstick: at the default 1e-8 an update
 # amplifies float32 rounding in gradient elements near 1e-8 by about 1e4,
 # and the updated parameters compare rounding (ROADMAP Queue 3, item 23)
-MP_MESH, QWEN_ROWS, MP_EPS = dict(data=2, model=2), 2, 1e-6
+MP_MESH, MP_EPS = dict(data=2, model=2), 1e-6
+# then one block of each of these on the same mesh, FAMILY_ROWS x 2048
+# tokens (a row a data group), in this order: (d) one qwen1.5-32b decoder
+# block at full width (525.6 M parameters), its 40 heads split 20 to a model
+# rank, float32 and bfloat16; (e) one dbrx-132b moe decoder block at full
+# width (3,259 M parameters), MP_MESH["data"] dispatch groups (one a data
+# group), at ep_split 2 in float32 (32 expert slices of d_ff 5,376, 8
+# resident a rank: the tokens move, no weight is gathered) and in bfloat16,
+# and at ep_split 1 in bfloat16 on float32 parameters (each rank gathers its
+# 8 experts over "data" after casting them: in float32 the ranks and the
+# parent's yardstick would need ~77 GB); bfloat16 with the experts pinned to
+# the one-process block's choices (Routing), float32 unpinned; its backward
+# taken for the output's cotangent and AUX_WEIGHT on the load-balance loss,
+# as the loss weighs it; (f) one llama-3.2-vision-90b cross layer at full
+# width (856 M parameters) against 1,601 image tokens, float32 and bfloat16;
+# and (g) musicgen-large at AUDIO_TRAIN_CUT, one float32 and one bfloat16
+# step on train-audio's first batch (8 x 2048 frames x 4 codebooks), as (c)
+# steps smollm. The parent draws each one-process yardstick in turn and
+# hands it to the ranks through a queue (CUDA IPC), keeping one on the card
+# at a time
+FAMILY_CHECKS = {"qwen_block_float32": ("dense", 0, torch.float32, False),
+                 "qwen_block_bfloat16": ("dense", 0, torch.bfloat16, False),
+                 "dbrx_ep2_float32": ("moe", 2, torch.float32, False),
+                 "dbrx_ep2_bfloat16": ("moe", 2, torch.bfloat16, True),
+                 "dbrx_ep1_bfloat16": ("moe", 1, torch.bfloat16, True),
+                 "vlm_cross_float32": ("vlm", 0, torch.float32, False),
+                 "vlm_cross_bfloat16": ("vlm", 0, torch.bfloat16, False),
+                 "musicgen": ("audio", 0, None, False)}
+FAMILY_ROWS = 2  # (d)-(f): a row a data group
+AUX_WEIGHT = 0.01  # the load-balance loss's weight in the loss (models/transformer.py, loss)
 FIRST_BURST = dict(PATIENT_TRAFFIC, name="chip-burst-8-patient", num_requests=8)
 # the virtual clock is a function of the profile, the pool and the fault draws
 # (eos_id=None): the JAX package's numbers on these profiles, which the CPU
@@ -2369,11 +2414,14 @@ class Routing:
     forward call with grad whose recompute has not come yet (the backward
     walks the layers in reverse) and takes that call's pin; what it chose is
     kept apart (``recomputed``, beside the forward call's index) for
-    :meth:`recompute_same`."""
+    :meth:`recompute_same`. A pinned forward call also counts the (token,
+    choice) pairs its own gates would have chosen apart from the pin
+    (``apart``)."""
 
     def __init__(self, pin=None):
         self.pin = pin
         self.choices, self.drops, self.recomputed, self.pending = [], [], [], []
+        self.apart = []
 
     def __enter__(self):
         self.orig = moe_lib._dispatch_group
@@ -2387,6 +2435,10 @@ class Routing:
             else:
                 experts = self.pin[i]
                 out = pinned_dispatch(x, logits, top_k, capacity, num_experts, experts)
+                own = torch.sort(out[3], dim=-1, descending=True, stable=True)[1][:, :top_k]
+                if not recompute:
+                    self.apart.append(int((own.sort(dim=-1).values
+                                           != experts.sort(dim=-1).values).sum()))
             if recompute:
                 self.recomputed.append((i, experts))
             else:
@@ -2959,17 +3011,20 @@ def step_metrics(m) -> tuple:
     return float(m["loss"]), float(m["grad_norm"]), float(m["aux"])
 
 
-def train_steps(state, step, batches, kernels=(flash_attention, flash_attention_bwd)) -> tuple:
-    """Run ``step`` over ``batches``; returns the state, each step's (loss,
-    grad norm, aux) and the launches of ``kernels`` (forward, backward) in
-    them."""
-    before = launches_of(kernels)
+def train_steps(state, step, batches, kernels=(flash_attention, flash_attention_bwd),
+                before=None) -> tuple:
+    """Run ``step`` over ``batches`` (``before(i)`` ahead of step i, where
+    given); returns the state, each step's (loss, grad norm, aux) and the
+    launches of ``kernels`` (forward, backward) in them."""
+    launched = launches_of(kernels)
     mets = []
-    for b in batches:
+    for i, b in enumerate(batches):
+        if before is not None:
+            before(i)
         state, m = step(state, b)
         mets.append(step_metrics(m))
     torch.cuda.synchronize()
-    return state, mets, tuple(a - b for a, b in zip(launches_of(kernels), before))
+    return state, mets, tuple(a - b for a, b in zip(launches_of(kernels), launched))
 
 
 def state_bytes(state) -> int:
@@ -3000,6 +3055,11 @@ class TrainCell:
     # also run the held steps with a float64 attention (attention_f64), the
     # yardstick both attention paths are measured against
     f64_attention: bool = False
+    # the plain steps lead: each held step of the other paths starts from the
+    # plain path's parameters before that step, so that every step compares
+    # one forward and backward on the same parameters, not the updates that
+    # the steps before it compounded
+    forced: bool = False
     # changes to the arch's config and to the launcher's OptConfig
     config: dict = dataclasses.field(default_factory=dict)
     opt: dict = dataclasses.field(default_factory=dict)
@@ -3015,11 +3075,15 @@ def step_rel_errs(got, want) -> tuple:
     return tuple([abs(x[k] - y[k]) / abs(y[k]) for x, y in zip(got, want)] for k in (0, 1))
 
 
-def held_run(cell: TrainCell, dtype, path: str, checks, worst: dict, pin=None) -> tuple:
+def held_run(cell: TrainCell, dtype, path: str, checks, worst: dict, pin=None,
+             starts=None) -> tuple:
     """CHECK_STEPS held steps of one path: "kernel" (with ``cell.held_calls``
     holding each kernel call), "plain" (kernel_backend="ref") or
-    "f64_attention"; with ``pin`` the moe dispatches take those experts.
-    Returns the steps' metrics, the kernels' launches and the Routing."""
+    "f64_attention"; with ``pin`` the moe dispatches take those experts;
+    with ``starts`` (a list, ``cell.forced``) the plain path appends its
+    parameters before each step to it and the other paths start each step
+    from them. Returns the steps' metrics, the kernels' launches and the
+    Routing."""
     originals = {attr: getattr(ops, attr) for attr, _ in cell.held_calls}
     attention = ops.flash_attention
     if path == "kernel":
@@ -3029,13 +3093,22 @@ def held_run(cell: TrainCell, dtype, path: str, checks, worst: dict, pin=None) -
         ops.flash_attention = attention_f64
     try:
         model, state, step = train_setup(cell, dtype, "ref" if path == "plain" else None)
+        params, before = list(model.parameters()), None
+        if starts is not None and path == "plain":
+            def before(i):
+                starts.append([p.detach().clone() for p in params])
+        elif starts is not None:
+            def before(i):
+                with torch.no_grad():
+                    for p, v in zip(params, starts[i]):
+                        p.copy_(v)
         with Routing(pin) as route:
-            _, mets, launches = train_steps(state, step, checks, cell.kernels)
+            _, mets, launches = train_steps(state, step, checks, cell.kernels, before)
     finally:
         for attr, fn in originals.items():
             setattr(ops, attr, fn)
         ops.flash_attention = attention
-    del model, state, step
+    del model, state, step, params, before
     torch.cuda.empty_cache()
     return mets, launches, route
 
@@ -3044,7 +3117,9 @@ def train_held_checks(cell: TrainCell) -> dict:
     """The train path held on the card: CHECK_STEPS steps of CHECK_BATCH x
     ``cell.check_seq`` through the kernels against the same steps with the
     plain versions forward and backward (kernel_backend="ref"), float32
-    and bfloat16: each step's loss and grad norm within ``cell.held_tol``;
+    and bfloat16: each step's loss and grad norm within ``cell.held_tol``
+    (with ``cell.forced`` each step of the other paths from the plain
+    steps' parameters before it);
     with ``cell.held_calls`` also every kernel call of the kernel steps,
     forward and backward, against its plain version on its own inputs
     (slstm_held and slstm_bwd_held, flash_train_held and flash_bwd_held);
@@ -3060,17 +3135,21 @@ def train_held_checks(cell: TrainCell) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
         pinned = cell.pin_routing and dtype == torch.bfloat16
-        runs = {"plain": held_run(cell, dtype, "plain", checks, worst)}
+        starts = [] if cell.forced else None
+        runs = {"plain": held_run(cell, dtype, "plain", checks, worst, starts=starts)}
         pin = runs["plain"][2].choices if pinned else None
-        runs["kernel"] = held_run(cell, dtype, "kernel", checks, worst, pin)
+        runs["kernel"] = held_run(cell, dtype, "kernel", checks, worst, pin, starts)
         if cell.f64_attention:
-            runs["f64_attention"] = held_run(cell, dtype, "f64_attention", checks, worst, pin)
+            runs["f64_attention"] = held_run(cell, dtype, "f64_attention", checks, worst, pin,
+                                             starts)
         if pinned:
-            runs["kernel_unpinned"] = held_run(cell, dtype, "kernel", checks, worst)
+            runs["kernel_unpinned"] = held_run(cell, dtype, "kernel", checks, worst,
+                                               starts=starts)
+        del starts
         (kern, kl, _), (plain, pl, _) = runs["kernel"], runs["plain"]
         loss_rel, gn_rel = step_rel_errs(kern, plain)
         tol = cell.held_tol[dtype]
-        out[name] = {"seq": cell.check_seq, "kernel": kern, "plain": plain,
+        out[name] = {"seq": cell.check_seq, "forced": cell.forced, "kernel": kern, "plain": plain,
                      "loss_rel_err": loss_rel, "grad_norm_rel_err": gn_rel, "tol": tol,
                      "launches_kernel": kl, "launches_plain": pl}
         if cell.f64_attention:
@@ -3286,13 +3365,13 @@ def train_phase(cell: TrainCell) -> tuple:
 
 def train_cells() -> tuple:
     """The six train phases: smollm-135m at TRAIN_CUT through the attention
-    kernels (10 layers: 20 forward launches a step under remat, 10 backward),
+    kernels (5 layers: 10 forward launches a step under remat, 5 backward),
     xlstm-350m at XLSTM_CUT through the sLSTM kernels (1 pair: 2 and 1; the
     held checks at XLSTM_CHECK_SEQ, where the plain recurrence is ~20
     launches a step forward and ~40 backward),
-    zamba2-1.2b at HYBRID_CUT through the attention kernels (the shared
-    block after each of its 14 // 6 = 2 groups: 4 and 2; the resume at
-    HYBRID_RESUME), dbrx-132b at
+    zamba2-1.2b at HYBRID_CUT on HYBRID_OPT through the attention kernels
+    (the shared block after its one group of 6 Mamba2 blocks: 2 and 1; the
+    held steps forced), dbrx-132b at
     MOE_TRAIN_LAYERS through the attention kernels (2 and 1 a layer) on
     MOE_OPT, its bfloat16 held steps with the routing pinned, and
     llama-3.2-vision-90b at VLM_TRAIN_CUT through the attention kernels at
@@ -3317,8 +3396,8 @@ def train_cells() -> tuple:
                       held_calls=(("slstm", slstm_held), ("_slstm_fused_bwd", slstm_bwd_held)),
                       config=XLSTM_CUT),
             TrainCell("train-hybrid", HYBRID_ARCH, attention, (2 * NG, NG),
-                      forbid=LIBRARY_ATTENTION, held_tol=HYBRID_HELD_TOL, held_calls=flash_calls,
-                      f64_attention=True, config=HYBRID_CUT, resume_config=HYBRID_RESUME),
+                      forbid=LIBRARY_ATTENTION, held_calls=flash_calls, f64_attention=True,
+                      forced=True, config=HYBRID_CUT, opt=HYBRID_OPT),
             TrainCell("train-moe", MOE_ARCH, attention, (2 * MOE_TRAIN_LAYERS, MOE_TRAIN_LAYERS),
                       forbid=LIBRARY_ATTENTION, held_calls=flash_calls,
                       config=dict(num_layers=MOE_TRAIN_LAYERS), opt=MOE_OPT, pin_routing=True),
@@ -3456,31 +3535,6 @@ def mp_opt(cell) -> OptConfig:
     return dataclasses.replace(train_opt(cell), eps=MP_EPS)
 
 
-def block_inputs(cfg, dtype) -> tuple:
-    """A qwen1.5-32b block's input x and its output's cotangent dy, each
-    (QWEN_ROWS, TRAIN_SEQ, d_model) in ``dtype`` drawn on the card from
-    seeds 1 and 2, and the positions."""
-    shape = (QWEN_ROWS, TRAIN_SEQ, cfg.d_model)
-    x, dy = (randn(shape, torch.Generator(device="cuda").manual_seed(s), dtype) for s in (1, 2))
-    pos = torch.arange(TRAIN_SEQ, device="cuda")[None, :].expand(QWEN_ROWS, TRAIN_SEQ)
-    return x, dy, pos.contiguous()
-
-
-def block_yardstick(dtype) -> dict:
-    """One qwen1.5-32b decoder block at full width (weights from seed 0 on
-    the card) in one process: its output and every parameter's gradient
-    for block_inputs, compute in ``dtype``."""
-    cfg = get_config(COM_ARCH)
-    blk = Block(cfg, torch.Generator(device="cuda").manual_seed(0)).requires_grad_(True)
-    x, dy, pos = block_inputs(cfg, dtype)
-    with torch.enable_grad():
-        out, _ = blk.forward_train(x, pos, cfg, CallConfig(compute_dtype=dtype, remat="none"))
-        grads = torch.autograd.grad(out, list(blk.parameters()), dy)
-    names = [n for n, _ in blk.named_parameters()]
-    del blk
-    return {"out": out.detach(), "grads": dict(zip(names, grads))}
-
-
 @contextlib.contextmanager
 def held_flash(worst: dict, shapes: list):
     """Every flash forward and backward kernel call held against its plain
@@ -3515,40 +3569,51 @@ def chunk_of(whole, d) -> torch.Tensor:
     return distribute_tensor(whole, d.device_mesh, d.placements, src_data_rank=None).to_local()
 
 
-def mp_smollm(mesh, cell, batch, dtype, yard=None) -> dict:
-    """Step 1 of ``cell`` (smollm-135m at TRAIN_CUT, weights from seed 0,
-    compute in ``dtype``, remat "block", mp_opt) on ``mesh``: the
-    parameters placed by param_rules (FSDP over "data", tensor parallel over
-    "model"), the activations by make_shard_fn, the whole ``batch`` placed
-    by batch_shardings (each data group its rows); every flash call held.
-    Returns the loss, grad norm, ms (the held checks' plain versions
-    included), launches, the flash calls' local shapes, the held ratios and
-    the collectives' bytes (float32); with ``yard`` (the one-process
-    step's parameters and how far each moved) every parameter's shard
-    against its chunk of the one-process step's, over 1e-5 + 1e-3 x moved."""
+def mp_step(mesh, cell, batch, dtype, yard=None) -> dict:
+    """(c) and (g): step 1 of ``cell`` (weights from seed 0, compute in
+    ``dtype``, remat "block", mp_opt) on ``mesh`` over the whole ``batch``
+    placed by batch_shardings (each data group its rows): the parameters
+    placed by param_rules (FSDP over "data", tensor parallel over "model";
+    musicgen's codebook tables split over the vocabulary), the activations
+    by make_shard_fn, every flash call held. Returns the loss, grad norm, ms
+    (the held checks' plain versions included), launches, the flash calls'
+    local shapes, the held ratios, the collectives' bytes and the embedding
+    table's local shape; with ``yard`` (the one-process step's) against it:
+    every gradient as the step redistributed it (``yard["grads"]``,
+    grad_ratio; embed.table's apart, ROADMAP Queue 3, item 31) and every
+    parameter after the update (``yard["params"]``, over 1e-5 + 1e-3 x how
+    far it moved), where the yardstick holds them."""
     cc = CallConfig(compute_dtype=dtype, remat="block",
                     shard_fn=make_shard_fn(mesh, act_rules(mesh)))
     model = place_params(build_model(train_config(cell), cc, device="cuda", seed=0), mesh)
     state = make_train_state(model, None, mp_opt(cell))
-    step = make_train_step(model, mp_opt(cell))
+    seen = {}
+    step = make_train_step(model, mp_opt(cell),
+                           grad_transform=lambda g, c: (seen.setdefault("g", g), c))
     worst, shapes, counter = {}, [], CommCounter()
     for kern in cell.kernels:
         kern.launches = 0
-    with held_flash(worst, shapes), (counter if yard is not None else contextlib.nullcontext()):
+    with held_flash(worst, shapes), counter:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = step(state, batch)
         torch.cuda.synchronize()
     line = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
             "ms_held": (time.perf_counter() - t0) * 1e3, "launches": list(launches_of(cell.kernels)),
-            "flash_shapes": shape_counts(shapes), "held": worst}
-    if yard is not None:
-        line["comms"] = counter.counts
+            "flash_shapes": shape_counts(shapes), "held": worst, "comms": counter.counts,
+            "table_local_shape": list(model.embed["table"].to_local().shape)}
+    if yard is not None and "grads" in yard:
+        ratios = {n: grad_ratio(g.to_local(), chunk_of(yard["grads"][n], g), yard["scales"][n],
+                                dtype) for n, g in seen["g"].items()}
+        leaf = max(ratios, key=ratios.get)
+        line.update(one_process=[yard["loss"], yard["grad_norm"]], grad_ratio=ratios[leaf],
+                    grad_worst_leaf=leaf, embed_table_grad_ratio=ratios["embed.table"])
+    if yard is not None and "params" in yard:
         ratios = {n: ((p.to_local() - chunk_of(yard["params"][n], p)).abs().max().item()
                       / (1e-5 + 1e-3 * yard["moved"][n])) for n, p in model.named_parameters()}
         leaf = max(ratios, key=ratios.get)
         line.update(param_ratio=ratios[leaf], param_worst_leaf=leaf)
-    del model, state, step
+    del model, state, step, seen
     torch.cuda.empty_cache()
     return line
 
@@ -3557,48 +3622,153 @@ def grad_ratio(got, want, scale: float, dtype) -> float:
     """``got`` (a gradient's shard) against ``want`` (its chunk of the
     one-process gradient), over the held limit: with float32 compute rtol
     1e-3, atol 1e-4 of ``scale`` (the whole gradient's largest magnitude);
-    with bfloat16 compute 2e-2 of ``scale``."""
-    diff = (got.double() - want.double()).abs()
-    if dtype == torch.float32:
-        return (diff / (GRAD_RTOL * want.double().abs() + GRAD_ATOL * scale)).max().item()
-    return diff.max().item() / (TOL[dtype] * scale)
+    with bfloat16 compute 2e-2 of ``scale``. In float32, over slices of the
+    first axis of at most 2**26 elements: a dbrx expert leaf's shard is 265
+    M elements, whose float64 copies would not fit beside four ranks'
+    blocks. ``want`` may be bfloat16 (each slice converted on its own)."""
+    per = max(1, got[0].numel()) if got.ndim else 1
+    step = max(1, (1 << 26) // per)
+    worst = 0.0
+    for i in range(0, got.shape[0] if got.ndim else 1, step):
+        g, w = (t[i:i + step].float() if t.ndim else t.float() for t in (got, want))
+        diff = (g - w).abs()
+        if dtype == torch.float32:
+            r = (diff / (GRAD_RTOL * w.abs() + GRAD_ATOL * scale)).max().item()
+        else:
+            r = diff.max().item() / (TOL[dtype] * scale)
+        worst = max(worst, r)
+    return worst
 
 
-def mp_block(mesh, dtype, yard) -> dict:
-    """One qwen1.5-32b decoder block at full width (weights from seed 0) on
-    ``mesh``: placed by param_rules over block_axes (its 40 heads split 20
-    to a model rank, d_ff 27,392 split 13,696), block_inputs placed by
-    batch_shardings (a row a data group), the forward and the backward for
-    dy, every flash call held; its output against ``yard``'s (f32 2e-5,
-    bf16 2e-2 of the largest magnitude) and every parameter's gradient, on
-    its parameter's placements, against its chunk of ``yard``'s
-    (grad_ratio). Returns ms (held), launches, shapes, ratios and bytes."""
-    cfg = get_config(COM_ARCH)
-    blk = Block(cfg, torch.Generator(device="cuda").manual_seed(0))
-    place_params(blk, mesh, axes=block_axes(cfg)).requires_grad_(True)
+def family_config(kind: str, ep_split: int = 1):
+    """The published config of a (d)-(f) check: qwen1.5-32b, dbrx-132b at
+    ``ep_split``, or llama-3.2-vision-90b."""
+    if kind == "dense":
+        return get_config(COM_ARCH)
+    if kind == "vlm":
+        return get_config(VLM_ARCH)
+    cfg = get_config(MOE_ARCH)
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, ep_split=ep_split))
+
+
+def family_block(kind: str, cfg):
+    """One decoder block of ``cfg`` at full width, weights from seed 0 on the
+    card: qwen's dense block, dbrx's moe layer or the vlm's cross layer; and
+    its logical axes."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if kind == "vlm":
+        return Block(cfg, gen, cross=True), block_axes(cfg, cross=True)
+    moe = kind == "moe"
+    return Block(cfg, gen, is_moe_layer=moe), block_axes(cfg, is_moe_layer=moe)
+
+
+def family_inputs(cfg, dtype) -> tuple:
+    """The block's input x and its output's cotangent dy, each (FAMILY_ROWS,
+    TRAIN_SEQ, d_model) in ``dtype``, drawn on the card from seeds 1 and 2;
+    the positions; and (vlm) the image context (FAMILY_ROWS, 1,601, d_model)
+    from seed 3."""
+    shape = (FAMILY_ROWS, TRAIN_SEQ, cfg.d_model)
+    x, dy = (randn(shape, torch.Generator(device="cuda").manual_seed(s), dtype) for s in (1, 2))
+    pos = torch.arange(TRAIN_SEQ, device="cuda")[None, :].expand(FAMILY_ROWS, TRAIN_SEQ)
+    ctx = (randn((FAMILY_ROWS, cfg.num_image_tokens, cfg.d_model),
+                 torch.Generator(device="cuda").manual_seed(3), dtype)
+           if cfg.family == "vlm" else None)
+    return x, dy, pos.contiguous(), ctx
+
+
+def family_grads(blk, kind: str, cfg, x, dy, pos, ctx, cc, params) -> tuple:
+    """The block's output, its load-balance loss (moe; else None) and the
+    gradients of ``params`` for the cotangent ``dy`` on the output and
+    AUX_WEIGHT on the load-balance loss (the router's gradient takes both,
+    as in training)."""
+    if kind == "vlm":
+        out, aux = blk.forward_cross_train(x, ctx, cfg, cc), None
+    else:
+        out, aux = blk.forward_train(x, pos, cfg, cc)
+    if isinstance(out, DTensor):
+        dy = dy.redistribute(out.device_mesh, out.placements)
+    outs, cots = ([out], [dy]) if aux is None else ([out, AUX_WEIGHT * aux], [dy, None])
+    return out, aux, torch.autograd.grad(outs, params, cots)
+
+
+def family_yardstick(name: str) -> dict:
+    """The parent's one-process yardstick of a (d)-(g) check. (d)-(f): the
+    block's output, aux, every parameter's gradient (family_grads; bfloat16
+    compute keeps them in bfloat16: each is the cast of a bfloat16
+    product), its expert choices and drops; (g): mp_audio_yardstick."""
+    kind, ep, dtype, _ = FAMILY_CHECKS[name]
+    if kind == "audio":
+        return mp_audio_yardstick()
+    cfg = family_config(kind, ep)
+    blk, _ = family_block(kind, cfg)
+    blk.requires_grad_(True)
+    x, dy, pos, ctx = family_inputs(cfg, dtype)
+    cc = CallConfig(compute_dtype=dtype, remat="none", dp_size=MP_MESH["data"])
+    routing = Routing() if kind == "moe" else contextlib.nullcontext()
+    with torch.enable_grad(), routing:
+        out, aux, grads = family_grads(blk, kind, cfg, x, dy, pos, ctx, cc,
+                                       list(blk.parameters()))
+    keep = torch.float32 if dtype == torch.float32 else torch.bfloat16
+    names = [n for n, _ in blk.named_parameters()]
+    yard = {"out": out.detach(), "aux": None if aux is None else float(aux),
+            "grads": {n: g.to(keep) for n, g in zip(names, grads)},
+            "scales": {n: g.abs().max().item() for n, g in zip(names, grads)},
+            "params": sum(p.numel() for p in blk.parameters())}
+    if kind == "moe":
+        yard.update(choices=routing.choices, drops=routing.dropped())
+    del blk, grads, x, dy, ctx, out
     torch.cuda.empty_cache()
-    x, dy, pos = block_inputs(cfg, dtype)
+    return yard
+
+
+def mp_family(mesh, name: str, yard: dict) -> dict:
+    """A (d)-(f) check on ``mesh``: the block placed by param_rules over its
+    axes (built one rank at a time, so that only one whole block stands on
+    the card at once), family_inputs placed by batch_shardings, the forward
+    and family_grads' backward with make_shard_fn, every flash call held;
+    its output against ``yard``'s (2e-5 / 2e-2 of the largest magnitude),
+    every gradient on its parameter's placements against its chunk of
+    ``yard``'s (grad_ratio; the router's reported apart), aux, the dropped
+    choices (this rank's groups), and the routing: bfloat16 pinned to
+    ``yard``'s choices of this rank's groups (the pairs its own gates chose
+    apart reported), float32 unpinned (its choices against ``yard``'s).
+    Returns ms (held), launches, shapes, ratios and bytes."""
+    kind, ep, dtype, pin = FAMILY_CHECKS[name]
+    cfg = family_config(kind, ep)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    for r in range(world):
+        if r == rank:
+            blk, axes = family_block(kind, cfg)
+            place_params(blk, mesh, axes=axes).requires_grad_(True)
+            torch.cuda.empty_cache()
+        dist.barrier()
+    x, dy, pos, ctx = family_inputs(cfg, dtype)
     rules = act_rules(mesh)
     x, dy, pos = (batch_shardings(rules, t).place(t) for t in (x, dy, pos))
-    cc = CallConfig(compute_dtype=dtype, remat="none", shard_fn=make_shard_fn(mesh, rules))
+    if ctx is not None:
+        ctx = batch_shardings(rules, ctx).place(ctx)
+    cc = CallConfig(compute_dtype=dtype, remat="none", dp_size=MP_MESH["data"],
+                    shard_fn=make_shard_fn(mesh, rules))
     params = list(blk.named_parameters())
+    group = mesh.get_local_rank("data")
+    routing = (Routing(pin=[yard["choices"][group]] if pin else None) if kind == "moe"
+               else contextlib.nullcontext())
     worst, shapes, counter = {}, [], CommCounter()
     for kern in (flash_attention, flash_attention_bwd):
         kern.launches = 0
-    with held_flash(worst, shapes), counter, device_collectives(mesh), torch.enable_grad():
+    with held_flash(worst, shapes), counter, device_collectives(mesh), torch.enable_grad(), \
+            routing:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out, _ = blk.forward_train(x, pos, cfg, cc)
-        grads = torch.autograd.grad(out, [p for _, p in params],
-                                    dy.redistribute(out.device_mesh, out.placements))
+        out, aux, grads = family_grads(blk, kind, cfg, x, dy, pos, ctx, cc,
+                                       [p for _, p in params])
         grads = [g.redistribute(p.device_mesh, p.placements) for g, (_, p) in zip(grads, params)]
         torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     want = yard["out"]
     out_ratio = ((out.to_local().double() - chunk_of(want, out).double()).abs().max().item()
                  / (TOL[dtype] * want.double().abs().max().item()))
-    ratios = {n: grad_ratio(g.to_local(), chunk_of(yard["grads"][n], p),
-                            yard["grads"][n].double().abs().max().item(), dtype)
+    ratios = {n: grad_ratio(g.to_local(), chunk_of(yard["grads"][n], p), yard["scales"][n], dtype)
               for (n, p), g in zip(params, grads)}
     leaf = max(ratios, key=ratios.get)
     line = {"ms_held": ms, "launches": list(launches_of((flash_attention, flash_attention_bwd))),
@@ -3606,25 +3776,70 @@ def mp_block(mesh, dtype, yard) -> dict:
             "grad_ratio": ratios[leaf], "grad_worst_leaf": leaf, "comms": counter.counts,
             "local_param_bytes": sum(p.to_local().numel() * p.to_local().element_size()
                                      for _, p in params),
-            "params": sum(p.numel() for _, p in params)}
-    del blk, params, grads, out, x, dy
+            "params": yard["params"]}
+    if kind == "moe":
+        line.update(aux=float(aux.detach().full_tensor()), aux_one_process=yard["aux"],
+                    router_grad_ratio=ratios["moe.router"],
+                    drops=routing.dropped(), drops_one_process=yard["drops"],
+                    pinned=pin, group=group)
+        if pin:
+            line["pairs_apart_unpinned"] = sum(routing.apart)
+        else:
+            line["routing_vs_one_process"] = routing_differences(routing.choices,
+                                                                 [yard["choices"][group]])
+    del blk, params, grads, out, x, dy, ctx
     torch.cuda.empty_cache()
     return line
 
 
-def collectives_rank(rank: int, world: int, workdir: str, spawned: float, shared: dict) -> None:
+def family_audio_cell():
+    """train-audio's cell (musicgen-large at AUDIO_TRAIN_CUT)."""
+    return next(c for c in train_cells() if c.arch == AUDIO_ARCH)
+
+
+def mp_audio_yardstick() -> dict:
+    """(g)'s yardstick: step 1 of musicgen-large at AUDIO_TRAIN_CUT (weights
+    from seed 0, mp_opt) on train-audio's first batch in one process, float32
+    on the whole batch and bfloat16 in MP_MESH["data"] microbatches of the
+    same rows: each step's loss, grad norm and every gradient (the step's
+    own, captured before the update)."""
+    cell = family_audio_cell()
+    batch = train_batches(TRAIN_BATCH, 1, arch=AUDIO_ARCH)[0]
+    yard = {}
+    with torch.enable_grad():
+        for dtype, accum in ((torch.float32, 1), (torch.bfloat16, MP_MESH["data"])):
+            model = build_model(train_config(cell), CallConfig(compute_dtype=dtype, remat="block"),
+                                device="cuda", seed=0)
+            state = make_train_state(model, None, mp_opt(cell))
+            seen = {}
+            step = make_train_step(model, mp_opt(cell), accum_steps=accum,
+                                   grad_transform=lambda g, c: (seen.setdefault("g", g), c))
+            state, m = step(state, batch)
+            yard[str(dtype)] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                                "grads": {n: g.detach() for n, g in seen["g"].items()},
+                                "scales": {n: g.abs().max().item() for n, g in seen["g"].items()}}
+            del model, state, step, seen
+            torch.cuda.empty_cache()
+    return yard
+
+
+def collectives_rank(rank: int, world: int, workdir: str, spawned: float, shared: dict,
+                     yards: list, done) -> None:
     """One rank of the collectives phase, spawned: cuda:0, a gloo group of
     ``world`` through a file store in ``workdir``; (a) com_checks on a
     ("model",) mesh of ``world`` in float32 and bfloat16, (b) the
     smollm-135m train step (TRAIN_CUT) on a (pod=2, data=2) mesh, this
     rank's TRAIN_BATCH / world rows of the train phase's first batch:
     float32 and bfloat16 uncompressed, float32 with the compressed pod
-    mean; on a MP_MESH mesh, (c) mp_smollm on the whole batch in float32
+    mean; on a MP_MESH mesh, (c) mp_step on the whole batch in float32
     (its parameters against ``shared["smollm"]``, the one-process step's)
-    and bfloat16, (d) mp_block in float32 and bfloat16 against
-    ``shared["qwen"]`` (the one-process block's output and gradients).
-    ``shared``'s tensors live on the card in the parent (the spawn shares
-    them, nothing is copied). Writes its line to
+    and bfloat16, putting its rank on ``done``, so that the parent draws
+    the first yardstick; then each FAMILY_CHECKS check, (d)-(f) mp_family
+    and (g) mp_step for musicgen, against the yardstick the parent puts on
+    ``yards[rank]`` (a queue), putting its rank on ``done`` after each, so
+    that the parent frees that one and draws the next.
+    ``shared``'s and the yardsticks' tensors live on the card in the parent
+    (CUDA IPC, nothing is copied). Writes its line to
     ``workdir``/rank<r>.json, with its seconds from ``spawned`` (the
     parent's wall clock at the spawn) to its start."""
     t0 = time.time()
@@ -3655,13 +3870,27 @@ def collectives_rank(rank: int, world: int, workdir: str, spawned: float, shared
     whole = train_batches(TRAIN_BATCH, 1)[0]
     mpl = {}
     with torch.enable_grad():
-        mpl["smollm_float32"] = mp_smollm(mesh, cell, whole, torch.float32, shared["smollm"])
-        mpl["smollm_bfloat16"] = mp_smollm(mesh, cell, whole, torch.bfloat16)
+        mpl["smollm_float32"] = mp_step(mesh, cell, whole, torch.float32, shared["smollm"])
+        mpl["smollm_bfloat16"] = mp_step(mesh, cell, whole, torch.bfloat16)
     line["seconds"]["model_parallel_smollm"] = time.time() - t1
-    t1 = time.time()
-    for dt in (torch.float32, torch.bfloat16):
-        mpl[f"qwen_block_{dt}".replace("torch.", "")] = mp_block(mesh, dt, shared["qwen"][str(dt)])
-    line["seconds"]["model_parallel_qwen_block"] = time.time() - t1
+    torch.cuda.empty_cache()
+    done.put(rank)
+    audio = family_audio_cell()
+    audio_batch = train_batches(TRAIN_BATCH, 1, arch=AUDIO_ARCH)[0]
+    for name, (kind, _, _, _) in FAMILY_CHECKS.items():
+        yard = yards[rank].get()
+        t1 = time.time()
+        with torch.enable_grad():
+            if kind == "audio":
+                for dt in (torch.float32, torch.bfloat16):
+                    mpl[f"{name}_{dt}".replace("torch.", "")] = mp_step(mesh, audio, audio_batch,
+                                                                        dt, yard[str(dt)])
+            else:
+                mpl[name] = mp_family(mesh, name, yard)
+        line["seconds"][f"model_parallel_{name}"] = time.time() - t1
+        del yard
+        torch.cuda.empty_cache()
+        done.put(rank)
     line["model_parallel"] = mpl
     line["mp_coords"] = {"data": mesh.get_local_rank("data"), "model": mesh.get_local_rank("model")}
     Path(workdir, f"rank{rank}.json").write_text(json.dumps(line))
@@ -3688,69 +3917,106 @@ def ring_failures(what: str, ring: dict) -> list:
     return out
 
 
+def held_failures(line: dict, what: str) -> list:
+    """A rank's flash calls past their held limits (its ``held`` ratios over 1)."""
+    bad = {f"{d}/{k}": v for d, w in line["held"].items() for k, v in w.items() if not v <= 1.0}
+    return [f"{what}: flash calls past their held limits {bad}"] if bad else []
+
+
+def local_shapes(cfg, rows: int, keys: int = TRAIN_SEQ) -> tuple:
+    """A rank's flash (q, k) shapes for ``rows`` rows of ``cfg`` on MP_MESH:
+    the heads split over "model" where both counts divide it (else whole),
+    and whether they split."""
+    m = MP_MESH["model"]
+    split = cfg.num_heads % m == 0 and cfg.num_kv_heads % m == 0
+    H, KVH = (cfg.num_heads // m, cfg.num_kv_heads // m) if split else (cfg.num_heads,
+                                                                       cfg.num_kv_heads)
+    return [[rows, TRAIN_SEQ, H, cfg.head_dim], [rows, keys, KVH, cfg.head_dim]], split
+
+
+def mp_step_report(what: str, steps: list, want, dt: str, cell, fails: list) -> dict:
+    """(c)'s and (g)'s gates over the ranks' mp_step lines ``steps`` in
+    compute ``dt``: each rank's loss and grad norm at TRAIN_TOL of ``want``
+    (the one-process step's: float32 on the whole batch, bfloat16 in
+    MP_MESH["data"] microbatches of the same rows), every gradient and
+    every parameter within its limit where compared, every flash call held,
+    ``cell.per_step`` launches at each rank's local shapes."""
+    cfg = train_config(cell)
+    shapes, split = local_shapes(cfg, TRAIN_BATCH // MP_MESH["data"])
+    ltol, gtol = TRAIN_TOL[getattr(torch, dt)]
+    lerr = max(abs(s["loss"] - want[0]) / abs(want[0]) for s in steps)
+    gerr = max(abs(s["grad_norm"] - want[1]) / want[1] for s in steps)
+    entry = {"arch": cfg.name, "reduced": reduced_of(cfg), "rows": TRAIN_BATCH, "seq": TRAIN_SEQ,
+             "loss_by_rank": [s["loss"] for s in steps],
+             "grad_norm_by_rank": [s["grad_norm"] for s in steps], "one_process": list(want),
+             "one_process_microbatches": 1 if dt == "float32" else MP_MESH["data"],
+             "loss_rel_err": lerr, "grad_norm_rel_err": gerr, "tol": [ltol, gtol],
+             "table_local_shape": steps[0]["table_local_shape"],
+             "ms_held_by_rank": [s["ms_held"] for s in steps],
+             "launches_by_rank": [s["launches"] for s in steps],
+             "flash_shapes": steps[0]["flash_shapes"], "heads_split": split,
+             "comms_by_rank": [s["comms"] for s in steps], "held": [s["held"] for s in steps]}
+    for k in ("grad", "param"):
+        if f"{k}_ratio" in steps[0]:
+            entry[f"{k}_ratio"] = max(s[f"{k}_ratio"] for s in steps)
+            entry[f"{k}_worst_leaf"] = [s[f"{k}_worst_leaf"] for s in steps]
+    if "embed_table_grad_ratio" in steps[0]:
+        entry["embed_table_grad_ratio"] = max(s["embed_table_grad_ratio"] for s in steps)
+    ratios = {k: entry[k] for k in ("grad_ratio", "param_ratio") if k in entry}
+    if not (lerr <= ltol and gerr <= gtol and all(r <= 1.0 for r in ratios.values())):
+        fails.append(f"{what}: loss {lerr} / grad norm {gerr} from the one-process step (limits "
+                     f"{ltol} / {gtol}); {ratios} of their limits")
+    L = list(cell.per_step)
+    for s in steps:
+        fails.extend(held_failures(s, what))
+        if s["launches"] != L or s["flash_shapes"] != [shapes + [L[0]]]:
+            fails.append(f"{what}: launches {s['launches']}, shapes {s['flash_shapes']}; "
+                         f"expected {L} at {shapes}")
+    return entry
+
+
 def mp_report(ranks: list, ref: dict, cell) -> tuple:
     """The ranks' model-parallel lines and their gates: (c) smollm's float32
-    step (loss and grad norm, each rank's, at TRAIN_TOL of the one-process
-    step on the same 8 rows; every parameter within its limit of the
-    one-process step's) and bfloat16 step (at TRAIN_TOL of the one-process
-    step in MP_MESH["data"] microbatches of the same rows); (d) qwen1.5-32b's
-    block, output and gradients within their limits in float32 and
-    bfloat16; every flash call of both within its held limit, its launches
-    and its local shapes (the heads split over "model" where they divide
-    it). Returns (the line, the failures)."""
+    step (its parameters against the one-process step's besides) and
+    bfloat16 step against ``ref``'s one-process steps (mp_step_report);
+    (d)-(g) family_report. Returns (the line, the failures)."""
     fails, out = [], {"mesh": MP_MESH, "transport": "host-staged gloo, one card",
                       "ms": "wall ms of the rank's step, the held checks' plain versions "
                             "included (host-staged gloo, one card)"}
-    m = MP_MESH["model"]
-
-    def local(arch, rows):
-        c = get_config(arch)
-        split = c.num_heads % m == 0 and c.num_kv_heads % m == 0
-        H, KVH = (c.num_heads // m, c.num_kv_heads // m) if split else (c.num_heads,
-                                                                       c.num_kv_heads)
-        return [[rows, TRAIN_SEQ, H, c.head_dim], [rows, TRAIN_SEQ, KVH, c.head_dim]], split
-
-    def held(line, what):
-        bad = {f"{d}/{k}": v for d, w in line["held"].items() for k, v in w.items() if not v <= 1.0}
-        if bad:
-            fails.append(f"{what}: flash calls past their held limits {bad}")
-
-    L = cell.per_step
-    shapes, split = local(SERVE_ARCH, TRAIN_BATCH // MP_MESH["data"])
     for dt, yardstick in (("float32", "float32"), ("bfloat16", "bfloat16_split_mp")):
-        steps = [r["model_parallel"][f"smollm_{dt}"] for r in ranks]
-        want = ref[yardstick]
-        ltol, gtol = TRAIN_TOL[getattr(torch, dt)]
-        lerr = max(abs(s["loss"] - want[0]) / abs(want[0]) for s in steps)
-        gerr = max(abs(s["grad_norm"] - want[1]) / want[1] for s in steps)
-        entry = {"loss_by_rank": [s["loss"] for s in steps],
-                 "grad_norm_by_rank": [s["grad_norm"] for s in steps], "one_process": want,
-                 "one_process_microbatches": 1 if dt == "float32" else MP_MESH["data"],
-                 "loss_rel_err": lerr, "grad_norm_rel_err": gerr, "tol": [ltol, gtol],
-                 "ms_held_by_rank": [s["ms_held"] for s in steps],
-                 "launches_by_rank": [s["launches"] for s in steps],
-                 "flash_shapes": steps[0]["flash_shapes"], "heads_split": split,
-                 "held": [s["held"] for s in steps]}
-        if not (lerr <= ltol and gerr <= gtol):
-            fails.append(f"mp smollm {dt}: loss {lerr} / grad norm {gerr} from the one-process "
-                         f"step, over {ltol} / {gtol}")
-        for s in steps:
-            held(s, f"mp smollm {dt}")
-            if s["launches"] != list(L) or s["flash_shapes"] != [shapes + [L[0]]]:
-                fails.append(f"mp smollm {dt}: launches {s['launches']}, shapes "
-                             f"{s['flash_shapes']}; expected {L} at {shapes}")
-        if dt == "float32":
-            entry.update(param_ratio=max(s["param_ratio"] for s in steps),
-                         param_worst_leaf=[s["param_worst_leaf"] for s in steps],
-                         comms_by_rank=[s["comms"] for s in steps])
-            if not entry["param_ratio"] <= 1.0:
-                fails.append(f"mp smollm: a parameter {entry['param_ratio']} of its limit from "
-                             f"the one-process step's ({entry['param_worst_leaf']})")
-        out[f"smollm_{dt}"] = entry
-    shapes, split = local(COM_ARCH, QWEN_ROWS // MP_MESH["data"])
-    for dt in ("float32", "bfloat16"):
-        lines = [r["model_parallel"][f"qwen_block_{dt}"] for r in ranks]
-        entry = {"out_ratio": max(ln["out_ratio"] for ln in lines),
+        out[f"smollm_{dt}"] = mp_step_report(
+            f"mp smollm {dt}", [r["model_parallel"][f"smollm_{dt}"] for r in ranks],
+            ref[yardstick], dt, cell, fails)
+    family, family_fails = family_report(ranks)
+    return dict(out, **family), fails + family_fails
+
+
+def family_report(ranks: list) -> tuple:
+    """The (d)-(g) lines and their gates: (d)-(f) the output and every
+    gradient within their limits, every flash call held, one forward and
+    one backward launch at each rank's local shapes; (e)'s aux at TOL of
+    the one-process block's, its dropped choices (the ranks' groups summed)
+    equal to the one-process block's, and in float32 (unpinned) its routing
+    the one-process block's, token for token; (g) mp_step_report against
+    the one-process step (embed.table's gradient reported apart, ROADMAP
+    Queue 3, item 31)."""
+    fails, out = [], {}
+    rows = FAMILY_ROWS // MP_MESH["data"]
+    for name, (kind, ep, dtype, pin) in FAMILY_CHECKS.items():
+        if kind == "audio":
+            cell = family_audio_cell()
+            for dt in ("float32", "bfloat16"):
+                steps = [r["model_parallel"][f"{name}_{dt}"] for r in ranks]
+                out[f"{name}_{dt}"] = mp_step_report(f"mp {name} {dt}", steps,
+                                                     steps[0]["one_process"], dt, cell, fails)
+            continue
+        cfg = family_config(kind, ep)
+        shapes, split = local_shapes(cfg, rows, cfg.num_image_tokens if kind == "vlm"
+                                     else TRAIN_SEQ)
+        lines = [r["model_parallel"][name] for r in ranks]
+        entry = {"arch": cfg.name, "params": lines[0]["params"], "rows": FAMILY_ROWS,
+                 "seq": TRAIN_SEQ, "compute": str(dtype).replace("torch.", ""),
+                 "out_ratio": max(ln["out_ratio"] for ln in lines),
                  "grad_ratio": max(ln["grad_ratio"] for ln in lines),
                  "grad_worst_leaf": [ln["grad_worst_leaf"] for ln in lines],
                  "ms_held_by_rank": [ln["ms_held"] for ln in lines],
@@ -3760,16 +4026,38 @@ def mp_report(ranks: list, ref: dict, cell) -> tuple:
                  "comms_by_rank": [ln["comms"] for ln in lines],
                  "held": [ln["held"] for ln in lines]}
         if not (entry["out_ratio"] <= 1.0 and entry["grad_ratio"] <= 1.0):
-            fails.append(f"mp qwen block {dt}: output {entry['out_ratio']}, gradients "
+            fails.append(f"mp {name}: output {entry['out_ratio']}, gradients "
                          f"{entry['grad_ratio']} of their limits")
+        if kind == "moe":
+            firsts = [ln for ln, r in zip(lines, ranks) if r["mp_coords"]["model"] == 0]
+            want = lines[0]["aux_one_process"]
+            entry.update(ep_split=ep, dp_groups=MP_MESH["data"], pinned=pin,
+                         aux_by_rank=[ln["aux"] for ln in lines], aux_one_process=want,
+                         aux_rel_err=max(abs(ln["aux"] - want) / abs(want) for ln in lines),
+                         aux_tol=TOL[dtype],
+                         router_grad_ratio=max(ln["router_grad_ratio"] for ln in lines),
+                         drops=sum(ln["drops"] for ln in firsts),
+                         drops_one_process=lines[0]["drops_one_process"])
+            if not entry["aux_rel_err"] <= TOL[dtype]:
+                fails.append(f"mp {name}: aux {entry['aux_by_rank']} against the one-process "
+                             f"block's {want}, past {TOL[dtype]}")
+            if entry["drops"] != entry["drops_one_process"]:
+                fails.append(f"mp {name}: {entry['drops']} choices dropped, the one-process "
+                             f"block {entry['drops_one_process']}")
+            if pin:
+                entry["pairs_apart_unpinned"] = sum(ln["pairs_apart_unpinned"] for ln in firsts)
+            else:
+                entry["routing_vs_one_process"] = [ln["routing_vs_one_process"] for ln in firsts]
+                apart = sum(d["tokens"] for d in entry["routing_vs_one_process"])
+                if apart:
+                    fails.append(f"mp {name}: {apart} tokens routed apart from the one-process "
+                                 f"block")
         for ln in lines:
-            held(ln, f"mp qwen block {dt}")
+            fails.extend(held_failures(ln, f"mp {name}"))
             if ln["launches"] != [1, 1] or ln["flash_shapes"] != [shapes + [1]]:
-                fails.append(f"mp qwen block {dt}: launches {ln['launches']}, shapes "
+                fails.append(f"mp {name}: launches {ln['launches']}, shapes "
                              f"{ln['flash_shapes']}; expected [1, 1] at {shapes}")
-        out[f"qwen_block_{dt}"] = entry
-    out["qwen_block"] = {"arch": COM_ARCH, "rows": QWEN_ROWS, "seq": TRAIN_SEQ,
-                         "params": ranks[0]["model_parallel"]["qwen_block_float32"]["params"]}
+        out[name] = entry
     return out, fails
 
 
@@ -3789,9 +4077,14 @@ def collectives_phase(cell) -> tuple:
     microbatches of the ranks' rows, since a bf16 gradient depends on how
     the batch is split; the whole batch's reported beside it), the
     compressed step within its int8 bound and its
-    residual under 2 % of max|g|, the kernels' launches a step. Returns the
-    line and the flash launches (forward, backward) of the ranks' steps."""
+    residual under 2 % of max|g|, the kernels' launches a step; and the
+    model-parallel checks (c)-(g) (mp_report, family_report), each (d)-(g)
+    yardstick drawn here in turn while the ranks wait (family_yardstick),
+    one on the card at a time. Returns the line and the flash launches
+    (forward, backward) of the ranks' steps."""
     t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()  # the earlier phases' cache, before four ranks share the card
     batch = train_batches(TRAIN_BATCH, 1)[0]
     ref = {}
     with torch.enable_grad():
@@ -3814,16 +4107,51 @@ def collectives_phase(cell) -> tuple:
                                          for n, p in model.named_parameters()}}
             del model, state, m, before
             torch.cuda.empty_cache()
-        shared = {"smollm": smollm_yard,
-                  "qwen": {str(dt): block_yardstick(dt) for dt in (torch.float32, torch.bfloat16)}}
-        torch.cuda.empty_cache()
+        shared = {"smollm": smollm_yard}
     t_ref = time.perf_counter() - t0
     failures = []
     with tempfile.TemporaryDirectory() as tmp:
         t1 = time.perf_counter()
-        ctx = mp.start_processes(collectives_rank, args=(COLLECTIVE_RANKS, tmp, time.time(), shared),
+        spawning = mp.get_context("spawn")
+        yards = [spawning.SimpleQueue() for _ in range(COLLECTIVE_RANKS)]
+        done = spawning.Queue()
+        ctx = mp.start_processes(collectives_rank, args=(COLLECTIVE_RANKS, tmp, time.time(), shared,
+                                                         yards, done),
                                  nprocs=COLLECTIVE_RANKS, join=False, start_method="spawn")
         deadline = time.monotonic() + COLLECTIVES_S
+        t_yards = {}
+
+        def ranks_done(what):
+            """Wait for every rank's word on ``done``; a rank that fails
+            raises its traceback here (join), past COLLECTIVES_S fails."""
+            for _ in range(COLLECTIVE_RANKS):
+                while True:
+                    try:
+                        done.get(timeout=1.0)
+                        break
+                    except queue.Empty:
+                        try:
+                            if any(p.exitcode not in (None, 0) for p in ctx.processes):
+                                ctx.join(timeout=1.0)
+                            if time.monotonic() > deadline:
+                                fail(f"collectives: the ranks ran past {COLLECTIVES_S} s at {what}")
+                        except BaseException:
+                            for p in ctx.processes:
+                                p.kill()
+                            raise
+
+        # each (d)-(g) yardstick in turn once the ranks are through (a)-(c),
+        # freed once every rank has checked against it
+        ranks_done("(a)-(c)")
+        for name in FAMILY_CHECKS:
+            t2 = time.perf_counter()
+            yard = family_yardstick(name)
+            t_yards[name] = time.perf_counter() - t2
+            for q in yards:
+                q.put(yard)
+            ranks_done(name)
+            del yard
+            torch.cuda.empty_cache()
         while not ctx.join(timeout=1.0):
             if time.monotonic() > deadline:
                 for p in ctx.processes:
@@ -3933,7 +4261,7 @@ def collectives_phase(cell) -> tuple:
             "flash_launches": list(flash),
             "rank_seconds": [r["seconds"] for r in ranks],
             "seconds": {"one_process_steps": t_ref, "ranks": t_ranks, "nccl": t_nccl,
-                        "total": time.perf_counter() - t0}}
+                        "family_yardsticks": t_yards, "total": time.perf_counter() - t0}}
     emit(line)
     if failures:
         fail("collectives: " + "; ".join(failures))
@@ -4244,7 +4572,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_done("model-audio")
 
-    # 26. training smollm-135m (10 layers) through the attention kernels, forward and backward
+    # 26. training smollm-135m (5 layers) through the attention kernels, forward and backward
     smollm_cell, xlstm_cell, hybrid_cell, moe_cell, vlm_cell, audio_cell = train_cells()
     _, train_launches = train_phase(smollm_cell)
     torch.cuda.empty_cache()
@@ -4255,7 +4583,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_done("train-xlstm")
 
-    # 28. training zamba2-1.2b (14 layers) through the attention kernels, the SSD under autograd
+    # 28. training zamba2-1.2b (10 layers) through the attention kernels, the SSD under autograd
     _, htrain_launches = train_phase(hybrid_cell)
     torch.cuda.empty_cache()
     phase_done("train-hybrid")

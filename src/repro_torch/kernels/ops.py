@@ -19,7 +19,8 @@ Under a mesh (``DTensor`` inputs, model-parallel training)
 ``flash_attention`` runs through ``local_map``: each rank's forward and
 backward, the CUDA kernels on the card, see its own plain local tensors
 ``(B_local, S, H_local, hd)`` with ``KVH_local`` heads, and nothing is
-gathered for them.
+gathered for them; the vlm cross layers' the same way, non-causal, with
+``Skv`` image keys against ``Sq`` text queries.
 """
 from __future__ import annotations
 

@@ -18,7 +18,9 @@ replicates them over "model" otherwise (the reference's GSPMD does the
 same, silently, where a reshape cannot keep the split); RoPE and the
 flash kernels then run on each rank's own rows and heads
 (``local_map``), and ``wo`` is the row-parallel product whose partial sum
-the residual's ``shard`` reduces.
+the residual's ``shard`` reduces. The vlm cross attention does the same
+with k and v projected from the image embeddings (:func:`cross_kv`) and no
+RoPE.
 """
 from __future__ import annotations
 
@@ -198,12 +200,18 @@ def init_cross_attention(gen: torch.Generator, d: int, num_heads: int,
 
 def cross_kv(params: Params, ctx: torch.Tensor, num_heads: int, num_kv_heads: int, d: int):
     """Project image embeddings to the cross K/V. ctx: (B, T, D) -> k, v,
-    each (B, T, KVH, hd), in ``ctx.dtype``."""
+    each (B, T, KVH, hd), in ``ctx.dtype``. Under a mesh (``ctx`` a
+    ``DTensor`` laid out over the batch) k and v are split by KV heads over
+    "model" where :func:`heads_split` allows, replicated over it otherwise,
+    as :func:`qkv_project` lays out the self-attention's."""
     hd = d // num_heads
     B, T = ctx.shape[:2]
-    k = (ctx @ params["wk"].to(ctx.dtype)).reshape(B, T, num_kv_heads, hd)
-    v = (ctx @ params["wv"].to(ctx.dtype)).reshape(B, T, num_kv_heads, hd)
-    return k, v
+    k = ctx @ weight(params["wk"], ctx)
+    v = ctx @ weight(params["wv"], ctx)
+    if isinstance(ctx, DTensor):
+        split = heads_split(ctx.device_mesh, num_heads, num_kv_heads)
+        k, v = (_by_heads(ctx, t, split) for t in (k, v))
+    return k.reshape(B, T, num_kv_heads, hd), v.reshape(B, T, num_kv_heads, hd)
 
 
 def cross_attention_kv(params: Params, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -211,13 +219,22 @@ def cross_attention_kv(params: Params, x: torch.Tensor, k: torch.Tensor, v: torc
                        backend: Optional[str] = None) -> torch.Tensor:
     """Cross attention against precomputed (cached) K/V: q from ``wq`` with
     no RoPE, non-causal flash attention over every image token (at Sq = 1
-    in a decode step), then ``wo``. k, v are cast to ``x.dtype``."""
+    in a decode step), then ``wo``. k, v are cast to ``x.dtype``. Under a
+    mesh q is laid out by heads as :func:`cross_kv` lays out k and v, the
+    flash kernels run on each rank's own rows and heads (Sq text queries
+    against Skv image keys), and ``wo`` is the row-parallel product."""
     B, S, d = x.shape
     hd = d // num_heads
-    q = (x @ params["wq"].to(x.dtype)).reshape(B, S, num_heads, hd)
+    q = x @ weight(params["wq"], x)
+    if isinstance(x, DTensor):
+        q = _by_heads(x, q, heads_split(x.device_mesh, num_heads, k.shape[2]))
+    q = q.reshape(B, S, num_heads, hd)
     out = flash_attention(q, k.to(x.dtype), v.to(x.dtype), causal=False, block_kv=block_kv,
                           backend=backend)
-    return out.reshape(B, S, num_heads * hd) @ params["wo"].to(x.dtype)
+    out = out.reshape(B, S, num_heads * hd)
+    if isinstance(out, DTensor):
+        out = _by_heads(out, out, True)
+    return out @ weight(params["wo"], x)
 
 
 def cross_attention(params: Params, x: torch.Tensor, ctx: torch.Tensor, num_heads: int,

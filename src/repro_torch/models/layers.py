@@ -61,13 +61,37 @@ def weight(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return gathered(w.to(x.dtype), x)
 
 
+def reduced(t):
+    """A ``DTensor`` with its partial placements (a partial sum or max, a
+    masked partial gather) reduced, at its own shape; anything else as it
+    is."""
+    if not isinstance(t, DTensor):
+        return t
+    return t.redistribute(placements=[Replicate() if p.is_partial() else p for p in t.placements])
+
+
+def grad_as_placed(y: torch.Tensor) -> torch.Tensor:
+    """``y`` itself, whose gradient is brought back to ``y``'s own placements
+    right here: a ``DTensor`` norm output feeds products split over
+    "model", whose gradients arrive as partial sums over it, and they are
+    reduced before the norm's backward (Megatron's all-reduce of the input's
+    gradient). Left to ``DTensor``, torch 2.13 may reduce-scatter them over
+    the sequence instead, and the products' backwards then search its
+    strided layouts for minutes on a mesh of three axes. A plain tensor is
+    returned as it is."""
+    if not isinstance(y, DTensor):
+        return y
+    return DTensor.from_local(y.to_local(), y.device_mesh, y.placements, run_check=False,
+                              shape=y.shape, stride=y.stride())
+
+
 def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """In float32, cast back to ``x.dtype``."""
     dt = x.dtype
     x = x.float()
     var = x.square().mean(dim=-1, keepdim=True)
     y = x * torch.rsqrt(var + eps) * gathered(params["scale"], x)
-    return y.to(dt)
+    return grad_as_placed(y.to(dt))
 
 
 def layernorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -77,7 +101,7 @@ def layernorm(params: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tenso
     var = (x - mu).square().mean(dim=-1, keepdim=True)
     y = (x - mu) * torch.rsqrt(var + eps) * gathered(params["scale"], x) + gathered(
         params["bias"], x)
-    return y.to(dt)
+    return grad_as_placed(y.to(dt))
 
 
 def norm_params(kind: str, d: int, device) -> dict:
@@ -213,26 +237,34 @@ def embed(params: Params, tokens: torch.Tensor, dtype: torch.dtype = torch.bfloa
     return table[tokens]
 
 
-def _embed_split(table, tokens):
+def _embed_split(table, tokens, book=None):
     """The lookup of ``DTensor`` tokens (laid out over the batch) in a
     ``DTensor`` table: the table gathered over every mesh axis but the one
     that splits its vocabulary (FSDP's gather of its "embed" dim), then on
     each rank the rows of its own vocabulary shard, the others zero: a
     partial sum over that axis, which the caller's ``shard`` reduces (one
-    rank adds each row, the rest add zeros: the lookup's values)."""
+    rank adds each row, the rest add zeros: the lookup's values). With
+    ``book`` the table is audio's ``(K, Vp, D)``, split over its vocabulary
+    (dim 1), the tokens ``(B, S, K)``, and the lookup is codebook ``book``'s
+    tokens in its slice of the table."""
     from torch.distributed.tensor import Partial
     from torch.distributed.tensor.experimental import local_map
 
     mesh = table.device_mesh
-    split = [i for i, p in enumerate(table.placements) if p.is_shard(0)]
-    table = table.redistribute(mesh, [p if p.is_shard(0) else Replicate() for p in table.placements])
+    vdim = 0 if book is None else 1
+    split = [i for i, p in enumerate(table.placements) if p.is_shard(vdim)]
+    table = table.redistribute(mesh, [p if p.is_shard(vdim) else Replicate()
+                                      for p in table.placements])
     if not split:
-        return F.embedding(tokens, table)
+        return (F.embedding(tokens, table) if book is None
+                else F.embedding(tokens[..., book], table[book]))
     (axis,) = split
-    rows = table.shape[0] // mesh.size(axis)
+    rows = table.shape[vdim] // mesh.size(axis)
     first = mesh.get_local_rank(axis) * rows
 
     def lookup(t, tok):
+        if book is not None:
+            t, tok = t[book], tok[..., book]
         idx = tok - first
         inside = ((idx >= 0) & (idx < rows))[..., None]
         return torch.where(inside, t[idx.clamp(0, rows - 1)], torch.zeros((), dtype=t.dtype,
@@ -246,6 +278,26 @@ def _embed_split(table, tokens):
                      in_placements=(list(table.placements), list(tokens.placements)),
                      in_grad_placements=(grad, list(tokens.placements)),
                      device_mesh=mesh)(table, tokens)
+
+
+def embed_codebooks(table, tokens) -> torch.Tensor:
+    """Audio's embedding: ``table`` (K, Vp, D) already in the compute dtype
+    and tokens (B, S, K) -> the sum of the K codebook lookups (B, S, D) in
+    the reference's order, its Python ``sum``: ``((0 + e0) + e1) + ...``,
+    rounded in the table's dtype at each step. A ``DTensor`` table split
+    over its vocabulary looks each codebook up as a masked partial gather
+    (:func:`_embed_split`, the table gathered over its other axes once)
+    reduced before the sum, so the sum adds the rows themselves in that
+    order."""
+    K = table.shape[0]
+    if not isinstance(table, DTensor):
+        return sum(table[i][tokens[..., i]] for i in range(K))
+    vocab = [p if p.is_shard(1) else Replicate() for p in table.placements]
+    table = table.redistribute(table.device_mesh, vocab)
+    out = 0
+    for i in range(K):
+        out = out + reduced(_embed_split(table, tokens, book=i))
+    return out
 
 
 def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:

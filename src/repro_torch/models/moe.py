@@ -29,12 +29,14 @@ Where the port must be written with care to give the reference's numbers:
 """
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
-from repro_torch.models.layers import Params, dense_init, silu
+from repro_torch.models.layers import Params, dense_init, gathered, reduced, silu
 
 
 def init_moe(gen: torch.Generator, d: int, f: int, num_experts: int, *,
@@ -116,44 +118,172 @@ def _experts(ebuf: torch.Tensor, params: Params) -> torch.Tensor:
     return torch.einsum("gecf,efd->gecd", silu(g) * u, params["wo"].to(dt))
 
 
-def moe_forward(params: Params, x: torch.Tensor, *, top_k: int, num_experts: int,
-                capacity_factor: float, dp_size: int,
-                ep_split: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (y (B, S, D), aux_loss () float32).
-
-    The reference's ``shard_fn`` (a placement of the dispatch buffers that
-    makes the expert-parallel all-to-all) waits for the moe family's
-    model-parallel training (ROADMAP.md, Queue 1): in one process it places
-    nothing, and under a mesh the train forward refuses the moe family
-    (:meth:`repro_torch.models.transformer.Model.forward_train`). With
-    ``ep_split > 1`` each expert's buffer is
-    repeated for its ``ep_split`` weight slices and their down-projections
-    are summed, as the reference computes it."""
-    B, S, D = x.shape
-    dp, tl, capacity = expert_capacity(B * S, top_k=top_k, num_experts=num_experts,
-                                       capacity_factor=capacity_factor, dp_size=dp_size)
-    xg = x.reshape(dp, tl, D)
-    logits = torch.einsum("gtd,de->gte", xg, params["router"].to(x.dtype))
+def _route(xg: torch.Tensor, router: torch.Tensor, top_k: int, capacity: int,
+           num_experts: int):
+    """The router product and the dispatch of each of ``xg``'s groups:
+    xg (g, Tl, D), router (D, E) in ``xg.dtype`` -> (ebuf (g, E, C, D), slot
+    (g, Tl, k), gates (g, Tl, k), gates_full (g, Tl, E) float32). The
+    groups go one after another (a Python loop), their buffers stacked."""
+    g, _, D = xg.shape
+    logits = torch.einsum("gtd,de->gte", xg, router)
     groups = [_dispatch_group(xx, ll, top_k, capacity, num_experts)
               for xx, ll in zip(xg, logits)]
     buf, slot, gates, gates_full = (torch.stack(t) for t in zip(*groups))
-    ebuf = buf[:, :-1].reshape(dp, num_experts, capacity, D)
+    return buf[:, :-1].reshape(g, num_experts, capacity, D), slot, gates, gates_full
+
+
+def _split_sum(out_ep: torch.Tensor, num_experts: int, ep_split: int) -> torch.Tensor:
+    """(g, E·split, C, D) partial down-projections -> (g, E, C, D), each
+    expert's ``split`` slices summed."""
+    g, _, C, D = out_ep.shape
+    return out_ep.reshape(g, num_experts, ep_split, C, D).sum(dim=2)
+
+
+def _combine(out: torch.Tensor, slot: torch.Tensor, gates: torch.Tensor) -> torch.Tensor:
+    """out (g, E, C, D), slot and gates (g, Tl, k) -> (g, Tl, D): each
+    token's choices gathered (slot E·C, a dropped choice, picks an appended
+    zero row) and weighted by their gates."""
+    g, E, C, D = out.shape
+    out_flat = torch.cat([out.reshape(g, E * C, D), out.new_zeros((g, 1, D))], dim=1)
+    picked = torch.stack([of[sl] for of, sl in zip(out_flat, slot)])  # (g, Tl, k, D)
+    return torch.einsum("gtkd,gtk->gtd", picked, gates)
+
+
+def _balance_sums(gates_full: torch.Tensor, num_experts: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sums over (groups, tokens) of the gates (E,) and of the top-1
+    one-hot (E,), float32: the load-balance loss's p and f before the mean."""
+    top1 = gates_full.argmax(dim=-1)
+    return gates_full.sum(dim=(0, 1)), F.one_hot(top1, num_experts).float().sum(dim=(0, 1))
+
+
+def moe_forward(params: Params, x: torch.Tensor, *, top_k: int, num_experts: int,
+                capacity_factor: float, dp_size: int, shard_fn=None,
+                ep_split: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (y (B, S, D), aux_loss () float32).
+
+    ``shard_fn`` is ``CallConfig.shard_fn``: it places what the reference
+    places, at the same points: ``xg`` as ``("exp_dp", None, None)``;
+    ``ebuf`` as ``("exp_dp", "experts", None, None)`` (experts split over
+    "model", their weights gathered over the batch's axes for the products:
+    FSDP); with ``ep_split > 1`` ``ebuf_ep`` as ``(None, "experts_ep",
+    None, None)`` (the tokens move to the weight slices, which stay where
+    they are) and ``out`` as ``("exp_dp", None, None, None)``. With
+    ``ep_split > 1`` each expert's buffer is repeated for its ``ep_split``
+    weight slices and their down-projections are summed, as the reference
+    computes it.
+
+    Under a mesh (``x`` a ``DTensor``, its batch split over the mesh's batch
+    axes, see :func:`_moe_placed`) the dispatch, the split sums and the
+    combine run on each rank's own groups (``local_map``), and the
+    load-balance loss is taken over the whole batch."""
+    B, S, D = x.shape
+    dp, tl, capacity = expert_capacity(B * S, top_k=top_k, num_experts=num_experts,
+                                       capacity_factor=capacity_factor, dp_size=dp_size)
+    if isinstance(x, DTensor):
+        return _moe_placed(params, x, dp, tl, capacity, top_k=top_k, num_experts=num_experts,
+                           shard_fn=shard_fn, ep_split=ep_split)
+    place = shard_fn if shard_fn is not None else (lambda t, axes: t)
+    xg = place(x.reshape(dp, tl, D), ("exp_dp", None, None))
+    ebuf, slot, gates, gates_full = _route(xg, params["router"].to(x.dtype), top_k, capacity,
+                                           num_experts)
     if ep_split > 1:
         es = num_experts * ep_split
-        ebuf = ebuf[:, :, None].expand(dp, num_experts, ep_split, capacity, D)
-        out = _experts(ebuf.reshape(dp, es, capacity, D), params)
-        out = out.reshape(dp, num_experts, ep_split, capacity, D).sum(dim=2)
+        ebuf_ep = ebuf[:, :, None].expand(dp, num_experts, ep_split, capacity, D)
+        ebuf_ep = place(ebuf_ep.reshape(dp, es, capacity, D), (None, "experts_ep", None, None))
+        out = place(_split_sum(_experts(ebuf_ep, params), num_experts, ep_split),
+                    ("exp_dp", None, None, None))
     else:
-        out = _experts(ebuf, params)
-    out_flat = torch.cat([out.reshape(dp, num_experts * capacity, D),
-                          out.new_zeros((dp, 1, D))], dim=1)
-    # slot E·C picks the zero row (a dropped choice)
-    picked = torch.stack([of[sl] for of, sl in zip(out_flat, slot)])  # (dp, Tl, k, D)
-    y = torch.einsum("gtkd,gtk->gtd", picked, gates)
+        out = _experts(place(ebuf, ("exp_dp", "experts", None, None)), params)
+    y = _combine(out, slot, gates)
 
-    # load-balance aux loss (Switch): E · sum_e f_e · p_e
-    pe = gates_full.mean(dim=(0, 1))
-    top1 = gates_full.argmax(dim=-1)
-    fe = F.one_hot(top1, num_experts).float().mean(dim=(0, 1))
-    aux = num_experts * (fe * pe).sum()
+    # load-balance aux loss (Switch): E · sum_e f_e · p_e, f and p the means
+    # over the dp · Tl tokens
+    pe_sum, fe_sum = _balance_sums(gates_full, num_experts)
+    aux = num_experts * ((fe_sum / (dp * tl)) * (pe_sum / (dp * tl))).sum()
     return y.reshape(B, S, D), aux
+
+
+def _moe_placed(params: Params, x, dp: int, tl: int, capacity: int, *, top_k: int,
+                num_experts: int, shard_fn, ep_split: int):
+    """:func:`moe_forward` of a ``DTensor`` ``x`` (B, S, D) laid out over the
+    batch (``Shard(0)``) on some mesh axes and replicated on the rest. The
+    ``dp`` groups split over the batch's axes as the batch does (each rank's
+    rows are its own groups, so nothing moves for the dispatch); a ``dp``
+    those axes do not divide is refused, never regrouped. Each rank routes
+    and dispatches its groups (:func:`_route`), the expert products run on
+    each rank's own buffers and weights, gathered over the batch's axes
+    where the weights are split there (FSDP), and the combine on each rank's
+    own groups after the outputs come back over "model"; the load-balance
+    loss sums each rank's gates and top-1 counts, reduced over the batch's
+    axes, then takes the means over all ``dp · Tl`` tokens."""
+    from torch.distributed.tensor.experimental import local_map
+
+    if shard_fn is None:
+        raise ValueError("a DTensor moe input needs CallConfig.shard_fn (make_shard_fn)")
+    mesh = x.device_mesh
+    if any(not (p.is_replicate() or p.is_shard(0)) for p in x.placements):
+        raise ValueError(f"the moe input must be split over its batch only, not {x.placements}")
+    batch = [i for i, p in enumerate(x.placements) if p.is_shard(0)]
+    nb = math.prod(mesh.size(i) for i in batch)
+    if dp % nb:
+        names = [mesh.mesh_dim_names[i] for i in batch]
+        raise ValueError(f"dp_size gives {dp} dispatch groups, which the batch's mesh axes "
+                         f"{names} ({nb} ranks) do not split evenly; set CallConfig.dp_size to "
+                         f"a multiple of {nb}")
+    B, S, D = x.shape
+    dt = x.dtype
+    xp = list(x.placements)
+    grad_partial = [Partial() if i in batch else Replicate() for i in range(mesh.ndim)]
+
+    def lm(fn, out, ins, grads=None):
+        return local_map(fn, out_placements=out, in_placements=ins, in_grad_placements=grads,
+                         device_mesh=mesh)
+
+    xg = lm(lambda t: t.reshape(-1, tl, D), xp, (xp,))(x)
+    xg = shard_fn(xg, ("exp_dp", None, None))
+    gp = list(xg.placements)
+    router = gathered(params["router"].to(dt), xg)
+    ebuf, slot, gates, gates_full = lm(
+        lambda t, r: _route(t, r, top_k, capacity, num_experts), (gp,) * 4,
+        (gp, list(router.placements)), (gp, grad_partial))(xg, router)
+    if ep_split > 1:
+        es = num_experts * ep_split
+        ebuf_ep = lm(lambda t: t[:, :, None].expand(-1, num_experts, ep_split, capacity, D)
+                     .reshape(-1, es, capacity, D), gp, (gp,))(ebuf)
+        ebuf_ep = shard_fn(ebuf_ep, (None, "experts_ep", None, None))
+        out_ep = _experts_placed(ebuf_ep, params)
+        out_ep = out_ep.redistribute(mesh, gp)
+        out = lm(lambda t: _split_sum(t, num_experts, ep_split), gp, (gp,))(out_ep)
+        out = shard_fn(out, ("exp_dp", None, None, None))
+    else:
+        ebuf = shard_fn(ebuf, ("exp_dp", "experts", None, None))
+        out = _experts_placed(ebuf, params).redistribute(mesh, gp)
+    y = lm(lambda o, s, g: _combine(o, s, g).reshape(-1, S, D), xp, (gp, gp, gp))(out, slot,
+                                                                                gates)
+    pe_sum, fe_sum = (reduced(t) for t in lm(
+        lambda g: _balance_sums(g, num_experts), (grad_partial,) * 2, (gp,))(gates_full))
+    n = dp * tl
+    aux = num_experts * ((fe_sum / n) * (pe_sum / n)).sum()
+    return y, aux
+
+
+def _experts_placed(ebuf, params: Params):
+    """:func:`_experts` of a ``DTensor`` buffer (g, E', C, D) split over
+    experts and groups as the expert weights' leading axis and the batch's
+    axes split them: each weight cast to the buffer's dtype, then gathered
+    over the mesh axes that split the buffer's groups (the cast first, so
+    the gather moves the compute dtype), and each rank's products on its
+    own buffer and weights. A weight's gradient is a partial sum over those
+    axes (each rank's groups)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = ebuf.device_mesh
+    dt = ebuf.dtype
+    ws = [gathered(params[k].to(dt), ebuf) for k in ("wi_gate", "wi_up", "wo")]
+    wp = [list(w.placements) for w in ws]
+    wgrad = [[Partial() if bp.is_shard(0) else p for p, bp in zip(w, ebuf.placements)]
+             for w in wp]
+    bp = list(ebuf.placements)
+    return local_map(lambda b, g, u, o: _experts(b, {"wi_gate": g, "wi_up": u, "wo": o}),
+                     out_placements=bp, in_placements=(bp, *wp),
+                     in_grad_placements=(bp, *wgrad), device_mesh=mesh)(ebuf, *ws)

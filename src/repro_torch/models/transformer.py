@@ -79,16 +79,19 @@ makes the parameters trainable; the tied ``embed.table`` is one parameter.
 ``forward``, ``prefill`` and ``decode_step`` run under ``no_grad`` whatever
 that flag says.
 
-Model-parallel training (tensor parallelism and FSDP, the dense family) runs
-on ``DTensor``: :func:`repro_torch.parallel.sharding.place_params` places
-the parameters by the logical axes of :meth:`Model.axes_tree` (the
-reference's tree, stacked), ``CallConfig.shard_fn``
+Model-parallel training (tensor parallelism and FSDP; the dense, audio, vlm
+and moe families) runs on ``DTensor``:
+:func:`repro_torch.parallel.sharding.place_params` places the parameters by
+the logical axes of :meth:`Model.axes_tree` (the reference's tree,
+stacked), ``CallConfig.shard_fn``
 (:func:`repro_torch.parallel.sharding.make_shard_fn`) redistributes the
 activations at the reference's call sites (``CallConfig.shard``: the
-embedding, the residual after each block, the logits), and
-:meth:`Model.loss` places the batch by ``batch_shardings`` and keeps the
-logits split over the vocabulary. The other families' train forward, and
-serving, refuse a mesh (ROADMAP.md, Queue 1).
+embedding, the residual after each block, the logits, and the moe
+dispatch's buffers in :func:`repro_torch.models.moe.moe_forward`), and
+:meth:`Model.loss` places the batch (the vlm image embeddings too) by
+``batch_shardings`` and keeps the logits split over the vocabulary (audio:
+the ``(B, S, K, V)`` logits over ``V``). The hybrid and ssm families' train
+forward, and serving, refuse a mesh (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -107,13 +110,15 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
-from repro_torch.models.layers import (embed, embedding_axes, make_norm, mlp, mlp_axes,
-                                      mlp_params, norm_axes, norm_params, unembed)
+from repro_torch.models.layers import (embed, embed_codebooks, embedding_axes, make_norm, mlp,
+                                      mlp_axes, mlp_params, norm_axes, norm_params, reduced,
+                                      unembed, weight)
 from repro_torch.parallel.sharding import device_collectives
 
 Cache = Tuple[torch.Tensor, ...]  # the reference's cache leaves (see the module docstring)
 FAMILIES = ("dense", "moe", "vlm", "hybrid", "ssm", "audio")  # the reference's layer layouts
 REMAT = ("none", "block")
+MESH_REFUSED = ("hybrid", "ssm")  # families whose model-parallel training is not ported
 
 
 @dataclass(frozen=True)
@@ -223,7 +228,7 @@ class Block(nn.Module):
                 y, aux = moe_lib.moe_forward(
                     self.moe, h, top_k=moe.top_k, num_experts=moe.num_experts,
                     capacity_factor=moe.capacity_factor, dp_size=cc.dp_size,
-                    ep_split=moe.ep_split)
+                    shard_fn=cc.shard_fn, ep_split=moe.ep_split)
             else:
                 y = mlp(self.mlp, h, cfg.activation)
             x = cc.shard(x + y, ("batch", "seq", "embed"))
@@ -405,12 +410,30 @@ def _replicated(t: torch.Tensor, mesh) -> DTensor:
     return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
 
 
-def _reduced(t):
-    """A ``DTensor`` with its partial placements (a partial max, a masked
-    partial gather) reduced, at its own shape; anything else as it is."""
-    if not isinstance(t, DTensor):
-        return t
-    return t.redistribute(placements=[Replicate() if p.is_partial() else p for p in t.placements])
+def _codebook_logits(x, tabs):
+    """Audio's unembedding ``einsum("bsd,kvd->bskv")`` of x (B, S, D) and the
+    tables (K, Vp, D) in ``x``'s dtype. ``DTensor`` s (x laid out over the
+    batch, the tables split over the vocabulary and gathered over the
+    batch's axes) multiply on each rank's own rows and vocabulary columns
+    (``local_map``): the logits come back split over ``V`` and nothing is
+    gathered; x's gradient is a partial sum over the vocabulary's axis, the
+    tables' over the batch's."""
+    if not isinstance(x, DTensor):
+        return torch.einsum("bsd,kvd->bskv", x, tabs)
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    xp, tp = list(x.placements), list(tabs.placements)
+    if any(not (p.is_replicate() or p.is_shard(0)) for p in xp) or any(
+            not (p.is_replicate() or p.is_shard(1)) for p in tp):
+        raise ValueError(f"audio's logits take x split over the batch and the tables over the "
+                         f"vocabulary, not {xp} and {tp}")
+    out = [Shard(3) if t.is_shard(1) else a for a, t in zip(xp, tp)]
+    xgrad = [Partial() if t.is_shard(1) else a for a, t in zip(xp, tp)]
+    tgrad = [Partial() if a.is_shard(0) else t for a, t in zip(xp, tp)]
+    return local_map(lambda a, t: torch.einsum("bsd,kvd->bskv", a, t), out_placements=out,
+                     in_placements=(xp, tp), in_grad_placements=(xgrad, tgrad),
+                     device_mesh=x.device_mesh)(x, tabs)
 
 
 def _target_logit(lf, targets):
@@ -419,7 +442,7 @@ def _target_logit(lf, targets):
     each rank gathers the targets in its own columns, the rest zero, and the
     (B, S) partial sums are reduced; no logits move, forward or backward."""
     if not isinstance(lf, DTensor) or not any(p.is_shard(lf.ndim - 1) for p in lf.placements):
-        return _reduced(lf.gather(-1, targets[..., None]))[..., 0]
+        return reduced(lf.gather(-1, targets[..., None]))[..., 0]
     from torch.distributed.tensor import Partial
     from torch.distributed.tensor.experimental import local_map
 
@@ -435,7 +458,7 @@ def _target_logit(lf, targets):
                            torch.zeros((), dtype=got.dtype, device=got.device))
 
     out = [Partial() if i == axis else p for i, p in enumerate(targets.placements)]
-    return _reduced(local_map(pick, out_placements=out,
+    return reduced(local_map(pick, out_placements=out,
                               in_placements=(list(lf.placements), list(targets.placements)),
                               in_grad_placements=(list(lf.placements), list(targets.placements)),
                               device_mesh=mesh)(lf, targets))
@@ -523,8 +546,8 @@ class Model(nn.Module):
 
     def _train_mesh(self):
         """The mesh of model-parallel training (``CallConfig.shard_fn``'s, or
-        the placed parameters'), or None in one process. Only the dense
-        family trains under a mesh; a mesh of more than one rank needs the
+        the placed parameters'), or None in one process. The hybrid and ssm
+        families refuse a mesh; a mesh of more than one rank needs the
         parameters placed (``place_params``)."""
         from repro_torch.parallel.sharding import mesh_size
 
@@ -534,10 +557,11 @@ class Model(nn.Module):
             mesh = self.embed["table"].device_mesh
         if mesh is None or not (placed or mesh_size(mesh) > 1):
             return None
-        if self.cfg.family != "dense":
+        if self.cfg.family in MESH_REFUSED:
             raise ValueError(f"model-parallel training of the {self.cfg.family} family is not "
-                             f"ported (ROADMAP.md, Queue 1, item 6: the dense family only); "
-                             f"train it in one process, or data-parallel through grad_transform")
+                             f"ported (ROADMAP.md, Queue 1, item 6: the dense, audio, vlm and moe "
+                             f"families only); train it in one process, or data-parallel through "
+                             f"grad_transform")
         if not placed:
             raise ValueError(f"a mesh of {mesh_size(mesh)} ranks needs the parameters placed "
                              f"on it: call repro_torch.parallel.sharding.place_params first")
@@ -561,25 +585,24 @@ class Model(nn.Module):
     # -------------------- embedding / logits --------------------
     def _embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         """(B, S) tokens, or (B, S, K) for audio, -> (B, S, D) in the compute
-        dtype. Audio sums the K codebook lookups in the reference's order,
-        its Python ``sum``: ``((0 + e0) + e1) + ...``, rounded in the
-        compute dtype at each step."""
+        dtype. Audio sums the K codebook lookups in the reference's order
+        (:func:`~repro_torch.models.layers.embed_codebooks`)."""
         cfg, dt = self.cfg, self.cc.compute_dtype
         if cfg.num_codebooks:
-            tabs = self.embed["table"].to(dt)  # (K, Vp, D)
-            x = sum(tabs[i][tokens[..., i]] for i in range(cfg.num_codebooks))
+            x = embed_codebooks(self.embed["table"].to(dt), tokens)  # (K, Vp, D) table
         else:
             x = embed(self.embed, tokens, dt)
         return self.cc.shard(x, ("batch", "seq", "embed"))
 
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         """(B, S, V) logits, or (B, S, K, V) for audio (one unembedding per
-        codebook), in ``x``'s dtype; padded vocab columns masked to -1e30."""
+        codebook), in ``x``'s dtype; padded vocab columns masked to -1e30.
+        Under a mesh they stay split over the vocabulary."""
         cfg = self.cfg
         x = make_norm(cfg.norm)(self.ln_f, x)
         table = self.embed if cfg.tie_embeddings else self.unembed
         if cfg.num_codebooks:
-            logits = torch.einsum("bsd,kvd->bskv", x, table["table"].to(x.dtype))
+            logits = _codebook_logits(x, weight(table["table"], x))
         else:
             logits = self.cc.shard(unembed(table, x), ("batch", "seq", "vocab"))
         if self.padded_vocab != cfg.vocab_size:
@@ -769,9 +792,10 @@ class Model(nn.Module):
         :meth:`_vlm` does, each cross layer projecting its K/V from the
         image context (:meth:`_image_ctx`).
 
-        Under a mesh (:meth:`_train_mesh`; the dense family) the tokens and
-        positions are placed by ``batch_shardings`` and every activation is
-        a ``DTensor``; the logits come back split over the vocabulary."""
+        Under a mesh (:meth:`_train_mesh`) the tokens, positions and vlm
+        image embeddings are placed by ``batch_shardings`` and every
+        activation is a ``DTensor``; the logits come back split over the
+        vocabulary."""
         mesh = self._train_mesh()
         with device_collectives(mesh):
             return self._forward_train(tokens, image_embeds, mesh)
@@ -798,6 +822,8 @@ class Model(nn.Module):
                 calls += [(blk.forward_train, (cfg, cc)) for blk in getattr(self, "tail", ())]
             elif cfg.family == "vlm":
                 ctx = self._image_ctx(image_embeds)
+                if mesh is not None:
+                    ctx = self._place_batch(ctx, mesh)
                 calls = []
                 for group in self.blocks:
                     calls += [(blk.forward_train, (positions, cfg, cc)) for blk in group.selfs]
@@ -839,8 +865,8 @@ class Model(nn.Module):
         if isinstance(logits, DTensor):
             targets = self._place_batch(targets, logits.device_mesh)
         lf = logits.float()
-        m = _reduced(lf.amax(dim=-1, keepdim=True)).detach()
-        logz = torch.log(_reduced(torch.exp(lf - m).sum(dim=-1))) + m[..., 0]
+        m = reduced(lf.amax(dim=-1, keepdim=True)).detach()
+        logz = torch.log(reduced(torch.exp(lf - m).sum(dim=-1))) + m[..., 0]
         tgt = _target_logit(lf, targets)
         nll = (logz - tgt).mean()
         loss = nll + 0.01 * aux

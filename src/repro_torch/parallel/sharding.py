@@ -20,12 +20,15 @@ Mesh axes: ("data", "model") single pod, ("pod", "data", "model")
 multi-pod (``repro_torch.launch.mesh``). FSDP = param "embed" over
 data(+pod); TP = mlp/heads/vocab over model; EP = experts over model.
 
-Model-parallel training of the LM stack (the dense family) runs on
-``DTensor``: :func:`place_params` places each parameter by
-:func:`param_rules` over ``Model.axes_tree()``, :func:`make_shard_fn` is
+Model-parallel training of the LM stack (the dense, audio, vlm and moe
+families) runs on ``DTensor``: :func:`place_params` places each parameter
+by :func:`param_rules` over ``Model.axes_tree()`` (audio's codebook tables
+``(None, "vocab", "embed")``, the experts over "model" or, at ``ep_split >
+1``, their slices over the whole mesh), :func:`make_shard_fn` is
 ``CallConfig.shard_fn`` (it redistributes an activation to its logical
-axes' spec at the reference's call sites), and :func:`batch_shardings`
-places the batch. :func:`cache_shardings` gives the reference's specs of
+axes' spec at the reference's call sites, the moe dispatch's buffers
+among them), and :func:`batch_shardings` places the batch and the vlm
+image embeddings. :func:`cache_shardings` gives the reference's specs of
 every family's cache leaves (the port's cache is a flat tuple; the
 reference's key path of each leaf picks its axes); nothing runs a sharded
 cache yet, as the reference lowers one only in its dry run.
@@ -79,15 +82,15 @@ class Sharding:
     def placements(self) -> list:
         """One ``DTensor`` placement per mesh axis: ``Shard(d)`` where the
         spec puts the axis on tensor dim ``d``, else ``Replicate()``. A dim
-        over several axes is split with the first axis outermost, which is
-        ``DTensor``'s order only where the axes come in the mesh's order."""
+        over several axes is split in the mesh's axis order, the only order
+        ``DTensor`` has, whatever the spec's: "experts_ep" lists "model"
+        first, so the ranks hold the expert-parallel slices in another
+        order than the reference's devices do. The values are the same, and
+        a buffer split by the same spec lines up with the weights."""
         names = list(self.mesh.mesh_dim_names)
         by_axis = {}
         for d, entry in enumerate(self.spec):
             axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
-            if [names.index(a) for a in axes] != sorted(names.index(a) for a in axes):
-                raise ValueError(f"spec {self.spec}: dim {d} is split over {axes}, not in the "
-                                 f"mesh's axis order {tuple(names)}")
             by_axis.update({a: Shard(d) for a in axes})
         return [by_axis.get(a, Replicate()) for a in names]
 

@@ -1,5 +1,6 @@
-"""Rank processes for tests/test_torch_collectives.py and
-tests/test_torch_model_parallel.py.
+"""Rank processes for tests/test_torch_collectives.py,
+tests/test_torch_model_parallel.py and
+tests/test_torch_model_parallel_families.py.
 
 One process a rank, started with the ``spawn`` start method, in a ``gloo``
 group of CPU processes whose store is a file under the test's temporary
@@ -187,6 +188,7 @@ def train_rank(rank: int, world: int, workdir: Path) -> None:
         state, mets = make_train_step(model, ocfg, grad_transform=capture)(state, batch)
         grads = seen["out"][0]
         info[tag] = {"loss": float(mets["loss"]), "grad_norm": float(mets["grad_norm"]),
+                 "aux": float(mets["aux"]),
                      "carry": "grad_carry" in state}
         out.update({f"{tag}.{n}": _np(g) for n, g in grads.items()})
         if compress:
@@ -244,7 +246,7 @@ SHARD_CASES = [(("batch", "seq", "embed"), (4, 8, 16)), (("batch", "seq", "vocab
 # the attention cases: (num_heads, num_kv_heads) at head_dim 32, heads split over
 # model=4 and replicated
 ATTN_CASES = {"split": (8, 4), "replicated": (4, 2)}
-REFUSING = ("dbrx-132b", "llama-3.2-vision-90b", "zamba2-1.2b", "xlstm-350m", "musicgen-large")
+REFUSING = ("zamba2-1.2b", "xlstm-350m")
 # the comm-count case: a vocabulary padded to 4,096 (its last 96 logits
 # masked), local logits (2, 32, 1024) on (2, 4)
 WIDE_VOCAB, WIDE_PADDED = 4000, 4096
@@ -254,24 +256,25 @@ def _mesh(name: str):
     return make_debug_mesh(device_type="cpu", **MP_MESHES[name])
 
 
-def _placed_model(cfg, mesh, params=None, dtype=torch.float32, seed=0):
+def _placed_model(cfg, mesh, params=None, dtype=torch.float32, seed=0, dp_size=1, shard_fn=None):
     """The port's model of ``cfg`` (the reference's ``params`` converted, or
     drawn from ``seed``) placed on ``mesh`` by param_rules, with
-    make_shard_fn(mesh, act_rules(mesh))."""
+    ``shard_fn`` (default make_shard_fn(mesh, act_rules(mesh))) and
+    ``dp_size`` moe dispatch groups."""
     from repro_torch.models.transformer import build_model
     from repro_torch.parallel import sharding as sh
 
-    cc = CallConfig(compute_dtype=dtype, remat="block",
-                    shard_fn=sh.make_shard_fn(mesh, sh.act_rules(mesh)))
+    cc = CallConfig(compute_dtype=dtype, remat="block", dp_size=dp_size,
+                    shard_fn=shard_fn or sh.make_shard_fn(mesh, sh.act_rules(mesh)))
     model = (model_params_to_port(cfg, params, cc=cc, device="cpu") if params is not None
              else build_model(cfg, cc, device="cpu", seed=seed))
     return sh.place_params(model, mesh)
 
 
-def _sharded_step(cfg, mesh, params, batch, dtype, out, info, tag):
+def _sharded_step(cfg, mesh, params, batch, dtype, out, info, tag, dp_size=1, shard_fn=None):
     """Step 1 of TRAIN_OPT on ``mesh``: the loss, the grad norm, every
     gradient (as the step redistributed it) and updated parameter, gathered."""
-    model = _placed_model(cfg, mesh, params, dtype)
+    model = _placed_model(cfg, mesh, params, dtype, dp_size=dp_size, shard_fn=shard_fn)
     seen = {}
 
     def capture(grads, carry):
@@ -282,6 +285,7 @@ def _sharded_step(cfg, mesh, params, batch, dtype, out, info, tag):
     state, mets = make_train_step(model, OptConfig(**TRAIN_OPT), grad_transform=capture)(state,
                                                                                          batch)
     info[tag] = {"loss": float(mets["loss"]), "grad_norm": float(mets["grad_norm"]),
+                 "aux": float(mets["aux"]),
                  "grad_placements": {n: [repr(p) for p in g.placements]
                                      for n, g in seen["grads"].items()},
                  "param_placements": {n: [repr(p) for p in q.placements]
@@ -435,6 +439,178 @@ def model_parallel_rank(rank: int, world: int, workdir: Path) -> None:
         _write(workdir, "mp", rank, out, info)
     else:
         _write(workdir, "mp", rank, {k: v for k, v in out.items() if k.startswith("attn")}, info)
+
+
+# ---- model-parallel training of the audio, vlm and moe families
+# (tests/test_torch_model_parallel_families.py) ------------------------------------------
+
+# the reduced cases: (arch, changes); moe_every=2 is set back on llama4 (reduced() drops it)
+FAMILY_CASES = {"musicgen": ("musicgen-large", {}), "vlm": ("llama-3.2-vision-90b", {}),
+                "dbrx_ep1": ("dbrx-132b", {}), "dbrx_ep2": ("dbrx-132b", {"ep_split": 2}),
+                "llama4_every2": ("llama4-maverick-400b-a17b", {"moe_every": 2, "num_layers": 4})}
+# the moe dispatch groups of each mesh: the batch's axes' size (2 and 4)
+FAMILY_DP = {"2x4": 2, "2x2x2": 4}
+FAMILY_ROWS, FAMILY_SEQ = 4, 32
+# the logical axes of the moe dispatch's placements (moe_forward's shard_fn calls)
+MOE_AXES = (("exp_dp", None, None), ("exp_dp", "experts", None, None),
+            (None, "experts_ep", None, None), ("exp_dp", None, None, None))
+
+
+def family_config(case: str):
+    """The reduced config of a FAMILY_CASES case (the port's)."""
+    arch, changes = FAMILY_CASES[case]
+    cfg = get_config(arch).reduced()
+    moe = {k: v for k, v in changes.items() if k in ("ep_split", "moe_every")}
+    if moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe))
+    if "num_layers" in changes:
+        cfg = dataclasses.replace(cfg, num_layers=changes["num_layers"])
+    return cfg
+
+
+def _recording_shard_fn(mesh, seen: list):
+    """make_shard_fn(mesh, act_rules(mesh)) that appends each moe dispatch
+    placement (its logical axes, the spec and the placements it gave) to ``seen``."""
+    from repro_torch.parallel import sharding as sh
+
+    rules = sh.act_rules(mesh)
+    base = sh.make_shard_fn(mesh, rules)
+
+    def shard(x, axes):
+        y = base(x, axes)
+        if tuple(axes) in MOE_AXES:
+            seen.append({"axes": list(axes), "spec": [list(e) if isinstance(e, tuple) else e
+                                                      for e in rules.spec_for(tuple(axes),
+                                                                              tuple(x.shape))],
+                         "placements": [repr(p) for p in y.placements],
+                         "want": [repr(p) for p in sh.Sharding(mesh, rules.spec_for(
+                             tuple(axes), tuple(x.shape))).placements]})
+        return y
+
+    shard.mesh, shard.rules = base.mesh, base.rules
+    return shard
+
+
+def _drops(routing: list) -> int:
+    return int(sum(int(d) for d in routing))
+
+
+def families_rank(rank: int, world: int, workdir: Path) -> None:
+    """8 ranks: each FAMILY_CASES case's sharded train step on (data=2,
+    model=4) and (pod=2, data=2, model=2) in float32 (every flash call's
+    local shapes and causality, the moe dispatch's placements and dropped
+    choices, one process's beside them) and bfloat16; on (2, 4) the audio
+    step's collectives counted, a sharded train state saved and restored,
+    and the refusals (zamba2, xlstm, a dp_size the batch's axes do not
+    split)."""
+    from repro_torch.kernels import ref
+    from repro_torch.models import moe as tmoe
+    from repro_torch.parallel import sharding as sh
+
+    batches = {k: v for k, v in np.load(workdir / "batches.npz").items()}
+    out, info = {}, {}
+    shapes, plain = [], ref.flash_attention_ref
+    drops = []
+    orig_dispatch = tmoe._dispatch_group
+
+    def recording(q, k, v, causal=True, **kw):
+        shapes.append([list(q.shape), list(k.shape), bool(causal)])
+        return plain(q, k, v, causal=causal, **kw)
+
+    def counting(x, logits, top_k, capacity, num_experts):
+        got = orig_dispatch(x, logits, top_k, capacity, num_experts)
+        if not _in_backward():  # a checkpointed layer's recompute is not counted
+            drops.append((got[1] == num_experts * capacity).sum())
+        return got
+
+    for case in FAMILY_CASES:
+        cfg = family_config(case)
+        with open(workdir / f"params_{case}.pkl", "rb") as f:
+            params = pickle.load(f)
+        batch = {k.split(".", 1)[1]: v for k, v in batches.items() if k.startswith(case + ".")}
+        for name in MP_MESHES:
+            mesh = _mesh(name)
+            dp = FAMILY_DP[name]
+            seen = []
+            ref.flash_attention_ref, tmoe._dispatch_group = recording, counting
+            try:
+                model, state = _sharded_step(cfg, mesh, params, batch, torch.float32, out, info,
+                                             f"{case}.{name}", dp_size=dp,
+                                             shard_fn=_recording_shard_fn(mesh, seen))
+                # each rank dispatches its own groups: the batch's drops summed
+                # over the ranks, each group counted once a model rank
+                total = torch.tensor(_drops(drops), dtype=torch.float64)
+                dist.all_reduce(total)
+                sharded_drops = int(total.item()) // mesh.size(mesh.mesh_dim_names.index("model"))
+                sharded_flash = shapes[:]
+                drops.clear()
+                one = model_params_to_port(cfg, params, cc=CallConfig(
+                    compute_dtype=torch.float32, dp_size=dp), device="cpu")
+                with torch.no_grad():
+                    one_loss, one_mets = one.loss(batch)
+                one_drops = _drops(drops)
+            finally:
+                ref.flash_attention_ref, tmoe._dispatch_group = plain, orig_dispatch
+            drops.clear()
+            line = info[f"{case}.{name}"]
+            line.update(flash=sharded_flash, moe_placements=seen, drops=sharded_drops,
+                        one_process={"loss": float(one_loss), "aux": float(one_mets["aux"]),
+                                     "drops": one_drops})
+            shapes.clear()
+            _sharded_step(cfg, mesh, params, batch, torch.bfloat16, out, info,
+                          f"{case}.{name}.bf16", dp_size=dp)
+            if name == "2x4":
+                _restore_check(workdir, rank, case, cfg, mesh, model, state, dp, info)
+            if case == "musicgen" and name == "2x4":
+                counter = sh.CommCounter()
+                m = _placed_model(cfg, mesh, params)
+                m.requires_grad_(True)
+                with counter:
+                    loss, _ = m.loss(batch)
+                    torch.autograd.grad(loss, list(m.parameters()))
+                info["audio_comms"] = {"shapes": {k: sorted(map(list, v))
+                                                  for k, v in counter.shapes.items()},
+                                       "logits_local": [FAMILY_ROWS // 2, FAMILY_SEQ,
+                                                        cfg.num_codebooks, 512 // 4]}
+            del model, state
+    mesh = _mesh("2x4")
+    refusals = {}
+    for arch in REFUSING:
+        rcfg = get_config(arch).reduced()
+        m = _placed_model(rcfg, mesh, seed=0)
+        refusals[arch] = _raises(lambda: m.loss(_family_batch(rcfg)), ValueError, "Queue 1")
+    dcfg = family_config("dbrx_ep1")
+    m = _placed_model(dcfg, mesh, seed=0, dp_size=1)
+    refusals["moe dp_size 1"] = _raises(lambda: m.loss(_family_batch(dcfg)), ValueError,
+                                        "dp_size")
+    info["refusals"] = refusals
+    _write(workdir, "families", rank, out if rank == 0 else {}, info)
+
+
+def _restore_check(workdir, rank, case, cfg, mesh, model, state, dp, info) -> None:
+    """A sharded train state saved, restored into a fresh placed model (drawn
+    from another seed) and compared bitwise, shard by shard."""
+    from repro_torch.train.train_step import load_state_tree, state_tree
+
+    ck.save(str(workdir / f"ckpt_{case}"), 1, state_tree(state), host_id=rank)
+    dist.barrier()
+    fresh = _placed_model(cfg, mesh, seed=1, dp_size=dp)
+    fresh_state = make_train_state(fresh, None, OptConfig(**TRAIN_OPT))
+    restored, _ = ck.restore(str(workdir / f"ckpt_{case}"), state_tree(fresh_state, template=True))
+    load_state_tree(fresh_state, restored)
+    same = all(torch.equal(a.to_local(), b.to_local()) and a.placements == b.placements
+               for a, b in zip(fresh.parameters(), model.parameters()))
+    for which in ("m", "v"):
+        same = same and all(torch.equal(fresh_state["opt"][which][n].to_local(),
+                                        state["opt"][which][n].to_local())
+                            for n in state["opt"][which])
+    info[f"{case}.restored_bitwise"] = bool(same and int(fresh_state["opt"]["step"]) == 1)
+
+
+def _in_backward() -> bool:
+    """Whether autograd's engine is running a backward on this thread (a
+    checkpointed layer's recompute)."""
+    return torch._C._current_graph_task_id() != -1
 
 
 def _family_batch(cfg) -> dict:

@@ -1186,3 +1186,58 @@ def test_place_params_refuses_a_mesh_off_the_models_device(cuda, tmp_path):
             place_params(model, make_debug_mesh(data=1, model=1, device_type="cpu"))
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_non_causal_flash_through_local_map_is_the_direct_call(one_rank, dtype):
+    """The vlm cross layer's case: 300 text queries against 77 image keys,
+    non-causal, on a one-rank mesh through _flash_local: the output and the
+    gradients bitwise the direct call's, one forward and one backward launch."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                     for shape in ((2, 300, 4, 64), (2, 77, 2, 64), (2, 77, 2, 64),
+                                   (2, 300, 4, 64)))
+    runs = []
+    for placed in (False, True):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        args = [DTensor.from_local(t, one_rank, [Replicate(), Replicate()]) for t in leaves] \
+            if placed else leaves
+        flash_attention.launches = flash_attention_bwd.launches = 0
+        with torch.enable_grad():
+            out = ops.flash_attention(*args, causal=False)
+            if placed:
+                out = out.to_local()
+            out.backward(dout)
+        runs.append((out.detach(), [t.grad for t in leaves],
+                     (flash_attention.launches, flash_attention_bwd.launches)))
+    (out, grads, launches), (out_p, grads_p, launches_p) = runs
+    assert torch.equal(out, out_p) and all(torch.equal(a, b) for a, b in zip(grads, grads_p))
+    assert launches == launches_p == (1, 1)
+
+
+@pytest.mark.parametrize("ep_split", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_dispatch_through_local_map_is_the_direct_call(one_rank, dtype, ep_split):
+    """moe_forward of a DTensor on a one-rank mesh (the dispatch, the expert
+    products and the combine through local_map, shard_fn placing xg, ebuf or
+    ebuf_ep and out): y and aux bitwise the direct call's, a dropping
+    capacity factor."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.models import moe
+    from repro_torch.parallel.sharding import act_rules, make_shard_fn
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    params = moe.init_moe(gen, 64, 96, 4, ep_split=ep_split)
+    x = torch.randn((4, 16, 64), generator=gen, device="cuda").to(dtype)
+    kw = dict(top_k=2, num_experts=4, capacity_factor=1.0, dp_size=2, ep_split=ep_split)
+    y, aux = moe.moe_forward(params, x, **kw)
+    whole = [Replicate(), Replicate()]
+    placed = {n: DTensor.from_local(p, one_rank, whole) for n, p in params.items()}
+    yp, auxp = moe.moe_forward(placed, DTensor.from_local(x, one_rank, whole),
+                               shard_fn=make_shard_fn(one_rank, act_rules(one_rank)), **kw)
+    assert torch.equal(yp.to_local(), y) and torch.equal(auxp.to_local(), aux)
